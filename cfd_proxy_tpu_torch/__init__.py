@@ -6,10 +6,13 @@ its counterpart there and is tested against it.  This package imports
 (`cfd_proxy_tpu.mesh`, `cfd_proxy_tpu.utils`, `cfd_proxy_tpu.native`) are
 reused as they are.
 
-What runs today is the one-shard `bulk` slice of the benchmark: the packed
-compact Green-Gauss sweep (`ops/blocksweep.py::sweep_blocks`) and its
-source-table pack (`pack_srcs`), each a CUDA kernel for Hopper (`csrc/`)
-beside a plain PyTorch version.
+What runs today: the packed compact Green-Gauss sweep under the bulk,
+early, overlap and nocomm schedules, at P shards held on one device with
+the halo exchange between them (`models/gradients.py`).  Its kernels — the
+sweep with and without `init` (`ops/blocksweep.py::sweep_blocks`), the
+fused interior sweep + halo push (`sweep_blocks_overlap`) and the
+source-table pack (`pack_srcs`) — are CUDA kernels for Hopper (`csrc/`),
+each beside a plain PyTorch version.
 
 Layer map (mirrors `cfd_proxy_tpu`):
   parallel/  host copies of topology + transposed device layout

@@ -4,7 +4,9 @@ The host half of `cfd_proxy_tpu/ops/blocksweep.py` (that module imports JAX
 at the top, so the port carries this copy; tests/test_torch_plan.py holds
 the two equal).  The code is the original's line for line, plus
 `compact_src_cols`, which the port's pack kernel reads instead of the
-reference's ext tables + W-indices.
+reference's ext tables + W-indices, and the two plan-padding helpers of
+`cfd_proxy_tpu/models/gradients_pallas.py` that make every shard's plan
+the same shape.
 
 Layout (everything transposed):
     var_T  (NV, npoint_dev)   — state, NV = nvar padded to 8
@@ -232,6 +234,65 @@ def compact_src_cols(plan: BlockPlan, wks: tuple[int, ...]) -> np.ndarray:
           len(wks), cols.shape[1])
     parts = [cols[:, k, :w] for k, w in enumerate(wks) if w]
     return np.ascontiguousarray(np.concatenate(parts, axis=-1))
+
+
+def _pad_plan_dims(plan: BlockPlan, ep: int, kslots: int) -> BlockPlan:
+    """Zero-pad a plan's per-block tables to uniform (ep, kslots).
+
+    Copy of `cfd_proxy_tpu/models/gradients_pallas.py::_pad_plan_dims`
+    (held equal by tests/test_torch_plan.py).  Pure padding is EQUIVALENT
+    to rebuilding with pads=(ep, kslots): ext W-indices (bp+rank) depend
+    only on the block's own sorted ext list, and extra slots carry zero
+    weights (inert)."""
+    import dataclasses
+
+    if (plan.ep, plan.kslots) == (ep, kslots):
+        return plan
+
+    def pad(a, axis, to):
+        grow = to - a.shape[axis]
+        if grow == 0:
+            return a
+        widths = [(0, 0)] * a.ndim
+        widths[axis] = (0, grow)
+        return np.pad(a, widths)
+
+    return dataclasses.replace(
+        plan, ep=ep, kslots=kslots,
+        slot_idx=pad(plan.slot_idx, 1, kslots),
+        slot_w=pad(plan.slot_w, 1, kslots),
+        ext_idx=pad(plan.ext_idx, 1, ep),
+    )
+
+
+def _pad_blocks(plan: BlockPlan, nblocks: int, trash_block: int) -> BlockPlan:
+    """Pad a compact block list to a uniform grid length with inert entries.
+
+    Copy of `cfd_proxy_tpu/models/gradients_pallas.py::_pad_blocks`.  Pad
+    entries target the dedicated TRASH block (no real points); the port's
+    kernels skip every pad entry that repeats its predecessor
+    (csrc/sweep_common.cuh)."""
+    import dataclasses
+
+    extra = nblocks - plan.nblocks
+    if extra <= 0:
+        return plan
+
+    def pad(a, fill=0):
+        shape = (extra, *a.shape[1:])
+        return np.concatenate([a, np.full(shape, fill, a.dtype)], axis=0)
+
+    return dataclasses.replace(
+        plan,
+        nblocks=nblocks,
+        block_ids=np.concatenate(
+            [plan.block_ids, np.full(extra, trash_block, np.int32)]),
+        slot_idx=pad(plan.slot_idx),
+        slot_w=pad(plan.slot_w),
+        ext_idx=pad(plan.ext_idx),
+        scale=pad(plan.scale),
+        ext_cnt=(None if plan.ext_cnt is None else pad(plan.ext_cnt)),
+    )
 
 
 def _build_block_plan_native(faces, normals, npoint_dev, inv_scale, bp,

@@ -32,10 +32,36 @@ def test_solver_cli_cpu_json():
     assert "bulk" in d["schedules"]
 
 
+@pytest.mark.parametrize("parts,extra", [("4", []), ("1", ["--force-rdma"])])
+def test_solver_cli_all_schedules_json(parts, extra):
+    """--schedule all times bulk, early and overlap and the nocomm floor,
+    reports each schedule against bulk and the overlap efficiency (null
+    with its reason when the comm cost is under the noise gate)."""
+    res = subprocess.run(
+        [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "8",
+         "--ny", "8", "--nz", "7", "--device", "cpu", "--iters", "2",
+         "--parts", parts, "--schedule", "all", "--json", *extra],
+        capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
+    assert res.returncode == 0, res.stderr
+    d = json.loads(res.stdout.strip().splitlines()[-1])
+    assert d["npart"] == int(parts) and d["force_rdma"] == bool(extra)
+    assert sorted(d["schedules"]) == ["bulk", "early", "overlap"]
+    assert d["nocomm_median_s"] is None or d["nocomm_median_s"] > 0
+    v = d["verification"]
+    assert v["bulk_vs_golden_relmax"] < 1e-5
+    for s in ("early", "overlap"):
+        # the gradients here are O(1-10): 1e-6 relative, the reference's gate
+        assert v[f"{s}_vs_bulk_maxabs"] < 1e-5
+        e = d["schedules"][s]
+        eff = e["overlap_efficiency"]
+        assert (eff is None and "noise" in e["overlap_efficiency_note"]) or \
+            0.0 <= eff <= 1.0
+
+
 def test_solver_cli_refuses_unported_option():
     res = subprocess.run(
         [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "6",
-         "--ny", "6", "--nz", "6", "--device", "cpu", "--schedule", "overlap"],
+         "--ny", "6", "--nz", "6", "--device", "cpu", "--kernel", "gather"],
         capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
     assert res.returncode != 0
     assert "ROADMAP" in res.stderr

@@ -1,10 +1,11 @@
-"""The port's one-shard bulk slice against the JAX reference model.
+"""The port's model at one shard against the JAX reference model.
 
 `GreenGaussTorch` on CPU tensors (the kernels' plain versions) against
 `GreenGaussPallas` in interpret mode, column for column, and both against
 the f64 golden; the same model built from the reference's plan arrays; the
-options outside the slice; and the import guard: the port runs with JAX
-made unimportable.
+chained loop; the options outside the slice; and the import guard: the port
+runs with JAX made unimportable.  The schedules at P shards are in
+tests/test_torch_schedules.py.
 """
 
 import os
@@ -54,7 +55,7 @@ def _both(parts, gvar, bp, kcompact):
     jm = GreenGaussPallas(parts, NVAR, bp=bp, interpret=True,
                           kcompact=kcompact)
     js = jm.distribute_state(gvar, schedules=["bulk"])
-    jax_out = np.asarray(jm.step(js, "bulk"))[0]
+    jax_out = np.asarray(jm.step(js, "bulk"))
     tm = GreenGaussTorch(parts, NVAR, bp=bp, kcompact=kcompact, device="cpu")
     ts = tm.distribute_state(gvar)
     port_out = tm.step(ts, "bulk")
@@ -66,17 +67,17 @@ def test_bulk_matches_reference_and_golden(mesh, gvar, gref, kcompact):
     parts = partition_mesh(mesh, 1, ghost_layers=1)
     jm, jax_out, tm, ts, port_out = _both(parts, gvar, 128, kcompact)
     assert tm.bp == jm.bp and tm.ndev == jm.layout.ndev
-    np.testing.assert_array_equal(tm.locmap, jm.layout.locmap[0])
+    np.testing.assert_array_equal(tm.locmap[0], jm.layout.locmap[0])
     np.testing.assert_array_equal(ts["var_T"].numpy(),
                                   np.asarray(jm.distribute_state(
-                                      gvar, schedules=["bulk"])["var_T"])[0])
+                                      gvar, schedules=["bulk"])["var_T"]))
     got = port_out.numpy()
-    assert got.shape == jax_out.shape == (24, tm.ndev)
+    assert got.shape == jax_out.shape == (1, 24, tm.ndev)
     scale = max(1.0, np.abs(jax_out).max())
     assert np.abs(got - jax_out).max() / scale < PORT_TOL
     denom = max(1.0, np.abs(gref).max())
     for name, g in (("port", tm.gather_global(port_out)),
-                    ("jax", jm.gather_global(jax_out[None]))):
+                    ("jax", jm.gather_global(jax_out))):
         assert g.shape == gref.shape
         assert np.abs(g - gref).max() / denom < GOLDEN_TOL, name
 
@@ -89,7 +90,7 @@ def test_shipped_mesh_matches_reference(gvar):
     scale = max(1.0, np.abs(jax_out).max())
     assert np.abs(port_out.numpy() - jax_out).max() / scale < PORT_TOL
     np.testing.assert_allclose(tm.gather_global(port_out),
-                               jm.gather_global(jax_out[None]),
+                               jm.gather_global(jax_out),
                                rtol=0, atol=PORT_TOL * scale)
 
 
@@ -106,9 +107,11 @@ def test_from_arrays_equals_own_host_layer(mesh, gvar, kcompact):
                           device="cpu")
     assert conv.wks == own.wks and conv.ndev == own.ndev
     # at bp=256 the degree-sorted layout drops whole 128-lane chunks
-    assert (sum(own.wks) < len(own.wks) * own.bp) == kcompact
-    for name in ("block_ids", "src_cols", "slot_w", "scale", "slots"):
-        assert torch.equal(getattr(conv, name), getattr(own, name)), name
+    wks = own.wks["bulk"]
+    assert (sum(wks) < len(wks) * own.bp) == kcompact
+    for c, pl in own.plans.items():
+        for name, t in pl.items():
+            assert torch.equal(conv.plans[c][name], t), (c, name)
     a = conv.step(conv.distribute_state(gvar), "bulk")
     b = own.step(own.distribute_state(gvar), "bulk")
     assert torch.equal(a, b)
@@ -123,15 +126,12 @@ def test_iterate_fn_chains_steps(mesh, gvar):
     v2 = tm.iterate_fn("bulk", 2)(*tm.iter_args(st))
     v = st["var_T"]
     for _ in range(2):
-        v = v + 1e-30 * tm(v, st["tbl_bulk"])[:8]
+        v = v + 1e-30 * tm(v, st["tables"], "bulk")[:, :8]
     assert torch.equal(v2, v)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("parts", 4),
-    ("schedule", "early"),
-    ("schedule", "overlap"),
-    ("schedule", "all"),
+    ("slice_size", 2),
     ("kernel", "gather"),
     ("model", "flux"),
     ("meta_dtype", "bfloat16"),
@@ -147,15 +147,26 @@ def test_options_outside_slice_raise(field, value):
 
 
 def test_model_refuses_other_schedules_and_shards(mesh, gvar):
-    parts = partition_mesh(mesh, 1, ghost_layers=1)
+    """An unknown schedule raises; so does a schedule whose table classes
+    the state was not built with (distribute_state(schedules=...))."""
+    parts = partition_mesh(mesh, 4, ghost_layers=1)
     tm = GreenGaussTorch(parts, NVAR, bp=128, device="cpu")
-    st = tm.distribute_state(gvar)
-    for s in ("early", "overlap", "nocomm"):
-        with pytest.raises(CheckError, match="ROADMAP|queue"):
+    st = tm.distribute_state(gvar, schedules=["bulk"])
+    assert sorted(st["tables"]) == ["bulk"]
+    tm.step(st, "nocomm")
+    for s in ("early", "overlap"):
+        with pytest.raises(CheckError, match="needs"):
             tm.step(st, s)
-    with pytest.raises(CheckError, match="ROADMAP"):
-        GreenGaussTorch(partition_mesh(mesh, 4, ghost_layers=1), NVAR,
-                        bp=128, device="cpu")
+        with pytest.raises(CheckError, match="needs"):
+            tm.iterate_fn(s, 1)(*tm.iter_args(st))
+    with pytest.raises(CheckError, match="unknown schedule"):
+        tm.step(st, "all")
+    with pytest.raises(CheckError, match="unknown schedule"):
+        tm.distribute_state(gvar, schedules=["eager"])
+    st = tm.distribute_state(gvar, schedules=["overlap"])
+    assert sorted(st["tables"]) == ["boundary", "interior"]
+    with pytest.raises(CheckError, match="needs"):
+        tm.step(st, "bulk")
 
 
 JAX_BLOCKED = """
@@ -175,13 +186,14 @@ from cfd_proxy_tpu_torch.ops import _cuda, blocksweep
 from cfd_proxy_tpu_torch.ops.golden import compute_gradients_gg, scale_gradients
 torch.set_num_threads(1)
 m = generate_mesh(6, 5, 4, jitter=0.05, diag_frac=0.2, seed=0)
-model = GreenGaussTorch(partition_mesh(m, 1), 3, device="cpu")
 g = make_state(m.npoint, 3, seed=1)
-got = model.gather_global(model.step(model.distribute_state(g), "bulk"))
 ref = scale_gradients(compute_gradients_gg(g, m.faces, m.normals), m.volume,
                       m.npoint).reshape(m.npoint, -1)
-err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
-assert err < 1e-5, err
+for nparts, s in ((1, "bulk"), (2, "early"), (2, "overlap")):
+    model = GreenGaussTorch(partition_mesh(m, nparts), 3, device="cpu")
+    got = model.gather_global(model.step(model.distribute_state(g), s))
+    err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+    assert err < 1e-5, (nparts, s, err)
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
                if v is not None)
 print("ok", err)

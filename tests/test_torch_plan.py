@@ -1,7 +1,8 @@
 """The port's NumPy host copies equal their originals in `cfd_proxy_tpu`.
 
 `cfd_proxy_tpu_torch.parallel.{topology,tlayout}`, `ops.plan` and
-`ops.golden` are copies (the reference packages' `__init__` import JAX).
+`ops.golden` are copies (the reference packages' `__init__` import JAX);
+`ops.plan` also carries the plan-padding helpers of the reference model.
 These tests hold each copy to its original: the same code (AST with
 docstrings dropped) and the same outputs on a small shuffled mesh, at one
 and four shards, one and two ghost layers.
@@ -105,9 +106,21 @@ def test_copy_has_original_code(orig, copy):
     ref, got = _module_functions(orig), _module_functions(copy)
     shared = sorted(set(ref) & set(got))
     assert shared
-    assert set(got) - set(ref) <= {"compact_src_cols"}
+    assert set(got) - set(ref) <= {"compact_src_cols", *PAD_HELPERS}
     for name in shared:
         assert got[name] == ref[name], f"{copy}::{name} differs from {orig}"
+
+
+PAD_HELPERS = ("_pad_plan_dims", "_pad_blocks")
+
+
+def test_pad_helpers_have_original_code():
+    """The plan-padding helpers the port carries in ops/plan.py are the
+    reference model's, statement for statement (docstrings aside)."""
+    ref = _module_functions("cfd_proxy_tpu/models/gradients_pallas.py")
+    got = _module_functions("cfd_proxy_tpu_torch/ops/plan.py")
+    for name in PAD_HELPERS:
+        assert got[name] == ref[name], name
 
 
 @pytest.mark.parametrize("npart,ghost_layers", SHARDS)
@@ -199,8 +212,8 @@ def test_compact_src_cols_gather_equals_reference(mesh, npart, ghost_layers):
             ref = np.asarray(r_bs.compact_srcs(r_bs.gather_srcs(
                 jnp.asarray(var_T), jnp.asarray(r_bs.slot_src_cols(plan))),
                 wks))
-            got = pack_srcs_ref(torch.from_numpy(var_T),
-                                torch.from_numpy(cols)).numpy()
+            got = pack_srcs_ref(torch.from_numpy(var_T[None]),
+                                torch.from_numpy(cols[None])).numpy()[0]
             np.testing.assert_array_equal(got, ref)
 
 
