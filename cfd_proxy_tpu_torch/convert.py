@@ -23,12 +23,15 @@ from cfd_proxy_tpu_torch.ops.plan import (BlockPlan, compact_slot_w,
 
 
 def _class_arrays(model, cls: str) -> dict:
-    """One class's (P, ...) plan arrays in the port's compact layout.
+    """One class's (P, ...) plan arrays in the port's layout for the
+    model's kernel (models/gradients.py CLASS_KEYS).
 
-    The compact `src_cols` are derived from the reference's `slot_idx`,
-    `ext_idx`, `block_ids` and `ep` (ops/plan.py::compact_src_cols).  With
-    kcompact off the reference keeps rectangular tables; the port stores
-    them as the compact layout with every slot at full width."""
+    Gather: the reference's rectangular `slot_idx`, `slot_w` and `ext_idx`
+    as they are.  Packed: the compact `src_cols` are derived from the
+    reference's `slot_idx`, `ext_idx`, `block_ids` and `ep`
+    (ops/plan.py::compact_src_cols); with kcompact off the reference keeps
+    rectangular tables, which the port stores as the compact layout with
+    every slot at full width."""
     pa = {k: np.asarray(v) for k, v in model._plans_dev[cls].items()}
     ep, ks, nb = model._dims[cls]
     bp = int(model.bp)
@@ -36,6 +39,16 @@ def _class_arrays(model, cls: str) -> dict:
     slot_w = pa["slot_w"]
     check(slot_w.dtype == np.float32, "plans_from_jax needs f32 weights, got "
           "%s", slot_w.dtype)
+    common = {
+        "block_ids": pa["block_ids"].astype(np.int32),
+        "scale": np.ascontiguousarray(pa["scale"], np.float32),
+        "wks": tuple(wks),
+    }
+    if not model.packed:
+        return {**common, "ep": int(ep),
+                "slot_idx": np.ascontiguousarray(pa["slot_idx"], np.int32),
+                "slot_w": np.ascontiguousarray(slot_w),
+                "ext_idx": np.ascontiguousarray(pa["ext_idx"], np.int32)}
     if slot_w.ndim == 5:                        # rectangular (P, nb, K, 3, bp)
         slot_w = compact_slot_w(slot_w, wks)
     # compact_src_cols reads block_ids, slot_idx, ext_idx and ep only; the
@@ -47,25 +60,20 @@ def _class_arrays(model, cls: str) -> dict:
             slot_idx=pa["slot_idx"][d], slot_w=None,
             ext_idx=pa["ext_idx"][d], scale=None), wks)
         for d in range(len(model.parts))])
-    return {
-        "block_ids": pa["block_ids"].astype(np.int32),
-        "src_cols": src_cols,
-        "slot_w": np.ascontiguousarray(slot_w, np.float32),
-        "scale": np.ascontiguousarray(pa["scale"], np.float32),
-        "wks": tuple(wks),
-    }
+    return {**common, "src_cols": src_cols,
+            "slot_w": np.ascontiguousarray(slot_w, np.float32)}
 
 
 def plans_from_jax(model) -> dict:
-    """Plan arrays of a GreenGaussPallas model (packed kernel, f32 weights,
-    every phase on the in-kernel transport), in the port's layout."""
-    check(model.packed and model.op == "gg",
-          "plans_from_jax converts the packed Green-Gauss model")
+    """Plan arrays of a GreenGaussPallas model (packed or gather kernel,
+    f32 weights, every phase on the in-kernel transport), in the port's
+    layout."""
+    check(model.op == "gg", "plans_from_jax converts the Green-Gauss model")
     check(not model._dcn_phases, "plans_from_jax: inter-slice phases "
           "(slice_size) come with ROADMAP queue 1 item 12")
     lay = model.layout
     return {
-        "ndev": lay.ndev, "bp": int(model.bp), "s_max": lay.s_max,
+        "kernel": model.kernel, "ndev": lay.ndev, "bp": int(model.bp), "s_max": lay.s_max,
         "ghost_start": lay.ghost_start,
         "locmap": [np.asarray(m, np.int64) for m in lay.locmap],
         "send_idx": np.asarray(model._send_idx),

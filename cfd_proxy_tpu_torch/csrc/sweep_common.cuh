@@ -1,23 +1,45 @@
-// Per-thread body of the packed compact Green-Gauss sweep, shared by K1
-// (sweep_packed.cu) and K3 (sweep_overlap.cu).
+// Per-thread body of the Green-Gauss block sweep, shared by K1
+// (sweep_packed.cu), K2 (sweep_gather.cu) and both forms of K3
+// (sweep_overlap.cu).
 //
-// Replaces the body of cfd_proxy_tpu/ops/blocksweep.py::
-// _block_compute_packed (op "gg", f32, `wks` compact layout), with and
-// without its `accumulate` operand.  For point column `col` of listed
-// block b of shard p (lane l = col - block_ids[p, b]*bp):
+// Replaces the bodies of cfd_proxy_tpu/ops/blocksweep.py::
+// _block_compute_packed (K1, the packed formulation) and _block_compute
+// (K2, the gather formulation), op "gg", f32, with and without their
+// `accumulate` operand.  For point column `col` of listed block b of shard
+// p (lane l = col - block_ids[p, b]*bp):
 //
 //     acc[d*NV+v] = (accumulate ? out[p, d*NV+v, col] : 0)
 //                   + Σ_k [l < wks[k]] w_k[d, l] * 0.5f*(own[v, l] + src_k[v, l])
 //     out[p, d*NV+v, col] = scale[p, b, l] * acc[d*NV+v]
 //
-// where slot k's weights and sources sit at lane offset off_k of the
-// compact (P, nb, 3, L) / (P, nb, NV, L) tables.  The Pallas kernel walks
-// one block per grid step with the slot loop unrolled over static widths;
-// here every (shard, block) entry of the plan runs in parallel, one thread
-// per point column, and the slot loop reads (width, offset) pairs from a
-// small table.  With `accumulate` the output is also the `init` operand
-// (the reference aliases the two): each thread reads its own 24 values and
-// writes them back, so no column is touched by two threads.
+// The two formulations differ only in where slot k's source and weights
+// are read, which the `Src` policy of sweep_chunk decides:
+//
+// - PackedSrc (K1): the source values were gathered ahead of the sweep
+//   (K4, pack_srcs.cu) into the compact (P, nb, NV, L) table; slot k's
+//   sources and its (P, nb, 3, L) weights sit at lane offset off_k.
+// - GatherSrc (K2): the sweep gathers each source itself from the block
+//   table [own (NV, bp) ‖ exts (NV, EP)] by the W-index slot_idx[p, b, k, l]
+//   (own column block*bp + i for i < bp, else ext column i - bp of the
+//   entry's pre-gathered ext table), with rectangular (P, nb, K, 3, bp)
+//   weights.  The reference's _masked_gather (W/128 compare-and-select
+//   passes) exists because a TPU gather shuffles within one vreg; here it
+//   is one indexed load per variable.  Pad slots hold W-index 0 and zero
+//   weight: they read own column 0 and add nothing.
+//
+// The reference's gather kernel skips slot k for a whole 128-lane tile when
+// wks[k] <= t*128; wks are multiples of 128, so the per-lane test below
+// skips exactly the same (lane, slot) pairs.  Both policies feed the same
+// arithmetic in the same order, so K1 and K2 agree bit for bit on the same
+// plan.
+//
+// The Pallas kernels walk one block per grid step with the slot loop
+// unrolled over static widths; here every (shard, block) entry of the plan
+// runs in parallel, one thread per point column, and the slot loop reads
+// (width, offset) pairs from a small table.  With `accumulate` the output
+// is also the `init` operand (the reference aliases the two): each thread
+// reads its own 24 values and writes them back, so no column is touched by
+// two threads.
 //
 // Pad entries.  Shards share one block-list length; a shorter list is
 // padded with entries that all name the shard's trailing TRASH block
@@ -28,16 +50,22 @@
 // computes it once, as the reference's sequential grid leaves it.
 //
 // Bound: memory.  Per point it streams own 32 B, scale 4 B, out 96 B (and
-// init 96 B when accumulating) and, per live slot, 32 B of sources + 12 B
-// of weights; the math is 24 FMAs per slot.  Design: 24 f32 accumulators
+// init 96 B when accumulating) and, per live slot, 12 B of weights plus,
+// packed, 32 B of sources or, gathered, a 4 B W-index and 32 B of gathered
+// values that mostly hit L1/L2 (the block's own columns and its RCB-local
+// ext table).  The math is 24 FMAs per slot.  Design: 24 f32 accumulators
 // and the 8 own values stay in registers for the whole slot loop, so
-// nothing but the streams touches memory; every load and store is
-// coalesced along the point columns.  Slot widths are per-slot and need
-// not be monotone (a slot of zero-normal faces can be narrower than a later
-// one), so every slot is tested and none ends the loop; zero-width slots
-// have no table entries and no offset of their own.  The operation order is
-// the reference body's; nvcc's default FMA contraction moves results by a
-// few ulp.
+// nothing but the streams touches memory; every stream is coalesced along
+// the point columns.  The gather form reads the block table straight from
+// global memory through the read-only cache rather than staging it in
+// shared memory: a 128-thread CUDA block covers one 128-lane chunk of a
+// block, so staging the whole NV x (bp + EP) table per CUDA block would
+// read it bp/128 times over, and it needs no size limit at any bp.  Slot
+// widths are per-slot and need not be monotone (a slot of zero-normal faces
+// can be narrower than a later one), so every slot is tested and none ends
+// the loop; zero-width slots have no table entries and no offset of their
+// own.  The operation order is the reference body's; nvcc's default FMA
+// contraction moves results by a few ulp.
 
 #pragma once
 
@@ -51,20 +79,59 @@ constexpr int kRows = 3 * kNV;    // output rows d*NV+v
 constexpr int kMaxSlots = 64;     // slot-table capacity (checked by the wrapper)
 constexpr int kThreads = 128;
 
+// Operands both formulations share.
 struct SweepArgs {
   const float* var_T;       // (P, NV, ndev)
   int64_t ndev;
-  const float* srcs;        // (P, nb, NV, L)
-  const float* slot_w;      // (P, nb, 3, L)
   const float* scale;       // (P, nb, bp)
   const int32_t* block_ids; // (P, nb)
   const int32_t* slots;     // (2, K) width, offset
   int K;
   int64_t nb;
-  int64_t L;
   int bp;
   int64_t chunks;           // kThreads-column chunks per block
   float* out;               // (P, 3*NV, ndev); also init when accumulating
+};
+
+// Where slot k's values are for one lane: sources at src + v*src_stride,
+// weights at w + d*w_stride.
+struct SlotPtrs {
+  const float* src;
+  int64_t src_stride;
+  const float* w;
+  int64_t w_stride;
+};
+
+// K1: the packed compact source table.
+struct PackedSrc {
+  const float* srcs;        // (P, nb, NV, L)
+  const float* slot_w;      // (P, nb, 3, L)
+  int64_t L;
+
+  __device__ __forceinline__ SlotPtrs slot(const SweepArgs&, int64_t g,
+                                           int /*k*/, int off, int lane,
+                                           const float* /*own_blk*/) const {
+    const int64_t j = static_cast<int64_t>(off) + lane;
+    return {srcs + g * kNV * L + j, L, slot_w + g * 3 * L + j, L};
+  }
+};
+
+// K2: gather from [own ‖ exts] by the W-index.
+struct GatherSrc {
+  const float* exts;        // (P, nb, NV, EP)
+  const int32_t* slot_idx;  // (P, nb, K, bp) W-index in [0, bp + EP)
+  const float* slot_w;      // (P, nb, K, 3, bp)
+  int64_t ep;
+
+  __device__ __forceinline__ SlotPtrs slot(const SweepArgs& a, int64_t g,
+                                           int k, int /*off*/, int lane,
+                                           const float* own_blk) const {
+    const int64_t row = g * a.K + k;                 // (shard, entry, slot)
+    const int i = __ldg(slot_idx + row * a.bp + lane);
+    const bool own = i < a.bp;
+    return {own ? own_blk + i : exts + g * kNV * ep + (i - a.bp),
+            own ? a.ndev : ep, slot_w + row * 3 * a.bp + lane, a.bp};
+  }
 };
 
 // Grid blocks a sweep needs: one per (shard, entry, chunk).
@@ -76,8 +143,9 @@ inline int64_t sweep_grid(int64_t P, int64_t nb, int bp, int64_t* chunks) {
 // One kThreads-column chunk of one (shard, entry); `blk` in
 // [0, P*nb*chunks).  The early returns are uniform over the CUDA block up
 // to the barrier.
-template <bool kAccumulate>
-__device__ __forceinline__ void sweep_chunk(const SweepArgs& a, int64_t blk) {
+template <bool kAccumulate, class Src>
+__device__ __forceinline__ void sweep_chunk(const SweepArgs& a, const Src& s,
+                                            int64_t blk) {
   __shared__ int s_width[kMaxSlots];
   __shared__ int s_off[kMaxSlots];
   const int64_t g = blk / a.chunks;     // flat (shard, entry) index
@@ -94,7 +162,8 @@ __device__ __forceinline__ void sweep_chunk(const SweepArgs& a, int64_t blk) {
   if (lane >= a.bp) return;
   const int64_t shard = g / a.nb;
   const int64_t ndev = a.ndev;
-  const int64_t col = static_cast<int64_t>(a.block_ids[g]) * a.bp + lane;
+  const int64_t base = static_cast<int64_t>(a.block_ids[g]) * a.bp;
+  const int64_t col = base + lane;
   const float* own_p = a.var_T + shard * kNV * ndev;
   float* out_p = a.out + shard * kRows * ndev;
 
@@ -108,25 +177,23 @@ __device__ __forceinline__ void sweep_chunk(const SweepArgs& a, int64_t blk) {
     acc[r] = kAccumulate ? out_p[r * ndev + col] : 0.0f;
   }
 
-  const float* sb = a.srcs + g * kNV * a.L;
-  const float* wb = a.slot_w + g * 3 * a.L;
   for (int k = 0; k < a.K; ++k) {
     if (lane >= s_width[k]) continue;       // outside slot k's prefix
-    const int64_t j = static_cast<int64_t>(s_off[k]) + lane;
+    const SlotPtrs p = s.slot(a, g, k, s_off[k], lane, own_p + base);
     float w[3];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) w[d] = __ldg(wb + d * a.L + j);
+    for (int d = 0; d < 3; ++d) w[d] = __ldg(p.w + d * p.w_stride);
 #pragma unroll
     for (int v = 0; v < kNV; ++v) {
-      const float avg = 0.5f * (own[v] + __ldg(sb + v * a.L + j));
+      const float avg = 0.5f * (own[v] + __ldg(p.src + v * p.src_stride));
 #pragma unroll
       for (int d = 0; d < 3; ++d) acc[d * kNV + v] += w[d] * avg;
     }
   }
 
-  const float s = __ldg(a.scale + g * a.bp + lane);
+  const float sc = __ldg(a.scale + g * a.bp + lane);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) out_p[r * ndev + col] = acc[r] * s;
+  for (int r = 0; r < kRows; ++r) out_p[r * ndev + col] = acc[r] * sc;
 }
 
 // Host-side checks shared by the entry points; a bad shape never launches.

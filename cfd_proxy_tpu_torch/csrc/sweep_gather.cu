@@ -1,0 +1,62 @@
+// K2: Green-Gauss block sweep, GATHER formulation, f32, over P shards in
+// one launch.
+//
+// Replaces: cfd_proxy_tpu/ops/blocksweep.py::sweep_blocks, gather branch
+// (body _block_compute, with _masked_gather), op "gg", with and without
+// `init`.  The sources are gathered inside the sweep from the block table
+// [own ‖ exts] by the W-index, so a state update rebuilds only the small
+// per-block ext tables (gather_exts) instead of re-packing every slot's
+// sources (K4).  The per-thread body, its bound, the W-index fetch and the
+// handling of pad entries are in sweep_common.cuh (GatherSrc).
+//
+// Without init the wrapper hands a zero-filled output, so columns of blocks
+// the plan does not list stay zero.  With init the output IS init (the
+// reference aliases them): listed columns are seeded from it and rewritten
+// in place, unlisted columns keep their values, and nothing is zero-filled.
+
+#include "sweep_common.cuh"
+
+namespace {
+
+// Resident blocks per SM that ptxas is asked to allow for: K1's value (see
+// sweep_packed.cu), kept for the same body.
+constexpr int kMinBlocks = 5;
+
+template <bool kAccumulate>
+__global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
+sweep_gather_kernel(cfd::SweepArgs a, cfd::GatherSrc s) {
+  cfd::sweep_chunk<kAccumulate>(a, s, blockIdx.x);
+}
+
+}  // namespace
+
+// Shapes as annotated in cfd::SweepArgs and cfd::GatherSrc, all contiguous
+// on the current device; K <= 64; every slot_idx in [0, bp + ep) (checked
+// where the plan is loaded).  `slots` holds the per-slot widths (its offset
+// row is not read: the gather tables are rectangular).  accumulate != 0:
+// `out` holds init on entry.  Launches on `stream`; returns the launch's
+// cudaError_t (0 = success).
+extern "C" int cfd_sweep_gather(const float* var_T, int64_t ndev,
+                                const float* exts, int64_t ep,
+                                const int32_t* slot_idx, const float* slot_w,
+                                const float* scale, const int32_t* block_ids,
+                                const int32_t* slots, int K, int64_t P,
+                                int64_t nb, int bp, int accumulate,
+                                float* out, cudaStream_t stream) {
+  if (P == 0 || nb == 0) return 0;
+  int64_t chunks = 0;
+  const int64_t grid = cfd::sweep_grid(P, nb, bp, &chunks);
+  if (!cfd::sweep_args_ok(K, bp, grid) || ep <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cfd::SweepArgs a{var_T, ndev, scale, block_ids, slots, K, nb, bp,
+                         chunks, out};
+  const cfd::GatherSrc s{exts, slot_idx, slot_w, ep};
+  const unsigned g = static_cast<unsigned>(grid);
+  if (accumulate) {
+    sweep_gather_kernel<true><<<g, cfd::kThreads, 0, stream>>>(a, s);
+  } else {
+    sweep_gather_kernel<false><<<g, cfd::kThreads, 0, stream>>>(a, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,15 +1,16 @@
-// K3: fused interior sweep + halo push, P shards on one card, one launch.
+// K3: fused interior sweep + halo push, P shards on one card, one launch,
+// in both formulations (packed: the K1 body; gather: the K2 body).
 //
-// Replaces: cfd_proxy_tpu/ops/blocksweep.py::sweep_blocks_overlap (packed,
-// compact, op "gg", f32) — the GASPI write-notify analogue.  On the TPU the
-// kernel starts one make_async_remote_copy per phase at its first grid
-// step, sweeps the interior blocks (K1 accumulating onto the boundary
-// result) while the copies fly, and waits for them at its last step.  Here
-// all P shards live on one card, so a "remote" device is another shard's
-// slice of the same buffer:
+// Replaces: cfd_proxy_tpu/ops/blocksweep.py::sweep_blocks_overlap (op "gg",
+// f32; packed compact and gather bodies) — the GASPI write-notify
+// analogue.  On the TPU the kernel starts one make_async_remote_copy per
+// phase at its first grid step, sweeps the interior blocks (K1 or K2
+// accumulating onto the boundary result) while the copies fly, and waits
+// for them at its last step.  Here all P shards live on one card, so a
+// "remote" device is another shard's slice of the same buffer:
 //
 //     recv[dsts[p, k], k] = sendbufs[p, k]       (3*NV x s_max floats)
-//     grad[p]             = K1-accumulate of the interior plan onto init[p]
+//     grad[p]             = K1/K2-accumulate of the interior plan onto init[p]
 //
 // The first CUDA blocks of the grid do the pushes (the block scheduler
 // hands out low indices first, so the copies start first, as the
@@ -28,7 +29,7 @@
 // push straight into the ghost region would race with it.  The step copies
 // `recv` into the ghost regions after the kernel, as the reference does.
 //
-// Bound: memory.  The sweep streams as K1 with init; the push reads and
+// Bound: memory.  The sweep streams as K1/K2 with init; the push reads and
 // writes 3*NV*s_max*4 bytes per (shard, phase), a few percent of the
 // sweep's bytes at the benchmark sizes, with 16-byte coalesced copies.
 
@@ -65,15 +66,39 @@ __device__ __forceinline__ void push_chunk(const PushArgs& p, int64_t blk) {
 // Resident blocks per SM that ptxas is asked to allow for (see
 // sweep_packed.cu).  Measured on an H100 at the one-shard 96^3 shapes, in
 // turns: no hint 0.240 ms, 5 0.243 ms, 6 0.190 ms, 8 0.241 ms.
+// The gather instance keeps the same hint.
 constexpr int kMinBlocks = 6;
 
+template <class Src>
 __global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
-sweep_overlap_kernel(cfd::SweepArgs a, PushArgs p) {
+sweep_overlap_kernel(cfd::SweepArgs a, Src s, PushArgs p) {
   if (static_cast<int64_t>(blockIdx.x) < p.blocks) {
     push_chunk(p, blockIdx.x);
     return;
   }
-  cfd::sweep_chunk<true>(a, blockIdx.x - p.blocks);
+  cfd::sweep_chunk<true>(a, s, blockIdx.x - p.blocks);
+}
+
+// Checks the push shape, sizes the grid and launches one instance.
+template <class Src>
+int launch_overlap(const cfd::SweepArgs& base, int64_t P, const Src& s,
+                   const float* sendbufs, const int32_t* dsts, int64_t nph,
+                   int64_t s_max, float* recv, cudaStream_t stream) {
+  cfd::SweepArgs a = base;
+  const int64_t sweep_blocks = cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+  if (s_max % kPushVec != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t seg4 = cfd::kRows * s_max / kPushVec;
+  const int64_t push_chunks = (seg4 + kPushChunk - 1) / kPushChunk;
+  const int64_t push_blocks = P * nph * push_chunks;
+  const int64_t grid = push_blocks + sweep_blocks;
+  if (grid == 0) return 0;
+  if (!cfd::sweep_args_ok(a.K, a.bp, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PushArgs p{sendbufs, dsts, nph, seg4, push_chunks, push_blocks, recv};
+  sweep_overlap_kernel<Src><<<static_cast<unsigned>(grid), cfd::kThreads, 0,
+                              stream>>>(a, s, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -91,21 +116,24 @@ extern "C" int cfd_sweep_overlap(const float* var_T, int64_t ndev,
                                  const float* sendbufs, const int32_t* dsts,
                                  int64_t nph, int64_t s_max, float* recv,
                                  cudaStream_t stream) {
-  int64_t chunks = 0;
-  const int64_t sweep_blocks = cfd::sweep_grid(P, nb, bp, &chunks);
-  if (s_max % kPushVec != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t seg4 = cfd::kRows * s_max / kPushVec;
-  const int64_t push_chunks = (seg4 + kPushChunk - 1) / kPushChunk;
-  const int64_t push_blocks = P * nph * push_chunks;
-  const int64_t grid = push_blocks + sweep_blocks;
-  if (grid == 0) return 0;
-  if (!cfd::sweep_args_ok(K, bp, grid)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cfd::SweepArgs a{var_T, ndev, srcs, slot_w, scale, block_ids, slots,
-                         K, nb, L, bp, chunks, out};
-  const PushArgs p{sendbufs, dsts, nph, seg4, push_chunks, push_blocks, recv};
-  sweep_overlap_kernel<<<static_cast<unsigned>(grid), cfd::kThreads, 0,
-                         stream>>>(a, p);
-  return static_cast<int>(cudaGetLastError());
+  const cfd::SweepArgs a{var_T, ndev, scale, block_ids, slots, K, nb, bp, 0,
+                         out};
+  return launch_overlap(a, P, cfd::PackedSrc{srcs, slot_w, L}, sendbufs,
+                        dsts, nph, s_max, recv, stream);
+}
+
+// The gather form: sweep operands as in cfd_sweep_gather, push operands as
+// in cfd_sweep_overlap.
+extern "C" int cfd_sweep_overlap_gather(
+    const float* var_T, int64_t ndev, const float* exts, int64_t ep,
+    const int32_t* slot_idx, const float* slot_w, const float* scale,
+    const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
+    int64_t nb, int bp, float* out, const float* sendbufs,
+    const int32_t* dsts, int64_t nph, int64_t s_max, float* recv,
+    cudaStream_t stream) {
+  if (ep <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cfd::SweepArgs a{var_T, ndev, scale, block_ids, slots, K, nb, bp, 0,
+                         out};
+  return launch_overlap(a, P, cfd::GatherSrc{exts, slot_idx, slot_w, ep},
+                        sendbufs, dsts, nph, s_max, recv, stream);
 }

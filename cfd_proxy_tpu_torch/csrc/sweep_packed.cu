@@ -25,14 +25,14 @@ constexpr int kMinBlocks = 5;
 
 template <bool kAccumulate>
 __global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
-sweep_packed_kernel(cfd::SweepArgs a) {
-  cfd::sweep_chunk<kAccumulate>(a, blockIdx.x);
+sweep_packed_kernel(cfd::SweepArgs a, cfd::PackedSrc s) {
+  cfd::sweep_chunk<kAccumulate>(a, s, blockIdx.x);
 }
 
 }  // namespace
 
-// Shapes as annotated in cfd::SweepArgs, all contiguous on the current
-// device; K <= 64.  accumulate != 0: `out` holds init on entry.  Launches on
+// Shapes as annotated in cfd::SweepArgs and cfd::PackedSrc, all contiguous
+// on the current device; K <= 64.  accumulate != 0: `out` holds init on entry.  Launches on
 // `stream`; returns the launch's cudaError_t (0 = success).
 extern "C" int cfd_sweep_packed(const float* var_T, int64_t ndev,
                                 const float* srcs, const float* slot_w,
@@ -46,13 +46,14 @@ extern "C" int cfd_sweep_packed(const float* var_T, int64_t ndev,
   if (!cfd::sweep_args_ok(K, bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cfd::SweepArgs a{var_T, ndev, srcs, slot_w, scale, block_ids, slots,
-                         K, nb, L, bp, chunks, out};
+  const cfd::SweepArgs a{var_T, ndev, scale, block_ids, slots, K, nb, bp,
+                         chunks, out};
+  const cfd::PackedSrc s{srcs, slot_w, L};
   const unsigned g = static_cast<unsigned>(grid);
   if (accumulate) {
-    sweep_packed_kernel<true><<<g, cfd::kThreads, 0, stream>>>(a);
+    sweep_packed_kernel<true><<<g, cfd::kThreads, 0, stream>>>(a, s);
   } else {
-    sweep_packed_kernel<false><<<g, cfd::kThreads, 0, stream>>>(a);
+    sweep_packed_kernel<false><<<g, cfd::kThreads, 0, stream>>>(a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,26 +1,33 @@
 """GreenGaussTorch — the port's Green-Gauss model on the block-sweep kernels.
 
 Counterpart of `cfd_proxy_tpu/models/gradients_pallas.py::GreenGaussPallas`
-(packed kernel, f32, Green-Gauss) for P shards held on ONE device:
+(f32, Green-Gauss, packed or gather kernel) for P shards held on ONE
+device:
 
 - `__init__`: block-size rule, RCB locality relabel (+ in-block degree sort
-  for the compact layout), halo topology, transposed device layout, the
-  bulk / boundary / interior BlockPlans of every shard padded to common
-  shapes, pack-time scaling and the compact prefix widths — the reference's
-  host construction, step for step, so both packages hold identical plan
-  data;
+  for the compact prefix widths), halo topology, transposed device layout,
+  the bulk / boundary / interior BlockPlans of every shard padded to common
+  shapes, pack-time scaling and the prefix widths — the reference's host
+  construction, step for step, so both packages hold identical plan data.
+  The packed kernel keeps each class's compact tables, the gather kernel
+  its rectangular W-index and weight tables and ext lists;
 - `distribute_state`: host state → stacked (P, NV, ndev) `var_T` + the
-  packed source table of each class the requested schedules read
-  (`pack_srcs` kernel);
+  table of each class the requested schedules read: packed sources
+  (`pack_srcs` kernel) or ext columns (`gather_exts`);
 - `step(state, s)` for s in bulk / early / overlap / nocomm (`sweep_blocks`
-  kernel, with and without init; `sweep_blocks_overlap` kernel for
-  overlap);
-- `iterate_fn(s, n)`: the chained n-step loop the timing uses;
+  or `sweep_blocks_gather`, with and without init; the fused
+  `sweep_blocks_overlap` / `sweep_blocks_overlap_gather` for overlap);
+- `refresh_state(var_T)`: the solver-mode state update — var halo exchange
+  and a rebuild of the tables;
+- `iterate_fn(s, n, solver_mode, sweeps_per_step)`: the chained n-step loop
+  the timing uses, or the solver's per-step dataflow (table rebuild, N
+  sweeps with their updates, var exchange);
 - `gather_global`: device rows d*NV+v → global (N, nvar*3) column v*3+d.
 
 The halo exchange moves between shards on the same device (the loopback
 transport): phase k's buffer of shard p lands in phase k's ghost region of
-shard dsts[p, k].  The reference's ppermute moves only the pairs of
+shard dsts[p, k]; the same path moves gradients (3·NV rows) and, in solver
+mode, the state (NV rows).  The reference's ppermute moves only the pairs of
 layout.perms[k] and leaves other receivers zero; the loopback moves the
 completed permutation (dsts), whose extra pairs carry send-masked zeros, so
 the ghost regions come out the same.  Pack, transfer and unpack are plain
@@ -45,11 +52,14 @@ from cfd_proxy_tpu.mesh.partition import (
 from cfd_proxy_tpu.utils.errors import check
 from cfd_proxy_tpu_torch.ops.blocksweep import (
     ROWS,
+    gather_exts,
     loopback,
     pack_srcs,
     slot_table,
     sweep_blocks,
+    sweep_blocks_gather,
     sweep_blocks_overlap,
+    sweep_blocks_overlap_gather,
 )
 from cfd_proxy_tpu_torch.ops.plan import (
     NV,
@@ -76,6 +86,7 @@ from cfd_proxy_tpu_torch.parallel.topology import (
 BP_AUTO_SMALL = 262144
 BP_SMALL = 1024
 CLASSES = ("bulk", "boundary", "interior")
+KERNELS = ("packed", "gather")
 SCHEDULES = ("bulk", "early", "overlap", "nocomm")
 # which source-table classes each schedule's step reads
 SCHEDULE_CLASSES = {
@@ -83,11 +94,23 @@ SCHEDULE_CLASSES = {
     "early": ("boundary", "interior"), "overlap": ("boundary", "interior"),
 }
 # the host arrays `from_arrays` takes (see convert.plans_from_jax);
-# "classes" maps each class to a dict of CLASS_KEYS
-PLAN_KEYS = ("ndev", "bp", "s_max", "ghost_start", "locmap", "send_idx",
-             "send_mask", "pack_scale", "dsts", "srcs", "perms", "has_comm",
-             "classes")
-CLASS_KEYS = ("block_ids", "src_cols", "slot_w", "scale", "wks")
+# "classes" maps each class to a dict of CLASS_KEYS[kernel]
+PLAN_KEYS = ("kernel", "ndev", "bp", "s_max", "ghost_start", "locmap",
+             "send_idx", "send_mask", "pack_scale", "dsts", "srcs", "perms",
+             "has_comm", "classes")
+CLASS_KEYS = {
+    # compact tables: src_cols (P, nb, L), slot_w (P, nb, 3, L)
+    "packed": ("block_ids", "src_cols", "slot_w", "scale", "wks"),
+    # rectangular tables: slot_idx (P, nb, K, bp), slot_w (P, nb, K, 3, bp),
+    # ext_idx (P, nb, ep)
+    "gather": ("block_ids", "slot_idx", "slot_w", "ext_idx", "ep", "scale",
+               "wks"),
+}
+# the plan operands a class's sweep takes after its table
+SWEEP_OPERANDS = {
+    "packed": ("slot_w", "scale", "block_ids", "slots"),
+    "gather": ("slot_idx", "slot_w", "scale", "block_ids", "slots"),
+}
 
 
 def check_entry_phases(parts: list[MeshPartition], topo: HaloTopology,
@@ -111,10 +134,12 @@ def check_entry_phases(parts: list[MeshPartition], topo: HaloTopology,
 
 
 def host_plan_arrays(parts: list[MeshPartition], *, bp: int, kcompact: bool,
-                     force_rdma: bool = False) -> dict:
+                     force_rdma: bool = False, kernel: str = "packed") -> dict:
     """Layout, exchange tables and the three class plans of RELABELED
     shards as host arrays (PLAN_KEYS), built exactly as
-    `GreenGaussPallas.__init__` builds them (gradients_pallas.py:349-542)."""
+    `GreenGaussPallas.__init__` builds them (gradients_pallas.py:349-542).
+    Each class keeps only the tables its kernel reads (CLASS_KEYS): at the
+    benchmark size either set runs to hundreds of MB."""
     npoint_pad = max(p.npoint for p in parts) + 1
     topo = build_halo_topology(parts, npoint_pad)
     lay = build_tlayout(parts, topo, bp=bp)
@@ -151,16 +176,19 @@ def host_plan_arrays(parts: list[MeshPartition], *, bp: int, kcompact: bool,
                               lay.ndev // bp - 1) for pl in raw[c]]
         sw = np.stack([pl.slot_w for pl in padded])
         wks = prefix_widths(sw, bp) if kcompact else (bp,) * ks
-        classes[c] = {
-            "block_ids": np.stack([pl.block_ids for pl in padded]),
-            "src_cols": np.stack([compact_src_cols(pl, wks)
-                                  for pl in padded]),
-            "slot_w": compact_slot_w(sw, wks),
-            "scale": np.stack([pl.scale for pl in padded]),
-            "wks": wks,
-        }
+        ca = {"block_ids": np.stack([pl.block_ids for pl in padded]),
+              "scale": np.stack([pl.scale for pl in padded]), "wks": wks}
+        if kernel == "gather":
+            ca.update(slot_idx=np.stack([pl.slot_idx for pl in padded]),
+                      slot_w=sw, ep=ep,
+                      ext_idx=np.stack([pl.ext_idx for pl in padded]))
+        else:
+            ca.update(src_cols=np.stack([compact_src_cols(pl, wks)
+                                         for pl in padded]),
+                      slot_w=compact_slot_w(sw, wks))
+        classes[c] = ca
     return {
-        "ndev": lay.ndev, "bp": bp, "s_max": lay.s_max,
+        "kernel": kernel, "ndev": lay.ndev, "bp": bp, "s_max": lay.s_max,
         "ghost_start": lay.ghost_start, "locmap": lay.locmap,
         "send_idx": lay.send_idx, "send_mask": lay.send_mask,
         "pack_scale": pack_scale, "dsts": lay.dsts, "srcs": lay.srcs,
@@ -170,6 +198,12 @@ def host_plan_arrays(parts: list[MeshPartition], *, bp: int, kcompact: bool,
         "has_comm": any(len(p) for p in lay.perms) or force_rdma,
         "classes": classes,
     }
+
+
+def _check_range(idx: np.ndarray, hi: int, name: str) -> None:
+    """Every index in [0, hi): the kernels load through them unchecked."""
+    check(idx.size == 0 or (idx.min() >= 0 and idx.max() < hi),
+          "%s outside [0, %d)", name, hi)
 
 
 def auto_bp(parts: list[MeshPartition], bp: int | None) -> int:
@@ -191,14 +225,18 @@ class GreenGaussTorch(nn.Module):
 
     def __init__(self, parts: list[MeshPartition], nvar: int, *,
                  bp: int | None = None, kcompact: bool | None = None,
-                 force_rdma: bool = False,
+                 force_rdma: bool = False, kernel: str = "packed",
                  device: str | torch.device = "cuda",
                  arrays: dict | None = None):
         """parts: the raw partitions (relabeled here, as the reference
         does), or — with `arrays` — partitions ALREADY relabeled by the
-        model the arrays come from (see `from_arrays`)."""
+        model the arrays come from (see `from_arrays`).  kernel: "packed"
+        (sources packed ahead of the sweep, K4 + K1) or "gather" (the sweep
+        gathers them from per-block ext tables, K2)."""
         super().__init__()
         check(1 <= nvar <= NV, "nvar %d outside [1, %d]", nvar, NV)
+        check(kernel in KERNELS, "unknown kernel formulation %r (one of %s)",
+              kernel, "/".join(KERNELS))
         self.nvar = int(nvar)
         self.device = torch.device(device)
         if arrays is None:
@@ -219,7 +257,7 @@ class GreenGaussTorch(nn.Module):
             ]
             arrays = host_plan_arrays(self.parts, bp=self.bp,
                                       kcompact=self.kcompact,
-                                      force_rdma=force_rdma)
+                                      force_rdma=force_rdma, kernel=kernel)
             check(len(arrays["perms"]) == max(pre_topo.nphases, 1),
                   "phase coloring changed across the relabel (%d -> %d "
                   "phases)", pre_topo.nphases, len(arrays["perms"]))
@@ -233,6 +271,9 @@ class GreenGaussTorch(nn.Module):
 
     def _load(self, a: dict) -> None:
         P = len(self.parts)
+        self.kernel = a["kernel"]
+        check(self.kernel in KERNELS, "plan arrays for kernel %r (one of %s)",
+              self.kernel, "/".join(KERNELS))
         self.ndev = int(a["ndev"])
         self.s_max = int(a["s_max"])
         self.ghost_start = int(a["ghost_start"])
@@ -279,7 +320,7 @@ class GreenGaussTorch(nn.Module):
         self.wks: dict[str, tuple[int, ...]] = {}
         for c in CLASSES:
             ca = a["classes"][c]
-            missing = [k for k in CLASS_KEYS if k not in ca]
+            missing = [k for k in CLASS_KEYS[self.kernel] if k not in ca]
             check(not missing, "class %s arrays lack %s", c, missing)
             wks = tuple(int(w) for w in ca["wks"])
             bids = np.asarray(ca["block_ids"])
@@ -288,16 +329,38 @@ class GreenGaussTorch(nn.Module):
                   "class %s block lists must be (P, nb), ascending with "
                   "trailing pad repeats", c)
             pl = {"block_ids": dev(bids, np.int32),
-                  "src_cols": dev(ca["src_cols"], np.int32),
                   "slot_w": dev(ca["slot_w"], np.float32),
                   "scale": dev(ca["scale"], np.float32),
                   "slots": dev(slot_table(wks), np.int32)}
-            check(pl["src_cols"].shape[2] == sum(wks) ==
-                  pl["slot_w"].shape[3], "class %s compact length mismatch: "
-                  "src_cols %d, Σwks %d, slot_w %d", c,
-                  pl["src_cols"].shape[2], sum(wks), pl["slot_w"].shape[3])
+            if self.kernel == "gather":
+                pl.update(self._gather_tables(c, ca, wks, bids.shape[1], dev))
+            else:
+                cols = np.asarray(ca["src_cols"])
+                check(cols.shape[2] == sum(wks) == pl["slot_w"].shape[3],
+                      "class %s compact length mismatch: src_cols %d, Σwks "
+                      "%d, slot_w %d", c, cols.shape[2], sum(wks),
+                      pl["slot_w"].shape[3])
+                _check_range(cols, self.ndev, f"class {c} src_cols")
+                pl["src_cols"] = dev(cols, np.int32)
             self.plans[c] = pl
             self.wks[c] = wks
+
+    def _gather_tables(self, c: str, ca: dict, wks: tuple, nb: int,
+                       dev) -> dict:
+        """A gather class's W-index table and ext lists, range-checked here
+        once (the kernel reads var_T and the ext table through them)."""
+        P, K, bp, ep = len(self.parts), len(wks), self.bp, int(ca["ep"])
+        sidx, ext = np.asarray(ca["slot_idx"]), np.asarray(ca["ext_idx"])
+        for name, arr, want in (
+                ("slot_idx", sidx, (P, nb, K, bp)),
+                ("slot_w", ca["slot_w"], (P, nb, K, 3, bp)),
+                ("ext_idx", ext, (P, nb, ep))):
+            check(np.shape(arr) == want, "class %s %s shape %s, expected %s",
+                  c, name, np.shape(arr), want)
+        _check_range(sidx, bp + ep, f"class {c} slot_idx")
+        _check_range(ext, self.ndev, f"class {c} ext_idx")
+        # ext_idx as the int64 index gather_exts uses on every rebuild
+        return {"slot_idx": dev(sidx, np.int32), "ext_idx": dev(ext, np.int64)}
 
     @classmethod
     def from_arrays(cls, parts: list[MeshPartition], nvar: int,
@@ -324,19 +387,57 @@ class GreenGaussTorch(nn.Module):
     def distribute_state(self, gvar: np.ndarray, *,
                          schedules=None) -> dict:
         """Global (N, nvar) host state → {"var_T": (P, NV, ndev) f32,
-        "tables": {class: (P, nb, NV, L) f32 packed sources}} for the
-        classes the given schedules read (default: all).  Ghost var values
-        are filled host-side: the state is static across the benchmark
-        loop, the exchange moves gradients."""
+        "tables": {class: table}} for the classes the given schedules read
+        (default: all); a table is the (P, nb, NV, L) packed sources or the
+        (P, nb, NV, EP) ext columns.  Ghost var values are filled host-side:
+        the state is static across the benchmark loop, the exchange moves
+        gradients."""
         check(gvar.shape[1] == self.nvar, "state has %d vars, model %d",
               gvar.shape[1], self.nvar)
         host = np.zeros((len(self.parts), NV, self.ndev), np.float32)
         for i, (p, m) in enumerate(zip(self.parts, self.locmap)):
             host[i][: self.nvar, m] = gvar[p.global_ids].T
         var_T = torch.from_numpy(host).to(self.device)
-        tables = {c: pack_srcs(var_T, self.plans[c]["src_cols"])
-                  for c in self.classes_for(schedules)}
-        return {"var_T": var_T, "tables": tables}
+        return {"var_T": var_T,
+                "tables": self._build_tables(var_T,
+                                             self.classes_for(schedules))}
+
+    def _build_tables(self, var_T: torch.Tensor, classes) -> dict:
+        """Each class's table from the state: packed sources (`pack_srcs`
+        kernel) or ext columns (`gather_exts`, a plain gather)."""
+        if self.kernel == "gather":
+            return {c: gather_exts(var_T, self.plans[c]["ext_idx"])
+                    for c in classes}
+        return {c: pack_srcs(var_T, self.plans[c]["src_cols"])
+                for c in classes}
+
+    def _var_exchange(self, var_T: torch.Tensor) -> torch.Tensor:
+        """Refresh every ghost var column from its owner, IN PLACE: the
+        owners' columns by send_idx × send_mask (no scale), through the
+        loopback transport, into the static ghost regions, rows 0..NV-1.
+        Skipped when no phase moves data, as the reference skips phases
+        with an empty perm."""
+        if self.moves:
+            self._exchange(var_T, self.send_mask)
+        return var_T
+
+    def refresh_state(self, var_T: torch.Tensor, *, schedules=None) -> dict:
+        """Solver-mode state update: given a stacked var_T whose OWNED
+        columns were updated on the device, redo the var halo exchange
+        (ghost columns, written into var_T in place) and rebuild the tables
+        of the classes the schedules read (default: all).  Returns the
+        state dict `distribute_state` returns.  Counterpart of
+        `GreenGaussPallas.refresh_state`."""
+        check(tuple(var_T.shape) == (len(self.parts), NV, self.ndev)
+              and var_T.dtype == torch.float32
+              and var_T.device == self.device,
+              "var_T must be (%d, %d, %d) f32 on %s, got %s %s on %s",
+              len(self.parts), NV, self.ndev, self.device,
+              tuple(var_T.shape), var_T.dtype, var_T.device)
+        var_T = self._var_exchange(var_T)
+        return {"var_T": var_T,
+                "tables": self._build_tables(var_T,
+                                             self.classes_for(schedules))}
 
     # ------------------------------------------------------------- steps
 
@@ -349,25 +450,34 @@ class GreenGaussTorch(nn.Module):
               "distribute_state(schedules=...) must include it",
               sorted(tables), schedule, need)
 
-    def _sweep(self, cls: str, var_T, tables, init=None):
+    def _operands(self, cls: str, tables: dict) -> tuple:
+        """A class's table and plan operands, as its sweep takes them."""
         pl = self.plans[cls]
-        return sweep_blocks(var_T, tables[cls], pl["slot_w"], pl["scale"],
-                            pl["block_ids"], pl["slots"], init=init)
+        return (tables[cls], *(pl[k] for k in SWEEP_OPERANDS[self.kernel]))
 
-    def _pack(self, g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-        """(P, 3·NV, ndev) → (P, nph, 3·NV, s_max) send buffers: the
-        columns of send_idx, times the mask (bulk: gradients are already
-        volume-scaled) or pack_scale (early/overlap: boundary sums are
-        not)."""
-        return g[self.pack_shard, self.pack_row, self.pack_cols] * scale
+    def _sweep(self, cls: str, var_T, tables, init=None):
+        sweep = sweep_blocks_gather if self.kernel == "gather" else \
+            sweep_blocks
+        return sweep(var_T, *self._operands(cls, tables), init=init)
 
-    def _unpack(self, g: torch.Tensor, recv: torch.Tensor) -> None:
+    def _pack(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        """(P, rows, ndev) → (P, nph, rows, s_max) send buffers: the
+        columns of send_idx, times the mask (bulk gradients, which are
+        already volume-scaled, and the state) or pack_scale (early/overlap:
+        boundary sums are not)."""
+        rows = self.pack_row[:, :, : x.shape[1]]
+        return x[self.pack_shard, rows, self.pack_cols] * scale
+
+    def _unpack(self, x: torch.Tensor, recv: torch.Tensor) -> None:
         """Phase k's buffers into its ghost region [ghost_start + k·s_max,
         +s_max): the regions are adjacent, so one strided copy."""
-        P, nph = recv.shape[:2]
+        P, nph, rows = recv.shape[:3]
         lo = self.ghost_start
-        g[:, :, lo:lo + nph * self.s_max].view(
-            P, ROWS, nph, self.s_max).copy_(recv.permute(0, 2, 1, 3))
+        x[:, :, lo:lo + nph * self.s_max].view(
+            P, rows, nph, self.s_max).copy_(recv.permute(0, 2, 1, 3))
+
+    def _exchange(self, x: torch.Tensor, scale: torch.Tensor) -> None:
+        self._unpack(x, loopback(self._pack(x, scale), self.dst_index))
 
     def forward(self, var_T: torch.Tensor, tables: dict,
                 schedule: str = "bulk") -> torch.Tensor:
@@ -376,18 +486,17 @@ class GreenGaussTorch(nn.Module):
         if schedule in ("bulk", "nocomm"):
             g = self._sweep("bulk", var_T, tables)
             if schedule == "bulk" and self.moves:
-                self._unpack(g, loopback(self._pack(g, self.send_mask),
-                                         self.dst_index))
+                self._exchange(g, self.send_mask)
             return g
         zeros = torch.zeros((len(self.parts), ROWS, self.ndev),
                             dtype=torch.float32, device=self.device)
         gb = self._sweep("boundary", var_T, tables, init=zeros)
         if schedule == "overlap" and self.has_comm:
-            pl = self.plans["interior"]
-            g, recv = sweep_blocks_overlap(
-                var_T, tables["interior"], pl["slot_w"], pl["scale"],
-                pl["block_ids"], pl["slots"], gb,
-                self._pack(gb, self.pack_scale), self.dsts, self.srcs)
+            fused = sweep_blocks_overlap_gather if self.kernel == "gather" \
+                else sweep_blocks_overlap
+            g, recv = fused(var_T, *self._operands("interior", tables), gb,
+                            self._pack(gb, self.pack_scale), self.dsts,
+                            self.srcs)
             self._unpack(g, recv)
             return g
         # early, or overlap with nothing to move: start the exchange, sweep
@@ -406,10 +515,41 @@ class GreenGaussTorch(nn.Module):
         self.check_schedule(schedule, state["tables"])
         return self(state["var_T"], state["tables"], schedule)
 
-    def iterate_fn(self, schedule: str, n: int):
-        """Chained n-step runner over iter_args: each step's gradients feed
-        the next step's state (v + 1e-30·g[:, :NV], the reference's chained
-        loop), so no step can be skipped; returns the final var_T."""
+    def iterate_fn(self, schedule: str, n: int, solver_mode: bool = False,
+                   sweeps_per_step: int = 1):
+        """Chained n-step runner over iter_args; returns the final var_T.
+
+        Without solver_mode each step's gradients feed the next step's
+        state (v + 1e-30·g[:, :NV], the reference's chained loop) over the
+        state's fixed tables, so no step can be skipped.
+
+        solver_mode=True runs the per-time-step dataflow of a real solver
+        built on the proxy (`GreenGaussPallas._solver_iterate_fn`): each
+        step rebuilds ONLY the tables the schedule reads from the carried
+        var_T, runs sweeps_per_step stages of sweep (with its gradient
+        exchange) + update against those tables, then one var exchange.
+        The state's own tables are not read.  No step syncs the host."""
+        check(sweeps_per_step >= 1, "sweeps_per_step must be >= 1, got %d",
+              sweeps_per_step)
+        check(sweeps_per_step == 1 or solver_mode,
+              "sweeps_per_step only applies to solver_mode (static "
+              "iteration never rebuilds tables)")
+        if solver_mode:
+            check(schedule in SCHEDULE_CLASSES, "unknown schedule %r (the "
+                  "port runs %s)", schedule, "/".join(SCHEDULES))
+            needed = SCHEDULE_CLASSES[schedule]
+
+            def run_solver(var_T, tables):
+                del tables                  # rebuilt from var_T every step
+                v = var_T
+                for _ in range(n):
+                    tb = self._build_tables(v, needed)
+                    for _ in range(sweeps_per_step):
+                        v = v + 1e-30 * self(v, tb, schedule)[:, :NV]
+                    v = self._var_exchange(v)   # v is this step's own tensor
+                return v
+
+            return run_solver
 
         def run(var_T, tables):
             self.check_schedule(schedule, tables)

@@ -29,7 +29,8 @@ from cfd_proxy_tpu.utils.errors import CheckError
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("pack_srcs.cu", "sweep_packed.cu", "sweep_overlap.cu")
+SOURCES = ("pack_srcs.cu", "sweep_packed.cu", "sweep_gather.cu",
+           "sweep_overlap.cu")
 HEADERS = ("sweep_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -132,6 +133,14 @@ def lib() -> ctypes.CDLL:
     L.cfd_sweep_packed.argtypes = [*sweep, i32, vp, vp]
     L.cfd_sweep_overlap.restype = ctypes.c_int
     L.cfd_sweep_overlap.argtypes = [*sweep, vp, vp, vp, i64, i64, vp, vp]
+    # gather: var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids,
+    # slots, K, P, nb, bp
+    gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32]
+    L.cfd_sweep_gather.restype = ctypes.c_int
+    L.cfd_sweep_gather.argtypes = [*gather, i32, vp, vp]
+    L.cfd_sweep_overlap_gather.restype = ctypes.c_int
+    L.cfd_sweep_overlap_gather.argtypes = [*gather, vp, vp, vp, i64, i64, vp,
+                                           vp]
     return L
 
 

@@ -1,8 +1,12 @@
-"""Block-local Green-Gauss sweep, its source pack and the fused overlap
-sweep — kernel wrappers, over P shards held on one device.
+"""Block-local Green-Gauss sweep in its two formulations, the source pack
+and the fused overlap sweep — kernel wrappers, over P shards held on one
+device.
 
-Counterpart of `cfd_proxy_tpu/ops/blocksweep.py` for the packed COMPACT
-layout in f32 (op "gg").  Every operand carries a leading shard axis P: the
+Counterpart of `cfd_proxy_tpu/ops/blocksweep.py` in f32 (op "gg"): the
+packed formulation in the COMPACT layout (`sweep_blocks`, fed by
+`pack_srcs`) and the gather formulation with rectangular slot tables
+(`sweep_blocks_gather`, fed by `gather_exts`), each with its fused overlap
+form.  Every operand carries a leading shard axis P: the
 reference runs one shard per chip under `shard_map`; here all shards sit on
 one device and one launch covers them.  Each wrapper checks its inputs and
 then
@@ -15,13 +19,17 @@ then
 There is no fallback from one to the other.  Each wrapper counts its kernel
 launches in a plain integer attribute (`pack_srcs.launches`,
 `sweep_blocks.launches` and, for the accumulate form,
-`sweep_blocks.init_launches`, `sweep_blocks_overlap.launches`), so a run
-can show that its main path went through the kernels.
+`sweep_blocks.init_launches`, `sweep_blocks_overlap.launches`, and the same
+three on the gather wrappers), so a run can show that its main path went
+through the kernels.
 
 Compact layout (ops/plan.py): slot k of block b covers lanes [0, wks[k]) at
 offset off_k = Σ_{j<k} wks[j] of the (P, nb, NV, L) source table and the
 (P, nb, 3, L) weight table, L = Σ wks; zero-width slots hold no entries.  The
-kernels read (wks, off) as a (2, K) int32 tensor, `slot_table(wks)`.
+kernels read (wks, off) as a (2, K) int32 tensor, `slot_table(wks)`.  The
+gather tables stay rectangular: slot k of block b is lanes [0, bp) of
+slot_idx (P, nb, K, bp) and slot_w (P, nb, K, 3, bp), of which the sweep
+reads lanes [0, wks[k]) (the reference skips the same 128-lane tiles).
 
 Block lists are strictly ascending per shard, padded at the end with
 repeats of the trash block (models/gradients.py); the kernels skip a repeat.
@@ -86,6 +94,19 @@ def pack_srcs_ref(var_T: torch.Tensor, src_cols: torch.Tensor) -> torch.Tensor:
     return g.reshape(P, NV, nb, L).permute(0, 2, 1, 3).contiguous()
 
 
+def gather_exts(var_T: torch.Tensor, ext_idx: torch.Tensor) -> torch.Tensor:
+    """(P, NV, ndev) f32 × (P, nb, EP) int → (P, nb, NV, EP) f32: each
+    block's ext columns, the table the gather sweep reads beside the
+    block's own columns.  Counterpart of
+    `cfd_proxy_tpu.ops.blocksweep.gather_exts`, which is a plain XLA take
+    outside any kernel; here one torch gather on either device, written
+    straight into the table's layout (an int64 index is used as it is)."""
+    P, nb, ep = ext_idx.shape
+    nv, ndev = var_T.shape[1:]
+    return torch.gather(var_T[:, None].expand(P, nb, nv, ndev), 3,
+                        ext_idx.long()[:, :, None].expand(P, nb, nv, ep))
+
+
 def pack_srcs(var_T: torch.Tensor, src_cols: torch.Tensor) -> torch.Tensor:
     """(P, NV, ndev) f32 × (P, nb, L) i32 → (P, nb, NV, L) f32 packed source
     table.
@@ -117,17 +138,17 @@ pack_srcs.launches = 0
 
 # ----------------------------------------------------------------- sweep
 
-def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,
-                     slot_w: torch.Tensor, scale: torch.Tensor,
-                     block_ids: torch.Tensor, slots: torch.Tensor,
-                     init: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of the sweep, slot by slot over all shards and blocks
-    at once, in the reference body's operation order
-    (_block_compute_packed): acc = init (or 0); avg = 0.5·(own + src_k);
-    acc += w_k ⊗ avg; out = acc·scale.  With init, init is updated in place
-    and returned.  An entry that repeats its predecessor (a pad entry) is
-    computed but not stored, as the kernels skip it."""
-    P, nb, _, L = srcs.shape
+def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms):
+    """The sweep's plain body, slot by slot over all shards and blocks at
+    once, in the reference body's operation order: acc = init (or 0);
+    avg = 0.5·(own + src_k); acc += w_k ⊗ avg; out = acc·scale.
+
+    slot_terms(k, w, off, own) gives slot k's sources (P, nb, NV, w) and
+    weights (P, nb, 3, w) over lanes [0, w); own is (P, nb, NV, bp).  With
+    init, init is updated in place and returned.  An entry that repeats its
+    predecessor (a pad entry) is computed but not stored, as the kernels
+    skip it."""
+    P, nb = block_ids.shape
     bp = scale.shape[-1]
     ndev = var_T.shape[2]
     dev = var_T.device
@@ -149,11 +170,11 @@ def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,
     store = torch.where(first, block_ids.long(), ndev // bp)
     store = (store[:, :, None] * bp + lanes).reshape(P, 1, nb * bp)
     widths, offs = slots.tolist()
-    for w, off in zip(widths, offs):
+    for k, (w, off) in enumerate(zip(widths, offs)):
         if w == 0:
             continue
-        avg = 0.5 * (own[..., :w] + srcs[..., off:off + w])   # (P, nb, NV, w)
-        wk = slot_w[..., off:off + w]                          # (P, nb, 3, w)
+        src, wk = slot_terms(k, w, off, own)
+        avg = 0.5 * (own[..., :w] + src)                       # (P, nb, NV, w)
         acc[..., :w] = acc[..., :w] + wk[:, :, :, None, :] * avg[:, :, None]
     res = acc.reshape(P, nb, ROWS, bp) * scale                 # (P, nb, 24, bp)
     out.scatter_(2, store.expand(P, ROWS, nb * bp),
@@ -163,22 +184,31 @@ def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,
     return init.copy_(out[:, :, :ndev])
 
 
-def _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init):
-    """Validate the sweep operands; returns (P, nb, L, bp, ndev, K)."""
+def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,
+                     slot_w: torch.Tensor, scale: torch.Tensor,
+                     block_ids: torch.Tensor, slots: torch.Tensor,
+                     init: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the packed sweep (_block_compute_packed): slot k's
+    sources and weights are lanes [off_k, off_k + wks[k]) of the compact
+    tables."""
+    return _sweep_plain(
+        var_T, scale, block_ids, slots, init,
+        lambda k, w, off, own: (srcs[..., off:off + w],
+                                slot_w[..., off:off + w]))
+
+
+def _check_common(var_T, scale, block_ids, slots, init, P, nb):
+    """Validate the operands both formulations share; returns (bp, ndev,
+    K)."""
     dev = var_T.device
     _expect(var_T, "var_T", torch.float32, 3, dev)
-    _expect(srcs, "srcs", torch.float32, 4, dev)
-    _expect(slot_w, "slot_w", torch.float32, 4, dev)
     _expect(scale, "scale", torch.float32, 4, dev)
     _expect(block_ids, "block_ids", torch.int32, 2, dev)
     _expect(slots, "slots", torch.int32, 2, dev)
-    P, nb, _, L = srcs.shape
     bp = scale.shape[3]
     ndev = var_T.shape[2]
     K = slots.shape[1]
     _shape(var_T, "var_T", (P, NV, ndev))
-    _shape(srcs, "srcs", (P, nb, NV, L))
-    _shape(slot_w, "slot_w", (P, nb, 3, L))
     _shape(scale, "scale", (P, nb, 1, bp))
     _shape(block_ids, "block_ids", (P, nb))
     check(slots.shape[0] == 2 and 1 <= K <= MAX_SLOTS,
@@ -190,6 +220,18 @@ def _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init):
         # the reference aliases init to the output (blocksweep.py:588-591)
         _expect(init, "init", torch.float32, 3, dev)
         _shape(init, "init", (P, ROWS, ndev))
+    return bp, ndev, K
+
+
+def _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init):
+    """Validate the packed sweep's operands; returns (P, nb, L, bp, ndev,
+    K)."""
+    _expect(srcs, "srcs", torch.float32, 4, var_T.device)
+    _expect(slot_w, "slot_w", torch.float32, 4, var_T.device)
+    P, nb, _, L = srcs.shape
+    bp, ndev, K = _check_common(var_T, scale, block_ids, slots, init, P, nb)
+    _shape(srcs, "srcs", (P, nb, NV, L))
+    _shape(slot_w, "slot_w", (P, nb, 3, L))
     return P, nb, L, bp, ndev, K
 
 
@@ -240,12 +282,104 @@ sweep_blocks.launches = 0          # the zero-filled form (K1)
 sweep_blocks.init_launches = 0     # the accumulate form (K1-init)
 
 
+# ---------------------------------------------------------- gather sweep
+
+def sweep_blocks_gather_ref(var_T: torch.Tensor, exts: torch.Tensor,
+                            slot_idx: torch.Tensor, slot_w: torch.Tensor,
+                            scale: torch.Tensor, block_ids: torch.Tensor,
+                            slots: torch.Tensor,
+                            init: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the gather sweep (_block_compute): slot k's sources
+    are gathered from the block table [own ‖ exts] (P, nb, NV, bp + EP) by
+    the W-index slot_idx[..., k, :w], its weights are slot_w[..., k, :, :w],
+    w = wks[k]."""
+    tbl = None
+
+    def terms(k, w, off, own):
+        nonlocal tbl
+        if tbl is None:
+            tbl = torch.cat([own, exts], dim=3)
+        P, nb = slot_idx.shape[:2]
+        idx = slot_idx[:, :, k, None, :w].long().expand(P, nb, NV, w)
+        return torch.gather(tbl, 3, idx), slot_w[:, :, k, :, :w]
+
+    return _sweep_plain(var_T, scale, block_ids, slots, init, terms)
+
+
+def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
+                  init):
+    """Validate the gather sweep's operands; returns (P, nb, EP, bp, ndev,
+    K).  The W-indices' range is checked where the plan is loaded
+    (models/gradients.py), not per call."""
+    dev = var_T.device
+    _expect(exts, "exts", torch.float32, 4, dev)
+    _expect(slot_idx, "slot_idx", torch.int32, 4, dev)
+    _expect(slot_w, "slot_w", torch.float32, 5, dev)
+    P, nb, _, ep = exts.shape
+    bp, ndev, K = _check_common(var_T, scale, block_ids, slots, init, P, nb)
+    _shape(exts, "exts", (P, nb, NV, ep))
+    _shape(slot_idx, "slot_idx", (P, nb, K, bp))
+    _shape(slot_w, "slot_w", (P, nb, K, 3, bp))
+    check(ep > 0, "exts: EP must be positive")
+    return P, nb, ep, bp, ndev, K
+
+
+def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
+                 dims):
+    P, nb, ep, bp, ndev, K = dims
+    return (var_T.data_ptr(), ndev, exts.data_ptr(), ep, slot_idx.data_ptr(),
+            slot_w.data_ptr(), scale.data_ptr(), block_ids.data_ptr(),
+            slots.data_ptr(), K, P, nb, bp)
+
+
+def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
+                        slot_idx: torch.Tensor, slot_w: torch.Tensor,
+                        scale: torch.Tensor, block_ids: torch.Tensor,
+                        slots: torch.Tensor,
+                        init: torch.Tensor | None = None) -> torch.Tensor:
+    """Gather-formulation Green-Gauss sweep → (P, 3·NV, ndev) f32, row
+    d*NV+v.
+
+    var_T (P, NV, ndev) f32; exts (P, nb, NV, EP) f32 from `gather_exts`;
+    slot_idx (P, nb, K, bp) i32 W-indices in [0, bp + EP); slot_w
+    (P, nb, K, 3, bp) f32; scale, block_ids and init as in `sweep_blocks`;
+    slots (2, K) i32 from `slot_table(wks)` (only the widths are read).
+    Counterpart of `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(...,
+    packed=False, wks=..., init=...)`.  Kernel: csrc/sweep_gather.cu."""
+    dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
+                         slots, init)
+    if _device_kind(var_T) == "cpu":
+        return sweep_blocks_gather_ref(var_T, exts, slot_idx, slot_w, scale,
+                                       block_ids, slots, init)
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    dev = var_T.device
+    P, _, _, _, ndev, _ = dims
+    out = (torch.zeros((P, ROWS, ndev), dtype=torch.float32, device=dev)
+           if init is None else init)
+    with torch.cuda.device(dev):
+        rc = _cuda.lib().cfd_sweep_gather(
+            *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
+                          slots, dims),
+            int(init is not None), out.data_ptr(), _stream(dev))
+    _cuda.check_launch(rc, "sweep_blocks_gather")
+    if init is None:
+        sweep_blocks_gather.launches += 1
+    else:
+        sweep_blocks_gather.init_launches += 1
+    return out
+
+
+sweep_blocks_gather.launches = 0          # the zero-filled form (K2)
+sweep_blocks_gather.init_launches = 0     # the accumulate form (K2-init)
+
+
 # ------------------------------------------------------- fused overlap
 
 def loopback(sendbufs: torch.Tensor, dsts: torch.Tensor) -> torch.Tensor:
     """The loopback transport: recv[dsts[p, k], k] = sendbufs[p, k], zeros
-    where no shard sends.  sendbufs (P, nph, 3·NV, s_max); dsts (P, nph)
-    integer, on sendbufs' device."""
+    where no shard sends.  sendbufs (P, nph, rows, s_max): 3·NV gradient
+    rows or NV state rows; dsts (P, nph) integer, on sendbufs' device."""
     P, nph = dsts.shape
     recv = torch.zeros_like(sendbufs)
     phase = torch.arange(nph, device=dsts.device).expand(P, nph)
@@ -264,6 +398,8 @@ def sweep_blocks_overlap_ref(var_T, srcs, slot_w, scale, block_ids, slots,
 
 
 def _check_push(sendbufs, dsts, src_devs, P, dev):
+    """Validate the push operands; returns (nph, s_max, the device copy of
+    the push map)."""
     _expect(sendbufs, "sendbufs", torch.float32, 4, dev)
     cpu = torch.device("cpu")
     _expect(dsts, "dsts", torch.int32, 2, cpu)
@@ -276,7 +412,9 @@ def _check_push(sendbufs, dsts, src_devs, P, dev):
     check(s_max % 4 == 0 and sendbufs.data_ptr() % 16 == 0,
           "sendbufs: s_max %d must be a multiple of 4 on a 16-byte aligned "
           "base (16-byte copies)", s_max)
-    return nph, s_max
+    dmap = _push_table(dsts.numpy().tobytes(), src_devs.numpy().tobytes(),
+                       tuple(dsts.shape), str(dev))
+    return nph, s_max, dmap
 
 
 @lru_cache(maxsize=16)
@@ -315,9 +453,7 @@ def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
     check(init is not None, "sweep_blocks_overlap accumulates onto init")
     dims = _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init)
     dev = var_T.device
-    nph, s_max = _check_push(sendbufs, dsts, src_devs, dims[0], dev)
-    dmap = _push_table(dsts.numpy().tobytes(), src_devs.numpy().tobytes(),
-                       tuple(dsts.shape), str(dev))
+    nph, s_max, dmap = _check_push(sendbufs, dsts, src_devs, dims[0], dev)
     if _device_kind(var_T) == "cpu":
         return sweep_blocks_overlap_ref(var_T, srcs, slot_w, scale,
                                         block_ids, slots, init, sendbufs,
@@ -336,3 +472,51 @@ def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
 
 
 sweep_blocks_overlap.launches = 0
+
+
+def sweep_blocks_overlap_gather_ref(var_T, exts, slot_idx, slot_w, scale,
+                                    block_ids, slots, init, sendbufs, dsts,
+                                    src_devs):
+    """Plain version of the fused kernel's gather form."""
+    del src_devs
+    grad = sweep_blocks_gather_ref(var_T, exts, slot_idx, slot_w, scale,
+                                   block_ids, slots, init)
+    return grad, loopback(sendbufs, dsts.to(sendbufs.device))
+
+
+def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
+                                slot_idx: torch.Tensor, slot_w: torch.Tensor,
+                                scale: torch.Tensor, block_ids: torch.Tensor,
+                                slots: torch.Tensor, init: torch.Tensor,
+                                sendbufs: torch.Tensor, dsts: torch.Tensor,
+                                src_devs: torch.Tensor):
+    """Fused interior sweep (gather formulation) + halo push → (grad,
+    recv): the sweep operands as in `sweep_blocks_gather`, the push as in
+    `sweep_blocks_overlap`.  Counterpart of
+    `cfd_proxy_tpu.ops.blocksweep.sweep_blocks_overlap(..., packed=False)`.
+    Kernel: csrc/sweep_overlap.cu (its gather instance)."""
+    check(init is not None, "sweep_blocks_overlap_gather accumulates onto "
+          "init")
+    dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
+                         slots, init)
+    dev = var_T.device
+    nph, s_max, dmap = _check_push(sendbufs, dsts, src_devs, dims[0], dev)
+    if _device_kind(var_T) == "cpu":
+        return sweep_blocks_overlap_gather_ref(
+            var_T, exts, slot_idx, slot_w, scale, block_ids, slots, init,
+            sendbufs, dsts, src_devs)
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    recv = torch.zeros_like(sendbufs)
+    with torch.cuda.device(dev):
+        rc = _cuda.lib().cfd_sweep_overlap_gather(
+            *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
+                          slots, dims),
+            init.data_ptr(), sendbufs.data_ptr(), dmap.data_ptr(), nph,
+            s_max, recv.data_ptr(), _stream(dev))
+    _cuda.check_launch(rc, "sweep_blocks_overlap_gather")
+    sweep_blocks_overlap_gather.launches += 1
+    return init, recv
+
+
+sweep_blocks_overlap_gather.launches = 0

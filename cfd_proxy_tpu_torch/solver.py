@@ -9,12 +9,18 @@ table and verify lines as the reference CLI:
 
     python -m cfd_proxy_tpu_torch.solver --nx 96 --ny 96 --nz 96 \
         --parts 8 --schedule all --iters 300
+    python -m cfd_proxy_tpu_torch.solver --nx 96 --ny 96 --nz 96 \
+        --schedule bulk --solver-mode --sweeps-per-step 4
 
-The port runs the packed kernel in the compact layout, f32, Green-Gauss,
-under the bulk / early / overlap schedules (`--force-rdma`: the fused
-overlap kernel even at one shard).  Every other option is accepted by the
-parser so that it can be refused by name (`CheckError`, naming the ROADMAP
-item that brings it), never ignored.
+The port runs f32 Green-Gauss with the packed (compact layout) or the
+gather kernel (`--kernel`) under the bulk / early / overlap schedules
+(`--force-rdma`: the fused overlap kernel even at one shard).
+`--solver-mode` times the per-time-step dataflow of a real solver (table
+rebuild, `--sweeps-per-step` sweeps with their updates, var halo exchange)
+instead of the static-state iteration; without `--kernel` it takes the
+kernel and block size `solver_mode_defaults` decides.  Every other option
+is accepted by the parser so that it can be refused by name (`CheckError`,
+naming the ROADMAP item that brings it), never ignored.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from cfd_proxy_tpu.mesh.reader import partition_path, read_partition
 from cfd_proxy_tpu.utils.errors import check
 from cfd_proxy_tpu.utils.timing import (IterationStats, format_stats_table,
                                         two_point_sampler)
-from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
+from cfd_proxy_tpu_torch.models.gradients import KERNELS, GreenGaussTorch
 from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
                                             scale_gradients)
 
@@ -44,6 +50,21 @@ SCHEDULES = ("bulk", "early", "overlap")     # what --schedule all times
 # two-point timing noise: no overlap efficiency is reported (the reference's
 # gate, cfd_proxy_tpu/solver.py:371-375)
 NOISE_GATE = 0.05
+
+
+def solver_mode_defaults(sweeps_per_step: int = 1) -> tuple[str, int | None]:
+    """The decided solver-mode kernel configuration per sweeps_per_step —
+    the one place the measured crossover lives.  Returns (kernel, bp); bp
+    None = the model's AUTO rule.
+
+    Re-decided on an H100 (PERF.md, solver mode): the reference's TPU
+    rule (gather/512 up to 2 sweeps per step, packed/AUTO from 4) does not
+    carry over.  On the card gather/512 has the cheaper table rebuild (ext
+    columns, no source re-pack) AND the cheaper sweep (K2 reads fewer bytes
+    from device memory than K1), so it wins at every measured N (1, 2, 4;
+    P = 1 and 8) and the gap grows with N: there is no crossover."""
+    del sweeps_per_step             # no crossover on the card
+    return ("gather", 512)
 
 
 @dataclass
@@ -68,6 +89,7 @@ class SolverConfig:
     halo_dtype: str = "float32"
     grad_dtype: str = "float32"
     solver_mode: bool = False
+    sweeps_per_step: int = 1
     diag_frac: float = 0.2
     jitter: float = 0.05
     seed: int = 0
@@ -83,16 +105,18 @@ def check_config(cfg: SolverConfig) -> None:
           cfg.schedule)
     check(cfg.slice_size is None, "--slice-size %s: multi-node phase "
           "routing comes with ROADMAP queue 1 item 12", cfg.slice_size)
-    check(cfg.kernel == "packed", "--kernel %s: the gather formulation (K2) "
-          "comes with ROADMAP queue 1 item 7 (solver mode)", cfg.kernel)
+    check(cfg.kernel in KERNELS, "unknown --kernel %s", cfg.kernel)
     check(cfg.model == "gg", "--model %s: the flux model comes with ROADMAP "
           "queue 1 item 8", cfg.model)
     for name in ("meta_dtype", "src_dtype", "halo_dtype", "grad_dtype"):
         check(getattr(cfg, name) == "float32", "--%s %s: reduced-precision "
               "options come with ROADMAP queue 1 item 9",
               name.replace("_", "-"), getattr(cfg, name))
-    check(not cfg.solver_mode, "--solver-mode comes with ROADMAP queue 1 "
-          "item 7")
+    check(cfg.sweeps_per_step >= 1, "--sweeps-per-step %d: need at least "
+          "one sweep per step", cfg.sweeps_per_step)
+    check(cfg.sweeps_per_step == 1 or cfg.solver_mode, "--sweeps-per-step "
+          "requires --solver-mode (the static iteration never rebuilds "
+          "tables)")
     check(cfg.device in ("cuda", "cpu"), "--device %s: cuda or cpu",
           cfg.device)
     check(cfg.device != "cuda" or torch.cuda.is_available(),
@@ -110,7 +134,8 @@ def build_model(cfg: SolverConfig):
                               diag_frac=cfg.diag_frac, seed=cfg.seed)
         parts = partition_mesh(gmesh, cfg.parts)
     model = GreenGaussTorch(parts, cfg.nvar, bp=cfg.bp, kcompact=cfg.kcompact,
-                            force_rdma=cfg.force_rdma, device=cfg.device)
+                            force_rdma=cfg.force_rdma, kernel=cfg.kernel,
+                            device=cfg.device)
     return model, gmesh
 
 
@@ -120,13 +145,17 @@ def _sync(device: torch.device) -> None:
 
 
 def time_schedule(model: GreenGaussTorch, state: dict, schedule: str,
-                  iters: int, warmup: int, repeats: int = 3) -> IterationStats:
+                  iters: int, warmup: int, repeats: int = 3,
+                  solver_mode: bool = False,
+                  sweeps_per_step: int = 1) -> IterationStats:
     """Two-point timing: chained loops of n0 and n0+iters steps, each ended
     by a device synchronise; their difference over iters is the per-step
-    time with the fixed per-run cost cancelled."""
+    time with the fixed per-run cost cancelled.  solver_mode times the
+    solver's per-step dataflow (GreenGaussTorch.iterate_fn)."""
     n0 = max(1, iters // 10)
-    small = model.iterate_fn(schedule, n0)
-    big = model.iterate_fn(schedule, n0 + iters)
+    small = model.iterate_fn(schedule, n0, solver_mode, sweeps_per_step)
+    big = model.iterate_fn(schedule, n0 + iters, solver_mode,
+                           sweeps_per_step)
     args = model.iter_args(state)
     dev = model.device
 
@@ -216,13 +245,20 @@ def run(cfg: SolverConfig) -> tuple[dict, list[IterationStats]]:
     state = model.distribute_state(gvar, schedules=need)
     stats = []
     entries = {}
+    mode = {"solver_mode": cfg.solver_mode,
+            "sweeps_per_step": cfg.sweeps_per_step}
+    # with N sweeps per solver step, faces/s counts swept faces, so the
+    # amortised rebuild shows as throughput (the reference's rule)
+    sweeps = cfg.sweeps_per_step if cfg.solver_mode else 1
     for s in schedules:
-        st = time_schedule(model, state, s, cfg.iters, cfg.warmup)
+        st = time_schedule(model, state, s, cfg.iters, cfg.warmup, **mode)
         stats.append(st)
-        entries[s] = {**st.summary(), "faces_per_sec": nface / st.median}
+        entries[s] = {**st.summary(),
+                      "faces_per_sec": nface * sweeps / st.median}
     if len(schedules) > 1:
         # compute-only floor: the bulk sweep without the exchange
-        st = time_schedule(model, state, "nocomm", cfg.iters, cfg.warmup)
+        st = time_schedule(model, state, "nocomm", cfg.iters, cfg.warmup,
+                           **mode)
         stats.append(st)
         overlap_efficiency(entries, st.median, len(model.parts))
     results = {
@@ -237,6 +273,8 @@ def run(cfg: SolverConfig) -> tuple[dict, list[IterationStats]]:
         "bp": model.bp,
         "wks": {c: list(w) for c, w in model.wks.items()},
         "force_rdma": cfg.force_rdma,
+        "solver_mode": cfg.solver_mode,
+        "sweeps_per_step": cfg.sweeps_per_step if cfg.solver_mode else None,
         "iters": cfg.iters,
         "schedules": entries,
     }
@@ -280,27 +318,48 @@ def main(argv=None) -> int:
     ap.add_argument("--slice-size", type=int, default=None,
                     help="devices per node (multi-node phase routing)")
     ap.add_argument("--model", default="gg", choices=["gg", "flux"])
-    ap.add_argument("--kernel", default="packed", choices=["packed", "gather"])
+    ap.add_argument("--kernel", default=None, choices=list(KERNELS),
+                    help="default: packed, or under --solver-mode the "
+                         "decided solver_mode_defaults")
     ap.add_argument("--kcompact", default="auto", choices=["auto", "on", "off"])
     ap.add_argument("--bp", type=int, default=None,
                     help="points per block (multiple of 128; default auto)")
     for name in ("meta", "src", "halo", "grad"):
         ap.add_argument(f"--{name}-dtype", default="float32",
                         choices=["float32", "bfloat16"])
-    ap.add_argument("--solver-mode", action="store_true")
+    ap.add_argument("--solver-mode", action="store_true",
+                    help="time the solver's per-step dataflow: table "
+                         "rebuild, sweeps + updates, var halo exchange")
+    ap.add_argument("--sweeps-per-step", type=int, default=1,
+                    help="solver mode: gradient evaluations per table "
+                         "rebuild")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--no-verify", action="store_true")
     ap.add_argument("--json", action="store_true", help="emit one JSON line")
     a = ap.parse_args(argv)
+    if a.kernel is None:
+        if a.solver_mode:
+            a.kernel, bp_def = solver_mode_defaults(a.sweeps_per_step)
+            if a.bp is None:
+                a.bp = bp_def
+            print(f"cfd_proxy_tpu_torch: --solver-mode defaults to --kernel "
+                  f"{a.kernel}" + (f" --bp {bp_def}" if bp_def else "")
+                  + f" at sweeps_per_step={a.sweeps_per_step} (PERF.md, "
+                  f"solver mode); pass --kernel/--bp to override",
+                  file=sys.stderr)
+        else:
+            a.kernel = "packed"
     cfg = SolverConfig(
         nx=a.nx, ny=a.ny, nz=a.nz, mesh_prefix=a.mesh_prefix, parts=a.parts,
         nvar=a.nvar, iters=a.iters, warmup=a.warmup, schedule=a.schedule,
-        force_rdma=a.force_rdma, slice_size=a.slice_size, model=a.model, kernel=a.kernel,
+        force_rdma=a.force_rdma, slice_size=a.slice_size, model=a.model,
+        kernel=a.kernel,
         kcompact={"auto": None, "on": True, "off": False}[a.kcompact],
         bp=a.bp, meta_dtype=a.meta_dtype, src_dtype=a.src_dtype,
         halo_dtype=a.halo_dtype, grad_dtype=a.grad_dtype,
-        solver_mode=a.solver_mode, seed=a.seed, device=a.device,
+        solver_mode=a.solver_mode, sweeps_per_step=a.sweeps_per_step,
+        seed=a.seed, device=a.device,
         verify=not a.no_verify, json_out=a.json)
     t0 = time.perf_counter()
     results, stats = run(cfg)
@@ -311,7 +370,9 @@ def main(argv=None) -> int:
         print(f"device={results['device']} parts={results['npart']} "
               f"points={results['npoint']} faces={results['nface']} "
               f"nvar={results['nvar']} dtype={results['dtype']} "
-              f"bp={results['bp']}")
+              f"kernel={results['kernel']} bp={results['bp']}"
+              + (f" solver_mode sweeps_per_step={cfg.sweeps_per_step}"
+                 if cfg.solver_mode else ""))
         print(format_stats_table(stats, ref="bulk"))
         for s, e in results["schedules"].items():
             if e.get("overlap_efficiency") is not None:

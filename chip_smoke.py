@@ -12,7 +12,17 @@ faces, nvar 7, random state from a seed):
 - `main_path_p1_all`: one shard with the fused overlap kernel forced
   (`force_rdma`), schedules bulk, early and overlap;
 - `main_path_p8`: the mesh cut into 8 shards, all on the card, schedules
-  bulk, early, overlap and nocomm, with the halo exchange between shards.
+  bulk, early, overlap and nocomm, with the halo exchange between shards;
+- `solver_p1`: one shard, the gather kernel at bp 512 (the solver-mode
+  configuration): every schedule, `refresh_state` after an update of the
+  owned columns, and the solver-mode runner (`iterate_fn(...,
+  solver_mode=True)`: table rebuild, sweep + update, var exchange);
+- `solver_p8`: the same at 8 shards, with the var exchange's ghost columns
+  checked against their owners;
+- `gather_auto_bp`: the gather kernel at the AUTO block size (4096);
+- `solver_mode_timing`: the solver-mode step at P=1 and P=8, bulk, for
+  gather/bp 512 and packed/AUTO at 1, 2 and 4 sweeps per step — the
+  numbers `solver.solver_mode_defaults` is decided from.
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after, and checked against the f64 golden, across schedules
@@ -43,6 +53,10 @@ NVAR = 7
 SEED = 0
 P_MULTI = 8      # shards of the multi-shard path (the reference's mpirun -n 8)
 TIMED_STEPS = 200
+SOLVER_STEPS = 100   # timed solver-mode steps per configuration
+SOLVER_RUN = 4       # solver-mode steps of the counted runner
+GATHER_BP = 512      # the gather kernel's solver-mode block size
+SWEEPS = (1, 2, 4)   # sweeps per solver-mode step
 K1_TOL = 1e-6    # sweep kernels vs plain: FMA contraction, relative to max|ref|
 GOLDEN_TOL = 1e-5   # every schedule vs f64 golden (the reference's gate)
 SCHED_TOL = 1e-6    # early vs bulk, overlap vs early, relative to max|bulk|
@@ -56,7 +70,19 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "sweep_blocks_overlap": ("cuda",
                              "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
                              "cfd_proxy_tpu/ops/blocksweep.py:687"),
+    "sweep_blocks_gather": ("cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+                            "cfd_proxy_tpu/ops/blocksweep.py:549"),
+    "sweep_blocks_gather_init": ("cuda",
+                                 "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+                                 "cfd_proxy_tpu/ops/blocksweep.py:549"),
+    "sweep_blocks_overlap_gather": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:687"),
 }
+PACKED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
+          "sweep_blocks_overlap")
+GATHER = ("sweep_blocks_gather", "sweep_blocks_gather_init",
+          "sweep_blocks_overlap_gather")
 
 
 def emit(phase: str, **kw) -> None:
@@ -120,7 +146,8 @@ def main() -> int:
         from cfd_proxy_tpu_torch.ops import blocksweep as bs
         from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
                                                     scale_gradients)
-        from cfd_proxy_tpu_torch.solver import time_schedule
+        from cfd_proxy_tpu_torch.solver import (solver_mode_defaults,
+                                                time_schedule)
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               f"root of a checkout", file=sys.stderr)
@@ -128,18 +155,25 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
 
+    counters = {   # kernel row: (wrapper, its count attribute)
+        "pack_srcs": (bs.pack_srcs, "launches"),
+        "sweep_blocks": (bs.sweep_blocks, "launches"),
+        "sweep_blocks_init": (bs.sweep_blocks, "init_launches"),
+        "sweep_blocks_overlap": (bs.sweep_blocks_overlap, "launches"),
+        "sweep_blocks_gather": (bs.sweep_blocks_gather, "launches"),
+        "sweep_blocks_gather_init": (bs.sweep_blocks_gather,
+                                     "init_launches"),
+        "sweep_blocks_overlap_gather": (bs.sweep_blocks_overlap_gather,
+                                        "launches"),
+    }
+
     def reset_counts():
-        bs.pack_srcs.launches = 0
-        bs.sweep_blocks.launches = 0
-        bs.sweep_blocks.init_launches = 0
-        bs.sweep_blocks_overlap.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read_counts():
         torch.cuda.synchronize()
-        return {"pack_srcs": bs.pack_srcs.launches,
-                "sweep_blocks": bs.sweep_blocks.launches,
-                "sweep_blocks_init": bs.sweep_blocks.init_launches,
-                "sweep_blocks_overlap": bs.sweep_blocks_overlap.launches}
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
     launches = dict.fromkeys(KERNELS, 0)    # summed over the counted paths
 
@@ -150,12 +184,48 @@ def main() -> int:
         if missing:
             fail(f"{path} launched no {missing} kernel")
 
-    def golden_relmax(model, g):
+    def golden_relmax(model, g, scale=1.0):
+        """Max error against the golden of scale·gvar (the golden is linear
+        in the state) over max(1, max|golden|)."""
         got = model.gather_global(g)
         if got.shape != ref.shape or not np.isfinite(got).all():
             fail(f"output shape {got.shape} (expected {ref.shape}) or "
                  f"non-finite values")
-        return float(np.abs(got - ref).max() / denom)
+        gold = ref if scale == 1.0 else scale * ref
+        return float(np.abs(got - gold).max()
+                     / max(1.0, float(np.abs(gold).max())))
+
+    def ghost_check(path, model, arr):
+        """Every ghost column of the (P, rows, ndev) host array equals its
+        owner's column bitwise; returns the columns checked."""
+        nghost = 0
+        for i, p in enumerate(model.parts):
+            for e in p.comm:
+                q = model.parts[e.partner]
+                back = [x for x in q.comm
+                        if x.partner == p.part_id and x.round == e.round]
+                send_cols = model.locmap[e.partner][back[0].sendidx]
+                recv_cols = model.locmap[i][e.recvidx]
+                if len(send_cols) == 0:
+                    continue
+                if not np.array_equal(arr[i][:, recv_cols],
+                                      arr[e.partner][:, send_cols]):
+                    fail(f"{path}: ghost columns of shard {i} from "
+                         f"{e.partner} round {e.round} differ from the "
+                         f"owner's")
+                nghost += len(recv_cols)
+        if nghost == 0:
+            fail(f"{path}: no ghost column to check")
+        return nghost
+
+    def owned_scaled(model, var_T, factor):
+        """var_T with each shard's owned columns times factor, ghosts
+        left stale (a solver's state update)."""
+        mask = torch.zeros((len(model.parts), 1, model.ndev), dtype=torch.bool,
+                           device=dev)
+        for i, p in enumerate(model.parts):
+            mask[i, 0, : p.nowned] = True
+        return torch.where(mask, var_T * factor, var_T)
 
     def check_schedules(path, model, outs):
         """Every schedule vs the golden; early vs bulk, overlap vs early."""
@@ -196,7 +266,6 @@ def main() -> int:
         compute_gradients_gg(gvar.astype(np.float64), gmesh.faces,
                              gmesh.normals),
         gmesh.volume, gmesh.npoint).reshape(gmesh.npoint, -1)
-    denom = max(1.0, float(np.abs(ref).max()))
     emit("mesh", npoint=gmesh.npoint, nface=gmesh.nface,
          seconds=time.perf_counter() - t0)
 
@@ -269,13 +338,14 @@ def main() -> int:
     emit("main_path_p1_all", force_rdma=True, has_comm=model.has_comm,
          vs_golden_relmax=rel, tol=GOLDEN_TOL, cross=cross, max_abs_bulk=scale,
          cross_tol=SCHED_TOL * scale, launches=counts)
-    expect_counts("main_path_p1_all", counts, KERNELS)
+    expect_counts("main_path_p1_all", counts, PACKED)
     del outs
     step_ms = {1: {}, P_MULTI: {}}
     for s in ("bulk", "early", "overlap", "nocomm"):
         st = time_schedule(model, state, s, TIMED_STEPS, warmup=2, repeats=5)
         step_ms[1][s] = st.median * 1e3
-    del model, state
+    packed_models = {1: model}    # timed again in solver mode
+    del state
 
     # ---- P=8 shards on the one card
     t0 = time.perf_counter()
@@ -291,22 +361,7 @@ def main() -> int:
     counts = read_counts()
     rel, cross, scale = check_schedules("main_path_p8", model, outs)
     # every ghost column equals its owner's column, bitwise (early)
-    g = outs["early"].cpu().numpy()
-    nghost = 0
-    for i, p in enumerate(model.parts):
-        for e in p.comm:
-            q = model.parts[e.partner]
-            back = [x for x in q.comm
-                    if x.partner == p.part_id and x.round == e.round]
-            send_cols = model.locmap[e.partner][back[0].sendidx]
-            recv_cols = model.locmap[i][e.recvidx]
-            if len(send_cols) == 0:
-                continue
-            if not np.array_equal(g[i][:, recv_cols],
-                                  g[e.partner][:, send_cols]):
-                fail(f"main_path_p8: ghost columns of shard {i} from "
-                     f"{e.partner} round {e.round} differ from the owner's")
-            nghost += len(recv_cols)
+    nghost = ghost_check("main_path_p8", model, outs["early"].cpu().numpy())
     emit("main_path_p8", parts=P_MULTI, partition_seconds=t_part,
          model_seconds=t_model, bp=model.bp, ndev=model.ndev,
          nphases=model.nphases, s_max=model.s_max,
@@ -314,9 +369,7 @@ def main() -> int:
          vs_golden_relmax=rel, tol=GOLDEN_TOL, cross=cross,
          max_abs_bulk=scale, cross_tol=SCHED_TOL * scale,
          ghost_columns_checked=nghost, launches=counts)
-    if nghost == 0:
-        fail("main_path_p8: no ghost column to check")
-    expect_counts("main_path_p8", counts, KERNELS)
+    expect_counts("main_path_p8", counts, PACKED)
 
     # ---- K1-init and K3 vs their plain versions, at the P=8 shapes
     var_T = state["var_T"]
@@ -377,6 +430,184 @@ def main() -> int:
          kernels=times, steps=TIMED_STEPS)
     if bad:
         fail(f"step timing fell below the two-point noise floor: {bad}")
+    packed_models[P_MULTI] = model
+    del state, gb, sendbufs, iargs
+
+    # ---- solver mode, the gather kernel: P=1 (fused kernel forced), P=8
+    gather_models = {}
+    for npart, path in ((1, "solver_p1"), (P_MULTI, "solver_p8")):
+        t0 = time.perf_counter()
+        gm = GreenGaussTorch(parts if npart == 1 else parts8, NVAR,
+                             bp=GATHER_BP, kernel="gather",
+                             force_rdma=npart == 1, device=dev)
+        t_model = time.perf_counter() - t0
+        reset_counts()
+        state = gm.distribute_state(gvar)
+        scheds = ("bulk", "early", "overlap") + (("nocomm",) if npart > 1
+                                                 else ())
+        outs = {s: gm.step(state, s) for s in scheds}
+        counts = read_counts()
+        rel, cross, scale = check_schedules(path, gm, outs)
+        expect_counts(path, counts, GATHER)
+        if counts["pack_srcs"]:
+            fail(f"{path}: the gather model launched the source pack")
+        info = {}
+        if npart > 1:
+            info["step_ghost_columns_checked"] = ghost_check(
+                path, gm, outs["early"].cpu().numpy())
+        del outs
+        # a solver's state update: owned columns x1.5, ghosts stale; the
+        # var exchange refreshes them and the next step sees 1.5·gvar
+        reset_counts()
+        st2 = gm.refresh_state(owned_scaled(gm, state["var_T"], 1.5),
+                               schedules=["bulk"])
+        rel15 = golden_relmax(gm, gm.step(st2, "bulk"), scale=1.5)
+        counts = read_counts()
+        expect_counts(path, counts, ("sweep_blocks_gather",))
+        if not rel15 <= GOLDEN_TOL:
+            fail(f"{path}: bulk after refresh_state vs the golden of "
+                 f"1.5·gvar: {rel15:.3e} > {GOLDEN_TOL}")
+        if npart > 1:
+            info["var_ghost_columns_checked"] = ghost_check(
+                path, gm, st2["var_T"].cpu().numpy())
+        del st2
+        # the solver-mode runner: SOLVER_RUN steps, each rebuilding the
+        # bulk ext tables, sweeping once and exchanging the state
+        reset_counts()
+        v = gm.iterate_fn("bulk", SOLVER_RUN, solver_mode=True)(
+            *gm.iter_args(state))
+        counts = read_counts()
+        expect_counts(path, counts, ("sweep_blocks_gather",))
+        if counts["sweep_blocks_gather"] != SOLVER_RUN:
+            fail(f"{path}: {SOLVER_RUN} solver steps launched K2 "
+                 f"{counts['sweep_blocks_gather']} times")
+        if v.shape != state["var_T"].shape or not bool(
+                torch.isfinite(v).all()):
+            fail(f"{path}: solver-mode state {tuple(v.shape)} or "
+                 f"non-finite")
+        emit(path, parts=npart, kernel="gather", bp=gm.bp, ndev=gm.ndev,
+             model_seconds=t_model,
+             ep={c: int(gm.plans[c]["ext_idx"].shape[2]) for c in gm.plans},
+             kslots={c: len(w) for c, w in gm.wks.items()},
+             wks={c: list(w) for c, w in gm.wks.items()},
+             vs_golden_relmax=rel, tol=GOLDEN_TOL, cross=cross,
+             max_abs_bulk=scale, cross_tol=SCHED_TOL * scale,
+             refresh_vs_golden_15_relmax=rel15, solver_steps=SOLVER_RUN,
+             solver_launches=counts, **info)
+        gather_models[npart] = gm
+        del state, v
+
+    # ---- the gather kernel at the AUTO block size (4096 at one shard): K2
+    # stages nothing in shared memory, so no bp is too large for it
+    reset_counts()
+    gm = GreenGaussTorch(parts, NVAR, kernel="gather", device=dev)
+    rel_auto = golden_relmax(gm, gm.step(gm.distribute_state(
+        gvar, schedules=["bulk"]), "bulk"))
+    counts = read_counts()
+    emit("gather_auto_bp", parts=1, bp=gm.bp,
+         ep=int(gm.plans["bulk"]["ext_idx"].shape[2]),
+         bulk_vs_golden_relmax=rel_auto, tol=GOLDEN_TOL, launches=counts)
+    expect_counts("gather_auto_bp", counts, ("sweep_blocks_gather",))
+    if not rel_auto <= GOLDEN_TOL:
+        fail(f"gather at bp {gm.bp}: bulk vs golden {rel_auto:.3e}")
+    del gm
+
+    # ---- K2, K2-init and K3-gather vs their plain versions: K2 at the P=1
+    # bulk shapes, K2-init and K3-gather at the P=8 interior + push
+    gm = gather_models[1]
+    state = gm.distribute_state(gvar, schedules=["bulk"])
+    k2 = (state["var_T"], *gm._operands("bulk", state["tables"]))
+    out = bs.sweep_blocks_gather(*k2)
+    out_ref = bs.sweep_blocks_gather_ref(*k2)
+    torch.cuda.synchronize()
+    errs["sweep_blocks_gather"] = float((out - out_ref).abs().max())
+    scales = {"sweep_blocks_gather": float(out_ref.abs().max())}
+    times["sweep_blocks_gather"] = paired_ms(
+        lambda: bs.sweep_blocks_gather(*k2),
+        lambda: bs.sweep_blocks_gather_ref(*k2))
+    del out, out_ref, state, k2
+    gm = gather_models[P_MULTI]
+    state = gm.distribute_state(gvar)
+    iargs = (state["var_T"], *gm._operands("interior", state["tables"]))
+    gb = gm.step(state, "nocomm")               # any finite init
+    sendbufs = gm._pack(gb, gm.pack_scale)
+    got = bs.sweep_blocks_gather(*iargs, init=gb.clone())
+    want = bs.sweep_blocks_gather_ref(*iargs, init=gb.clone())
+    g3, r3 = bs.sweep_blocks_overlap_gather(*iargs, gb.clone(), sendbufs,
+                                            gm.dsts, gm.srcs)
+    g3r, r3r = bs.sweep_blocks_overlap_gather_ref(*iargs, gb.clone(),
+                                                  sendbufs, gm.dsts, gm.srcs)
+    torch.cuda.synchronize()
+    errs["sweep_blocks_gather_init"] = float((got - want).abs().max())
+    errs["sweep_blocks_overlap_gather"] = float((g3 - g3r).abs().max())
+    scales["sweep_blocks_gather_init"] = float(want.abs().max())
+    scales["sweep_blocks_overlap_gather"] = float(g3r.abs().max())
+    recv_equal = bool(torch.equal(r3, r3r))
+    del got, want, g3, r3, g3r, r3r
+    buf = gb.clone()
+    times["sweep_blocks_gather_init"] = paired_ms(
+        lambda: bs.sweep_blocks_gather(*iargs, init=buf),
+        lambda: bs.sweep_blocks_gather_ref(*iargs, init=buf))
+    times["sweep_blocks_overlap_gather"] = paired_ms(
+        lambda: bs.sweep_blocks_overlap_gather(*iargs, buf, sendbufs,
+                                               gm.dsts, gm.srcs),
+        lambda: bs.sweep_blocks_overlap_gather_ref(*iargs, buf, sendbufs,
+                                                   gm.dsts, gm.srcs))
+    emit("kernels_gather", card=smi,
+         max_abs_err={k: errs[k] for k in GATHER}, max_abs_ref=scales,
+         tol_rel=K1_TOL, sweep_blocks_overlap_gather_recv_bitwise=recv_equal,
+         times={k: times[k] for k in GATHER})
+    for k in GATHER:
+        if not errs[k] <= K1_TOL * scales[k]:
+            fail(f"{k} differs from its plain version: {errs[k]:.3e} > "
+                 f"{K1_TOL} x {scales[k]:.3e}")
+    if not recv_equal:
+        fail("sweep_blocks_overlap_gather recv differs from its plain "
+             "version")
+    del buf, gb, sendbufs, iargs, state
+
+    # ---- solver-mode step, bulk: gather/bp 512 against packed/AUTO at 1,
+    # 2 and 4 sweeps per step, P=1 and P=8 (the crossover the CLI default
+    # is decided from); the launches per step of one counted run each
+    solver_ms, per_step = {}, {}
+    configs = {"gather_bp512": gather_models, "packed_auto": packed_models}
+    for npart in (1, P_MULTI):
+        for name, ms in configs.items():
+            m = ms[npart]
+            state = m.distribute_state(gvar, schedules=["bulk"])
+            for n in SWEEPS:
+                key = f"P{npart}/{name}/N{n}"
+                st = time_schedule(m, state, "bulk", SOLVER_STEPS, warmup=1,
+                                   repeats=3, solver_mode=True,
+                                   sweeps_per_step=n)
+                solver_ms[key] = {"bp": m.bp, "step_ms": st.median * 1e3,
+                                  "sweep_ms": st.median * 1e3 / n,
+                                  "step_ms_all": [t * 1e3 for t in st.times]}
+                reset_counts()
+                m.iterate_fn("bulk", SOLVER_RUN, solver_mode=True,
+                             sweeps_per_step=n)(*m.iter_args(state))
+                counts = read_counts()
+                per_step[key] = {k: c / SOLVER_RUN
+                                 for k, c in counts.items() if c}
+                sweep = ("sweep_blocks_gather" if m.kernel == "gather"
+                         else "sweep_blocks")
+                want = {sweep: float(n)}
+                if m.kernel == "packed":
+                    want["pack_srcs"] = 1.0   # one rebuilt class (bulk)
+                if per_step[key] != want:
+                    fail(f"solver_mode_timing {key}: launches per step "
+                         f"{per_step[key]}, expected {want}")
+            del state
+    bad = [k for k, v in solver_ms.items() if not np.isfinite(v["step_ms"])]
+    emit("solver_mode_timing", card=smi, steps=SOLVER_STEPS,
+         solver_ms=solver_ms, launches_per_step=per_step,
+         defaults={n: solver_mode_defaults(n) for n in SWEEPS},
+         faster={f"P{p}/N{n}": min(configs, key=lambda c: solver_ms[
+             f"P{p}/{c}/N{n}"]["step_ms"]) for p in (1, P_MULTI)
+             for n in SWEEPS})
+    if bad:
+        fail(f"solver-mode timing fell below the two-point noise floor: "
+             f"{bad}")
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name], "max_abs_err": errs[name],

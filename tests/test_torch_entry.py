@@ -1,5 +1,6 @@
-"""Entry points of the port: the solver CLI on the CPU, and chip_smoke.py's
-refusal to run (or report success) without a CUDA card."""
+"""Entry points of the port: the solver CLI on the CPU (static iteration
+and solver mode), and chip_smoke.py's refusal to run (or report success)
+without a CUDA card."""
 
 import json
 import os
@@ -61,10 +62,34 @@ def test_solver_cli_all_schedules_json(parts, extra):
 def test_solver_cli_refuses_unported_option():
     res = subprocess.run(
         [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "6",
-         "--ny", "6", "--nz", "6", "--device", "cpu", "--kernel", "gather"],
+         "--ny", "6", "--nz", "6", "--device", "cpu", "--model", "flux"],
         capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
     assert res.returncode != 0
     assert "ROADMAP" in res.stderr
+
+
+def test_solver_cli_solver_mode_json():
+    """--solver-mode --sweeps-per-step 2 without --kernel: the decided
+    default (solver_mode_defaults), announced on stderr; faces/s counts
+    the swept faces, nface * 2 / median."""
+    from cfd_proxy_tpu_torch.solver import solver_mode_defaults
+
+    res = subprocess.run(
+        [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "8",
+         "--ny", "8", "--nz", "7", "--device", "cpu", "--iters", "2",
+         "--parts", "2", "--schedule", "bulk", "--solver-mode",
+         "--sweeps-per-step", "2", "--json"],
+        capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
+    assert res.returncode == 0, res.stderr
+    d = json.loads(res.stdout.strip().splitlines()[-1])
+    kernel, _ = solver_mode_defaults(2)
+    assert d["solver_mode"] is True and d["sweeps_per_step"] == 2
+    assert d["kernel"] == kernel
+    assert f"--solver-mode defaults to --kernel {kernel}" in res.stderr
+    e = d["schedules"]["bulk"]
+    assert e["faces_per_sec"] == pytest.approx(d["nface"] * 2 /
+                                               e["median_s"], rel=1e-12)
+    assert d["verification"]["bulk_vs_golden_relmax"] < 1e-5
 
 
 def test_chip_smoke_fails_without_cuda():

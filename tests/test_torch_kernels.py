@@ -10,7 +10,12 @@ model's own plans carried across by `convert.plans_from_jax`:
   cross-schedule test uses;
 - `sweep_blocks_overlap_ref` equals the JAX fused kernel (grad within the
   same bound, the pushed buffers bitwise), called under `shard_map` on a
-  one-device mesh as the model calls it.
+  one-device mesh as the model calls it;
+- the gather formulation's plain versions (`sweep_blocks_gather_ref`, with
+  and without `init`, and `sweep_blocks_overlap_gather_ref`) against the
+  JAX gather kernels in the same way, and bitwise against the packed plain
+  versions on the same plan (the two formulations add the same terms in the
+  same order).
 
 The `cuda`-marked tests compare each CUDA kernel with its plain version on
 the card and skip without one.  They import no JAX, so they run on a GPU
@@ -194,7 +199,35 @@ SWEEP_KEYS = ("var_T", "srcs", "slot_w", "scale", "block_ids", "slots")
 OVERLAP_KEYS = (*SWEEP_KEYS, "init", "sendbufs", "dsts", "src_devs")
 
 
+def _gather_args():
+    """_good_args with gather tables: EP 128, W-indices over [0, bp + EP)
+    (the last slot all pad: index 0, zero weight)."""
+    a = _good_args()
+    rng = np.random.default_rng(2)
+    P, nb, bp, ep, K = 2, 2, 128, 128, 3
+    sidx = rng.integers(0, bp + ep, (P, nb, K, bp)).astype(np.int32)
+    sidx[:, :, -1] = 0
+    sw = rng.standard_normal((P, nb, K, 3, bp)).astype(np.float32)
+    sw[:, :, -1] = 0
+    a.update(exts=_t(rng.standard_normal((P, nb, 8, ep)).astype(np.float32)),
+             slot_idx=_t(sidx), slot_w=_t(sw))
+    return a
+
+
+GATHER_KEYS = ("var_T", "exts", "slot_idx", "slot_w", "scale", "block_ids",
+               "slots")
+GATHER_OVERLAP_KEYS = (*GATHER_KEYS, "init", "sendbufs", "dsts", "src_devs")
+
+
 def _call(name, a):
+    if name == "gather":
+        return bs.sweep_blocks_gather(*[a[k] for k in GATHER_KEYS])
+    if name == "gather_init":
+        return bs.sweep_blocks_gather(*[a[k] for k in GATHER_KEYS],
+                                      init=a["init"])
+    if name == "overlap_gather":
+        return bs.sweep_blocks_overlap_gather(
+            *[a[k] for k in GATHER_OVERLAP_KEYS])
     if name == "sweep":
         return bs.sweep_blocks(*[a[k] for k in SWEEP_KEYS])
     if name == "sweep_init":
@@ -235,6 +268,73 @@ def test_wrappers_reject_bad_inputs(name, key, bad):
     a[key] = bad(a[key])
     with pytest.raises(CheckError):
         _call(name, a)
+
+
+@pytest.mark.parametrize("name,key,bad", [
+    ("gather", "exts", lambda t: t.double()),
+    ("gather", "exts", lambda t: t[:, :, :5].contiguous()),
+    ("gather", "exts", lambda t: t[:, :1].contiguous()),
+    ("gather", "slot_idx", lambda t: t.long()),
+    ("gather", "slot_idx", lambda t: t[:, :, :2].contiguous()),
+    ("gather", "slot_idx", lambda t: t[..., :64].contiguous()),
+    ("gather", "slot_w", lambda t: t.reshape(2, 2, 9, 128)),
+    ("gather", "slot_w", lambda t: t[:, :, :, :2].contiguous()),
+    ("gather", "slot_w", lambda t: t.transpose(3, 4).contiguous()
+     .transpose(3, 4)),
+    ("gather", "scale", lambda t: t[..., :64].contiguous()),
+    ("gather_init", "init", lambda t: t[:, :8].contiguous()),
+    ("overlap_gather", "sendbufs", lambda t: t[:, :, :8].contiguous()),
+    ("overlap_gather", "dsts", lambda t: torch.zeros_like(t)),
+])
+def test_gather_wrappers_reject_bad_inputs(name, key, bad):
+    a = _gather_args()
+    a[key] = bad(a[key])
+    with pytest.raises(CheckError):
+        _call(name, a)
+
+
+def test_gather_ref_equals_packed_ref_on_the_same_plan():
+    """A gather plan and the packed tables it implies (sources resolved by
+    the W-index, every slot at full width) give the same sums bitwise, with
+    and without init, and through the fused form."""
+    a = _gather_args()
+    P, nb, K, bp = a["slot_idx"].shape
+    own = torch.stack([a["var_T"][p][:, a["block_ids"][p].long()[:, None]
+                                     * bp + torch.arange(bp)]
+                       for p in range(P)]).permute(0, 2, 1, 3)
+    tbl = torch.cat([own, a["exts"]], 3)                # (P, nb, NV, bp+EP)
+    idx = a["slot_idx"].long()[:, :, :, None, :].expand(P, nb, K, 8, bp)
+    srcs = torch.gather(tbl[:, :, None].expand(P, nb, K, 8, tbl.shape[3]), 4,
+                        idx)
+    packed = dict(a, srcs=torch.cat(srcs.unbind(2), -1).contiguous(),
+                  slot_w=torch.cat(a["slot_w"].unbind(2), -1).contiguous())
+    assert torch.equal(_call("gather", a), _call("sweep", packed))
+    got = _call("gather_init", dict(a, init=a["init"].clone()))
+    assert torch.equal(got, _call("sweep_init",
+                                  dict(packed, init=a["init"].clone())))
+    g, r = _call("overlap_gather", dict(a, init=a["init"].clone()))
+    g2, r2 = _call("overlap", dict(packed, init=a["init"].clone()))
+    assert torch.equal(g, g2) and torch.equal(r, r2)
+
+
+def test_gather_wrappers_accept_good_inputs():
+    a = _gather_args()
+    out = _call("gather", a)
+    assert out.shape == (2, 24, 256) and torch.isfinite(out).all()
+    before = (bs.sweep_blocks_gather.launches,
+              bs.sweep_blocks_gather.init_launches,
+              bs.sweep_blocks_overlap_gather.launches)
+    init = a["init"].clone()
+    got = _call("gather_init", a)
+    assert got is a["init"] and not torch.equal(got, init)
+    a["init"] = init
+    g, recv = _call("overlap_gather", a)
+    assert g is init and torch.equal(recv, bs.loopback(a["sendbufs"],
+                                                      a["dsts"]))
+    # on CPU tensors the wrappers run the plain versions and launch nothing
+    assert before == (bs.sweep_blocks_gather.launches,
+                      bs.sweep_blocks_gather.init_launches,
+                      bs.sweep_blocks_overlap_gather.launches)
 
 
 def test_wrappers_accept_good_inputs():
@@ -379,6 +479,112 @@ def test_overlap_ref_matches_jax_kernel(mesh, gvar):
     assert np.abs(r_ref).max() > 0
 
 
+@pytest.fixture(scope="module")
+def jax_gather_p4(mesh, gvar):
+    """A four-shard JAX gather model with all table classes, its plan in
+    the port's arrays and its state."""
+    from cfd_proxy_tpu.models import GreenGaussPallas
+    from cfd_proxy_tpu_torch.convert import plans_from_jax, state_from_jax
+
+    jm = GreenGaussPallas(partition_mesh(mesh, 4, ghost_layers=1), NVAR,
+                          bp=128, interpret=True, kernel="gather")
+    js = jm.distribute_state(gvar)
+    return jm, js, plans_from_jax(jm), state_from_jax(js)
+
+
+def _gather_port_args(arrays, cls):
+    a = arrays["classes"][cls]
+    return (_t(a["slot_idx"]), _t(a["slot_w"]), _t(a["scale"]),
+            _t(a["block_ids"]), _t(bs.slot_table(a["wks"])))
+
+
+@pytest.mark.parametrize("cls,with_init", [("bulk", False),
+                                           ("boundary", True),
+                                           ("interior", True)])
+def test_gather_sweep_ref_matches_jax_sweep(jax_gather_p4, cls, with_init):
+    """The gather sweep's plain version on every shard, without init (the
+    bulk plan) and with a random init (the early schedule's plans), against
+    the reference's sweep_blocks(packed=False); the port's own ext tables
+    equal the reference's bitwise."""
+    import jax.numpy as jnp
+    from cfd_proxy_tpu.ops.blocksweep import sweep_blocks as jax_sweep
+
+    jm, js, arrays, var_T = jax_gather_p4
+    ep, ks, nb = jm._dims[cls]
+    P, ndev = var_T.shape[0], var_T.shape[2]
+    init = (np.random.default_rng(8).standard_normal((P, 24, ndev))
+            .astype(np.float32) if with_init else None)
+    exts = bs.gather_exts(_t(var_T), _t(arrays["classes"][cls]["ext_idx"]))
+    np.testing.assert_array_equal(exts.numpy(),
+                                  np.asarray(js[f"tbl_{cls}"]))
+    ref = []
+    for d in range(P):
+        pa = _jax_plan(jm, cls, d)
+        pa["exts"] = jnp.asarray(np.asarray(js[f"tbl_{cls}"])[d])
+        ref.append(np.asarray(jax_sweep(
+            jnp.asarray(var_T[d]), pa, bp=jm.bp, ep=ep, kslots=ks,
+            nblocks=nb, interpret=True, packed=False, wks=jm._wks[cls],
+            init=None if init is None else jnp.asarray(init[d]))))
+    ref = np.stack(ref)
+    got = bs.sweep_blocks_gather(
+        _t(var_T), exts, *_gather_port_args(arrays, cls),
+        init=None if init is None else _t(init)).numpy()
+    scale = np.abs(ref).max()
+    assert got.shape == ref.shape and scale > 0
+    assert np.abs(got - ref).max() <= SWEEP_TOL * scale
+
+
+def test_overlap_gather_ref_matches_jax_kernel(mesh, gvar):
+    """sweep_blocks_overlap_gather_ref against the reference's fused kernel
+    in its gather form, at one shard with two self-send phases of random
+    payloads, under shard_map on a one-device mesh."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec
+    from cfd_proxy_tpu.models import GreenGaussPallas
+    from cfd_proxy_tpu.models.gradients_pallas import AXIS, _shard_map
+    from cfd_proxy_tpu.ops.blocksweep import sweep_blocks_overlap
+    from cfd_proxy_tpu_torch.convert import plans_from_jax, state_from_jax
+
+    jm = GreenGaussPallas(partition_mesh(mesh, 1), NVAR, bp=128,
+                          interpret=True, force_rdma=True, kernel="gather")
+    js = jm.distribute_state(gvar, schedules=["overlap"])
+    ep, ks, nb = jm._dims["interior"]
+    rng = np.random.default_rng(4)
+    init = rng.standard_normal((1, 24, jm.layout.ndev)).astype(np.float32)
+    send = rng.standard_normal((1, 2, 24, jm.layout.s_max)).astype(
+        np.float32)
+    dsts = np.zeros((1, 2), np.int32)
+    keys = list(jm._plans_dev["interior"])
+
+    def body(v, tbl, ini, sb, d, s, *plans):
+        pa = {k: x[0] for k, x in zip(keys, plans)}
+        pa["exts"] = tbl[0]
+        g, r = sweep_blocks_overlap(
+            v[0], pa, bp=jm.bp, ep=ep, kslots=ks, nblocks=nb, init=ini[0],
+            sendbufs=sb[0], dsts=d[0], srcs=s[0], interpret=True,
+            packed=False, wks=jm._wks["interior"])
+        return g[None], r[None]
+
+    one = Mesh(np.array(jax.devices()[:1]), (AXIS,))
+    spec = PartitionSpec(AXIS)
+    fn = jax.jit(_shard_map(body, one, in_specs=(spec,) * (6 + len(keys)),
+                            out_specs=(spec, spec)))
+    g_ref, r_ref = (np.asarray(x) for x in fn(
+        js["var_T"], js["tbl_interior"], jnp.asarray(init),
+        jnp.asarray(send), jnp.asarray(dsts), jnp.asarray(dsts),
+        *jm._plans_dev["interior"].values()))
+    arrays = plans_from_jax(jm)
+    g, r = bs.sweep_blocks_overlap_gather(
+        _t(state_from_jax(js)), _t(np.asarray(js["tbl_interior"])),
+        *_gather_port_args(arrays, "interior"), _t(init), _t(send),
+        _t(dsts), _t(dsts))
+    scale = np.abs(g_ref).max()
+    assert scale > 0
+    assert np.abs(g.numpy() - g_ref).max() <= SWEEP_TOL * scale
+    np.testing.assert_array_equal(r.numpy(), r_ref)
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.fixture(scope="module")
@@ -457,6 +663,64 @@ def test_cuda_overlap_kernel_matches_plain(cuda_model):
                                                model.dsts, model.srcs)
     torch.cuda.synchronize()
     assert bs.sweep_blocks_overlap.launches == before + 1
+    scale = float(g_ref.abs().max())
+    assert float((g - g_ref).abs().max()) <= SWEEP_TOL * scale
+    assert torch.equal(r, r_ref)
+
+
+@pytest.fixture(scope="module")
+def cuda_gather_model(mesh, gvar):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    parts = partition_mesh(mesh, 4, ghost_layers=1)
+    model = GreenGaussTorch(parts, NVAR, bp=128, kernel="gather",
+                            device="cuda")
+    return model, model.distribute_state(gvar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls,with_init", [("bulk", False),
+                                           ("boundary", True),
+                                           ("interior", True)])
+def test_cuda_gather_kernel_matches_plain(cuda_gather_model, cls, with_init):
+    """K2 on the bulk plan and K2-init on the padded boundary list and the
+    interior list (seeded with a random init), against the plain version."""
+    model, state = cuda_gather_model
+    args = (state["var_T"], *model._operands(cls, state["tables"]))
+    init = (torch.randn((len(model.parts), 24, model.ndev), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7))
+            if with_init else None)
+    counter = "init_launches" if with_init else "launches"
+    before = getattr(bs.sweep_blocks_gather, counter)
+    got = bs.sweep_blocks_gather(
+        *args, init=None if init is None else init.clone())
+    ref = bs.sweep_blocks_gather_ref(
+        *args, init=None if init is None else init.clone())
+    torch.cuda.synchronize()
+    assert getattr(bs.sweep_blocks_gather, counter) == before + 1
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((got - ref).abs().max()) <= SWEEP_TOL * scale
+
+
+@pytest.mark.cuda
+def test_cuda_overlap_gather_kernel_matches_plain(cuda_gather_model):
+    """K3's gather form: the interior sweep within the sweep bound, the
+    pushed buffers bitwise, at the model's own push map."""
+    model, state = cuda_gather_model
+    args = (state["var_T"], *model._operands("interior", state["tables"]))
+    gen = torch.Generator("cuda").manual_seed(8)
+    init = torch.randn((len(model.parts), 24, model.ndev), device="cuda",
+                       generator=gen)
+    send = torch.randn((len(model.parts), model.nphases, 24, model.s_max),
+                       device="cuda", generator=gen)
+    before = bs.sweep_blocks_overlap_gather.launches
+    g, r = bs.sweep_blocks_overlap_gather(*args, init.clone(), send,
+                                          model.dsts, model.srcs)
+    g_ref, r_ref = bs.sweep_blocks_overlap_gather_ref(
+        *args, init.clone(), send, model.dsts, model.srcs)
+    torch.cuda.synchronize()
+    assert bs.sweep_blocks_overlap_gather.launches == before + 1
     scale = float(g_ref.abs().max())
     assert float((g - g_ref).abs().max()) <= SWEEP_TOL * scale
     assert torch.equal(r, r_ref)

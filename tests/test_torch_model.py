@@ -132,18 +132,66 @@ def test_iterate_fn_chains_steps(mesh, gvar):
 
 @pytest.mark.parametrize("field,value", [
     ("slice_size", 2),
-    ("kernel", "gather"),
     ("model", "flux"),
     ("meta_dtype", "bfloat16"),
     ("src_dtype", "bfloat16"),
     ("halo_dtype", "bfloat16"),
     ("grad_dtype", "bfloat16"),
-    ("solver_mode", True),
 ])
 def test_options_outside_slice_raise(field, value):
     cfg = SolverConfig(device="cpu", **{field: value})
     with pytest.raises(CheckError, match="ROADMAP"):
         check_config(cfg)
+
+
+@pytest.mark.parametrize("fields", [
+    {"kernel": "gather"},
+    {"solver_mode": True},
+    {"solver_mode": True, "sweeps_per_step": 4, "kernel": "gather"},
+])
+def test_ported_options_accepted(fields):
+    """The gather kernel and solver mode are in the slice: the config check
+    passes them."""
+    check_config(SolverConfig(device="cpu", **fields))
+
+
+@pytest.mark.parametrize("fields,match", [
+    ({"kernel": "ell"}, "kernel"),
+    ({"sweeps_per_step": 2}, "requires --solver-mode"),
+    ({"solver_mode": True, "sweeps_per_step": 0}, "at least one"),
+])
+def test_bad_solver_options_raise(fields, match):
+    with pytest.raises(CheckError, match=match):
+        check_config(SolverConfig(device="cpu", **fields))
+
+
+@pytest.mark.parametrize("kernel,key,hi", [
+    ("packed", "src_cols", "ndev"),
+    ("gather", "slot_idx", "bp+ep"),
+    ("gather", "ext_idx", "ndev"),
+])
+def test_from_arrays_rejects_out_of_range_indices(mesh, kernel, key, hi):
+    """Plan arrays from outside the model: an index the kernels would load
+    through out of bounds raises when the arrays are loaded."""
+    from cfd_proxy_tpu_torch.models.gradients import host_plan_arrays
+
+    own = GreenGaussTorch(partition_mesh(mesh, 2), NVAR, bp=128,
+                          kernel=kernel, device="cpu")
+    arrays = host_plan_arrays(own.parts, bp=128, kcompact=True,
+                              kernel=kernel)
+    GreenGaussTorch.from_arrays(own.parts, NVAR, arrays, device="cpu")
+    ca = arrays["classes"]["interior"]
+    bound = own.ndev if hi == "ndev" else 128 + ca["ep"]
+    ca[key] = ca[key].copy()
+    ca[key].flat[-1] = bound
+    with pytest.raises(CheckError, match=f"{key} outside"):
+        GreenGaussTorch.from_arrays(own.parts, NVAR, arrays, device="cpu")
+
+
+def test_model_refuses_unknown_kernel(mesh):
+    with pytest.raises(CheckError, match="unknown kernel"):
+        GreenGaussTorch(partition_mesh(mesh, 1), NVAR, bp=128,
+                        kernel="ell", device="cpu")
 
 
 def test_model_refuses_other_schedules_and_shards(mesh, gvar):
@@ -189,11 +237,19 @@ m = generate_mesh(6, 5, 4, jitter=0.05, diag_frac=0.2, seed=0)
 g = make_state(m.npoint, 3, seed=1)
 ref = scale_gradients(compute_gradients_gg(g, m.faces, m.normals), m.volume,
                       m.npoint).reshape(m.npoint, -1)
-for nparts, s in ((1, "bulk"), (2, "early"), (2, "overlap")):
-    model = GreenGaussTorch(partition_mesh(m, nparts), 3, device="cpu")
-    got = model.gather_global(model.step(model.distribute_state(g), s))
-    err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
-    assert err < 1e-5, (nparts, s, err)
+for kernel in ("packed", "gather"):
+    for nparts, s in ((1, "bulk"), (2, "early"), (2, "overlap")):
+        model = GreenGaussTorch(partition_mesh(m, nparts), 3, kernel=kernel,
+                                device="cpu")
+        st = model.distribute_state(g)
+        got = model.gather_global(model.step(st, s))
+        err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+        assert err < 1e-5, (kernel, nparts, s, err)
+        # solver mode: table rebuild, sweeps + update, var exchange
+        v = model.iterate_fn(s, 2, solver_mode=True, sweeps_per_step=2)(
+            *model.iter_args(st))
+        assert v.shape == st["var_T"].shape and bool(torch.isfinite(v).all())
+        st = model.refresh_state(v)
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
                if v is not None)
 print("ok", err)

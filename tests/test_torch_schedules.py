@@ -3,7 +3,8 @@
 `GreenGaussTorch` on CPU tensors (the kernels' plain versions, the loopback
 transport) against `GreenGaussPallas` in interpret mode on the virtual
 8-device CPU mesh, for bulk, early, overlap and nocomm at P ∈ {1, 4, 8}
-shards (and P = 3, not a power of two) and one or two ghost layers:
+shards (and P = 3, not a power of two) and one or two ghost layers, with
+the packed kernel and (P ∈ {1, 4, 8}) the gather kernel:
 
 - the port against the reference, shard by shard, column for column, within
   1e-6 of max|ref| (FMA contraction and summation grouping of two
@@ -48,6 +49,11 @@ PORT_TOL = 1e-6      # port vs reference, relative to max(1, max|ref|)
 GOLDEN_TOL = 1e-5    # vs the f64 golden (the reference's gate)
 SCHED_TOL = 1e-6     # early vs bulk, overlap vs early (the reference's gate)
 SHARDS = [(1, 1), (3, 1), (4, 1), (4, 2), (8, 1)]     # (P, ghost_layers)
+GATHER_SHARDS = [(1, 1), (1, 2), (4, 1), (4, 2), (8, 1), (8, 2)]
+# (P, ghost_layers, kernel); the packed cases keep their "P-ghost_layers" ids
+CASES = [pytest.param(*pg, "packed", id="%d-%d" % pg) for pg in SHARDS] + [
+    pytest.param(*pg, "gather", id="%d-%d-gather" % pg)
+    for pg in GATHER_SHARDS]
 SCHEDULES = ("bulk", "early", "overlap", "nocomm")
 
 
@@ -70,17 +76,19 @@ def gref(mesh, gvar):
 
 @pytest.fixture(scope="module")
 def runs(mesh, gvar):
-    """(P, ghost_layers) → both models and every schedule's output, built
-    on first use."""
+    """(P, ghost_layers, kernel) → both models and every schedule's output,
+    built on first use."""
     cache = {}
 
-    def get(npart, ghost_layers):
-        key = (npart, ghost_layers)
+    def get(npart, ghost_layers, kernel="packed"):
+        key = (npart, ghost_layers, kernel)
         if key not in cache:
             parts = partition_mesh(mesh, npart, ghost_layers=ghost_layers)
-            jm = GreenGaussPallas(parts, NVAR, bp=BP, interpret=True)
+            jm = GreenGaussPallas(parts, NVAR, bp=BP, interpret=True,
+                                  kernel=kernel)
             js = jm.distribute_state(gvar)
-            tm = GreenGaussTorch(parts, NVAR, bp=BP, device="cpu")
+            tm = GreenGaussTorch(parts, NVAR, bp=BP, kernel=kernel,
+                                 device="cpu")
             ts = tm.distribute_state(gvar)
             cache[key] = {
                 "jm": jm, "tm": tm, "ts": ts,
@@ -93,11 +101,13 @@ def runs(mesh, gvar):
 
 
 @pytest.mark.parametrize("schedule", SCHEDULES)
-@pytest.mark.parametrize("npart,ghost_layers", SHARDS)
+@pytest.mark.parametrize("npart,ghost_layers,kernel", CASES)
 def test_schedule_matches_reference_and_golden(runs, gref, npart,
-                                               ghost_layers, schedule):
-    r = runs(npart, ghost_layers)
+                                               ghost_layers, kernel,
+                                               schedule):
+    r = runs(npart, ghost_layers, kernel)
     tm, jm = r["tm"], r["jm"]
+    assert tm.kernel == jm.kernel == kernel
     got, want = r["port"][schedule], r["jax"][schedule]
     assert tm.ndev == jm.layout.ndev and tm.nphases == jm.layout.nphases
     assert got.shape == want.shape == (npart, 24, tm.ndev)
@@ -165,16 +175,25 @@ def test_force_rdma_p1_overlap_equals_unforced(mesh, gvar, monkeypatch):
     np.testing.assert_array_equal(ga[:, :, :n], gb[:, :, :n])
 
 
-@pytest.mark.parametrize("npart", [1, 4])
-def test_from_arrays_equals_own_host_layer_sharded(mesh, gvar, npart):
+@pytest.mark.parametrize("npart,kernel", [
+    pytest.param(1, "packed", id="1"), pytest.param(4, "packed", id="4"),
+    pytest.param(1, "gather", id="1-gather"),
+    pytest.param(4, "gather", id="4-gather")])
+def test_from_arrays_equals_own_host_layer_sharded(mesh, gvar, npart,
+                                                   kernel):
     """Built from the reference's arrays (every class, every shard, the
     exchange tables), the model holds and computes exactly what it holds
-    and computes from its own host layer."""
+    and computes from its own host layer; a gather model carries the
+    reference's rectangular tables and ext lists as they are."""
     parts = partition_mesh(mesh, npart, ghost_layers=1)
-    jm = GreenGaussPallas(parts, NVAR, bp=BP, interpret=True)
+    jm = GreenGaussPallas(parts, NVAR, bp=BP, interpret=True, kernel=kernel)
     arrays = plans_from_jax(jm)
     conv = GreenGaussTorch.from_arrays(jm.parts, NVAR, arrays, device="cpu")
-    own = GreenGaussTorch(parts, NVAR, bp=BP, device="cpu")
+    own = GreenGaussTorch(parts, NVAR, bp=BP, kernel=kernel, device="cpu")
+    assert conv.kernel == own.kernel == kernel
+    assert sorted(own.plans["bulk"]) == sorted(
+        ("block_ids", "scale", "slots", "slot_w")
+        + (("slot_idx", "ext_idx") if kernel == "gather" else ("src_cols",)))
     assert conv.wks == own.wks and conv.ndev == own.ndev
     assert conv.perms == own.perms and conv.has_comm == own.has_comm
     for c, pl in own.plans.items():
@@ -188,6 +207,9 @@ def test_from_arrays_equals_own_host_layer_sharded(mesh, gvar, npart):
     so = own.distribute_state(gvar)
     js = jm.distribute_state(gvar, schedules=["bulk"])
     np.testing.assert_array_equal(sc["var_T"].numpy(), state_from_jax(js))
+    if kernel == "gather":      # the ext tables, bitwise
+        np.testing.assert_array_equal(sc["tables"]["bulk"].numpy(),
+                                      np.asarray(js["tbl_bulk"]))
     for s in SCHEDULES:
         assert torch.equal(conv.step(sc, s), own.step(so, s)), s
 
