@@ -2,11 +2,13 @@
 
 `plans_from_jax(model)` reads the layout, the exchange tables and the
 bulk / boundary / interior plans of every shard of a
-`cfd_proxy_tpu.models.GreenGaussPallas` through `np.asarray` and returns
-the arrays `GreenGaussTorch.from_arrays` loads (models/gradients.py
-PLAN_KEYS); `state_from_jax(state)` returns its distributed `var_T`.  Both
-packages then compute on identical plan data, so a comparison of their
-outputs tests the kernels and the step composition and nothing else.
+`cfd_proxy_tpu.models.GreenGaussPallas` (or its `PSDFluxModel`: the plans
+do not depend on the op) through `np.asarray` and returns the arrays
+`GreenGaussTorch.from_arrays` / `PSDFluxModel.from_arrays` load
+(models/gradients.py PLAN_KEYS); `state_from_jax(state)` returns its
+distributed `var_T`.  Both packages then compute on identical plan data,
+so a comparison of their outputs tests the kernels and the step
+composition and nothing else.
 
 This module takes the JAX objects as it finds them and converts with numpy
 only: it imports no JAX.
@@ -16,10 +18,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from cfd_proxy_tpu.utils.errors import check
 from cfd_proxy_tpu_torch.models.gradients import CLASSES
 from cfd_proxy_tpu_torch.ops.plan import (BlockPlan, compact_slot_w,
                                           compact_src_cols)
+from cfd_proxy_tpu_torch.utils.errors import check
 
 
 def _class_arrays(model, cls: str) -> dict:
@@ -65,10 +67,9 @@ def _class_arrays(model, cls: str) -> dict:
 
 
 def plans_from_jax(model) -> dict:
-    """Plan arrays of a GreenGaussPallas model (packed or gather kernel,
-    f32 weights, every phase on the in-kernel transport), in the port's
-    layout."""
-    check(model.op == "gg", "plans_from_jax converts the Green-Gauss model")
+    """Plan arrays of a GreenGaussPallas or PSDFluxModel (packed or gather
+    kernel, f32 weights, every phase on the in-kernel transport), in the
+    port's layout.  The arrays are the same for both ops."""
     check(not model._dcn_phases, "plans_from_jax: inter-slice phases "
           "(slice_size) come with ROADMAP queue 1 item 12")
     lay = model.layout

@@ -1,5 +1,5 @@
 """Model API of the port (counterpart of `cfd_proxy_tpu.models`)."""
 
-from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
+from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch, PSDFluxModel
 
-__all__ = ["GreenGaussTorch"]
+__all__ = ["GreenGaussTorch", "PSDFluxModel"]

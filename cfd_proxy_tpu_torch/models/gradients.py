@@ -1,8 +1,9 @@
-"""GreenGaussTorch — the port's Green-Gauss model on the block-sweep kernels.
+"""GreenGaussTorch — the port's block-sweep model, and PSDFluxModel.
 
 Counterpart of `cfd_proxy_tpu/models/gradients_pallas.py::GreenGaussPallas`
-(f32, Green-Gauss, packed or gather kernel) for P shards held on ONE
-device:
+and its `PSDFluxModel` (f32; op "gg", Green-Gauss gradients, or op "flux",
+the PSD upwind flux of ops/flux.py; packed or gather kernel) for P shards
+held on ONE device:
 
 - `__init__`: block-size rule, RCB locality relabel (+ in-block degree sort
   for the compact prefix widths), halo topology, transposed device layout,
@@ -22,13 +23,15 @@ device:
 - `iterate_fn(s, n, solver_mode, sweeps_per_step)`: the chained n-step loop
   the timing uses, or the solver's per-step dataflow (table rebuild, N
   sweeps with their updates, var exchange);
-- `gather_global`: device rows d*NV+v → global (N, nvar*3) column v*3+d.
+- `gather_global`: gg device rows d*NV+v → global (N, nvar*3) column
+  v*3+d; flux rows v → global (N, nvar).
 
 The halo exchange moves between shards on the same device (the loopback
 transport): phase k's buffer of shard p lands in phase k's ghost region of
-shard dsts[p, k]; the same path moves gradients (3·NV rows) and, in solver
-mode, the state (NV rows).  The reference's ppermute moves only the pairs of
-layout.perms[k] and leaves other receivers zero; the loopback moves the
+shard dsts[p, k]; the same path moves the sweep's output (3·NV gradient
+rows or NV flux rows) and, in solver mode, the state (NV rows).  The
+reference's ppermute moves only the pairs of layout.perms[k] and leaves
+other receivers zero; the loopback moves the
 completed permutation (dsts), whose extra pairs carry send-masked zeros, so
 the ghost regions come out the same.  Pack, transfer and unpack are plain
 torch ops, as they are XLA ops in the reference.
@@ -43,17 +46,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from cfd_proxy_tpu.mesh.model import MeshPartition
-from cfd_proxy_tpu.mesh.partition import (
+from cfd_proxy_tpu_torch.mesh.model import MeshPartition
+from cfd_proxy_tpu_torch.mesh.partition import (
     rcb_owned_order,
     relabel_owned,
     send_point_set,
 )
-from cfd_proxy_tpu.utils.errors import check
 from cfd_proxy_tpu_torch.ops.blocksweep import (
-    ROWS,
+    OPS,
     gather_exts,
     loopback,
+    out_rows,
     pack_srcs,
     slot_table,
     sweep_blocks,
@@ -80,6 +83,7 @@ from cfd_proxy_tpu_torch.parallel.topology import (
     build_halo_topology,
     entry_phases,
 )
+from cfd_proxy_tpu_torch.utils.errors import check
 
 # AUTO block-size rule (bp=None), kept from the reference so that both
 # packages build the same layout; it is to be re-decided on the GPU.
@@ -221,22 +225,32 @@ def auto_bp(parts: list[MeshPartition], bp: int | None) -> int:
 
 
 class GreenGaussTorch(nn.Module):
-    """Green-Gauss sweep + halo exchange of P shards on one device."""
+    """Block sweep (Green-Gauss gradients or, op "flux", the upwind flux) +
+    halo exchange of P shards on one device."""
 
     def __init__(self, parts: list[MeshPartition], nvar: int, *,
                  bp: int | None = None, kcompact: bool | None = None,
                  force_rdma: bool = False, kernel: str = "packed",
-                 device: str | torch.device = "cuda",
+                 op: str = "gg", device: str | torch.device = "cuda",
                  arrays: dict | None = None):
         """parts: the raw partitions (relabeled here, as the reference
         does), or — with `arrays` — partitions ALREADY relabeled by the
         model the arrays come from (see `from_arrays`).  kernel: "packed"
         (sources packed ahead of the sweep, K4 + K1) or "gather" (the sweep
-        gathers them from per-block ext tables, K2)."""
+        gathers them from per-block ext tables, K2).  op: "gg" (3·NV output
+        rows) or "flux" (NV rows); the plans do not depend on it."""
         super().__init__()
+        check(op in OPS, "unknown kernel op %r", op)
         check(1 <= nvar <= NV, "nvar %d outside [1, %d]", nvar, NV)
+        # the flux reads var[:3] as the velocity vector (the reference's
+        # check, gradients_pallas.py:284-285)
+        check(op != "flux" or nvar >= 3,
+              "flux model needs nvar >= 3 (velocity components), got %d",
+              nvar)
         check(kernel in KERNELS, "unknown kernel formulation %r (one of %s)",
               kernel, "/".join(KERNELS))
+        self.op = op
+        self.rows = out_rows(op)
         self.nvar = int(nvar)
         self.device = torch.device(device)
         if arrays is None:
@@ -313,8 +327,9 @@ class GreenGaussTorch(nn.Module):
         self.send_mask = dev(a["send_mask"], np.float32)[:, :, None, :]
         self.pack_scale = dev(a["pack_scale"], np.float32)[:, :, None, :]
         self.pack_shard = torch.arange(P, device=self.device).view(P, 1, 1, 1)
-        self.pack_row = torch.arange(ROWS, device=self.device).view(
-            1, 1, ROWS, 1)
+        # sized for the most rows any exchange moves (3·NV gradients)
+        self.pack_row = torch.arange(3 * NV, device=self.device).view(
+            1, 1, 3 * NV, 1)
 
         self.plans: dict[str, dict[str, torch.Tensor]] = {}
         self.wks: dict[str, tuple[int, ...]] = {}
@@ -458,7 +473,8 @@ class GreenGaussTorch(nn.Module):
     def _sweep(self, cls: str, var_T, tables, init=None):
         sweep = sweep_blocks_gather if self.kernel == "gather" else \
             sweep_blocks
-        return sweep(var_T, *self._operands(cls, tables), init=init)
+        return sweep(var_T, *self._operands(cls, tables), init=init,
+                     op=self.op)
 
     def _pack(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         """(P, rows, ndev) → (P, nph, rows, s_max) send buffers: the
@@ -481,14 +497,15 @@ class GreenGaussTorch(nn.Module):
 
     def forward(self, var_T: torch.Tensor, tables: dict,
                 schedule: str = "bulk") -> torch.Tensor:
-        """One step → (P, 3·NV, ndev) gradients, row d*NV+v, ghost columns
-        filled from their owners (except under nocomm)."""
+        """One step → (P, rows, ndev): gg gradients (row d*NV+v) or flux
+        residuals (row v), ghost columns filled from their owners (except
+        under nocomm)."""
         if schedule in ("bulk", "nocomm"):
             g = self._sweep("bulk", var_T, tables)
             if schedule == "bulk" and self.moves:
                 self._exchange(g, self.send_mask)
             return g
-        zeros = torch.zeros((len(self.parts), ROWS, self.ndev),
+        zeros = torch.zeros((len(self.parts), self.rows, self.ndev),
                             dtype=torch.float32, device=self.device)
         gb = self._sweep("boundary", var_T, tables, init=zeros)
         if schedule == "overlap" and self.has_comm:
@@ -496,7 +513,7 @@ class GreenGaussTorch(nn.Module):
                 else sweep_blocks_overlap
             g, recv = fused(var_T, *self._operands("interior", tables), gb,
                             self._pack(gb, self.pack_scale), self.dsts,
-                            self.srcs)
+                            self.srcs, self.op)
             self._unpack(g, recv)
             return g
         # early, or overlap with nothing to move: start the exchange, sweep
@@ -564,10 +581,17 @@ class GreenGaussTorch(nn.Module):
     # ------------------------------------------------------------ gather
 
     def gather_global(self, grad: torch.Tensor) -> np.ndarray:
-        """(P, 3·NV, ndev) device gradients → global (N, nvar*3) host array,
-        column v*3+d (the reference's convention)."""
+        """(P, rows, ndev) device result → global host array, the
+        reference's convention: gg (N, nvar*3), column v*3+d; flux
+        (N, nvar)."""
         arr = grad.detach().cpu().numpy()
         N = sum(p.nowned for p in self.parts)
+        if self.op == "flux":
+            out = np.zeros((N, self.nvar), dtype=arr.dtype)
+            for i, p in enumerate(self.parts):
+                out[p.global_ids[: p.nowned]] = \
+                    arr[i, : self.nvar, : p.nowned].T
+            return out
         out = np.zeros((N, self.nvar * 3), dtype=arr.dtype)
         for i, p in enumerate(self.parts):
             gids = p.global_ids[: p.nowned]
@@ -576,3 +600,12 @@ class GreenGaussTorch(nn.Module):
                     out[gids, v * 3 + d] = arr[i, d * NV + v, : p.nowned]
         return out
 
+
+class PSDFluxModel(GreenGaussTorch):
+    """The secondary model family: the PSD upwind flux (ops/flux.py's
+    `compute_psd_flux`, NV output rows) on the same plans, schedules and
+    exchange.  Counterpart of
+    `cfd_proxy_tpu/models/gradients_pallas.py::PSDFluxModel`."""
+
+    def __init__(self, parts, nvar, **kw):
+        super().__init__(parts, nvar, op="flux", **kw)

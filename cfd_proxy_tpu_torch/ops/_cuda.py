@@ -24,7 +24,7 @@ import tempfile
 import time
 from functools import lru_cache
 
-from cfd_proxy_tpu.utils.errors import CheckError
+from cfd_proxy_tpu_torch.utils.errors import CheckError
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -129,18 +129,18 @@ def lib() -> ctypes.CDLL:
     L.cfd_pack_srcs.restype = ctypes.c_int
     L.cfd_pack_srcs.argtypes = [vp, i64, vp, i64, i64, i64, vp, vp]
     sweep = [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i64, i32]
-    L.cfd_sweep_packed.restype = ctypes.c_int
-    L.cfd_sweep_packed.argtypes = [*sweep, i32, vp, vp]
-    L.cfd_sweep_overlap.restype = ctypes.c_int
-    L.cfd_sweep_overlap.argtypes = [*sweep, vp, vp, vp, i64, i64, vp, vp]
     # gather: var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids,
     # slots, K, P, nb, bp
     gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32]
-    L.cfd_sweep_gather.restype = ctypes.c_int
-    L.cfd_sweep_gather.argtypes = [*gather, i32, vp, vp]
-    L.cfd_sweep_overlap_gather.restype = ctypes.c_int
-    L.cfd_sweep_overlap_gather.argtypes = [*gather, vp, vp, vp, i64, i64, vp,
-                                           vp]
+    # op (0 gg, 1 flux), out, then sendbufs, dsts, nph, s_max, recv, stream
+    push = [i32, vp, vp, vp, i64, i64, vp, vp]
+    for name, args in (("cfd_sweep_packed", [*sweep, i32, i32, vp, vp]),
+                       ("cfd_sweep_overlap", [*sweep, *push]),
+                       ("cfd_sweep_gather", [*gather, i32, i32, vp, vp]),
+                       ("cfd_sweep_overlap_gather", [*gather, *push])):
+        fn = getattr(L, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
     return L
 
 

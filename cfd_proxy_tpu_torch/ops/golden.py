@@ -1,7 +1,7 @@
 """Golden-semantics Green-Gauss gradient sweep (NumPy, float64).
 
-NumPy copy of `cfd_proxy_tpu/ops/golden.py` (that package's `__init__`
-imports JAX), so a run of the port can verify itself without JAX;
+NumPy copy of `cfd_proxy_tpu/ops/golden.py` (the port imports nothing of
+the JAX package), so a run of the port can verify itself without it;
 tests/test_torch_plan.py holds the two bitwise equal.
 
 The sequential C face loop of the reference's `compute_gradients_gg`,

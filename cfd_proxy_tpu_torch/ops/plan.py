@@ -1,8 +1,9 @@
 """Host-side block plans for the block-local sweep (NumPy).
 
-The host half of `cfd_proxy_tpu/ops/blocksweep.py` (that module imports JAX
-at the top, so the port carries this copy; tests/test_torch_plan.py holds
-the two equal).  The code is the original's line for line, plus
+The host half of `cfd_proxy_tpu/ops/blocksweep.py`: the port imports
+nothing of the JAX package and carries its own host layer, held equal to
+the originals by tests (tests/test_torch_plan.py for this module).  The
+code is the original's line for line, plus
 `compact_src_cols`, which the port's pack kernel reads instead of the
 reference's ext tables + W-indices, and the two plan-padding helpers of
 `cfd_proxy_tpu/models/gradients_pallas.py` that make every shard's plan
@@ -28,8 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from cfd_proxy_tpu.utils import round_up
-from cfd_proxy_tpu.utils.errors import check
+from cfd_proxy_tpu_torch.utils import round_up
+from cfd_proxy_tpu_torch.utils.errors import check
 
 LANE = 128
 NV = 8          # padded variable count
@@ -300,10 +301,11 @@ def _build_block_plan_native(faces, normals, npoint_dev, inv_scale, bp,
                              dst_lt=None) -> BlockPlan | None:
     """Native (C++) fast path — same semantics as the NumPy construction.
 
-    Built by `make -C native`; returns None (→ NumPy fallback) if absent."""
+    Built by the port's loader (native.py); returns None (→ NumPy
+    fallback) if absent."""
     import ctypes
 
-    from cfd_proxy_tpu.native import lib, ptr
+    from cfd_proxy_tpu_torch.native import lib, ptr
 
     L = lib()
     if L is None:

@@ -1,2 +1,3 @@
-"""Host-side exchange metadata (NumPy copies of `cfd_proxy_tpu.parallel`'s
-jax-free modules; that package's `__init__` imports JAX)."""
+"""Host-side exchange metadata: NumPy copies of `cfd_proxy_tpu.parallel`'s
+topology and layout modules (the port imports nothing of the JAX
+package)."""

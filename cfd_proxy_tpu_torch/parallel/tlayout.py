@@ -1,7 +1,7 @@
 """Transposed device layout: point-column mapping + halo regions.
 
-NumPy copy of `cfd_proxy_tpu/parallel/tlayout.py` (that package's
-`__init__` imports JAX).  The code is the original's line for line, so
+NumPy copy of `cfd_proxy_tpu/parallel/tlayout.py` (the port imports
+nothing of the JAX package).  The code is the original's line for line, so
 `ndev`, `locmap` and `owned_pad` are identical and the port's outputs compare
 column for column with the reference's; tests/test_torch_plan.py holds the
 two equal.
@@ -27,9 +27,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from cfd_proxy_tpu.mesh.model import MeshPartition
-from cfd_proxy_tpu.utils import round_up
-from cfd_proxy_tpu.utils.errors import check
+from cfd_proxy_tpu_torch.mesh.model import MeshPartition
+from cfd_proxy_tpu_torch.utils import round_up
+from cfd_proxy_tpu_torch.utils.errors import check
 from cfd_proxy_tpu_torch.parallel.topology import HaloTopology
 
 LANE = 128

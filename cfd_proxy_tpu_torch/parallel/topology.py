@@ -1,7 +1,7 @@
 """Halo-exchange topology: comm lists → exchange phase schedule.
 
-NumPy copy of `cfd_proxy_tpu/parallel/topology.py` (that package's
-`__init__` imports JAX, so the port cannot import it).  The code is the
+NumPy copy of `cfd_proxy_tpu/parallel/topology.py`: the port imports
+nothing of the JAX package and carries its own host layer.  The code is the
 original's line for line; tests/test_torch_plan.py holds the two equal.
 
 A device with several partners sends in several phases.  Scheduling the
@@ -21,8 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from cfd_proxy_tpu.mesh.model import MeshPartition
-from cfd_proxy_tpu.utils.errors import check
+from cfd_proxy_tpu_torch.mesh.model import MeshPartition
+from cfd_proxy_tpu_torch.utils.errors import check
 
 
 @dataclass

@@ -12,7 +12,8 @@ table and verify lines as the reference CLI:
     python -m cfd_proxy_tpu_torch.solver --nx 96 --ny 96 --nz 96 \
         --schedule bulk --solver-mode --sweeps-per-step 4
 
-The port runs f32 Green-Gauss with the packed (compact layout) or the
+The port runs f32 Green-Gauss gradients (`--model gg`) or the PSD upwind
+flux (`--model flux`, ops/flux.py) with the packed (compact layout) or the
 gather kernel (`--kernel`) under the bulk / early / overlap schedules
 (`--force-rdma`: the fused overlap kernel even at one shard).
 `--solver-mode` times the per-time-step dataflow of a real solver (table
@@ -35,15 +36,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.mesh.partition import partition_mesh
-from cfd_proxy_tpu.mesh.reader import partition_path, read_partition
-from cfd_proxy_tpu.utils.errors import check
-from cfd_proxy_tpu.utils.timing import (IterationStats, format_stats_table,
-                                        two_point_sampler)
+from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
+from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
+from cfd_proxy_tpu_torch.mesh.reader import partition_path, read_partition
 from cfd_proxy_tpu_torch.models.gradients import KERNELS, GreenGaussTorch
+from cfd_proxy_tpu_torch.ops.blocksweep import OPS
+from cfd_proxy_tpu_torch.ops.flux import compute_psd_flux, flux_residual_scale
 from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
                                             scale_gradients)
+from cfd_proxy_tpu_torch.utils.errors import check
+from cfd_proxy_tpu_torch.utils.timing import (IterationStats,
+                                              format_stats_table,
+                                              two_point_sampler)
 
 SCHEDULES = ("bulk", "early", "overlap")     # what --schedule all times
 # a comm cost (bulk - nocomm) under this share of the bulk median is
@@ -106,8 +110,7 @@ def check_config(cfg: SolverConfig) -> None:
     check(cfg.slice_size is None, "--slice-size %s: multi-node phase "
           "routing comes with ROADMAP queue 1 item 12", cfg.slice_size)
     check(cfg.kernel in KERNELS, "unknown --kernel %s", cfg.kernel)
-    check(cfg.model == "gg", "--model %s: the flux model comes with ROADMAP "
-          "queue 1 item 8", cfg.model)
+    check(cfg.model in OPS, "unknown --model %s", cfg.model)
     for name in ("meta_dtype", "src_dtype", "halo_dtype", "grad_dtype"):
         check(getattr(cfg, name) == "float32", "--%s %s: reduced-precision "
               "options come with ROADMAP queue 1 item 9",
@@ -135,7 +138,7 @@ def build_model(cfg: SolverConfig):
         parts = partition_mesh(gmesh, cfg.parts)
     model = GreenGaussTorch(parts, cfg.nvar, bp=cfg.bp, kcompact=cfg.kcompact,
                             force_rdma=cfg.force_rdma, kernel=cfg.kernel,
-                            device=cfg.device)
+                            op=cfg.model, device=cfg.device)
     return model, gmesh
 
 
@@ -204,11 +207,24 @@ def overlap_efficiency(entries: dict, nocomm: float, parts: int) -> None:
             "noise floor; " + why + ")")
 
 
+def golden(op: str, gmesh, gvar: np.ndarray) -> np.ndarray:
+    """The f64 golden of a model's op on the global mesh, in the layout
+    `gather_global` returns: gg (N, nvar*3), flux (N, nvar)."""
+    var = gvar.astype(np.float64)
+    if op == "flux":
+        return flux_residual_scale(
+            compute_psd_flux(var, gmesh.faces, gmesh.normals),
+            gmesh.volume, gmesh.npoint)
+    return scale_gradients(
+        compute_gradients_gg(var, gmesh.faces, gmesh.normals),
+        gmesh.volume, gmesh.npoint).reshape(gmesh.npoint, -1)
+
+
 def verify_model(model: GreenGaussTorch, state: dict, schedules, gmesh,
                  gvar: np.ndarray) -> dict:
     """Every schedule against bulk (max abs over all columns) and bulk
-    against the f64 golden (when the global mesh is in process), as the
-    reference's verify_model reports them."""
+    against the f64 golden of the model's op (when the global mesh is in
+    process), as the reference's verify_model reports them."""
     ref = model.step(state, "bulk")
     out = {}
     for s in schedules:
@@ -216,10 +232,7 @@ def verify_model(model: GreenGaussTorch, state: dict, schedules, gmesh,
             out[f"{s}_vs_bulk_maxabs"] = float(
                 (model.step(state, s) - ref).abs().max())
     if gmesh is not None:
-        gg = scale_gradients(
-            compute_gradients_gg(gvar.astype(np.float64), gmesh.faces,
-                                 gmesh.normals),
-            gmesh.volume, gmesh.npoint).reshape(gmesh.npoint, -1)
+        gg = golden(model.op, gmesh, gvar)
         got = model.gather_global(ref)
         denom = max(1.0, float(np.abs(gg).max()))
         out["bulk_vs_golden_relmax"] = float(np.abs(got - gg).max() / denom)
@@ -267,6 +280,7 @@ def run(cfg: SolverConfig) -> tuple[dict, list[IterationStats]]:
         "npoint": npoint,
         "nface": nface,
         "nvar": cfg.nvar,
+        "model": cfg.model,
         "dtype": "float32",
         "backend": "torch",
         "kernel": cfg.kernel,
@@ -317,7 +331,9 @@ def main(argv=None) -> int:
                          "(one shard: self-send phases)")
     ap.add_argument("--slice-size", type=int, default=None,
                     help="devices per node (multi-node phase routing)")
-    ap.add_argument("--model", default="gg", choices=["gg", "flux"])
+    ap.add_argument("--model", default="gg", choices=list(OPS),
+                    help="gg: Green-Gauss gradients; flux: the PSD upwind "
+                         "flux (ops/flux.py)")
     ap.add_argument("--kernel", default=None, choices=list(KERNELS),
                     help="default: packed, or under --solver-mode the "
                          "decided solver_mode_defaults")
@@ -369,6 +385,7 @@ def main(argv=None) -> int:
     else:
         print(f"device={results['device']} parts={results['npart']} "
               f"points={results['npoint']} faces={results['nface']} "
+              f"model={results['model']} "
               f"nvar={results['nvar']} dtype={results['dtype']} "
               f"kernel={results['kernel']} bp={results['bp']}"
               + (f" solver_mode sweeps_per_step={cfg.sweeps_per_step}"

@@ -62,7 +62,8 @@ def test_solver_cli_all_schedules_json(parts, extra):
 def test_solver_cli_refuses_unported_option():
     res = subprocess.run(
         [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "6",
-         "--ny", "6", "--nz", "6", "--device", "cpu", "--model", "flux"],
+         "--ny", "6", "--nz", "6", "--device", "cpu", "--src-dtype",
+         "bfloat16"],
         capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
     assert res.returncode != 0
     assert "ROADMAP" in res.stderr

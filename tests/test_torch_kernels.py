@@ -18,7 +18,9 @@ model's own plans carried across by `convert.plans_from_jax`:
   same order).
 
 The `cuda`-marked tests compare each CUDA kernel with its plain version on
-the card and skip without one.  They import no JAX, so they run on a GPU
+the card, for both ops (the flux instances: K1-flux with and without init,
+K2-flux with and without init, K3-flux in both bodies), and skip without
+one.  The flux op's CPU cases are in tests/test_torch_flux.py.  They import no JAX, so they run on a GPU
 machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider \
@@ -31,7 +33,7 @@ import torch
 
 from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
 from cfd_proxy_tpu.mesh.partition import partition_mesh
-from cfd_proxy_tpu.utils.errors import CheckError
+from cfd_proxy_tpu_torch.utils.errors import CheckError
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.ops import blocksweep as bs
 
@@ -721,6 +723,77 @@ def test_cuda_overlap_gather_kernel_matches_plain(cuda_gather_model):
         *args, init.clone(), send, model.dsts, model.srcs)
     torch.cuda.synchronize()
     assert bs.sweep_blocks_overlap_gather.launches == before + 1
+    scale = float(g_ref.abs().max())
+    assert float((g - g_ref).abs().max()) <= SWEEP_TOL * scale
+    assert torch.equal(r, r_ref)
+
+
+@pytest.fixture(scope="module")
+def cuda_flux_models(mesh, gvar):
+    """Four-shard flux models on the card, packed and gather, with every
+    table class."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    parts = partition_mesh(mesh, 4, ghost_layers=1)
+    out = {}
+    for kernel in ("packed", "gather"):
+        model = GreenGaussTorch(parts, NVAR, bp=128, kernel=kernel, op="flux",
+                                device="cuda")
+        out[kernel] = model, model.distribute_state(gvar)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,cls,with_init", [
+    ("packed", "bulk", False), ("packed", "boundary", True),
+    ("gather", "bulk", False), ("gather", "interior", True)])
+def test_cuda_flux_sweep_kernels_match_plain(cuda_flux_models, kernel, cls,
+                                             with_init):
+    """K1-flux, K1-flux-init (on the padded boundary list), K2-flux and
+    K2-flux-init against their plain versions, each counted once."""
+    model, state = cuda_flux_models[kernel]
+    args = (state["var_T"], *model._operands(cls, state["tables"]))
+    init = (torch.randn((len(model.parts), 8, model.ndev), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+            if with_init else None)
+    sweep, ref = ((bs.sweep_blocks_gather, bs.sweep_blocks_gather_ref)
+                  if kernel == "gather" else
+                  (bs.sweep_blocks, bs.sweep_blocks_ref))
+    counter = "flux_init_launches" if with_init else "flux_launches"
+    before = getattr(sweep, counter)
+    got = sweep(*args, init=None if init is None else init.clone(),
+                op="flux")
+    want = ref(*args, init=None if init is None else init.clone(), op="flux")
+    torch.cuda.synchronize()
+    assert getattr(sweep, counter) == before + 1
+    assert got.shape == (len(model.parts), 8, model.ndev)
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= SWEEP_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["packed", "gather"])
+def test_cuda_flux_overlap_kernels_match_plain(cuda_flux_models, kernel):
+    """K3-flux and K3-gather-flux: the interior sweep within the sweep
+    bound, the pushed NV-row buffers bitwise, at the model's push map."""
+    model, state = cuda_flux_models[kernel]
+    args = (state["var_T"], *model._operands("interior", state["tables"]))
+    gen = torch.Generator("cuda").manual_seed(10)
+    P = len(model.parts)
+    init = torch.randn((P, 8, model.ndev), device="cuda", generator=gen)
+    send = torch.randn((P, model.nphases, 8, model.s_max), device="cuda",
+                       generator=gen)
+    fused, ref = ((bs.sweep_blocks_overlap_gather,
+                   bs.sweep_blocks_overlap_gather_ref) if kernel == "gather"
+                  else (bs.sweep_blocks_overlap, bs.sweep_blocks_overlap_ref))
+    before = fused.flux_launches
+    g, r = fused(*args, init.clone(), send, model.dsts, model.srcs,
+                 op="flux")
+    g_ref, r_ref = ref(*args, init.clone(), send, model.dsts, model.srcs,
+                       op="flux")
+    torch.cuda.synchronize()
+    assert fused.flux_launches == before + 1
     scale = float(g_ref.abs().max())
     assert float((g - g_ref).abs().max()) <= SWEEP_TOL * scale
     assert torch.equal(r, r_ref)

@@ -21,7 +21,7 @@ from cfd_proxy_tpu.mesh.partition import partition_mesh
 from cfd_proxy_tpu.mesh.reader import read_partition
 from cfd_proxy_tpu.models import GreenGaussPallas
 from cfd_proxy_tpu.ops.golden import compute_gradients_gg, scale_gradients
-from cfd_proxy_tpu.utils.errors import CheckError
+from cfd_proxy_tpu_torch.utils.errors import CheckError
 from cfd_proxy_tpu_torch.convert import plans_from_jax
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.solver import SolverConfig, check_config
@@ -132,7 +132,6 @@ def test_iterate_fn_chains_steps(mesh, gvar):
 
 @pytest.mark.parametrize("field,value", [
     ("slice_size", 2),
-    ("model", "flux"),
     ("meta_dtype", "bfloat16"),
     ("src_dtype", "bfloat16"),
     ("halo_dtype", "bfloat16"),
@@ -148,10 +147,12 @@ def test_options_outside_slice_raise(field, value):
     {"kernel": "gather"},
     {"solver_mode": True},
     {"solver_mode": True, "sweeps_per_step": 4, "kernel": "gather"},
+    {"model": "flux"},
+    {"model": "flux", "solver_mode": True, "kernel": "gather"},
 ])
 def test_ported_options_accepted(fields):
-    """The gather kernel and solver mode are in the slice: the config check
-    passes them."""
+    """The gather kernel, solver mode and the flux model are in the slice:
+    the config check passes them."""
     check_config(SolverConfig(device="cpu", **fields))
 
 
@@ -159,6 +160,7 @@ def test_ported_options_accepted(fields):
     ({"kernel": "ell"}, "kernel"),
     ({"sweeps_per_step": 2}, "requires --solver-mode"),
     ({"solver_mode": True, "sweeps_per_step": 0}, "at least one"),
+    ({"model": "ell"}, "--model"),
 ])
 def test_bad_solver_options_raise(fields, match):
     with pytest.raises(CheckError, match=match):
@@ -220,6 +222,7 @@ def test_model_refuses_other_schedules_and_shards(mesh, gvar):
 JAX_BLOCKED = """
 import sys
 sys.modules["jax"] = None            # any import of jax now raises
+sys.modules["cfd_proxy_tpu"] = None  # and so does any of the JAX package
 sys.path.insert(0, {repo!r})
 import numpy as np
 import torch
@@ -227,31 +230,35 @@ import chip_smoke
 import cfd_proxy_tpu_torch
 import cfd_proxy_tpu_torch.solver
 import cfd_proxy_tpu_torch.convert
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.mesh.partition import partition_mesh
+from cfd_proxy_tpu_torch import native
+from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
+from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.ops import _cuda, blocksweep
-from cfd_proxy_tpu_torch.ops.golden import compute_gradients_gg, scale_gradients
+from cfd_proxy_tpu_torch.solver import golden
 torch.set_num_threads(1)
 m = generate_mesh(6, 5, 4, jitter=0.05, diag_frac=0.2, seed=0)
 g = make_state(m.npoint, 3, seed=1)
-ref = scale_gradients(compute_gradients_gg(g, m.faces, m.normals), m.volume,
-                      m.npoint).reshape(m.npoint, -1)
-for kernel in ("packed", "gather"):
-    for nparts, s in ((1, "bulk"), (2, "early"), (2, "overlap")):
-        model = GreenGaussTorch(partition_mesh(m, nparts), 3, kernel=kernel,
-                                device="cpu")
-        st = model.distribute_state(g)
-        got = model.gather_global(model.step(st, s))
-        err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
-        assert err < 1e-5, (kernel, nparts, s, err)
-        # solver mode: table rebuild, sweeps + update, var exchange
-        v = model.iterate_fn(s, 2, solver_mode=True, sweeps_per_step=2)(
-            *model.iter_args(st))
-        assert v.shape == st["var_T"].shape and bool(torch.isfinite(v).all())
-        st = model.refresh_state(v)
-assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
-               if v is not None)
+for op in ("gg", "flux"):
+    ref = golden(op, m, g)
+    for kernel in ("packed", "gather"):
+        for nparts, s in ((1, "bulk"), (2, "early"), (2, "overlap")):
+            model = GreenGaussTorch(partition_mesh(m, nparts), 3,
+                                    kernel=kernel, op=op, device="cpu")
+            st = model.distribute_state(g)
+            got = model.gather_global(model.step(st, s))
+            err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+            assert err < 1e-5, (op, kernel, nparts, s, err)
+            # solver mode: table rebuild, sweeps + update, var exchange
+            v = model.iterate_fn(s, 2, solver_mode=True, sweeps_per_step=2)(
+                *model.iter_args(st))
+            assert v.shape == st["var_T"].shape
+            assert bool(torch.isfinite(v).all())
+            st = model.refresh_state(v)
+assert native.lib() is not None or native.build() is None
+assert not any(k == "jax" or k.startswith("jax.") or k == "cfd_proxy_tpu"
+               or k.startswith("cfd_proxy_tpu.")
+               for k, v in sys.modules.items() if v is not None)
 print("ok", err)
 """
 

@@ -1,11 +1,15 @@
-"""The port's NumPy host copies equal their originals in `cfd_proxy_tpu`.
+"""The port's NumPy plan and layout copies equal their originals in
+`cfd_proxy_tpu`.
 
+The port imports nothing of the JAX package: it carries its own host layer.
 `cfd_proxy_tpu_torch.parallel.{topology,tlayout}`, `ops.plan` and
-`ops.golden` are copies (the reference packages' `__init__` import JAX);
+`ops.golden` are copies of the JAX package's modules of the same names;
 `ops.plan` also carries the plan-padding helpers of the reference model.
 These tests hold each copy to its original: the same code (AST with
-docstrings dropped) and the same outputs on a small shuffled mesh, at one
-and four shards, one and two ghost layers.
+docstrings dropped, the port's own package name in imports read as the
+original's) and the same outputs on a small shuffled mesh, at one and four
+shards, one and two ghost layers.  The mesh, utils, native and flux copies
+are held in tests/test_torch_host.py.
 """
 
 import ast
@@ -77,6 +81,10 @@ def _setup(mesh, npart, ghost_layers):
 
 def _module_functions(path):
     tree = ast.parse(open(os.path.join(REPO, path)).read())
+    for sub in ast.walk(tree):      # the port imports its own copies
+        if isinstance(sub, ast.ImportFrom) and sub.module:
+            sub.module = sub.module.replace("cfd_proxy_tpu_torch",
+                                            "cfd_proxy_tpu")
     out = {}
     for node in tree.body:
         if not isinstance(node, (ast.FunctionDef, ast.ClassDef)):

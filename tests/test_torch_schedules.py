@@ -33,7 +33,7 @@ from cfd_proxy_tpu.mesh.partition import partition_mesh
 from cfd_proxy_tpu.mesh.reader import read_partition
 from cfd_proxy_tpu.models import GreenGaussPallas
 from cfd_proxy_tpu.ops.golden import compute_gradients_gg, scale_gradients
-from cfd_proxy_tpu.utils.errors import CheckError
+from cfd_proxy_tpu_torch.utils.errors import CheckError
 from cfd_proxy_tpu_torch.convert import plans_from_jax, state_from_jax
 from cfd_proxy_tpu_torch.models import gradients as tg
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch

@@ -28,7 +28,7 @@ from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
 from cfd_proxy_tpu.mesh.partition import partition_mesh
 from cfd_proxy_tpu.models import GreenGaussPallas
 from cfd_proxy_tpu.ops.golden import compute_gradients_gg, scale_gradients
-from cfd_proxy_tpu.utils.errors import CheckError
+from cfd_proxy_tpu_torch.utils.errors import CheckError
 from cfd_proxy_tpu_torch.convert import plans_from_jax, state_from_jax
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.ops.plan import NV
