@@ -11,12 +11,16 @@ so a comparison of their outputs tests the kernels and the step
 composition and nothing else.
 
 This module takes the JAX objects as it finds them and converts with numpy
-only: it imports no JAX.
+only: it imports no JAX.  bf16 weights (a model built with
+meta_dtype="bfloat16") arrive as numpy arrays of ml_dtypes' bfloat16,
+which `torch.from_numpy` does not take; they cross bit for bit as uint16
+and come out as a torch bf16 tensor, which `from_arrays` loads as it is.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from cfd_proxy_tpu_torch.models.gradients import CLASSES
 from cfd_proxy_tpu_torch.ops.plan import (BlockPlan, compact_slot_w,
@@ -39,8 +43,11 @@ def _class_arrays(model, cls: str) -> dict:
     bp = int(model.bp)
     wks = model._wks[cls] or (bp,) * ks
     slot_w = pa["slot_w"]
-    check(slot_w.dtype == np.float32, "plans_from_jax needs f32 weights, got "
-          "%s", slot_w.dtype)
+    bf16 = slot_w.dtype.name == "bfloat16"
+    check(bf16 or slot_w.dtype == np.float32, "plans_from_jax needs f32 or "
+          "bf16 weights, got %s", slot_w.dtype)
+    if bf16:                    # the bits, until they become a torch tensor
+        slot_w = np.ascontiguousarray(slot_w).view(np.uint16)
     common = {
         "block_ids": pa["block_ids"].astype(np.int32),
         "scale": np.ascontiguousarray(pa["scale"], np.float32),
@@ -49,7 +56,7 @@ def _class_arrays(model, cls: str) -> dict:
     if not model.packed:
         return {**common, "ep": int(ep),
                 "slot_idx": np.ascontiguousarray(pa["slot_idx"], np.int32),
-                "slot_w": np.ascontiguousarray(slot_w),
+                "slot_w": _weights(slot_w, bf16),
                 "ext_idx": np.ascontiguousarray(pa["ext_idx"], np.int32)}
     if slot_w.ndim == 5:                        # rectangular (P, nb, K, 3, bp)
         slot_w = compact_slot_w(slot_w, wks)
@@ -63,13 +70,23 @@ def _class_arrays(model, cls: str) -> dict:
             ext_idx=pa["ext_idx"][d], scale=None), wks)
         for d in range(len(model.parts))])
     return {**common, "src_cols": src_cols,
-            "slot_w": np.ascontiguousarray(slot_w, np.float32)}
+            "slot_w": _weights(slot_w, bf16)}
+
+
+def _weights(slot_w: np.ndarray, bf16: bool):
+    """f32 weights as a numpy array; bf16 weights (their uint16 bits) as a
+    torch bf16 tensor."""
+    if bf16:            # a writable copy: torch takes no read-only arrays
+        return torch.from_numpy(np.array(slot_w)).view(torch.bfloat16)
+    return np.ascontiguousarray(slot_w)
 
 
 def plans_from_jax(model) -> dict:
     """Plan arrays of a GreenGaussPallas or PSDFluxModel (packed or gather
-    kernel, f32 weights, every phase on the in-kernel transport), in the
-    port's layout.  The arrays are the same for both ops."""
+    kernel, f32 or bf16 weights, every phase on the in-kernel transport),
+    in the port's layout.  The arrays are the same for both ops; the model
+    they are loaded into takes the reference's dtype options
+    (`GreenGaussTorch.from_arrays(..., meta_dtype=...)`)."""
     check(not model._dcn_phases, "plans_from_jax: inter-slice phases "
           "(slice_size) come with ROADMAP queue 1 item 12")
     lay = model.layout

@@ -3,10 +3,11 @@
 //
 // Replaces the bodies of cfd_proxy_tpu/ops/blocksweep.py::
 // _block_compute_packed (K1, the packed formulation) and _block_compute
-// (K2, the gather formulation), ops "gg" and "flux", f32, with and without
-// their `accumulate` operand.  For point column `col` of listed block b of
-// shard p (lane l = col - block_ids[p, b]*bp), over the live slots k
-// (l < wks[k]) with source src_k and weights w_k (3):
+// (K2, the gather formulation), ops "gg" and "flux", with and without
+// their `accumulate` operand, in every precision the reference takes.  For
+// point column `col` of listed block b of shard p (lane l = col -
+// block_ids[p, b]*bp), over the live slots k (l < wks[k]) with source src_k
+// and weights w_k (3):
 //
 //   gg   (Green-Gauss, kRows = 3*NV output rows d*NV+v):
 //     acc[d*NV+v] += w_k[d] * 0.5f*(own[v] + src_k[v])
@@ -18,6 +19,20 @@
 //   acc starts at (accumulate ? out[p, r, col] : 0);
 //   out[p, r, col] = scale[p, b, l] * acc[r]
 //
+// Reduced precision (the reference's meta_dtype, src_dtype and grad_dtype
+// options).  Three element types are template parameters: the weights
+// (f32 or bf16), the packed sources (f32 values, or bf16 DELTAS
+// src_k - own written by K4's bf16d form) and the output, which is also
+// init (f32 or bf16).  Every bf16 operand is widened to f32 as it is loaded
+// (__bfloat162float, exact); the accumulators stay f32 in registers and
+// only the final store rounds, round-to-nearest-even (__float2bfloat16_rn,
+// as astype(bfloat16) in the reference).  With deltas d_k the reference
+// rebuilds its terms in f32 (_block_compute_packed :490-497):
+//
+//   gg   avg = own[v] + 0.5f*d_k[v]          (not 0.5f*(own + src))
+//   flux src_k[v] = own[v] + d_k[v], then the flux terms above unchanged
+//
+// The state var_T and scale stay f32 in every form.
 // The two formulations differ only in where slot k's source and weights
 // are read, which the `Src` policy of sweep_chunk decides:
 //
@@ -60,7 +75,12 @@
 // or 32 B (flux) (and init as much again when accumulating) and, per live
 // slot, 12 B of weights plus, packed, 32 B of sources or, gathered, a 4 B
 // W-index and 32 B of gathered values that mostly hit L1/L2 (the block's
-// own columns and its RCB-local ext table).  The math is 24 FMAs per slot
+// own columns and its RCB-local ext table); bf16 weights, deltas and
+// outputs halve their streams (6 B of weights and 16 B of deltas per slot
+// lane, 48 B or 16 B of output per point).  A bf16 load is one 2-byte
+// element per thread, still coalesced along the point columns, in
+// transactions half as wide: the simple form, not yet paired into
+// __nv_bfloat162 loads.  The math is 24 FMAs per slot
 // (gg) or ~6 + 4*8 operations (flux).  Design: the accumulators (24 gg, 8
 // flux) and the 8 own values stay in registers for the whole slot loop, so
 // nothing but the streams touches memory; every stream is coalesced along
@@ -79,8 +99,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cfd {
 
@@ -89,7 +112,29 @@ constexpr int kRows = 3 * kNV;    // gg output rows d*NV+v
 constexpr int kMaxSlots = 64;     // slot-table capacity (checked by the wrapper)
 constexpr int kThreads = 128;
 
-// Operands both formulations share.
+using bf16 = __nv_bfloat16;
+
+// A stored element type from an entry point's dtype flag.
+template <bool kBf16>
+using Elt = std::conditional_t<kBf16, bf16, float>;
+
+// Loads widen to f32 (exact); the store rounds to nearest even.  The f32
+// overloads are the plain loads and store of the f32 instances.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Operands both formulations share; OutT is the output's (and init's)
+// element type.
+template <class OutT>
 struct SweepArgs {
   const float* var_T;       // (P, NV, ndev)
   int64_t ndev;
@@ -100,7 +145,7 @@ struct SweepArgs {
   int64_t nb;
   int bp;
   int64_t chunks;           // kThreads-column chunks per block
-  float* out;               // (P, rows, ndev); also init when accumulating
+  OutT* out;                // (P, rows, ndev); also init when accumulating
 };
 
 // The sweep's arithmetic (see the header comment).
@@ -118,37 +163,46 @@ inline bool op_ok(int op) { return op == 0 || op == 1; }
 
 // Where slot k's values are for one lane: sources at src + v*src_stride,
 // weights at w + d*w_stride.
+template <class SrcT, class WT>
 struct SlotPtrs {
-  const float* src;
+  const SrcT* src;
   int64_t src_stride;
-  const float* w;
+  const WT* w;
   int64_t w_stride;
 };
 
-// K1: the packed compact source table.
+// K1: the packed compact source table; SrcT bf16 holds deltas src - own
+// (the reference's src_format "bf16d", packed only).
+template <class WT, class SrcT>
 struct PackedSrc {
-  const float* srcs;        // (P, nb, NV, L)
-  const float* slot_w;      // (P, nb, 3, L)
+  static constexpr bool kDelta = std::is_same<SrcT, bf16>::value;
+  const SrcT* srcs;         // (P, nb, NV, L)
+  const WT* slot_w;         // (P, nb, 3, L)
   int64_t L;
 
-  __device__ __forceinline__ SlotPtrs slot(const SweepArgs&, int64_t g,
-                                           int /*k*/, int off, int lane,
-                                           const float* /*own_blk*/) const {
+  template <class OutT>
+  __device__ __forceinline__ SlotPtrs<SrcT, WT> slot(
+      const SweepArgs<OutT>&, int64_t g, int /*k*/, int off, int lane,
+      const float* /*own_blk*/) const {
     const int64_t j = static_cast<int64_t>(off) + lane;
     return {srcs + g * kNV * L + j, L, slot_w + g * 3 * L + j, L};
   }
 };
 
-// K2: gather from [own ‖ exts] by the W-index.
+// K2: gather from [own ‖ exts] by the W-index; the sources are the f32
+// state (the reference refuses bf16 sources with this formulation).
+template <class WT>
 struct GatherSrc {
+  static constexpr bool kDelta = false;
   const float* exts;        // (P, nb, NV, EP)
   const int32_t* slot_idx;  // (P, nb, K, bp) W-index in [0, bp + EP)
-  const float* slot_w;      // (P, nb, K, 3, bp)
+  const WT* slot_w;         // (P, nb, K, 3, bp)
   int64_t ep;
 
-  __device__ __forceinline__ SlotPtrs slot(const SweepArgs& a, int64_t g,
-                                           int k, int /*off*/, int lane,
-                                           const float* own_blk) const {
+  template <class OutT>
+  __device__ __forceinline__ SlotPtrs<float, WT> slot(
+      const SweepArgs<OutT>& a, int64_t g, int k, int /*off*/, int lane,
+      const float* own_blk) const {
     const int64_t row = g * a.K + k;                 // (shard, entry, slot)
     const int i = __ldg(slot_idx + row * a.bp + lane);
     const bool own = i < a.bp;
@@ -166,9 +220,9 @@ inline int64_t sweep_grid(int64_t P, int64_t nb, int bp, int64_t* chunks) {
 // One kThreads-column chunk of one (shard, entry); `blk` in
 // [0, P*nb*chunks).  The early returns are uniform over the CUDA block up
 // to the barrier.
-template <bool kAccumulate, Op kOp, class Src>
-__device__ __forceinline__ void sweep_chunk(const SweepArgs& a, const Src& s,
-                                            int64_t blk) {
+template <bool kAccumulate, Op kOp, class Src, class OutT>
+__device__ __forceinline__ void sweep_chunk(const SweepArgs<OutT>& a,
+                                            const Src& s, int64_t blk) {
   constexpr int R = op_rows(kOp);
   __shared__ int s_width[kMaxSlots];
   __shared__ int s_off[kMaxSlots];
@@ -189,7 +243,7 @@ __device__ __forceinline__ void sweep_chunk(const SweepArgs& a, const Src& s,
   const int64_t base = static_cast<int64_t>(a.block_ids[g]) * a.bp;
   const int64_t col = base + lane;
   const float* own_p = a.var_T + shard * kNV * ndev;
-  float* out_p = a.out + shard * R * ndev;
+  OutT* out_p = a.out + shard * R * ndev;
 
   float own[kNV];
 #pragma unroll
@@ -198,26 +252,31 @@ __device__ __forceinline__ void sweep_chunk(const SweepArgs& a, const Src& s,
   float acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    acc[r] = kAccumulate ? out_p[r * ndev + col] : 0.0f;
+    acc[r] = kAccumulate ? widen(out_p[r * ndev + col]) : 0.0f;
   }
 
   for (int k = 0; k < a.K; ++k) {
     if (lane >= s_width[k]) continue;       // outside slot k's prefix
-    const SlotPtrs p = s.slot(a, g, k, s_off[k], lane, own_p + base);
+    const auto p = s.slot(a, g, k, s_off[k], lane, own_p + base);
     float w[3];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) w[d] = __ldg(p.w + d * p.w_stride);
+    for (int d = 0; d < 3; ++d) w[d] = ld(p.w + d * p.w_stride);
     if constexpr (kOp == Op::kGG) {
 #pragma unroll
       for (int v = 0; v < kNV; ++v) {
-        const float avg = 0.5f * (own[v] + __ldg(p.src + v * p.src_stride));
+        const float sv = ld(p.src + v * p.src_stride);
+        const float avg = Src::kDelta ? own[v] + 0.5f * sv
+                                      : 0.5f * (own[v] + sv);
 #pragma unroll
         for (int d = 0; d < 3; ++d) acc[d * kNV + v] += w[d] * avg;
       }
     } else {
       float src[kNV];
 #pragma unroll
-      for (int v = 0; v < kNV; ++v) src[v] = __ldg(p.src + v * p.src_stride);
+      for (int v = 0; v < kNV; ++v) {
+        src[v] = ld(p.src + v * p.src_stride);
+        if constexpr (Src::kDelta) src[v] = own[v] + src[v];
+      }
       const float udw = own[0] * w[0] + own[1] * w[1] + own[2] * w[2];
       const float uow = src[0] * w[0] + src[1] * w[1] + src[2] * w[2];
       const float am = fmaxf(fabsf(udw), fabsf(uow));
@@ -231,12 +290,40 @@ __device__ __forceinline__ void sweep_chunk(const SweepArgs& a, const Src& s,
 
   const float sc = __ldg(a.scale + g * a.bp + lane);
 #pragma unroll
-  for (int r = 0; r < R; ++r) out_p[r * ndev + col] = acc[r] * sc;
+  for (int r = 0; r < R; ++r) store(out_p + r * ndev + col, acc[r] * sc);
 }
 
 // Host-side checks shared by the entry points; a bad shape never launches.
 inline bool sweep_args_ok(int K, int bp, int64_t grid) {
   return K >= 1 && K <= kMaxSlots && bp > 0 && grid <= 0x7fffffffLL;
+}
+
+// Runtime flags to template arguments: with_flags(b, f) calls
+// f(std::integral_constant<bool, b[0]>{}, ..., <bool, b[N-1]>{}), so an
+// entry point picks its kernel instance (op, init form, element types)
+// from its int arguments, and every combination is instantiated once.
+template <int I, int N>
+struct FlagDispatch {
+  template <class F, class... Cs>
+  static int run(const bool (&b)[N], F& f, Cs... cs) {
+    if (b[I]) {
+      return FlagDispatch<I + 1, N>::run(b, f, cs..., std::true_type{});
+    }
+    return FlagDispatch<I + 1, N>::run(b, f, cs..., std::false_type{});
+  }
+};
+
+template <int N>
+struct FlagDispatch<N, N> {
+  template <class F, class... Cs>
+  static int run(const bool (&)[N], F& f, Cs... cs) {
+    return f(cs...);
+  }
+};
+
+template <int N, class F>
+inline int with_flags(const bool (&b)[N], F f) {
+  return FlagDispatch<0, N>::run(b, f);
 }
 
 }  // namespace cfd

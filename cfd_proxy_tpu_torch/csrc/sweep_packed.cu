@@ -1,15 +1,19 @@
-// K1: block sweep, PACKED formulation, COMPACT prefix layout, f32, over P
-// shards in one launch; ops "gg" and "flux" (the entry point's `op`).
+// K1: block sweep, PACKED formulation, COMPACT prefix layout, over P shards
+// in one launch; ops "gg" and "flux" (the entry point's `op`), f32 or bf16
+// weights, f32 source values or bf16 source deltas, f32 or bf16 output.
 //
 // Replaces: cfd_proxy_tpu/ops/blocksweep.py::sweep_blocks, packed branch
 // with `wks` (body _block_compute_packed, its gg body :489-494 and its flux
-// body :495-504), with and without `init`.  The per-thread body, its bound
-// and the handling of pad entries are in sweep_common.cuh.
+// body :495-504), with and without `init`, with src_format "f32" or "bf16d",
+// slot_w f32 or bf16 and out_dtype f32 or bf16.  The per-thread body, its
+// bound, the precisions and the handling of pad entries are in
+// sweep_common.cuh.
 //
 // Without init the wrapper hands a zero-filled output, so columns of blocks
 // the plan does not list stay zero.  With init the output IS init (the
-// reference aliases them): listed columns are seeded from it and rewritten
-// in place, unlisted columns keep their values, and nothing is zero-filled.
+// reference aliases them, and checks that their dtypes agree): listed
+// columns are seeded from it and rewritten in place, unlisted columns keep
+// their values, and nothing is zero-filled.
 
 #include "sweep_common.cuh"
 
@@ -20,37 +24,34 @@ namespace {
 // without the hint the zero-filled form took 0.167 ms and the init form
 // 0.235 ms; with 5, 0.128 and 0.161 ms — the init form keeps its 96
 // registers, so the gain is ptxas's schedule, not occupancy.  6 and 8 were
-// slower (and make the init form spill).  The flux instances keep the
-// same hint (untuned).
+// slower (and make the init form spill).  The flux and reduced-precision
+// instances keep the same hint (untuned).
 constexpr int kMinBlocks = 5;
 
-template <bool kAccumulate, cfd::Op kOp>
+template <bool kAccumulate, cfd::Op kOp, class W, class S, class O>
 __global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
-sweep_packed_kernel(cfd::SweepArgs a, cfd::PackedSrc s) {
+sweep_packed_kernel(cfd::SweepArgs<O> a, cfd::PackedSrc<W, S> s) {
   cfd::sweep_chunk<kAccumulate, kOp>(a, s, blockIdx.x);
 }
 
-template <cfd::Op kOp>
-int launch_packed(const float* var_T, int64_t ndev, const float* srcs,
-                  const float* slot_w, const float* scale,
+template <bool kAccumulate, cfd::Op kOp, class W, class S, class O>
+int launch_packed(const float* var_T, int64_t ndev, const void* srcs,
+                  const void* slot_w, const float* scale,
                   const int32_t* block_ids, const int32_t* slots, int K,
-                  int64_t P, int64_t nb, int64_t L, int bp, int accumulate,
-                  float* out, cudaStream_t stream) {
+                  int64_t P, int64_t nb, int64_t L, int bp, void* out,
+                  cudaStream_t stream) {
   if (P == 0 || nb == 0) return 0;
   int64_t chunks = 0;
   const int64_t grid = cfd::sweep_grid(P, nb, bp, &chunks);
   if (!cfd::sweep_args_ok(K, bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cfd::SweepArgs a{var_T, ndev, scale, block_ids, slots, K, nb, bp,
-                         chunks, out};
-  const cfd::PackedSrc s{srcs, slot_w, L};
-  const unsigned g = static_cast<unsigned>(grid);
-  if (accumulate) {
-    sweep_packed_kernel<true, kOp><<<g, cfd::kThreads, 0, stream>>>(a, s);
-  } else {
-    sweep_packed_kernel<false, kOp><<<g, cfd::kThreads, 0, stream>>>(a, s);
-  }
+  const cfd::SweepArgs<O> a{var_T, ndev, scale, block_ids, slots, K, nb, bp,
+                            chunks, static_cast<O*>(out)};
+  const cfd::PackedSrc<W, S> s{static_cast<const S*>(srcs),
+                               static_cast<const W*>(slot_w), L};
+  sweep_packed_kernel<kAccumulate, kOp, W, S, O>
+      <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -59,17 +60,29 @@ int launch_packed(const float* var_T, int64_t ndev, const float* srcs,
 // Shapes as annotated in cfd::SweepArgs and cfd::PackedSrc, all contiguous
 // on the current device; K <= 64; op as in cfd::op_ok; `out` has
 // cfd::op_rows rows (3*NV gg, NV flux).  accumulate != 0: `out` holds init
-// on entry.  Launches on `stream`; returns the launch's cudaError_t
-// (0 = success).
+// on entry.  w_bf16 / src_bf16d / out_bf16 != 0: slot_w is bf16, srcs holds
+// bf16 deltas, out (and init) is bf16; else f32.  Launches on `stream`;
+// returns the launch's cudaError_t (0 = success).
 extern "C" int cfd_sweep_packed(const float* var_T, int64_t ndev,
-                                const float* srcs, const float* slot_w,
+                                const void* srcs, const void* slot_w,
                                 const float* scale, const int32_t* block_ids,
                                 const int32_t* slots, int K, int64_t P,
                                 int64_t nb, int64_t L, int bp, int accumulate,
-                                int op, float* out, cudaStream_t stream) {
+                                int op, int w_bf16, int src_bf16d,
+                                int out_bf16, void* out,
+                                cudaStream_t stream) {
   if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch = op == 0 ? &launch_packed<cfd::Op::kGG>
-                              : &launch_packed<cfd::Op::kFlux>;
-  return launch(var_T, ndev, srcs, slot_w, scale, block_ids, slots, K, P, nb,
-                L, bp, accumulate, out, stream);
+  const bool flags[] = {accumulate != 0, op == 1, w_bf16 != 0,
+                        src_bf16d != 0, out_bf16 != 0};
+  return cfd::with_flags(flags, [&](auto acc, auto flux, auto w16, auto d16,
+                                    auto o16) {
+    constexpr cfd::Op kOp =
+        decltype(flux)::value ? cfd::Op::kFlux : cfd::Op::kGG;
+    return launch_packed<decltype(acc)::value, kOp,
+                         cfd::Elt<decltype(w16)::value>,
+                         cfd::Elt<decltype(d16)::value>,
+                         cfd::Elt<decltype(o16)::value>>(
+        var_T, ndev, srcs, slot_w, scale, block_ids, slots, K, P, nb, L, bp,
+        out, stream);
+  });
 }

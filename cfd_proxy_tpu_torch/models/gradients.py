@@ -1,9 +1,9 @@
 """GreenGaussTorch — the port's block-sweep model, and PSDFluxModel.
 
 Counterpart of `cfd_proxy_tpu/models/gradients_pallas.py::GreenGaussPallas`
-and its `PSDFluxModel` (f32; op "gg", Green-Gauss gradients, or op "flux",
-the PSD upwind flux of ops/flux.py; packed or gather kernel) for P shards
-held on ONE device:
+and its `PSDFluxModel` (op "gg", Green-Gauss gradients, or op "flux", the
+PSD upwind flux of ops/flux.py; packed or gather kernel; f32, or the
+reduced-precision options below) for P shards held on ONE device:
 
 - `__init__`: block-size rule, RCB locality relabel (+ in-block degree sort
   for the compact prefix widths), halo topology, transposed device layout,
@@ -36,6 +36,16 @@ completed permutation (dsts), whose extra pairs carry send-masked zeros, so
 the ghost regions come out the same.  Pack, transfer and unpack are plain
 torch ops, as they are XLA ops in the reference.
 
+Reduced precision, the reference's four options, each "float32" or
+"bfloat16": `meta_dtype` stores the slot weights in bf16 (rounded here from
+the f32 plan, to nearest even, as the reference's `astype`); `src_dtype`
+packs bf16 DELTAS src − own (packed kernel only); `grad_dtype` stores every
+gradient buffer in bf16 (outputs, the boundary partial, the zero fill),
+while the kernels accumulate in f32; `halo_dtype` casts the GRADIENT
+exchange's send buffers at pack time (the var exchange stays f32) and the
+unpack casts back into the output's dtype.  The state `var_T` is f32 in
+every mode.
+
 Options outside the slice raise `CheckError` naming the ROADMAP item that
 brings them.
 """
@@ -53,6 +63,8 @@ from cfd_proxy_tpu_torch.mesh.partition import (
     send_point_set,
 )
 from cfd_proxy_tpu_torch.ops.blocksweep import (
+    BF16,
+    F32,
     OPS,
     gather_exts,
     loopback,
@@ -92,6 +104,9 @@ BP_SMALL = 1024
 CLASSES = ("bulk", "boundary", "interior")
 KERNELS = ("packed", "gather")
 SCHEDULES = ("bulk", "early", "overlap", "nocomm")
+# the reduced-precision options and the stored types they name
+PRECISIONS = {"float32": F32, "bfloat16": BF16}
+DTYPE_OPTIONS = ("meta_dtype", "src_dtype", "halo_dtype", "grad_dtype")
 # which source-table classes each schedule's step reads
 SCHEDULE_CLASSES = {
     "bulk": ("bulk",), "nocomm": ("bulk",),
@@ -232,14 +247,37 @@ class GreenGaussTorch(nn.Module):
                  bp: int | None = None, kcompact: bool | None = None,
                  force_rdma: bool = False, kernel: str = "packed",
                  op: str = "gg", device: str | torch.device = "cuda",
+                 meta_dtype: str = "float32", src_dtype: str = "float32",
+                 halo_dtype: str = "float32", grad_dtype: str = "float32",
                  arrays: dict | None = None):
         """parts: the raw partitions (relabeled here, as the reference
         does), or — with `arrays` — partitions ALREADY relabeled by the
         model the arrays come from (see `from_arrays`).  kernel: "packed"
         (sources packed ahead of the sweep, K4 + K1) or "gather" (the sweep
         gathers them from per-block ext tables, K2).  op: "gg" (3·NV output
-        rows) or "flux" (NV rows); the plans do not depend on it."""
+        rows) or "flux" (NV rows); the plans do not depend on it.
+        meta_dtype, src_dtype, halo_dtype, grad_dtype: "float32" or
+        "bfloat16" (module docstring); bf16 sources need the packed
+        kernel."""
         super().__init__()
+        for name, value in (("meta_dtype", meta_dtype),
+                            ("src_dtype", src_dtype),
+                            ("halo_dtype", halo_dtype),
+                            ("grad_dtype", grad_dtype)):
+            check(value in PRECISIONS, "%s must be float32|bfloat16, got %r",
+                  name, value)
+        # the reference's check (gradients_pallas.py:205-206): the gather
+        # formulation reads the f32 state tables inside the sweep
+        check(src_dtype == "float32" or
+              (kernel if arrays is None else arrays.get("kernel")) ==
+              "packed", "--src-dtype bfloat16 requires the packed kernel")
+        self.meta_dtype, self.src_dtype = meta_dtype, src_dtype
+        self.halo_dtype, self.grad_dtype = halo_dtype, grad_dtype
+        self.src_format = "bf16d" if src_dtype == "bfloat16" else "f32"
+        # stored types: weights, gradient buffers, gradient wire
+        self.w_t = PRECISIONS[meta_dtype]
+        self.grad_t = PRECISIONS[grad_dtype]
+        self.halo_t = PRECISIONS[halo_dtype]
         check(op in OPS, "unknown kernel op %r", op)
         check(1 <= nvar <= NV, "nvar %d outside [1, %d]", nvar, NV)
         # the flux reads var[:3] as the velocity vector (the reference's
@@ -344,7 +382,7 @@ class GreenGaussTorch(nn.Module):
                   "class %s block lists must be (P, nb), ascending with "
                   "trailing pad repeats", c)
             pl = {"block_ids": dev(bids, np.int32),
-                  "slot_w": dev(ca["slot_w"], np.float32),
+                  "slot_w": self._weights(c, ca["slot_w"], dev),
                   "scale": dev(ca["scale"], np.float32),
                   "slots": dev(slot_table(wks), np.int32)}
             if self.kernel == "gather":
@@ -359,6 +397,22 @@ class GreenGaussTorch(nn.Module):
                 pl["src_cols"] = dev(cols, np.int32)
             self.plans[c] = pl
             self.wks[c] = wks
+
+    def _weights(self, c: str, w, dev) -> torch.Tensor:
+        """A class's slot weights on the device in the meta dtype: f32 host
+        weights are rounded here (to nearest even, as the reference's
+        `astype(bfloat16)`); bf16 weights, which another model's plan
+        arrays may carry as a torch tensor (convert.plans_from_jax), are
+        taken as they are, and only by a bf16-weight model."""
+        if isinstance(w, torch.Tensor):
+            check(w.dtype in (F32, BF16), "class %s slot_w dtype %s", c,
+                  w.dtype)
+            check(w.dtype == F32 or self.w_t == BF16, "class %s slot_w is "
+                  "bf16: build the model with meta_dtype='bfloat16'", c)
+            w = w.to(self.device)
+        else:
+            w = dev(w, np.float32)
+        return w.to(self.w_t).contiguous()
 
     def _gather_tables(self, c: str, ca: dict, wks: tuple, nb: int,
                        dev) -> dict:
@@ -379,12 +433,12 @@ class GreenGaussTorch(nn.Module):
 
     @classmethod
     def from_arrays(cls, parts: list[MeshPartition], nvar: int,
-                    arrays: dict, *,
-                    device: str | torch.device = "cuda") -> "GreenGaussTorch":
+                    arrays: dict, *, device: str | torch.device = "cuda",
+                    **options) -> "GreenGaussTorch":
         """Build from another model's plan arrays (convert.plans_from_jax)
         and its relabeled partitions — both packages then compute on
-        identical plan data."""
-        return cls(parts, nvar, device=device, arrays=arrays)
+        identical plan data.  options: the dtype options of `__init__`."""
+        return cls(parts, nvar, device=device, arrays=arrays, **options)
 
     # ------------------------------------------------------------- state
 
@@ -423,7 +477,10 @@ class GreenGaussTorch(nn.Module):
         if self.kernel == "gather":
             return {c: gather_exts(var_T, self.plans[c]["ext_idx"])
                     for c in classes}
-        return {c: pack_srcs(var_T, self.plans[c]["src_cols"])
+        return {c: pack_srcs(var_T, self.plans[c]["src_cols"],
+                             src_format=self.src_format,
+                             block_ids=self.plans[c]["block_ids"],
+                             slots=self.plans[c]["slots"], bp=self.bp)
                 for c in classes}
 
     def _var_exchange(self, var_T: torch.Tensor) -> torch.Tensor:
@@ -433,7 +490,7 @@ class GreenGaussTorch(nn.Module):
         Skipped when no phase moves data, as the reference skips phases
         with an empty perm."""
         if self.moves:
-            self._exchange(var_T, self.send_mask)
+            self._exchange(var_T, self.send_mask, F32)
         return var_T
 
     def refresh_state(self, var_T: torch.Tensor, *, schedules=None) -> dict:
@@ -471,29 +528,38 @@ class GreenGaussTorch(nn.Module):
         return (tables[cls], *(pl[k] for k in SWEEP_OPERANDS[self.kernel]))
 
     def _sweep(self, cls: str, var_T, tables, init=None):
+        """A class's sweep; its output (init's, else a new one) is stored
+        in the grad dtype."""
         sweep = sweep_blocks_gather if self.kernel == "gather" else \
             sweep_blocks
         return sweep(var_T, *self._operands(cls, tables), init=init,
-                     op=self.op)
+                     op=self.op, out_dtype=self.grad_t)
 
-    def _pack(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    def _pack(self, x: torch.Tensor, scale: torch.Tensor,
+              wire: torch.dtype = F32) -> torch.Tensor:
         """(P, rows, ndev) → (P, nph, rows, s_max) send buffers: the
         columns of send_idx, times the mask (bulk gradients, which are
         already volume-scaled, and the state) or pack_scale (early/overlap:
-        boundary sums are not)."""
+        boundary sums are not), in f32 (a bf16 x is widened by the
+        product, as in the reference), then cast to the wire dtype."""
         rows = self.pack_row[:, :, : x.shape[1]]
-        return x[self.pack_shard, rows, self.pack_cols] * scale
+        return (x[self.pack_shard, rows, self.pack_cols] * scale).to(wire)
 
     def _unpack(self, x: torch.Tensor, recv: torch.Tensor) -> None:
         """Phase k's buffers into its ghost region [ghost_start + k·s_max,
-        +s_max): the regions are adjacent, so one strided copy."""
+        +s_max), cast into x's dtype: the regions are adjacent, so one
+        strided copy."""
         P, nph, rows = recv.shape[:3]
         lo = self.ghost_start
         x[:, :, lo:lo + nph * self.s_max].view(
             P, rows, nph, self.s_max).copy_(recv.permute(0, 2, 1, 3))
 
-    def _exchange(self, x: torch.Tensor, scale: torch.Tensor) -> None:
-        self._unpack(x, loopback(self._pack(x, scale), self.dst_index))
+    def _exchange(self, x: torch.Tensor, scale: torch.Tensor,
+                  wire: torch.dtype) -> None:
+        """x's ghost columns from their owners, in place, through the
+        loopback transport, the payload in the wire dtype: the gradient
+        exchange's is the halo dtype, the var exchange's f32."""
+        self._unpack(x, loopback(self._pack(x, scale, wire), self.dst_index))
 
     def forward(self, var_T: torch.Tensor, tables: dict,
                 schedule: str = "bulk") -> torch.Tensor:
@@ -503,22 +569,23 @@ class GreenGaussTorch(nn.Module):
         if schedule in ("bulk", "nocomm"):
             g = self._sweep("bulk", var_T, tables)
             if schedule == "bulk" and self.moves:
-                self._exchange(g, self.send_mask)
+                self._exchange(g, self.send_mask, self.halo_t)
             return g
         zeros = torch.zeros((len(self.parts), self.rows, self.ndev),
-                            dtype=torch.float32, device=self.device)
+                            dtype=self.grad_t, device=self.device)
         gb = self._sweep("boundary", var_T, tables, init=zeros)
         if schedule == "overlap" and self.has_comm:
             fused = sweep_blocks_overlap_gather if self.kernel == "gather" \
                 else sweep_blocks_overlap
             g, recv = fused(var_T, *self._operands("interior", tables), gb,
-                            self._pack(gb, self.pack_scale), self.dsts,
-                            self.srcs, self.op)
+                            self._pack(gb, self.pack_scale, self.halo_t),
+                            self.dsts, self.srcs, self.op)
             self._unpack(g, recv)
             return g
         # early, or overlap with nothing to move: start the exchange, sweep
         # the interior onto the boundary sums, finish the exchange
-        recv = (loopback(self._pack(gb, self.pack_scale), self.dst_index)
+        recv = (loopback(self._pack(gb, self.pack_scale, self.halo_t),
+                         self.dst_index)
                 if self.moves else None)
         g = self._sweep("interior", var_T, tables, init=gb)
         if recv is not None:
@@ -537,8 +604,9 @@ class GreenGaussTorch(nn.Module):
         """Chained n-step runner over iter_args; returns the final var_T.
 
         Without solver_mode each step's gradients feed the next step's
-        state (v + 1e-30·g[:, :NV], the reference's chained loop) over the
-        state's fixed tables, so no step can be skipped.
+        state (v + 1e-30·g[:, :NV], the reference's chained loop, with its
+        types: the product in the grad dtype, the sum f32) over the state's
+        fixed tables, so no step can be skipped.
 
         solver_mode=True runs the per-time-step dataflow of a real solver
         built on the proxy (`GreenGaussPallas._solver_iterate_fn`): each
@@ -583,8 +651,12 @@ class GreenGaussTorch(nn.Module):
     def gather_global(self, grad: torch.Tensor) -> np.ndarray:
         """(P, rows, ndev) device result → global host array, the
         reference's convention: gg (N, nvar*3), column v*3+d; flux
-        (N, nvar)."""
-        arr = grad.detach().cpu().numpy()
+        (N, nvar).  bf16 results are widened to f32 (numpy has no bf16),
+        as the reference widens them."""
+        grad = grad.detach()
+        if grad.dtype == BF16:
+            grad = grad.float()
+        arr = grad.cpu().numpy()
         N = sum(p.nowned for p in self.parts)
         if self.op == "flux":
             out = np.zeros((N, self.nvar), dtype=arr.dtype)

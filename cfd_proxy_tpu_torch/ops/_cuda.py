@@ -126,18 +126,25 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     L = ctypes.CDLL(build()["path"])
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    # pack: var_T, ndev, src_cols, P, nb, L, delta, block_ids, slots, K, bp,
+    # out, stream
     L.cfd_pack_srcs.restype = ctypes.c_int
-    L.cfd_pack_srcs.argtypes = [vp, i64, vp, i64, i64, i64, vp, vp]
+    L.cfd_pack_srcs.argtypes = [vp, i64, vp, i64, i64, i64, i32, vp, vp,
+                                i32, i32, vp, vp]
     sweep = [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i64, i32]
     # gather: var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids,
     # slots, K, P, nb, bp
     gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32]
-    # op (0 gg, 1 flux), out, then sendbufs, dsts, nph, s_max, recv, stream
-    push = [i32, vp, vp, vp, i64, i64, vp, vp]
-    for name, args in (("cfd_sweep_packed", [*sweep, i32, i32, vp, vp]),
-                       ("cfd_sweep_overlap", [*sweep, *push]),
-                       ("cfd_sweep_gather", [*gather, i32, i32, vp, vp]),
-                       ("cfd_sweep_overlap_gather", [*gather, *push])):
+    # sendbufs, esize, dsts, nph, s_max, recv, stream
+    push = [vp, i32, vp, i64, i64, vp, vp]
+    # (accumulate,) op (0 gg, 1 flux), then the dtype flags: w_bf16,
+    # (packed: src_bf16d,) out_bf16, and out
+    for name, args in (
+            ("cfd_sweep_packed", [*sweep, i32, i32, i32, i32, i32, vp, vp]),
+            ("cfd_sweep_overlap", [*sweep, i32, i32, i32, i32, vp, *push]),
+            ("cfd_sweep_gather", [*gather, i32, i32, i32, i32, vp, vp]),
+            ("cfd_sweep_overlap_gather", [*gather, i32, i32, i32, vp,
+                                          *push])):
         fn = getattr(L, name)
         fn.restype = ctypes.c_int
         fn.argtypes = args

@@ -1,9 +1,10 @@
 """Block-local sweep in its two formulations, the source pack and the fused
 overlap sweep — kernel wrappers, over P shards held on one device.
 
-Counterpart of `cfd_proxy_tpu/ops/blocksweep.py` in f32, for both of its
-ops: "gg" (Green-Gauss gradients, 3·NV output rows d*NV+v) and "flux" (the
-PSD upwind flux of ops/flux.py in its directed-slot form, NV output rows).
+Counterpart of `cfd_proxy_tpu/ops/blocksweep.py`, for both of its ops: "gg"
+(Green-Gauss gradients, 3·NV output rows d*NV+v) and "flux" (the PSD upwind
+flux of ops/flux.py in its directed-slot form, NV output rows), in every
+precision the reference takes.
 The packed formulation in the COMPACT layout (`sweep_blocks`, fed by
 `pack_srcs`) and the gather formulation with rectangular slot tables
 (`sweep_blocks_gather`, fed by `gather_exts`), each with its fused overlap
@@ -17,12 +18,26 @@ then
 - on CUDA tensors launches its hand-written kernel (`csrc/`) on the current
   stream, never synchronises, and raises if the launch fails.
 
-There is no fallback from one to the other.  Each wrapper counts its kernel
-launches in plain integer attributes, one per kernel instance
-(`pack_srcs.launches`; `sweep_blocks.launches`, `.init_launches` for the
-accumulate form, `.flux_launches` and `.flux_init_launches` for the flux
-op's two; `sweep_blocks_overlap.launches` and `.flux_launches`; the same on
-the gather wrappers), so a run can show which bodies its main path ran.
+There is no fallback from one to the other.
+
+Precision.  The state `var_T` and `scale` are f32.  Every wrapper takes the
+reduced-precision options of the reference from its operands' dtypes, f32
+or bf16: the weights `slot_w` (meta_dtype); the packed sources `srcs`,
+where bf16 means DELTAS src − own (src_format "bf16d", written by
+`pack_srcs(..., src_format="bf16d")`; the gather tables stay f32); the
+output, which is `init` when given, else `out_dtype` (grad_dtype; init and
+out must agree, the reference aliases them); the push's `sendbufs`
+(halo_dtype).  bf16 operands are widened to f32 where they are read, the
+sums stay f32, and only the store rounds (to nearest even).
+
+Launch counts.  Each wrapper counts the launches of each of its kernel
+instances in a plain integer attribute, `<form><tag>launches`: form "" or
+"init_" (the accumulate form), after "flux_" for the flux op; tag "" for
+f32 operands, else "w16_" (bf16 weights), "d16_" (bf16 deltas) and "o16_"
+(bf16 output), in that order (`sweep_blocks.launches`,
+`sweep_blocks.flux_init_w16_d16_o16_launches`, `pack_srcs.d16_launches`).
+`launch_counters()` lists them all, so a run can show which bodies its main
+path ran.
 
 Compact layout (ops/plan.py): slot k of block b covers lanes [0, wks[k]) at
 offset off_k = Σ_{j<k} wks[j] of the (P, nb, NV, L) source table and the
@@ -47,7 +62,10 @@ from cfd_proxy_tpu_torch.ops.plan import NV
 from cfd_proxy_tpu_torch.utils.errors import check
 
 OPS = ("gg", "flux")   # the kernels take an op as its index here
+SRC_FORMATS = ("f32", "bf16d")   # packed source values, or bf16 deltas
 MAX_SLOTS = 64         # slot-table capacity of the sweep kernel
+F32, BF16 = torch.float32, torch.bfloat16
+DTYPES = (F32, BF16)   # the stored types a reduced-precision operand takes
 
 
 def out_rows(op: str) -> int:
@@ -60,11 +78,69 @@ def _check_op(op: str) -> int:
     return out_rows(op)
 
 
-def _count(fn, init, op: str) -> None:
+def _tag(w16: bool = False, d16: bool = False, o16: bool = False) -> str:
+    """The precision part of a count attribute (module docstring)."""
+    return "w16_" * w16 + "d16_" * d16 + "o16_" * o16
+
+
+# every instance's count attribute: forms × precision tags per wrapper
+_SWEEP_FORMS = ("", "init_", "flux_", "flux_init_")
+_FUSED_FORMS = ("", "flux_")
+_PACKED_TAGS = tuple(_tag(w, d, o) for w in (0, 1) for d in (0, 1)
+                     for o in (0, 1))
+_GATHER_TAGS = tuple(_tag(w, False, o) for w in (0, 1) for o in (0, 1))
+
+
+def _count(fn, init, op: str, tag: str = "") -> None:
     """Add one to the count of the kernel instance just launched."""
     name = ("flux_" if op == "flux" else "") + \
-        ("launches" if init is None else "init_launches")
+        ("" if init is None else "init_") + tag + "launches"
     setattr(fn, name, getattr(fn, name) + 1)
+
+
+def _zero_counts(fn, forms, tags) -> None:
+    fn.count_attrs = tuple(f + t + "launches" for f in forms for t in tags)
+    for a in fn.count_attrs:
+        setattr(fn, a, 0)
+
+
+def launch_counters() -> dict:
+    """{instance name: (wrapper, count attribute)} for every kernel
+    instance.  The name is the wrapper's, then "_flux", "_init" and the
+    precision tag as in the attribute: "sweep_blocks_flux_init",
+    "sweep_blocks_init_w16_d16_o16", "pack_srcs_d16"."""
+    out = {}
+    for fn in (pack_srcs, sweep_blocks, sweep_blocks_gather,
+               sweep_blocks_overlap, sweep_blocks_overlap_gather):
+        for a in fn.count_attrs:
+            out["_".join([fn.__name__, *a.split("_")[:-1]])] = (fn, a)
+    return out
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at each |x| (0 at x = 0): 2^(e−7)
+    for |x| in [2^e, 2^(e+1)), bf16 keeping 8 significant bits.  The bound
+    a bf16 output of a kernel keeps against its plain version: their f32
+    sums differ by FMA contraction, which can move one across a rounding
+    boundary."""
+    x = x.float()
+    _, e = torch.frexp(x)                     # |x| = m·2^e, m in [0.5, 1)
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(x), e - 8),
+                       torch.zeros_like(x))
+
+
+def _out_dtype(init, out_dtype) -> torch.dtype:
+    """The output's dtype: init's (the two alias, so out_dtype, when also
+    given, must agree: the reference's check), else out_dtype, else f32."""
+    if init is None:
+        odt = F32 if out_dtype is None else out_dtype
+    else:
+        check(out_dtype is None or out_dtype == init.dtype,
+              "init dtype %s must match out_dtype %s (aliased buffers)",
+              init.dtype, out_dtype)
+        odt = init.dtype
+    check(odt in DTYPES, "out_dtype %s: f32 or bf16", odt)
+    return odt
 
 
 def slot_table(wks) -> np.ndarray:
@@ -75,14 +151,18 @@ def slot_table(wks) -> np.ndarray:
     return np.stack([w, off]).astype(np.int32)
 
 
-def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+def _expect(t: torch.Tensor, name: str, dtype, ndim: int,
             device: torch.device) -> None:
+    """t is a contiguous tensor of ndim dims on device, of dtype (one
+    dtype, or a tuple of the dtypes the kernels take)."""
     check(isinstance(t, torch.Tensor), "%s must be a tensor", name)
-    # one comparison: the wrappers sit on the step's host path
-    got = (t.dtype, t.dim(), t.device, t.is_contiguous())
-    want = (dtype, ndim, device, True)
-    check(got == want, "%s: (dtype, dims, device, contiguous) %s, expected "
-          "%s", name, got, want)
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    # few comparisons: the wrappers sit on the step's host path
+    got = (t.dim(), t.device, t.is_contiguous())
+    want = (ndim, device, True)
+    check(t.dtype in dtypes and got == want, "%s: dtype %s, (dims, device, "
+          "contiguous) %s, expected dtype in %s and %s", name, t.dtype, got,
+          dtypes, want)
 
 
 def _shape(t: torch.Tensor, name: str, want: tuple) -> None:
@@ -103,13 +183,38 @@ def _stream(dev: torch.device) -> int:
 
 # ------------------------------------------------------------------ pack
 
-def pack_srcs_ref(var_T: torch.Tensor, src_cols: torch.Tensor) -> torch.Tensor:
-    """Plain version of the pack:
-    out[p, b, v, j] = var_T[p, v, src_cols[p, b, j]]."""
-    P, nb, L = src_cols.shape
-    idx = src_cols.reshape(P, 1, nb * L).long().expand(P, NV, nb * L)
+def _gather_cols(var_T: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """out[p, b, v, j] = var_T[p, v, cols[p, b, j]]: (P, nb, NV, L)."""
+    P, nb, L = cols.shape
+    idx = cols.reshape(P, 1, nb * L).long().expand(P, NV, nb * L)
     g = torch.gather(var_T, 2, idx)                          # (P, NV, nb*L)
     return g.reshape(P, NV, nb, L).permute(0, 2, 1, 3).contiguous()
+
+
+def _own_cols(block_ids: torch.Tensor, slots: torch.Tensor,
+              bp: int) -> torch.Tensor:
+    """(P, nb, L) int64: each compact table entry's OWN column,
+    block_ids[p, b]·bp + lane, lane = j − off_k for compact index j in slot
+    k (the destination lane the entry's term is added to)."""
+    lanes = [torch.arange(w, device=block_ids.device)
+             for w in slots[0].tolist() if w]
+    return block_ids.long()[:, :, None] * bp + torch.cat(lanes)
+
+
+def pack_srcs_ref(var_T: torch.Tensor, src_cols: torch.Tensor,
+                  src_format: str = "f32",
+                  block_ids: torch.Tensor | None = None,
+                  slots: torch.Tensor | None = None,
+                  bp: int | None = None) -> torch.Tensor:
+    """Plain version of the pack.  f32:
+    out[p, b, v, j] = var_T[p, v, src_cols[p, b, j]]; bf16d: the bf16
+    (round to nearest even) of that minus var_T at the entry's own column
+    (`_own_cols`), the f32 difference the reference rounds."""
+    g = _gather_cols(var_T, src_cols)
+    if src_format == "f32":
+        return g
+    own = _gather_cols(var_T, _own_cols(block_ids, slots, bp))
+    return (g - own).to(BF16)
 
 
 def gather_exts(var_T: torch.Tensor, ext_idx: torch.Tensor) -> torch.Tensor:
@@ -125,66 +230,100 @@ def gather_exts(var_T: torch.Tensor, ext_idx: torch.Tensor) -> torch.Tensor:
                         ext_idx.long()[:, :, None].expand(P, nb, nv, ep))
 
 
-def pack_srcs(var_T: torch.Tensor, src_cols: torch.Tensor) -> torch.Tensor:
-    """(P, NV, ndev) f32 × (P, nb, L) i32 → (P, nb, NV, L) f32 packed source
-    table.
+def pack_srcs(var_T: torch.Tensor, src_cols: torch.Tensor, *,
+              src_format: str = "f32", block_ids: torch.Tensor | None = None,
+              slots: torch.Tensor | None = None,
+              bp: int | None = None) -> torch.Tensor:
+    """(P, NV, ndev) f32 × (P, nb, L) i32 → (P, nb, NV, L) packed source
+    table: f32 values, or (src_format "bf16d") bf16 deltas source − own.
 
-    Counterpart of `cfd_proxy_tpu.ops.blocksweep.pack_srcs` (compact, f32)
-    fed by `gather_exts`: `src_cols` (ops/plan.py::compact_src_cols) already
-    resolves every slot to its device column.  Kernel: csrc/pack_srcs.cu."""
+    Counterpart of `cfd_proxy_tpu.ops.blocksweep.pack_srcs` (compact) fed by
+    `gather_exts`: `src_cols` (ops/plan.py::compact_src_cols) already
+    resolves every slot to its device column.  The bf16d form also needs
+    each entry's own column: the class's block_ids (P, nb) i32, its slot
+    table slots (2, K) i32 (`slot_table(wks)`, Σ widths = L) and the block
+    size bp.  Kernel: csrc/pack_srcs.cu."""
     dev = var_T.device
-    _expect(var_T, "var_T", torch.float32, 3, dev)
+    _expect(var_T, "var_T", F32, 3, dev)
     _expect(src_cols, "src_cols", torch.int32, 3, dev)
+    check(src_format in SRC_FORMATS, "unknown src_format %r (one of %s)",
+          src_format, "/".join(SRC_FORMATS))
     P, nb, L = src_cols.shape
-    _shape(var_T, "var_T", (P, NV, var_T.shape[2]))
+    ndev = var_T.shape[2]
+    _shape(var_T, "var_T", (P, NV, ndev))
+    delta = src_format == "bf16d"
+    K = 0
+    if delta:
+        check(block_ids is not None and slots is not None and bp is not None,
+              "the bf16d pack needs block_ids, slots and bp (each entry's "
+              "own column)")
+        _expect(block_ids, "block_ids", torch.int32, 2, dev)
+        _expect(slots, "slots", torch.int32, 2, dev)
+        _shape(block_ids, "block_ids", (P, nb))
+        K = slots.shape[1]
+        check(slots.shape[0] == 2 and 1 <= K <= MAX_SLOTS,
+              "slots shape %s: expected (2, K) with 1 <= K <= %d",
+              tuple(slots.shape), MAX_SLOTS)
+        check(bp > 0 and ndev % bp == 0, "ndev %d not a multiple of bp %s",
+              ndev, bp)
     if _device_kind(var_T) == "cpu":
-        return pack_srcs_ref(var_T, src_cols)
+        return pack_srcs_ref(var_T, src_cols, src_format, block_ids, slots,
+                             bp)
     from cfd_proxy_tpu_torch.ops import _cuda
 
-    out = torch.empty((P, nb, NV, L), dtype=torch.float32, device=dev)
+    out = torch.empty((P, nb, NV, L), dtype=BF16 if delta else F32,
+                      device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_pack_srcs(
-            var_T.data_ptr(), var_T.shape[2], src_cols.data_ptr(), P, nb, L,
+            var_T.data_ptr(), ndev, src_cols.data_ptr(), P, nb, L, int(delta),
+            block_ids.data_ptr() if delta else None,
+            slots.data_ptr() if delta else None, K, int(bp or 0),
             out.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "pack_srcs")
-    pack_srcs.launches += 1
+    _count(pack_srcs, None, "gg", _tag(d16=delta))
     return out
 
 
-pack_srcs.launches = 0
+_zero_counts(pack_srcs, ("",), ("", _tag(d16=True)))
 
 
 # ----------------------------------------------------------------- sweep
 
-def _slot_contrib(op, own, src, wk):
+def _slot_contrib(op, own, src, wk, delta=False):
     """One slot's terms over lanes [0, w): own and src (P, nb, NV, w),
-    weights wk (P, nb, 3, w) → (P, nb, rows, w), in the reference body's
-    operation order.
+    weights wk (P, nb, 3, w) → (P, nb, rows, w) f32, in the reference
+    body's operation order.  bf16 weights and sources are widened first.
 
-    gg: avg = 0.5·(own + src); w ⊗ avg, row d*NV+v.
-    flux (the directed-slot form of ops/flux.py): udw = own[:3]·w,
-    uow = src[:3]·w, a = max(|udw|, |uow|);
+    gg: avg = 0.5·(own + src) (with bf16 deltas src − own: own + 0.5·δ);
+    w ⊗ avg, row d*NV+v.
+    flux (the directed-slot form of ops/flux.py): src = own + δ for deltas;
+    udw = own[:3]·w, uow = src[:3]·w, a = max(|udw|, |uow|);
     0.5·(udw·own + uow·src) − 0.5·a·(src − own)."""
     P, nb, _, w = own.shape
+    wk = wk.float()
     if op == "gg":
-        avg = 0.5 * (own + src)
+        avg = own + 0.5 * src.float() if delta else 0.5 * (own + src)
         return (wk[:, :, :, None, :] * avg[:, :, None]).reshape(P, nb, -1, w)
+    if delta:
+        src = own + src.float()
     udw = (own[:, :, :3] * wk).sum(2, keepdim=True)           # (P, nb, 1, w)
     uow = (src[:, :, :3] * wk).sum(2, keepdim=True)
     a = torch.maximum(udw.abs(), uow.abs())
     return 0.5 * (udw * own + uow * src) - 0.5 * a * (src - own)
 
 
-def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms, op):
+def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms, op,
+                 delta=False, out_dtype=F32):
     """The sweep's plain body, slot by slot over all shards and blocks at
-    once, in the reference body's operation order: acc = init (or 0);
-    acc += slot k's terms (`_slot_contrib`); out = acc·scale.
+    once, in the reference body's operation order: acc = init (or 0),
+    widened to f32; acc += slot k's terms (`_slot_contrib`); out = acc·scale,
+    rounded to the output's dtype (init's, else out_dtype) at the store.
 
     slot_terms(k, w, off, own) gives slot k's sources (P, nb, NV, w) and
-    weights (P, nb, 3, w) over lanes [0, w); own is (P, nb, NV, bp).  With
-    init, init is updated in place and returned.  An entry that repeats its
-    predecessor (a pad entry) is computed but not stored, as the kernels
-    skip it."""
+    weights (P, nb, 3, w) over lanes [0, w); own is (P, nb, NV, bp); delta:
+    the sources are bf16 deltas.  With init, init is updated in place and
+    returned.  An entry that repeats its predecessor (a pad entry) is
+    computed but not stored, as the kernels skip it."""
     rows = out_rows(op)
     P, nb = block_ids.shape
     bp = scale.shape[-1]
@@ -195,12 +334,12 @@ def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms, op):
     own = torch.gather(var_T, 2, flat.expand(P, NV, nb * bp))
     own = own.reshape(P, NV, nb, bp).permute(0, 2, 1, 3)      # (P, nb, NV, bp)
     if init is None:
-        acc = torch.zeros((P, nb, rows, bp), dtype=torch.float32, device=dev)
-        out = torch.zeros((P, rows, ndev + bp), dtype=torch.float32,
-                          device=dev)
+        acc = torch.zeros((P, nb, rows, bp), dtype=F32, device=dev)
+        out = torch.zeros((P, rows, ndev + bp), dtype=out_dtype, device=dev)
     else:
         acc = torch.gather(init, 2, flat.expand(P, rows, nb * bp))
-        acc = acc.reshape(P, rows, nb, bp).permute(0, 2, 1, 3).clone()
+        acc = acc.reshape(P, rows, nb, bp).permute(0, 2, 1, 3).to(
+            F32, copy=True)
         out = torch.cat([init, init.new_zeros((P, rows, bp))], 2)
     # repeats store into a scratch block past ndev, dropped below
     first = torch.ones_like(block_ids, dtype=torch.bool)
@@ -212,10 +351,12 @@ def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms, op):
         if w == 0:
             continue
         src, wk = slot_terms(k, w, off, own)
-        acc[..., :w] = acc[..., :w] + _slot_contrib(op, own[..., :w], src, wk)
+        acc[..., :w] = acc[..., :w] + _slot_contrib(op, own[..., :w], src, wk,
+                                                    delta)
     res = acc * scale                                      # (P, nb, rows, bp)
     out.scatter_(2, store.expand(P, rows, nb * bp),
-                 res.permute(0, 2, 1, 3).reshape(P, rows, nb * bp))
+                 res.permute(0, 2, 1, 3).reshape(P, rows, nb * bp).to(
+                     out.dtype))
     if init is None:
         return out[:, :, :ndev].contiguous()
     return init.copy_(out[:, :, :ndev])
@@ -225,22 +366,24 @@ def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,
                      slot_w: torch.Tensor, scale: torch.Tensor,
                      block_ids: torch.Tensor, slots: torch.Tensor,
                      init: torch.Tensor | None = None,
-                     op: str = "gg") -> torch.Tensor:
+                     op: str = "gg",
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of the packed sweep (_block_compute_packed): slot k's
     sources and weights are lanes [off_k, off_k + wks[k]) of the compact
-    tables."""
+    tables; bf16 srcs are deltas."""
     return _sweep_plain(
         var_T, scale, block_ids, slots, init,
         lambda k, w, off, own: (srcs[..., off:off + w],
-                                slot_w[..., off:off + w]), op)
+                                slot_w[..., off:off + w]), op,
+        srcs.dtype == BF16, _out_dtype(init, out_dtype))
 
 
 def _check_common(var_T, scale, block_ids, slots, init, P, nb, rows):
     """Validate the operands both formulations share; returns (bp, ndev,
     K)."""
     dev = var_T.device
-    _expect(var_T, "var_T", torch.float32, 3, dev)
-    _expect(scale, "scale", torch.float32, 4, dev)
+    _expect(var_T, "var_T", F32, 3, dev)
+    _expect(scale, "scale", F32, 4, dev)
     _expect(block_ids, "block_ids", torch.int32, 2, dev)
     _expect(slots, "slots", torch.int32, 2, dev)
     bp = scale.shape[3]
@@ -256,7 +399,7 @@ def _check_common(var_T, scale, block_ids, slots, init, P, nb, rows):
           ndev, bp)
     if init is not None:
         # the reference aliases init to the output (blocksweep.py:588-591)
-        _expect(init, "init", torch.float32, 3, dev)
+        _expect(init, "init", DTYPES, 3, dev)
         _shape(init, "init", (P, rows, ndev))
     return bp, ndev, K
 
@@ -264,8 +407,8 @@ def _check_common(var_T, scale, block_ids, slots, init, P, nb, rows):
 def _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init, rows):
     """Validate the packed sweep's operands; returns (P, nb, L, bp, ndev,
     K)."""
-    _expect(srcs, "srcs", torch.float32, 4, var_T.device)
-    _expect(slot_w, "slot_w", torch.float32, 4, var_T.device)
+    _expect(srcs, "srcs", DTYPES, 4, var_T.device)
+    _expect(slot_w, "slot_w", DTYPES, 4, var_T.device)
     P, nb, _, L = srcs.shape
     bp, ndev, K = _check_common(var_T, scale, block_ids, slots, init, P, nb,
                                 rows)
@@ -281,49 +424,58 @@ def _sweep_ptrs(var_T, srcs, slot_w, scale, block_ids, slots, dims):
             nb, L, bp)
 
 
+def _flags(*ts) -> tuple[int, ...]:
+    """An entry point's dtype flags: 1 for each bf16 operand, else 0."""
+    return tuple(int(t.dtype == BF16) for t in ts)
+
+
 def sweep_blocks(var_T: torch.Tensor, srcs: torch.Tensor,
                  slot_w: torch.Tensor, scale: torch.Tensor,
                  block_ids: torch.Tensor, slots: torch.Tensor,
                  init: torch.Tensor | None = None,
-                 op: str = "gg") -> torch.Tensor:
-    """Packed compact sweep → (P, rows, ndev) f32: op "gg" gives 3·NV
-    gradient rows d*NV+v, op "flux" NV flux rows.
+                 op: str = "gg",
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Packed compact sweep → (P, rows, ndev): op "gg" gives 3·NV gradient
+    rows d*NV+v, op "flux" NV flux rows.
 
-    var_T (P, NV, ndev) f32; srcs (P, nb, NV, L) f32 from `pack_srcs`;
-    slot_w (P, nb, 3, L) f32; scale (P, nb, 1, bp) f32; block_ids (P, nb)
-    i32; slots (2, K) i32 from `slot_table`.  Without init, columns of
-    blocks the plan does not list are zero.  With init (P, rows, ndev) f32
-    the sweep accumulates onto it IN PLACE and returns it — the reference
-    aliases init to the output, so unlisted columns keep init's values.
-    Counterpart of `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(...,
-    packed=True, wks=..., init=..., op=...)`.  Kernel:
+    var_T (P, NV, ndev) f32; srcs (P, nb, NV, L) from `pack_srcs`, f32
+    values or bf16 deltas; slot_w (P, nb, 3, L) f32 or bf16; scale
+    (P, nb, 1, bp) f32; block_ids (P, nb) i32; slots (2, K) i32 from
+    `slot_table`.  Without init the output (out_dtype, default f32) is zero
+    at the columns of blocks the plan does not list.  With init (P, rows,
+    ndev) f32 or bf16 the sweep accumulates onto it IN PLACE and returns it
+    — the reference aliases init to the output, so unlisted columns keep
+    init's values, and out_dtype, if given, must be init's.  Counterpart of
+    `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(..., packed=True, wks=...,
+    init=..., op=..., src_format=..., out_dtype=...)`.  Kernel:
     csrc/sweep_packed.cu."""
     rows = _check_op(op)
     dims = _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init,
                         rows)
+    odt = _out_dtype(init, out_dtype)
     if _device_kind(var_T) == "cpu":
         return sweep_blocks_ref(var_T, srcs, slot_w, scale, block_ids, slots,
-                                init, op)
+                                init, op, odt)
     from cfd_proxy_tpu_torch.ops import _cuda
 
     dev = var_T.device
     P, _, _, _, ndev, _ = dims
-    out = (torch.zeros((P, rows, ndev), dtype=torch.float32, device=dev)
+    out = (torch.zeros((P, rows, ndev), dtype=odt, device=dev)
            if init is None else init)
+    flags = _flags(slot_w, srcs, out)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_packed(
             *_sweep_ptrs(var_T, srcs, slot_w, scale, block_ids, slots, dims),
-            int(init is not None), OPS.index(op), out.data_ptr(),
+            int(init is not None), OPS.index(op), *flags, out.data_ptr(),
             _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks")
-    _count(sweep_blocks, init, op)
+    _count(sweep_blocks, init, op, _tag(*flags))
     return out
 
 
-sweep_blocks.launches = 0          # gg, the zero-filled form (K1)
-sweep_blocks.init_launches = 0     # gg, the accumulate form (K1-init)
-sweep_blocks.flux_launches = 0     # flux, zero-filled (K1-flux)
-sweep_blocks.flux_init_launches = 0   # flux, accumulate (K1-flux-init)
+# K1 (gg, zero-filled), K1-init, K1-flux, K1-flux-init, each in every
+# precision
+_zero_counts(sweep_blocks, _SWEEP_FORMS, _PACKED_TAGS)
 
 
 # ---------------------------------------------------------- gather sweep
@@ -333,7 +485,9 @@ def sweep_blocks_gather_ref(var_T: torch.Tensor, exts: torch.Tensor,
                             scale: torch.Tensor, block_ids: torch.Tensor,
                             slots: torch.Tensor,
                             init: torch.Tensor | None = None,
-                            op: str = "gg") -> torch.Tensor:
+                            op: str = "gg",
+                            out_dtype: torch.dtype | None = None
+                            ) -> torch.Tensor:
     """Plain version of the gather sweep (_block_compute): slot k's sources
     are gathered from the block table [own ‖ exts] (P, nb, NV, bp + EP) by
     the W-index slot_idx[..., k, :w], its weights are slot_w[..., k, :, :w],
@@ -348,7 +502,8 @@ def sweep_blocks_gather_ref(var_T: torch.Tensor, exts: torch.Tensor,
         idx = slot_idx[:, :, k, None, :w].long().expand(P, nb, NV, w)
         return torch.gather(tbl, 3, idx), slot_w[:, :, k, :, :w]
 
-    return _sweep_plain(var_T, scale, block_ids, slots, init, terms, op)
+    return _sweep_plain(var_T, scale, block_ids, slots, init, terms, op,
+                        out_dtype=_out_dtype(init, out_dtype))
 
 
 def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
@@ -357,9 +512,9 @@ def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
     K).  The W-indices' range is checked where the plan is loaded
     (models/gradients.py), not per call."""
     dev = var_T.device
-    _expect(exts, "exts", torch.float32, 4, dev)
+    _expect(exts, "exts", F32, 4, dev)
     _expect(slot_idx, "slot_idx", torch.int32, 4, dev)
-    _expect(slot_w, "slot_w", torch.float32, 5, dev)
+    _expect(slot_w, "slot_w", DTYPES, 5, dev)
     P, nb, _, ep = exts.shape
     bp, ndev, K = _check_common(var_T, scale, block_ids, slots, init, P, nb,
                                 rows)
@@ -383,44 +538,45 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
                         scale: torch.Tensor, block_ids: torch.Tensor,
                         slots: torch.Tensor,
                         init: torch.Tensor | None = None,
-                        op: str = "gg") -> torch.Tensor:
-    """Gather-formulation sweep → (P, rows, ndev) f32, rows as in
-    `sweep_blocks`.
+                        op: str = "gg",
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Gather-formulation sweep → (P, rows, ndev), rows and output dtype as
+    in `sweep_blocks`.
 
     var_T (P, NV, ndev) f32; exts (P, nb, NV, EP) f32 from `gather_exts`;
     slot_idx (P, nb, K, bp) i32 W-indices in [0, bp + EP); slot_w
-    (P, nb, K, 3, bp) f32; scale, block_ids and init as in `sweep_blocks`;
-    slots (2, K) i32 from `slot_table(wks)` (only the widths are read).
-    Counterpart of `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(...,
-    packed=False, wks=..., init=..., op=...)`.  Kernel:
-    csrc/sweep_gather.cu."""
+    (P, nb, K, 3, bp) f32 or bf16; scale, block_ids, init and out_dtype as
+    in `sweep_blocks`; slots (2, K) i32 from `slot_table(wks)` (only the
+    widths are read).  Counterpart of
+    `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(..., packed=False, wks=...,
+    init=..., op=..., out_dtype=...)`.  Kernel: csrc/sweep_gather.cu."""
     rows = _check_op(op)
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
                          slots, init, rows)
+    odt = _out_dtype(init, out_dtype)
     if _device_kind(var_T) == "cpu":
         return sweep_blocks_gather_ref(var_T, exts, slot_idx, slot_w, scale,
-                                       block_ids, slots, init, op)
+                                       block_ids, slots, init, op, odt)
     from cfd_proxy_tpu_torch.ops import _cuda
 
     dev = var_T.device
     P, _, _, _, ndev, _ = dims
-    out = (torch.zeros((P, rows, ndev), dtype=torch.float32, device=dev)
+    out = (torch.zeros((P, rows, ndev), dtype=odt, device=dev)
            if init is None else init)
+    w16, o16 = _flags(slot_w, out)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_gather(
             *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
                           slots, dims),
-            int(init is not None), OPS.index(op), out.data_ptr(),
+            int(init is not None), OPS.index(op), w16, o16, out.data_ptr(),
             _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_gather")
-    _count(sweep_blocks_gather, init, op)
+    _count(sweep_blocks_gather, init, op, _tag(w16, False, o16))
     return out
 
 
-sweep_blocks_gather.launches = 0          # gg, zero-filled (K2)
-sweep_blocks_gather.init_launches = 0     # gg, accumulate (K2-init)
-sweep_blocks_gather.flux_launches = 0     # flux, zero-filled (K2-flux)
-sweep_blocks_gather.flux_init_launches = 0   # flux, accumulate
+# K2, K2-init, K2-flux, K2-flux-init, each with f32 or bf16 weights and out
+_zero_counts(sweep_blocks_gather, _SWEEP_FORMS, _GATHER_TAGS)
 
 
 # ------------------------------------------------------- fused overlap
@@ -450,7 +606,7 @@ def sweep_blocks_overlap_ref(var_T, srcs, slot_w, scale, block_ids, slots,
 def _check_push(sendbufs, dsts, src_devs, P, dev, rows):
     """Validate the push operands; returns (nph, s_max, the device copy of
     the push map)."""
-    _expect(sendbufs, "sendbufs", torch.float32, 4, dev)
+    _expect(sendbufs, "sendbufs", DTYPES, 4, dev)
     cpu = torch.device("cpu")
     _expect(dsts, "dsts", torch.int32, 2, cpu)
     _expect(src_devs, "src_devs", torch.int32, 2, cpu)
@@ -459,9 +615,12 @@ def _check_push(sendbufs, dsts, src_devs, P, dev, rows):
     _shape(src_devs, "src_devs", (P, nph))
     s_max = sendbufs.shape[3]
     _shape(sendbufs, "sendbufs", (P, nph, rows, s_max))
-    check(s_max % 4 == 0 and sendbufs.data_ptr() % 16 == 0,
-          "sendbufs: s_max %d must be a multiple of 4 on a 16-byte aligned "
-          "base (16-byte copies)", s_max)
+    # the push is a byte copy in 16-byte pieces, whatever the dtype
+    check((s_max * sendbufs.element_size()) % 16 == 0
+          and sendbufs.data_ptr() % 16 == 0,
+          "sendbufs: rows of s_max %d %s elements must be a multiple of 16 "
+          "bytes on a 16-byte aligned base (16-byte copies)", s_max,
+          sendbufs.dtype)
     dmap = _push_table(dsts.numpy().tobytes(), src_devs.numpy().tobytes(),
                        tuple(dsts.shape), str(dev))
     return nph, s_max, dmap
@@ -494,8 +653,9 @@ def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
     """Fused interior sweep + halo push → (grad, recv).
 
     The sweep operands, `init` and `op` are as in `sweep_blocks` (grad is
-    init, updated in place).  sendbufs (P, nph, rows, s_max) f32 on the
-    sweep's device: shard p's phase-k payload.  dsts / src_devs (P, nph)
+    init, updated in place; its dtype is the output's).  sendbufs (P, nph,
+    rows, s_max) f32 or bf16 (the reference's halo_dtype) on the sweep's
+    device: shard p's phase-k payload.  dsts / src_devs (P, nph)
     int32 on the CPU: the static push map (destination shard of p's phase-k
     payload, and the reference's `srcs`, its inverse); both are checked on
     the host.  recv (P, nph, rows, s_max): recv[dsts[p, k], k] =
@@ -516,18 +676,21 @@ def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
     from cfd_proxy_tpu_torch.ops import _cuda
 
     recv = torch.zeros_like(sendbufs)
+    flags = _flags(slot_w, srcs, init)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_overlap(
             *_sweep_ptrs(var_T, srcs, slot_w, scale, block_ids, slots, dims),
-            OPS.index(op), init.data_ptr(), sendbufs.data_ptr(),
-            dmap.data_ptr(), nph, s_max, recv.data_ptr(), _stream(dev))
+            OPS.index(op), *flags, init.data_ptr(), sendbufs.data_ptr(),
+            sendbufs.element_size(), dmap.data_ptr(), nph, s_max,
+            recv.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_overlap")
-    _count(sweep_blocks_overlap, None, op)
+    _count(sweep_blocks_overlap, None, op, _tag(*flags))
     return init, recv
 
 
-sweep_blocks_overlap.launches = 0          # gg (K3)
-sweep_blocks_overlap.flux_launches = 0     # flux (K3-flux)
+# K3 and K3-flux in every precision (the push moves bytes: f32 or bf16
+# send buffers run the same instance)
+_zero_counts(sweep_blocks_overlap, _FUSED_FORMS, _PACKED_TAGS)
 
 
 def sweep_blocks_overlap_gather_ref(var_T, exts, slot_idx, slot_w, scale,
@@ -566,16 +729,18 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
     from cfd_proxy_tpu_torch.ops import _cuda
 
     recv = torch.zeros_like(sendbufs)
+    w16, o16 = _flags(slot_w, init)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_overlap_gather(
             *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
                           slots, dims),
-            OPS.index(op), init.data_ptr(), sendbufs.data_ptr(),
-            dmap.data_ptr(), nph, s_max, recv.data_ptr(), _stream(dev))
+            OPS.index(op), w16, o16, init.data_ptr(), sendbufs.data_ptr(),
+            sendbufs.element_size(), dmap.data_ptr(), nph, s_max,
+            recv.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_overlap_gather")
-    _count(sweep_blocks_overlap_gather, None, op)
+    _count(sweep_blocks_overlap_gather, None, op, _tag(w16, False, o16))
     return init, recv
 
 
-sweep_blocks_overlap_gather.launches = 0          # gg (K3-gather)
-sweep_blocks_overlap_gather.flux_launches = 0     # flux (K3-gather-flux)
+# K3-gather and K3-gather-flux with f32 or bf16 weights and out
+_zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _GATHER_TAGS)

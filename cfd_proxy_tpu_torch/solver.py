@@ -12,10 +12,15 @@ table and verify lines as the reference CLI:
     python -m cfd_proxy_tpu_torch.solver --nx 96 --ny 96 --nz 96 \
         --schedule bulk --solver-mode --sweeps-per-step 4
 
-The port runs f32 Green-Gauss gradients (`--model gg`) or the PSD upwind
-flux (`--model flux`, ops/flux.py) with the packed (compact layout) or the
+The port runs Green-Gauss gradients (`--model gg`) or the PSD upwind flux
+(`--model flux`, ops/flux.py) with the packed (compact layout) or the
 gather kernel (`--kernel`) under the bulk / early / overlap schedules
-(`--force-rdma`: the fused overlap kernel even at one shard).
+(`--force-rdma`: the fused overlap kernel even at one shard), in f32 or
+with the reference's reduced-precision options (`--meta-dtype`,
+`--src-dtype` (packed kernel only), `--halo-dtype`, `--grad-dtype`
+bfloat16: bf16 slot weights, source deltas, gradient wire and gradient
+stores; bench.py's reduced-precision row is `--schedule bulk --src-dtype
+bfloat16 --meta-dtype bfloat16`, then with `--grad-dtype bfloat16`).
 `--solver-mode` times the per-time-step dataflow of a real solver (table
 rebuild, `--sweeps-per-step` sweeps with their updates, var halo exchange)
 instead of the static-state iteration; without `--kernel` it takes the
@@ -39,7 +44,8 @@ import torch
 from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
 from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
 from cfd_proxy_tpu_torch.mesh.reader import partition_path, read_partition
-from cfd_proxy_tpu_torch.models.gradients import KERNELS, GreenGaussTorch
+from cfd_proxy_tpu_torch.models.gradients import (DTYPE_OPTIONS, KERNELS,
+                                                  PRECISIONS, GreenGaussTorch)
 from cfd_proxy_tpu_torch.ops.blocksweep import OPS
 from cfd_proxy_tpu_torch.ops.flux import compute_psd_flux, flux_residual_scale
 from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
@@ -111,10 +117,9 @@ def check_config(cfg: SolverConfig) -> None:
           "routing comes with ROADMAP queue 1 item 12", cfg.slice_size)
     check(cfg.kernel in KERNELS, "unknown --kernel %s", cfg.kernel)
     check(cfg.model in OPS, "unknown --model %s", cfg.model)
-    for name in ("meta_dtype", "src_dtype", "halo_dtype", "grad_dtype"):
-        check(getattr(cfg, name) == "float32", "--%s %s: reduced-precision "
-              "options come with ROADMAP queue 1 item 9",
-              name.replace("_", "-"), getattr(cfg, name))
+    for name in DTYPE_OPTIONS:
+        check(getattr(cfg, name) in PRECISIONS, "--%s %s: float32 or "
+              "bfloat16", name.replace("_", "-"), getattr(cfg, name))
     check(cfg.sweeps_per_step >= 1, "--sweeps-per-step %d: need at least "
           "one sweep per step", cfg.sweeps_per_step)
     check(cfg.sweeps_per_step == 1 or cfg.solver_mode, "--sweeps-per-step "
@@ -138,7 +143,8 @@ def build_model(cfg: SolverConfig):
         parts = partition_mesh(gmesh, cfg.parts)
     model = GreenGaussTorch(parts, cfg.nvar, bp=cfg.bp, kcompact=cfg.kcompact,
                             force_rdma=cfg.force_rdma, kernel=cfg.kernel,
-                            op=cfg.model, device=cfg.device)
+                            op=cfg.model, device=cfg.device,
+                            **{k: getattr(cfg, k) for k in DTYPE_OPTIONS})
     return model, gmesh
 
 
@@ -224,13 +230,14 @@ def verify_model(model: GreenGaussTorch, state: dict, schedules, gmesh,
                  gvar: np.ndarray) -> dict:
     """Every schedule against bulk (max abs over all columns) and bulk
     against the f64 golden of the model's op (when the global mesh is in
-    process), as the reference's verify_model reports them."""
+    process), as the reference's verify_model reports them (bf16 outputs
+    compared in f32)."""
     ref = model.step(state, "bulk")
     out = {}
     for s in schedules:
         if s != "bulk":
             out[f"{s}_vs_bulk_maxabs"] = float(
-                (model.step(state, s) - ref).abs().max())
+                (model.step(state, s).float() - ref.float()).abs().max())
     if gmesh is not None:
         gg = golden(model.op, gmesh, gvar)
         got = model.gather_global(ref)
@@ -282,6 +289,7 @@ def run(cfg: SolverConfig) -> tuple[dict, list[IterationStats]]:
         "nvar": cfg.nvar,
         "model": cfg.model,
         "dtype": "float32",
+        **{k: getattr(cfg, k) for k in DTYPE_OPTIONS},
         "backend": "torch",
         "kernel": cfg.kernel,
         "bp": model.bp,
@@ -387,7 +395,9 @@ def main(argv=None) -> int:
               f"points={results['npoint']} faces={results['nface']} "
               f"model={results['model']} "
               f"nvar={results['nvar']} dtype={results['dtype']} "
-              f"kernel={results['kernel']} bp={results['bp']}"
+              + "".join(f"{k}={results[k]} " for k in DTYPE_OPTIONS
+                        if results[k] != "float32")
+              + f"kernel={results['kernel']} bp={results['bp']}"
               + (f" solver_mode sweeps_per_step={cfg.sweeps_per_step}"
                  if cfg.solver_mode else ""))
         print(format_stats_table(stats, ref="bulk"))

@@ -28,19 +28,35 @@ faces, nvar 7, random state from a seed):
   schedule with the fused overlap kernel forced;
 - `flux_p8`: the flux model at 8 shards, every schedule under the packed
   kernel, then the gather kernel at bp 512 with `refresh_state` and the
-  solver-mode runner, ghost columns checked against their owners.
+  solver-mode runner, ghost columns checked against their owners;
+- `reduced_p1`: bench.py's reduced-precision row (packed, AUTO bp, bulk,
+  bf16 source deltas and weights), timed, then with bf16 gradient stores
+  as well, timed: faces/s and the speedups over this run's f32 bulk step;
+- `reduced_p1_all`: one shard, the fused overlap kernel forced, all four
+  reduced-precision options, every schedule;
+- `reduced_p8`: 8 shards, all four options under the packed kernel, every
+  schedule; the bf16-halo-only model against the f32 model (owned columns
+  bitwise, ghosts the bf16 rounding of their owners); the gather kernel at
+  bp 512 with bf16 weights, stores and halo, `refresh_state` and the
+  solver-mode runner;
+- `reduced_flux`: the flux model at one shard with bf16 sources, weights
+  and stores, bulk, timed.
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after, and checked against the f64 golden of its op
-(Green-Gauss or flux), across schedules and (P=8) ghost column against
-owner column.  Then each kernel is compared with its plain PyTorch version
-on the card at the paths' shapes, and the kernels and every schedule's
-step are timed; at P=8 a `torch.profiler` trace of 20 chained steps per
-schedule gives each step's device time and so its idle share.  Each
+(Green-Gauss or flux; the reduced-precision paths inside the reference's
+bands), across schedules and (P=8) ghost column against owner column.
+Then each kernel is compared with its plain PyTorch version on the card at
+the paths' shapes (f32 outputs within 1e-6 of max|plain|, bf16 outputs
+within one bf16 ulp, packs and pushes bitwise), and the kernels and every
+schedule's step are timed; at P=8 a `torch.profiler` trace of 20 chained
+steps per schedule gives each step's device time and so its idle share.
+Each
 kernel's row carries its bound: the larger of the bytes it must move (each
-input read once, each output written once, counting only the columns and
-table lanes of the block entries the call computes) over 3.35 TB/s and its
-f32 operations over 67 TFLOP/s (the H100 SXM's published peaks).
+input read once, each output written once, at its stored width — 2 bytes
+for a bf16 operand — counting only the columns and table lanes of the
+block entries the call computes) over 3.35 TB/s and its f32 operations
+over 67 TFLOP/s (the H100 SXM's published peaks).
 
 Phases print one JSON line each on stdout; any failure raises and exits
 non-zero.  The last lines are the kernel table (JSON), the card's name and
@@ -72,6 +88,19 @@ SWEEPS = (1, 2, 4)   # sweeps per solver-mode step
 K1_TOL = 1e-6    # sweep kernels vs plain: FMA contraction, relative to max|ref|
 GOLDEN_TOL = 1e-5   # every schedule vs f64 golden (the reference's gate)
 SCHED_TOL = 1e-6    # early vs bulk, overlap vs early, relative to max|bulk|
+BF = "bfloat16"
+FULL = {"src_dtype": BF, "meta_dtype": BF, "grad_dtype": BF,
+        "halo_dtype": BF}     # the reduced-precision options, all four
+# vs the f64 golden, the reference's bands (tests/test_pallas_model.py):
+# bf16 sources and weights; the full stack.  bench.py's with_bf16_grads
+# row (bf16 sources, weights and stores) is held to the full stack's band:
+# at one shard the bulk step does not read the halo option, so it is the
+# full stack's step, and at 96^3 its error (5.18e-3, the plain version's
+# too) passes the 5e-3 that the reference's tests set for bf16 stores alone
+BAND_SRC_META = (1e-7, 5e-3)
+BAND_FULL = (1e-5, 2e-2)
+FLUX_BF16_TOL = 5e-3   # flux with bf16 sources/stores vs the flux golden
+SCHED_TOL_BF16 = 1e-2  # schedules with bf16 stores, relative to max|bulk|
 HBM_BYTES_PER_MS = 3.35e9      # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9          # H100 SXM: 67 TFLOP/s f32 outside tensor cores
 OPS_PER_SLOT_LANE = {"gg": 64, "flux": 85}   # f32 operations (FMA = 2)
@@ -112,6 +141,36 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "sweep_blocks_overlap_gather_flux": (
         "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
         "cfd_proxy_tpu/ops/blocksweep.py:747"),
+    # the reduced-precision instances the counted paths launch: w16 bf16
+    # weights, d16 bf16 source deltas (K1 body :490-491 gg, :496-497 flux;
+    # K4's delta pack :969-975), o16 bf16 output and init (store :514,
+    # :428); K3's push moves bf16 buffers
+    "pack_srcs_d16": ("cuda", "cfd_proxy_tpu_torch/csrc/pack_srcs.cu",
+                      "cfd_proxy_tpu/ops/blocksweep.py:973"),
+    "sweep_blocks_w16_d16": ("cuda",
+                             "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
+                             "cfd_proxy_tpu/ops/blocksweep.py:490"),
+    "sweep_blocks_w16_d16_o16": ("cuda",
+                                 "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
+                                 "cfd_proxy_tpu/ops/blocksweep.py:490"),
+    "sweep_blocks_init_w16_d16_o16": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:490"),
+    "sweep_blocks_overlap_w16_d16_o16": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:744"),
+    "sweep_blocks_gather_w16_o16": ("cuda",
+                                    "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+                                    "cfd_proxy_tpu/ops/blocksweep.py:414"),
+    "sweep_blocks_gather_init_w16_o16": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:414"),
+    "sweep_blocks_overlap_gather_w16_o16": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:747"),
+    "sweep_blocks_flux_w16_d16_o16": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:496"),
 }
 PACKED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
           "sweep_blocks_overlap")
@@ -121,6 +180,12 @@ FLUX_PACKED = ("pack_srcs", "sweep_blocks_flux", "sweep_blocks_flux_init",
                "sweep_blocks_overlap_flux")
 FLUX_GATHER = ("sweep_blocks_gather_flux", "sweep_blocks_gather_flux_init",
                "sweep_blocks_overlap_gather_flux")
+REDUCED_PACKED = ("pack_srcs_d16", "sweep_blocks_w16_d16_o16",
+                  "sweep_blocks_init_w16_d16_o16",
+                  "sweep_blocks_overlap_w16_d16_o16")
+REDUCED_GATHER = ("sweep_blocks_gather_w16_o16",
+                  "sweep_blocks_gather_init_w16_o16",
+                  "sweep_blocks_overlap_gather_w16_o16")
 
 
 def emit(phase: str, **kw) -> None:
@@ -180,9 +245,10 @@ def bound(moved: int, ops: int) -> dict:
 
 
 def sweep_bound(op: str, args, gather: bool, init: bool = False,
-                push=None) -> dict:
+                push=None, out_bytes: int = 4) -> dict:
     """Bound of one sweep call on args = (var_T, table, plan operands...),
-    counting only what the call touches.  The listed entries (not a pad
+    counting only what the call touches, each operand at its stored width
+    (bf16 weights, deltas and outputs 2 bytes; out_bytes: the output's).  The listed entries (not a pad
     entry, which repeats its predecessor and is skipped) read their own
     columns of var_T and scale, and per slot k the table lanes [0, wks[k]):
     packed, sources and weights; gathered, the W-index and weights, plus
@@ -205,18 +271,19 @@ def sweep_bound(op: str, args, gather: bool, init: bool = False,
     lanes = entries * int(widths.sum())
     cols = entries * bp
     moved = cols * (nv + 1) * 4 + nbytes(block_ids, slots)   # own, scale
-    if gather:        # slot_idx (i32) and slot_w (3 x f32) per live lane
+    w_bytes = plan[-4].element_size()                        # slot_w
+    if gather:        # slot_idx (i32) and slot_w (3 weights) per live lane
         idx = plan[0][first].long()                        # (entries, K, bp)
         live = torch.arange(bp, device=idx.device) < widths[:, None]
         ext = (idx >= bp) & live
         ep = tbl.shape[-1]
         entry = torch.arange(entries, device=idx.device)[:, None, None]
         n_ext = int(torch.unique((entry * ep + idx - bp)[ext]).numel())
-        moved += lanes * (4 + 12) + n_ext * nv * 4
-    else:             # sources (NV x f32) and slot_w (3 x f32) per lane
-        moved += lanes * (nv + 3) * 4
+        moved += lanes * (4 + 3 * w_bytes) + n_ext * nv * 4
+    else:             # sources (NV values or deltas) and 3 weights per lane
+        moved += lanes * (nv * tbl.element_size() + 3 * w_bytes)
     rows = 3 * nv if op == "gg" else nv
-    moved += (2 * cols if init else P * ndev) * rows * 4
+    moved += (2 * cols if init else P * ndev) * rows * out_bytes
     if push is not None:
         moved += 2 * nbytes(push)
     # listed entries whose scale is zero (ghost region, trash block): the
@@ -285,42 +352,27 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
 
-    counters = {   # kernel row: (wrapper, its count attribute)
-        "pack_srcs": (bs.pack_srcs, "launches"),
-        "sweep_blocks": (bs.sweep_blocks, "launches"),
-        "sweep_blocks_init": (bs.sweep_blocks, "init_launches"),
-        "sweep_blocks_overlap": (bs.sweep_blocks_overlap, "launches"),
-        "sweep_blocks_gather": (bs.sweep_blocks_gather, "launches"),
-        "sweep_blocks_gather_init": (bs.sweep_blocks_gather,
-                                     "init_launches"),
-        "sweep_blocks_overlap_gather": (bs.sweep_blocks_overlap_gather,
-                                        "launches"),
-        "sweep_blocks_flux": (bs.sweep_blocks, "flux_launches"),
-        "sweep_blocks_flux_init": (bs.sweep_blocks, "flux_init_launches"),
-        "sweep_blocks_overlap_flux": (bs.sweep_blocks_overlap,
-                                      "flux_launches"),
-        "sweep_blocks_gather_flux": (bs.sweep_blocks_gather,
-                                     "flux_launches"),
-        "sweep_blocks_gather_flux_init": (bs.sweep_blocks_gather,
-                                          "flux_init_launches"),
-        "sweep_blocks_overlap_gather_flux": (bs.sweep_blocks_overlap_gather,
-                                             "flux_launches"),
-    }
+    # every kernel instance: (wrapper, its count attribute), by row name
+    counters = bs.launch_counters()
 
     def reset_counts():
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
 
     def read_counts():
+        """The instances launched since reset_counts, with their counts."""
         torch.cuda.synchronize()
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()
+                if getattr(fn, attr)}
 
     launches = dict.fromkeys(KERNELS, 0)    # summed over the counted paths
 
     def expect_counts(path, counts, names):
         for k, n in counts.items():
+            if k not in launches:
+                fail(f"{path} launched {k}, which has no kernel row")
             launches[k] += n
-        missing = [k for k in names if counts[k] <= 0]
+        missing = [k for k in names if counts.get(k, 0) <= 0]
         if missing:
             fail(f"{path} launched no {missing} kernel")
 
@@ -337,9 +389,13 @@ def main() -> int:
         return float(np.abs(got - gold).max()
                      / max(1.0, float(np.abs(gold).max())))
 
-    def ghost_check(path, model, arr):
-        """Every ghost column of the (P, rows, ndev) host array equals its
-        owner's column bitwise; returns the columns checked."""
+    def ghost_check(path, model, arr, wire=False):
+        """Every ghost column of the (P, rows, ndev) array (a card tensor or
+        a host array) equals its owner's column bitwise — with wire, the
+        bf16 rounding of the owner's column (a bf16 halo on f32 stores);
+        returns the columns checked."""
+        if isinstance(arr, torch.Tensor):
+            arr = arr.float().cpu().numpy()     # bf16 widens exactly
         nghost = 0
         for i, p in enumerate(model.parts):
             for e in p.comm:
@@ -350,8 +406,11 @@ def main() -> int:
                 recv_cols = model.locmap[i][e.recvidx]
                 if len(send_cols) == 0:
                     continue
-                if not np.array_equal(arr[i][:, recv_cols],
-                                      arr[e.partner][:, send_cols]):
+                owner = arr[e.partner][:, send_cols]
+                if wire:
+                    owner = torch.from_numpy(owner).to(
+                        torch.bfloat16).float().numpy()
+                if not np.array_equal(arr[i][:, recv_cols], owner):
                     fail(f"{path}: ghost columns of shard {i} from "
                          f"{e.partner} round {e.round} differ from the "
                          f"owner's")
@@ -369,20 +428,26 @@ def main() -> int:
             mask[i, 0, : p.nowned] = True
         return torch.where(mask, var_T * factor, var_T)
 
-    def check_schedules(path, model, outs, gold=None):
-        """Every schedule vs the golden; early vs bulk, overlap vs early."""
+    def check_schedules(path, model, outs, gold=None, band=(None, GOLDEN_TOL),
+                        cross_tol=SCHED_TOL):
+        """Every schedule vs the golden (relmax <= band[1], and > band[0]
+        where given: a reduced-precision result must differ from f32);
+        early vs bulk, overlap vs early within cross_tol of max|bulk|."""
+        lo, hi = band
         rel = {s: golden_relmax(model, g, gold=gold) for s, g in outs.items()}
-        scale = float(outs["bulk"].abs().max())
+        f = {s: g.float() for s, g in outs.items()}
+        scale = float(f["bulk"].abs().max())
         cross = {
-            "early_vs_bulk": float((outs["early"] - outs["bulk"]).abs().max()),
+            "early_vs_bulk": float((f["early"] - f["bulk"]).abs().max()),
             "overlap_vs_early": float(
-                (outs["overlap"] - outs["early"]).abs().max())}
+                (f["overlap"] - f["early"]).abs().max())}
         for s, r in rel.items():
-            if not r <= GOLDEN_TOL:
-                fail(f"{path}: {s} vs golden relmax {r:.3e} > {GOLDEN_TOL}")
+            if not (r <= hi and (lo is None or r > lo)):
+                fail(f"{path}: {s} vs golden relmax {r:.3e} outside "
+                     f"({lo}, {hi}]")
         for k, v in cross.items():
-            if not v <= SCHED_TOL * scale:
-                fail(f"{path}: {k} {v:.3e} > {SCHED_TOL} x {scale:.3e}")
+            if not v <= cross_tol * scale:
+                fail(f"{path}: {k} {v:.3e} > {cross_tol} x {scale:.3e}")
         return rel, cross, scale
 
     # ---- device
@@ -475,6 +540,7 @@ def main() -> int:
     del tbl, tbl_ref, out, out_ref
     st = time_schedule(model, state, "bulk", TIMED_STEPS, warmup=2,
                        repeats=5)
+    f32_bulk_s = st.median          # reduced_p1's speedup denominator
     nface = gmesh.nface
     emit("timing", card=smi, kernels=dict(times),
          bulk_step_ms=st.median * 1e3,
@@ -516,6 +582,8 @@ def main() -> int:
     rel, cross, scale = check_schedules("main_path_p8", model, outs)
     # every ghost column equals its owner's column, bitwise (early)
     nghost = ghost_check("main_path_p8", model, outs["early"].cpu().numpy())
+    # the f32 outputs the bf16-halo model is held to (reduced_p8)
+    f32_p8 = {s: outs[s].cpu() for s in ("bulk", "early", "overlap")}
     emit("main_path_p8", parts=P_MULTI, partition_seconds=t_part,
          model_seconds=t_model, bp=model.bp, ndev=model.ndev,
          nphases=model.nphases, s_max=model.s_max,
@@ -612,7 +680,7 @@ def main() -> int:
         counts = read_counts()
         rel, cross, scale = check_schedules(path, gm, outs)
         expect_counts(path, counts, GATHER)
-        if counts["pack_srcs"]:
+        if counts.get("pack_srcs", 0):
             fail(f"{path}: the gather model launched the source pack")
         info = {}
         if npart > 1:
@@ -641,9 +709,9 @@ def main() -> int:
             *gm.iter_args(state))
         counts = read_counts()
         expect_counts(path, counts, ("sweep_blocks_gather",))
-        if counts["sweep_blocks_gather"] != SOLVER_RUN:
+        if counts.get("sweep_blocks_gather", 0) != SOLVER_RUN:
             fail(f"{path}: {SOLVER_RUN} solver steps launched K2 "
-                 f"{counts['sweep_blocks_gather']} times")
+                 f"{counts.get('sweep_blocks_gather', 0)} times")
         if v.shape != state["var_T"].shape or not bool(
                 torch.isfinite(v).all()):
             fail(f"{path}: solver-mode state {tuple(v.shape)} or "
@@ -778,13 +846,19 @@ def main() -> int:
              f"{bad}")
     del packed_models, gather_models, configs, m
 
+    ulp_stats = {}
+
     def compare_and_time(name, kern, plain, init=None, push=False):
         """Kernel `name` against its plain version on the same operands:
-        within K1_TOL of max|plain| (the pushed buffers bitwise), then both
-        timed in turns.  kern/plain take the init tensor (None without) and
-        return the output, or (grad, recv) for a fused push.  The timed
-        calls accumulate onto one buffer again and again; its values stop
-        meaning anything, the bytes moved do not change."""
+        an f32 output within K1_TOL of max|plain|; a bf16 output elementwise
+        within one bf16 ulp of plain plus K1_TOL of max|plain| (FMA
+        contraction moves the f32 sum, which can cross a rounding boundary;
+        how many elements differ and by how many ulps is kept); the pushed
+        buffers bitwise.  Then both timed in turns.  kern/plain take the
+        init tensor (None without) and return the output, or (grad, recv)
+        for a fused push.  The timed calls accumulate onto one buffer again
+        and again; its values stop meaning anything, the bytes moved do not
+        change."""
         got = kern(None if init is None else init.clone())
         want = plain(None if init is None else init.clone())
         torch.cuda.synchronize()
@@ -792,18 +866,35 @@ def main() -> int:
             (got, recv), (want, recv_ref) = got, want
             if not torch.equal(recv, recv_ref):
                 fail(f"{name} recv differs from its plain version")
-        errs[name] = float((got - want).abs().max())
-        scales[name] = float(want.abs().max())
-        if not errs[name] <= K1_TOL * scales[name]:
+        if got.dtype != want.dtype:
+            fail(f"{name}: dtype {got.dtype}, plain {want.dtype}")
+        w = want.float()
+        diff = (got.float() - w).abs()
+        errs[name] = float(diff.max())
+        scales[name] = float(w.abs().max())
+        if got.dtype == torch.bfloat16:
+            ulp = bs.bf16_ulp(w)
+            bad = int((diff > ulp + K1_TOL * scales[name]).sum())
+            ulp_stats[name] = {
+                "elements_differing": int((diff > 0).sum()),
+                "elements": diff.numel(),
+                "max_ulps": float((diff / ulp.clamp_min(1e-38)).max()),
+                "over_2e-8_rel": int((diff > 2.0 ** -8 * w.abs()
+                                      + K1_TOL * scales[name]).sum())}
+            if bad:
+                fail(f"{name} differs from its plain version by more than "
+                     f"one bf16 ulp at {bad} elements")
+        elif not errs[name] <= K1_TOL * scales[name]:
             fail(f"{name} differs from its plain version: {errs[name]:.3e} "
                  f"> {K1_TOL} x {scales[name]:.3e}")
-        del got, want
+        del got, want, w, diff
         buf = None if init is None else init.clone()
         times[name] = paired_ms(lambda: kern(buf), lambda: plain(buf))
 
     def kernel_summary(names):
         return {k: {"max_abs_err": errs[k], "max_abs_ref": scales[k],
-                    **times[k], **work[k]} for k in names}
+                    **ulp_stats.get(k, {}), **times[k], **work[k]}
+                for k in names}
 
     # ---- flux, one shard: the PSD upwind flux model (bench.py's secondary
     # row: packed, AUTO bp, bulk) on the same mesh and state, against the
@@ -828,6 +919,7 @@ def main() -> int:
     st = time_schedule(fm, state, "bulk", TIMED_STEPS, warmup=2, repeats=5)
     if not np.isfinite(st.median):
         fail("flux_p1: bulk step timing fell below the two-point noise floor")
+    flux_p1_s = st.median           # reduced_flux's speedup denominator
     k1f = (state["var_T"], *fm._operands("bulk", state["tables"]))
     compare_and_time("sweep_blocks_flux",
                      lambda i: bs.sweep_blocks(*k1f, op="flux"),
@@ -906,7 +998,7 @@ def main() -> int:
     counts = read_counts()
     rel, cross, scale = check_schedules("flux_p8", gm, outs, gold=flux_ref)
     expect_counts("flux_p8", counts, FLUX_GATHER)
-    if counts["pack_srcs"]:
+    if counts.get("pack_srcs", 0):
         fail("flux_p8: the gather model launched the source pack")
     gather_info = {"bp": gm.bp, "model_seconds": t_model,
                    "vs_golden_relmax": rel, "cross": cross,
@@ -937,9 +1029,9 @@ def main() -> int:
         *gm.iter_args(state))
     counts = read_counts()
     expect_counts("flux_p8", counts, ("sweep_blocks_gather_flux",))
-    if counts["sweep_blocks_gather_flux"] != SOLVER_RUN:
+    if counts.get("sweep_blocks_gather_flux", 0) != SOLVER_RUN:
         fail(f"flux_p8: {SOLVER_RUN} solver steps launched K2-flux "
-             f"{counts['sweep_blocks_gather_flux']} times")
+             f"{counts.get('sweep_blocks_gather_flux', 0)} times")
     if v.shape != state["var_T"].shape or not bool(torch.isfinite(v).all()):
         fail(f"flux_p8: solver-mode state {tuple(v.shape)} or non-finite")
     gather_info["solver_launches"] = counts
@@ -992,6 +1084,347 @@ def main() -> int:
                                  if k != "pack_srcs"]))
     if bad:
         fail(f"flux_p8: step timing fell below the noise floor: {bad}")
+    del flux_ms, profiles
+
+    # ---- reduced precision, one shard: bench.py's reduced-precision row
+    # (bench.py:559-611: packed, AUTO bp, bulk, bf16 source deltas and
+    # weights), then with bf16 gradient stores as well; each timed, with
+    # the speedups over this run's f32 bulk step (`timing`)
+    reset_counts()
+    t0 = time.perf_counter()
+    rm = GreenGaussTorch(parts, NVAR, src_dtype=BF, meta_dtype=BF,
+                         device=dev)
+    t_model = time.perf_counter() - t0
+    state = rm.distribute_state(gvar, schedules=["bulk"])
+    rel_bf = golden_relmax(rm, rm.step(state, "bulk"))
+    counts = read_counts()
+    expect_counts("reduced_p1", counts, ("pack_srcs_d16",
+                                         "sweep_blocks_w16_d16"))
+    bf_counts = counts
+    lo, hi = BAND_SRC_META
+    if not lo < rel_bf <= hi:
+        fail(f"reduced_p1: bulk vs golden relmax {rel_bf:.3e} outside "
+             f"({lo}, {hi}]")
+    st_bf = time_schedule(rm, state, "bulk", TIMED_STEPS, warmup=2,
+                          repeats=5)
+    # K4's delta pack bitwise and K1 on bf16 deltas and weights (f32 out)
+    # against their plain versions, at these shapes
+    pl = rm.plans["bulk"]
+    var_T = state["var_T"]
+    pk = dict(src_format="bf16d", block_ids=pl["block_ids"],
+              slots=pl["slots"], bp=rm.bp)
+    tbl16 = bs.pack_srcs(var_T, pl["src_cols"], **pk)
+    tbl16_ref = bs.pack_srcs_ref(var_T, pl["src_cols"], **pk)
+    torch.cuda.synchronize()
+    if not torch.equal(tbl16, tbl16_ref):
+        fail("pack_srcs (bf16d) differs from its plain version")
+    errs["pack_srcs_d16"], scales["pack_srcs_d16"] = 0.0, float(
+        tbl16_ref.float().abs().max())
+    work["pack_srcs_d16"] = bound(nbytes(var_T, pl["src_cols"],
+                                         pl["block_ids"], pl["slots"],
+                                         tbl16_ref), 0)
+    times["pack_srcs_d16"] = paired_ms(
+        lambda: bs.pack_srcs(var_T, pl["src_cols"], **pk),
+        lambda: bs.pack_srcs_ref(var_T, pl["src_cols"], **pk))
+    del tbl16_ref
+    k1bf = (var_T, *rm._operands("bulk", state["tables"]))
+    # the plain version's own golden error on the same operands: the
+    # reduced-precision error is the arithmetic's, not the kernel's
+    rel_bf_plain = golden_relmax(rm, bs.sweep_blocks_ref(*k1bf))
+    compare_and_time("sweep_blocks_w16_d16",
+                     lambda i: bs.sweep_blocks(*k1bf),
+                     lambda i: bs.sweep_blocks_ref(*k1bf))
+    work["sweep_blocks_w16_d16"] = sweep_bound("gg", k1bf, gather=False)
+    del state, k1bf, tbl16, rm
+
+    # with bf16 stores: the full stack with the fused kernel forced, used
+    # again by reduced_p1_all (at one shard no phase moves data, so the
+    # bulk step reads neither the halo option nor force_rdma: its work is
+    # bench.py's with_bf16_grads row)
+    reset_counts()
+    fm16 = GreenGaussTorch(parts, NVAR, force_rdma=True, device=dev, **FULL)
+    state = fm16.distribute_state(gvar, schedules=["bulk"])
+    g = fm16.step(state, "bulk")
+    if g.dtype != torch.bfloat16:
+        fail(f"reduced_p1: bf16 stores gave a {g.dtype} output")
+    rel_bg = golden_relmax(fm16, g)
+    counts = read_counts()
+    expect_counts("reduced_p1", counts, ("pack_srcs_d16",
+                                         "sweep_blocks_w16_d16_o16"))
+    lo, hi = BAND_FULL
+    if not lo < rel_bg <= hi:
+        fail(f"reduced_p1 (bf16 stores): bulk vs golden relmax "
+             f"{rel_bg:.3e} outside ({lo}, {hi}]")
+    st_bg = time_schedule(fm16, state, "bulk", TIMED_STEPS, warmup=2,
+                          repeats=5)
+    k1o = (state["var_T"], *fm16._operands("bulk", state["tables"]))
+    rel_bg_plain = golden_relmax(fm16, bs.sweep_blocks_ref(
+        *k1o, out_dtype=torch.bfloat16))
+    compare_and_time("sweep_blocks_w16_d16_o16",
+                     lambda i: bs.sweep_blocks(*k1o, out_dtype=torch.bfloat16),
+                     lambda i: bs.sweep_blocks_ref(*k1o,
+                                                   out_dtype=torch.bfloat16))
+    work["sweep_blocks_w16_d16_o16"] = sweep_bound("gg", k1o, gather=False,
+                                                   out_bytes=2)
+    del state, k1o, g
+    bad = [k for k, v in (("reduced", st_bf.median),
+                          ("with_bf16_grads", st_bg.median))
+           if not np.isfinite(v)]
+    emit("reduced_p1", card=smi, parts=1, kernel="packed", bp=fm16.bp,
+         src_dtype=BF, meta_dtype=BF, model_seconds=t_model,
+         bulk_vs_golden_relmax=rel_bf, plain_vs_golden_relmax=rel_bf_plain,
+         band=BAND_SRC_META,
+         launches=bf_counts, faces_per_sec=nface / st_bf.median,
+         median_ms=st_bf.median * 1e3,
+         step_ms_all=[t * 1e3 for t in st_bf.times],
+         speedup_vs_f32=f32_bulk_s / st_bf.median,
+         f32_bulk_ms=f32_bulk_s * 1e3, steps=TIMED_STEPS,
+         with_bf16_grads={
+             "grad_dtype": BF, "bulk_vs_golden_relmax": rel_bg,
+             "plain_vs_golden_relmax": rel_bg_plain,
+             "band": BAND_FULL, "launches": counts,
+             "faces_per_sec": nface / st_bg.median,
+             "median_ms": st_bg.median * 1e3,
+             "step_ms_all": [t * 1e3 for t in st_bg.times],
+             "speedup_vs_reduced": st_bf.median / st_bg.median,
+             "speedup_vs_f32": f32_bulk_s / st_bg.median},
+         kernels=kernel_summary(["pack_srcs_d16", "sweep_blocks_w16_d16",
+                                 "sweep_blocks_w16_d16_o16"]))
+    if bad:
+        fail(f"reduced_p1: step timing fell below the noise floor: {bad}")
+
+    # ---- reduced precision, one shard, all four options, every schedule
+    # with the fused overlap kernel forced (bf16 self-send push)
+    reset_counts()
+    state = fm16.distribute_state(gvar)
+    outs = {s: fm16.step(state, s) for s in ("bulk", "early", "overlap")}
+    counts = read_counts()
+    rel, cross, scale = check_schedules(
+        "reduced_p1_all", fm16, outs, band=BAND_FULL,
+        cross_tol=SCHED_TOL_BF16)
+    expect_counts("reduced_p1_all", counts, REDUCED_PACKED)
+    p1_all_ms = {}
+    for s in ("bulk", "early", "overlap"):
+        st = time_schedule(fm16, state, s, TIMED_STEPS, warmup=2, repeats=5)
+        p1_all_ms[s] = st.median * 1e3
+    prof = {s: device_profile(fm16, state, s) for s in p1_all_ms}
+    emit("reduced_p1_all", card=smi, parts=1, force_rdma=True,
+         has_comm=fm16.has_comm, options=FULL, vs_golden_relmax=rel,
+         band=BAND_FULL, cross=cross, max_abs_bulk=scale,
+         cross_tol=SCHED_TOL_BF16 * scale, launches=counts,
+         step_ms=p1_all_ms, steps=TIMED_STEPS, profile=prof,
+         idle={s: (None if p["device_ms"] is None
+                   else 1.0 - p["device_ms"] / p1_all_ms[s])
+               for s, p in prof.items()})
+    if not all(np.isfinite(v) for v in p1_all_ms.values()):
+        fail(f"reduced_p1_all: step timing below the noise floor: "
+             f"{p1_all_ms}")
+    del outs, state, fm16
+
+    # ---- reduced precision, 8 shards: the full stack under the packed
+    # kernel, every schedule, ghosts against owners; K1-init and K3 on bf16
+    # operands against their plain versions at the interior shapes
+    reset_counts()
+    t0 = time.perf_counter()
+    pm = GreenGaussTorch(parts8, NVAR, device=dev, **FULL)
+    t_model = time.perf_counter() - t0
+    state = pm.distribute_state(gvar)
+    outs = {s: pm.step(state, s)
+            for s in ("bulk", "early", "overlap", "nocomm")}
+    counts = read_counts()
+    rel, cross, scale = check_schedules("reduced_p8", pm, outs,
+                                        band=BAND_FULL,
+                                        cross_tol=SCHED_TOL_BF16)
+    expect_counts("reduced_p8", counts, REDUCED_PACKED)
+    # bf16 stores and wire: every ghost column equals its owner bitwise
+    nghost = {s: ghost_check("reduced_p8", pm, outs[s])
+              for s in ("bulk", "early", "overlap")}
+    packed_info = {"bp": pm.bp, "model_seconds": t_model, "options": FULL,
+                   "vs_golden_relmax": rel, "band": BAND_FULL,
+                   "cross": cross, "max_abs_bulk": scale,
+                   "cross_tol": SCHED_TOL_BF16 * scale,
+                   "ghost_columns_checked": nghost, "launches": counts}
+    iargs = (state["var_T"], *pm._operands("interior", state["tables"]))
+    gb = outs["nocomm"].clone()          # any finite bf16 (P, 24, ndev) init
+    sendbufs = pm._pack(gb, pm.pack_scale, torch.bfloat16)
+    del outs
+    compare_and_time(
+        "sweep_blocks_init_w16_d16_o16",
+        lambda i: bs.sweep_blocks(*iargs, init=i),
+        lambda i: bs.sweep_blocks_ref(*iargs, init=i), init=gb)
+    compare_and_time(
+        "sweep_blocks_overlap_w16_d16_o16",
+        lambda i: bs.sweep_blocks_overlap(*iargs, i, sendbufs, pm.dsts,
+                                          pm.srcs),
+        lambda i: bs.sweep_blocks_overlap_ref(*iargs, i, sendbufs, pm.dsts,
+                                              pm.srcs),
+        init=gb, push=True)
+    work["sweep_blocks_init_w16_d16_o16"] = sweep_bound(
+        "gg", iargs, gather=False, init=True, out_bytes=2)
+    work["sweep_blocks_overlap_w16_d16_o16"] = sweep_bound(
+        "gg", iargs, gather=False, init=True, push=sendbufs, out_bytes=2)
+    del iargs, gb, sendbufs
+    p8_ms = {}
+    for s in ("bulk", "early", "overlap", "nocomm"):
+        st = time_schedule(pm, state, s, TIMED_STEPS, warmup=2, repeats=5)
+        p8_ms[s] = st.median * 1e3
+    prof = {s: device_profile(pm, state, s) for s in p8_ms}
+    packed_info.update(
+        step_ms=p8_ms, profile=prof,
+        idle={s: (None if p["device_ms"] is None
+                  else 1.0 - p["device_ms"] / p8_ms[s])
+              for s, p in prof.items()})
+    del state, pm, prof
+
+    # the bf16 halo alone: owned columns never ride the wire, so they equal
+    # the f32 model's (main_path_p8) bitwise; every ghost column is the
+    # bf16 rounding of its owner's (a send point's boundary sum is its
+    # whole sum, so the wire carries the owner's final value)
+    reset_counts()
+    hm = GreenGaussTorch(parts8, NVAR, halo_dtype=BF, device=dev)
+    state = hm.distribute_state(gvar)
+    halo_info = {"launches": None, "ghost_columns_checked": {}}
+    for s in ("bulk", "early", "overlap"):
+        g = hm.step(state, s).cpu()
+        for i, p in enumerate(hm.parts):
+            if not torch.equal(g[i, :, : p.nowned],
+                               f32_p8[s][i, :, : p.nowned]):
+                fail(f"reduced_p8 (bf16 halo): {s} owned columns of shard "
+                     f"{i} differ from the f32 model's")
+        if torch.equal(g, f32_p8[s]):
+            fail(f"reduced_p8 (bf16 halo): {s} ghosts were not rounded")
+        halo_info["ghost_columns_checked"][s] = ghost_check(
+            "reduced_p8 (bf16 halo)", hm, g.numpy(), wire=True)
+    halo_info["launches"] = read_counts()
+    expect_counts("reduced_p8", halo_info["launches"], PACKED)
+    del state, hm, f32_p8, g
+
+    # the gather kernel at bp 512 with bf16 weights, stores and halo (bf16
+    # sources are packed only): every schedule, refresh_state (the var
+    # exchange stays f32) and the solver-mode runner
+    reset_counts()
+    t0 = time.perf_counter()
+    gm = GreenGaussTorch(parts8, NVAR, bp=GATHER_BP, kernel="gather",
+                         meta_dtype=BF, grad_dtype=BF, halo_dtype=BF,
+                         device=dev)
+    t_model = time.perf_counter() - t0
+    state = gm.distribute_state(gvar)
+    outs = {s: gm.step(state, s) for s in ("bulk", "early", "overlap")}
+    counts = read_counts()
+    rel, cross, scale = check_schedules("reduced_p8", gm, outs,
+                                        band=BAND_FULL,
+                                        cross_tol=SCHED_TOL_BF16)
+    expect_counts("reduced_p8", counts, REDUCED_GATHER)
+    if counts.get("pack_srcs", 0) or counts.get("pack_srcs_d16", 0):
+        fail("reduced_p8: the gather model launched the source pack")
+    gather_info = {"bp": gm.bp, "model_seconds": t_model,
+                   "options": {"meta_dtype": BF, "grad_dtype": BF,
+                               "halo_dtype": BF},
+                   "vs_golden_relmax": rel, "band": BAND_FULL,
+                   "cross": cross, "max_abs_bulk": scale,
+                   "cross_tol": SCHED_TOL_BF16 * scale,
+                   "step_ghost_columns_checked": ghost_check(
+                       "reduced_p8", gm, outs["early"]),
+                   "launches": counts}
+    del outs
+    reset_counts()
+    st2 = gm.refresh_state(owned_scaled(gm, state["var_T"], 1.5),
+                           schedules=["bulk"])
+    rel15 = golden_relmax(gm, gm.step(st2, "bulk"), scale=1.5)
+    counts = read_counts()
+    expect_counts("reduced_p8", counts, ("sweep_blocks_gather_w16_o16",))
+    lo, hi = BAND_FULL
+    if not lo < rel15 <= hi:
+        fail(f"reduced_p8: bulk after refresh_state vs the golden of "
+             f"1.5·gvar: {rel15:.3e} outside ({lo}, {hi}]")
+    if st2["var_T"].dtype != torch.float32:
+        fail("reduced_p8: the var exchange left f32")
+    gather_info["refresh_vs_golden_15_relmax"] = rel15
+    gather_info["var_ghost_columns_checked"] = ghost_check(
+        "reduced_p8", gm, st2["var_T"])
+    del st2
+    reset_counts()
+    v = gm.iterate_fn("bulk", SOLVER_RUN, solver_mode=True)(
+        *gm.iter_args(state))
+    counts = read_counts()
+    expect_counts("reduced_p8", counts, ("sweep_blocks_gather_w16_o16",))
+    if counts.get("sweep_blocks_gather_w16_o16", 0) != SOLVER_RUN:
+        fail(f"reduced_p8: {SOLVER_RUN} solver steps launched K2 (bf16) "
+             f"{counts.get('sweep_blocks_gather_w16_o16', 0)} times")
+    if (v.dtype != torch.float32 or v.shape != state["var_T"].shape
+            or not bool(torch.isfinite(v).all())):
+        fail(f"reduced_p8: solver-mode state {v.dtype} "
+             f"{tuple(v.shape)} or non-finite")
+    gather_info["solver_launches"] = counts
+    del v
+    # K2 at the bulk shapes, K2-init and K3-gather at the interior + push
+    # shapes, bf16 weights and out, against their plain versions
+    k2 = (state["var_T"], *gm._operands("bulk", state["tables"]))
+    compare_and_time(
+        "sweep_blocks_gather_w16_o16",
+        lambda i: bs.sweep_blocks_gather(*k2, out_dtype=torch.bfloat16),
+        lambda i: bs.sweep_blocks_gather_ref(*k2, out_dtype=torch.bfloat16))
+    work["sweep_blocks_gather_w16_o16"] = sweep_bound("gg", k2, gather=True,
+                                                      out_bytes=2)
+    del k2
+    iargs = (state["var_T"], *gm._operands("interior", state["tables"]))
+    gb = gm.step(state, "nocomm")               # any finite bf16 init
+    sendbufs = gm._pack(gb, gm.pack_scale, torch.bfloat16)
+    compare_and_time(
+        "sweep_blocks_gather_init_w16_o16",
+        lambda i: bs.sweep_blocks_gather(*iargs, init=i),
+        lambda i: bs.sweep_blocks_gather_ref(*iargs, init=i), init=gb)
+    compare_and_time(
+        "sweep_blocks_overlap_gather_w16_o16",
+        lambda i: bs.sweep_blocks_overlap_gather(*iargs, i, sendbufs,
+                                                 gm.dsts, gm.srcs),
+        lambda i: bs.sweep_blocks_overlap_gather_ref(*iargs, i, sendbufs,
+                                                     gm.dsts, gm.srcs),
+        init=gb, push=True)
+    work["sweep_blocks_gather_init_w16_o16"] = sweep_bound(
+        "gg", iargs, gather=True, init=True, out_bytes=2)
+    work["sweep_blocks_overlap_gather_w16_o16"] = sweep_bound(
+        "gg", iargs, gather=True, init=True, push=sendbufs, out_bytes=2)
+    del iargs, gb, sendbufs, state, gm
+    emit("reduced_p8", card=smi, parts=P_MULTI, packed=packed_info,
+         halo_only=halo_info, gather=gather_info, steps=TIMED_STEPS,
+         kernels=kernel_summary([*REDUCED_PACKED[1:], *REDUCED_GATHER]))
+    if not all(np.isfinite(v) for v in p8_ms.values()):
+        fail(f"reduced_p8: step timing below the noise floor: {p8_ms}")
+
+    # ---- reduced precision, flux, one shard: bf16 sources, weights and
+    # stores, bulk, timed, against the flux golden
+    reset_counts()
+    fm = PSDFluxModel(parts, NVAR, src_dtype=BF, meta_dtype=BF,
+                      grad_dtype=BF, device=dev)
+    state = fm.distribute_state(gvar, schedules=["bulk"])
+    relf = golden_relmax(fm, fm.step(state, "bulk"), gold=flux_ref)
+    counts = read_counts()
+    expect_counts("reduced_flux", counts, ("pack_srcs_d16",
+                                           "sweep_blocks_flux_w16_d16_o16"))
+    if not 0 < relf <= FLUX_BF16_TOL:
+        fail(f"reduced_flux: bulk vs the flux golden relmax {relf:.3e} "
+             f"outside (0, {FLUX_BF16_TOL}]")
+    st = time_schedule(fm, state, "bulk", TIMED_STEPS, warmup=2, repeats=5)
+    if not np.isfinite(st.median):
+        fail("reduced_flux: bulk step timing fell below the noise floor")
+    k1f = (state["var_T"], *fm._operands("bulk", state["tables"]))
+    compare_and_time(
+        "sweep_blocks_flux_w16_d16_o16",
+        lambda i: bs.sweep_blocks(*k1f, op="flux", out_dtype=torch.bfloat16),
+        lambda i: bs.sweep_blocks_ref(*k1f, op="flux",
+                                      out_dtype=torch.bfloat16))
+    work["sweep_blocks_flux_w16_d16_o16"] = sweep_bound(
+        "flux", k1f, gather=False, out_bytes=2)
+    emit("reduced_flux", card=smi, parts=1, kernel="packed", bp=fm.bp,
+         options={"src_dtype": BF, "meta_dtype": BF, "grad_dtype": BF},
+         bulk_vs_golden_relmax=relf, tol=FLUX_BF16_TOL, launches=counts,
+         bulk_step_ms=st.median * 1e3,
+         bulk_step_ms_all=[t * 1e3 for t in st.times],
+         faces_per_sec=nface / st.median,
+         speedup_vs_f32_flux=flux_p1_s / st.median, steps=TIMED_STEPS,
+         kernels=kernel_summary(["sweep_blocks_flux_w16_d16_o16"]))
+    del state, fm, k1f
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name], "max_abs_err": errs[name],

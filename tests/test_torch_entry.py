@@ -60,10 +60,11 @@ def test_solver_cli_all_schedules_json(parts, extra):
 
 
 def test_solver_cli_refuses_unported_option():
+    """Multi-node phase routing is the option still outside the port (the
+    reduced-precision options are in it: tests/test_torch_precision.py)."""
     res = subprocess.run(
         [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "6",
-         "--ny", "6", "--nz", "6", "--device", "cpu", "--src-dtype",
-         "bfloat16"],
+         "--ny", "6", "--nz", "6", "--device", "cpu", "--slice-size", "2"],
         capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
     assert res.returncode != 0
     assert "ROADMAP" in res.stderr

@@ -19,8 +19,11 @@ model's own plans carried across by `convert.plans_from_jax`:
 
 The `cuda`-marked tests compare each CUDA kernel with its plain version on
 the card, for both ops (the flux instances: K1-flux with and without init,
-K2-flux with and without init, K3-flux in both bodies), and skip without
-one.  The flux op's CPU cases are in tests/test_torch_flux.py.  They import no JAX, so they run on a GPU
+K2-flux with and without init, K3-flux in both bodies) and every
+reduced-precision instance (bf16 weights, deltas and outputs: f32 outputs
+within the sweep bound, bf16 outputs within one bf16 ulp; K4's delta pack
+and the bf16 push bitwise), and skip without one.  The reduced-precision
+CPU cases are in tests/test_torch_precision.py.  The flux op's CPU cases are in tests/test_torch_flux.py.  They import no JAX, so they run on a GPU
 machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider \
@@ -797,3 +800,165 @@ def test_cuda_flux_overlap_kernels_match_plain(cuda_flux_models, kernel):
     scale = float(g_ref.abs().max())
     assert float((g - g_ref).abs().max()) <= SWEEP_TOL * scale
     assert torch.equal(r, r_ref)
+
+
+# ------------------------------- reduced precision, on the card
+
+PRECISIONS = [(w, d, o) for w in (0, 1) for d in (0, 1) for o in (0, 1)
+              if (w, d, o) != (0, 0, 0)]      # bf16 weights, deltas, out
+
+
+def _assert_close(got, want, bf16_out):
+    """f32 outputs within SWEEP_TOL of max|want|; bf16 outputs elementwise
+    within one bf16 ulp of want (FMA contraction can move the f32 sum across
+    a rounding boundary) plus SWEEP_TOL of max|want|."""
+    scale = float(want.float().abs().max())
+    assert scale > 0
+    err = (got.float() - want.float()).abs()
+    if not bf16_out:
+        assert float(err.max()) <= SWEEP_TOL * scale
+        return
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert bool((err <= bs.bf16_ulp(want) + SWEEP_TOL * scale).all())
+
+
+@pytest.mark.cuda
+def test_cuda_pack_deltas_kernel_equals_plain_bitwise(cuda_model):
+    """K4's bf16d form: deltas against each entry's own column, every
+    class (pad lanes and pad entries included), bitwise."""
+    model, state = cuda_model
+    for pl in model.plans.values():
+        kw = dict(src_format="bf16d", block_ids=pl["block_ids"],
+                  slots=pl["slots"], bp=model.bp)
+        before = bs.pack_srcs.d16_launches
+        got = bs.pack_srcs(state["var_T"], pl["src_cols"], **kw)
+        ref = bs.pack_srcs_ref(state["var_T"], pl["src_cols"], **kw)
+        torch.cuda.synchronize()
+        assert bs.pack_srcs.d16_launches == before + 1
+        assert got.dtype == torch.bfloat16 and torch.equal(got, ref)
+
+
+def _packed_operands(model, state, cls, w16, d16):
+    """A class's packed sweep operands with bf16 weights and/or the bf16
+    delta table."""
+    pl = model.plans[cls]
+    tbl = (bs.pack_srcs(state["var_T"], pl["src_cols"], src_format="bf16d",
+                        block_ids=pl["block_ids"], slots=pl["slots"],
+                        bp=model.bp)
+           if d16 else state["tables"][cls])
+    w = pl["slot_w"].to(torch.bfloat16) if w16 else pl["slot_w"]
+    return state["var_T"], tbl, w, pl["scale"], pl["block_ids"], pl["slots"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("form", ["sweep", "init", "overlap"])
+@pytest.mark.parametrize("w16,d16,o16", PRECISIONS)
+def test_cuda_reduced_precision_packed_kernels(cuda_model, op, form, w16,
+                                               d16, o16):
+    """Every reduced-precision instance of K1, K1-init and K3 (bf16 push)
+    against its plain version, each counted once under its own name."""
+    model, state = cuda_model
+    cls = "bulk" if form == "sweep" else "interior"
+    args = _packed_operands(model, state, cls, w16, d16)
+    odt = torch.bfloat16 if o16 else torch.float32
+    P, rows = len(model.parts), bs.out_rows(op)
+    gen = torch.Generator("cuda").manual_seed(11)
+    init = torch.randn((P, rows, model.ndev), device="cuda",
+                       generator=gen).to(odt)
+    fn = bs.sweep_blocks_overlap if form == "overlap" else bs.sweep_blocks
+    attr = (("flux_" if op == "flux" else "")
+            + ("init_" if form == "init" else "")
+            + bs._tag(w16, d16, o16) + "launches")
+    before = getattr(fn, attr)
+    if form == "overlap":
+        send = torch.randn((P, model.nphases, rows, model.s_max),
+                           device="cuda", generator=gen).to(torch.bfloat16)
+        (got, r), (want, r_ref) = (
+            f(*args, init.clone(), send, model.dsts, model.srcs, op=op)
+            for f in (bs.sweep_blocks_overlap, bs.sweep_blocks_overlap_ref))
+    else:
+        kw = ({"init": init.clone()} if form == "init"
+              else {"out_dtype": odt})
+        got = bs.sweep_blocks(*args, op=op, **kw)
+        kw = ({"init": init.clone()} if form == "init"
+              else {"out_dtype": odt})
+        want = bs.sweep_blocks_ref(*args, op=op, **kw)
+        r = r_ref = None
+    torch.cuda.synchronize()
+    assert getattr(fn, attr) == before + 1
+    assert got.dtype == odt and got.shape == (P, rows, model.ndev)
+    _assert_close(got, want, o16)
+    if r is not None:
+        assert r.dtype == torch.bfloat16 and torch.equal(r, r_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("form", ["sweep", "init", "overlap"])
+@pytest.mark.parametrize("w16,o16", [(1, 0), (0, 1), (1, 1)])
+def test_cuda_reduced_precision_gather_kernels(cuda_gather_model, op, form,
+                                               w16, o16):
+    """Every reduced-precision instance of K2, K2-init and K3-gather (bf16
+    push) against its plain version, each counted once."""
+    model, state = cuda_gather_model
+    cls = "bulk" if form == "sweep" else "interior"
+    tbl, sidx, w, *plan = model._operands(cls, state["tables"])
+    w = w.to(torch.bfloat16) if w16 else w
+    args = (state["var_T"], tbl, sidx, w, *plan)
+    odt = torch.bfloat16 if o16 else torch.float32
+    P, rows = len(model.parts), bs.out_rows(op)
+    gen = torch.Generator("cuda").manual_seed(12)
+    init = torch.randn((P, rows, model.ndev), device="cuda",
+                       generator=gen).to(odt)
+    fn = (bs.sweep_blocks_overlap_gather if form == "overlap"
+          else bs.sweep_blocks_gather)
+    attr = (("flux_" if op == "flux" else "")
+            + ("init_" if form == "init" else "")
+            + bs._tag(w16, False, o16) + "launches")
+    before = getattr(fn, attr)
+    r = r_ref = None
+    if form == "overlap":
+        send = torch.randn((P, model.nphases, rows, model.s_max),
+                           device="cuda", generator=gen).to(torch.bfloat16)
+        (got, r), (want, r_ref) = (
+            f(*args, init.clone(), send, model.dsts, model.srcs, op=op)
+            for f in (bs.sweep_blocks_overlap_gather,
+                      bs.sweep_blocks_overlap_gather_ref))
+    elif form == "init":
+        got = bs.sweep_blocks_gather(*args, init=init.clone(), op=op)
+        want = bs.sweep_blocks_gather_ref(*args, init=init.clone(), op=op)
+    else:
+        got = bs.sweep_blocks_gather(*args, op=op, out_dtype=odt)
+        want = bs.sweep_blocks_gather_ref(*args, op=op, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert getattr(fn, attr) == before + 1
+    assert got.dtype == odt
+    _assert_close(got, want, o16)
+    if r is not None:
+        assert torch.equal(r, r_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["packed", "gather"])
+def test_cuda_bf16_push_on_f32_instances(cuda_model, cuda_gather_model,
+                                         kernel):
+    """halo_dtype alone: the f32 K3 instances push bf16 buffers, bitwise,
+    and count as the f32 instance."""
+    model, state = cuda_gather_model if kernel == "gather" else cuda_model
+    args = (state["var_T"], *model._operands("interior", state["tables"]))
+    gen = torch.Generator("cuda").manual_seed(13)
+    P = len(model.parts)
+    init = torch.randn((P, 24, model.ndev), device="cuda", generator=gen)
+    send = torch.randn((P, model.nphases, 24, model.s_max), device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    fused, ref = ((bs.sweep_blocks_overlap_gather,
+                   bs.sweep_blocks_overlap_gather_ref) if kernel == "gather"
+                  else (bs.sweep_blocks_overlap, bs.sweep_blocks_overlap_ref))
+    before = fused.launches
+    g, r = fused(*args, init.clone(), send, model.dsts, model.srcs)
+    g_ref, r_ref = ref(*args, init.clone(), send, model.dsts, model.srcs)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    _assert_close(g, g_ref, False)
+    assert r.dtype == torch.bfloat16 and torch.equal(r, r_ref)

@@ -132,10 +132,6 @@ def test_iterate_fn_chains_steps(mesh, gvar):
 
 @pytest.mark.parametrize("field,value", [
     ("slice_size", 2),
-    ("meta_dtype", "bfloat16"),
-    ("src_dtype", "bfloat16"),
-    ("halo_dtype", "bfloat16"),
-    ("grad_dtype", "bfloat16"),
 ])
 def test_options_outside_slice_raise(field, value):
     cfg = SolverConfig(device="cpu", **{field: value})
@@ -149,10 +145,15 @@ def test_options_outside_slice_raise(field, value):
     {"solver_mode": True, "sweeps_per_step": 4, "kernel": "gather"},
     {"model": "flux"},
     {"model": "flux", "solver_mode": True, "kernel": "gather"},
+    {"meta_dtype": "bfloat16"},
+    {"src_dtype": "bfloat16"},
+    {"halo_dtype": "bfloat16"},
+    {"grad_dtype": "bfloat16"},
 ])
 def test_ported_options_accepted(fields):
-    """The gather kernel, solver mode and the flux model are in the slice:
-    the config check passes them."""
+    """The gather kernel, solver mode, the flux model and the
+    reduced-precision options are in the slice: the config check passes
+    them."""
     check_config(SolverConfig(device="cpu", **fields))
 
 
@@ -161,6 +162,7 @@ def test_ported_options_accepted(fields):
     ({"sweeps_per_step": 2}, "requires --solver-mode"),
     ({"solver_mode": True, "sweeps_per_step": 0}, "at least one"),
     ({"model": "ell"}, "--model"),
+    ({"grad_dtype": "float16"}, "--grad-dtype"),
 ])
 def test_bad_solver_options_raise(fields, match):
     with pytest.raises(CheckError, match=match):
@@ -255,6 +257,15 @@ for op in ("gg", "flux"):
             assert v.shape == st["var_T"].shape
             assert bool(torch.isfinite(v).all())
             st = model.refresh_state(v)
+# the reduced-precision options, all four at once
+full = dict(src_dtype="bfloat16", meta_dtype="bfloat16",
+            grad_dtype="bfloat16", halo_dtype="bfloat16")
+model = GreenGaussTorch(partition_mesh(m, 2), 3, device="cpu", **full)
+st = model.distribute_state(g)
+got = model.gather_global(model.step(st, "overlap"))
+ref = golden("gg", m, g)
+err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+assert 1e-5 < err < 2e-2, err
 assert native.lib() is not None or native.build() is None
 assert not any(k == "jax" or k.startswith("jax.") or k == "cfd_proxy_tpu"
                or k.startswith("cfd_proxy_tpu.")
