@@ -30,7 +30,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("pack_srcs.cu", "sweep_packed.cu", "sweep_gather.cu",
-           "sweep_overlap.cu")
+           "sweep_overlap.cu", "kbench_twins.cu")
 HEADERS = ("sweep_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -144,7 +144,12 @@ def lib() -> ctypes.CDLL:
             ("cfd_sweep_overlap", [*sweep, i32, i32, i32, i32, vp, *push]),
             ("cfd_sweep_gather", [*gather, i32, i32, i32, i32, vp, vp]),
             ("cfd_sweep_overlap_gather", [*gather, i32, i32, i32, vp,
-                                          *push])):
+                                          *push]),
+            # the kbench twins (ops/twins.py): the packed sweep's operands,
+            # (stream: bf16,) out, stream
+            ("cfd_stream_twin", [*sweep, i32, vp, vp]),
+            ("cfd_wsum_twin", [*sweep, vp, vp]),
+            ("cfd_nv7_sweep", [*sweep, vp, vp])):
         fn = getattr(L, name)
         fn.restype = ctypes.c_int
         fn.argtypes = args

@@ -104,14 +104,15 @@ def _zero_counts(fn, forms, tags) -> None:
         setattr(fn, a, 0)
 
 
-def launch_counters() -> dict:
+def launch_counters(wrappers: tuple = ()) -> dict:
     """{instance name: (wrapper, count attribute)} for every kernel
-    instance.  The name is the wrapper's, then "_flux", "_init" and the
-    precision tag as in the attribute: "sweep_blocks_flux_init",
-    "sweep_blocks_init_w16_d16_o16", "pack_srcs_d16"."""
+    instance of this module's wrappers (or of `wrappers`).  The name is the
+    wrapper's, then "_flux", "_init" and the precision tag as in the
+    attribute: "sweep_blocks_flux_init", "sweep_blocks_init_w16_d16_o16",
+    "pack_srcs_d16"."""
     out = {}
-    for fn in (pack_srcs, sweep_blocks, sweep_blocks_gather,
-               sweep_blocks_overlap, sweep_blocks_overlap_gather):
+    for fn in wrappers or (pack_srcs, sweep_blocks, sweep_blocks_gather,
+                           sweep_blocks_overlap, sweep_blocks_overlap_gather):
         for a in fn.count_attrs:
             out["_".join([fn.__name__, *a.split("_")[:-1]])] = (fn, a)
     return out
@@ -312,40 +313,67 @@ def _slot_contrib(op, own, src, wk, delta=False):
     return 0.5 * (udw * own + uow * src) - 0.5 * a * (src - own)
 
 
+def _block_cols(x: torch.Tensor, block_ids: torch.Tensor,
+                bp: int) -> torch.Tensor:
+    """(P, nb, R, bp): the columns of x (P, R, ndev) that each listed entry
+    covers, block_ids[p, b]·bp + lane."""
+    P, R = x.shape[:2]
+    nb = block_ids.shape[1]
+    lanes = torch.arange(bp, device=x.device)
+    flat = (block_ids.long()[:, :, None] * bp + lanes).reshape(P, 1, nb * bp)
+    g = torch.gather(x, 2, flat.expand(P, R, nb * bp))
+    return g.reshape(P, R, nb, bp).permute(0, 2, 1, 3)
+
+
+def _store_blocks(res: torch.Tensor, block_ids: torch.Tensor, ndev: int,
+                  init: torch.Tensor | None = None,
+                  out_dtype: torch.dtype = F32) -> torch.Tensor:
+    """The sweep's store: res (P, nb, R, bp) f32 at each listed entry's
+    columns of a (P, R, ndev) output, rounded to its dtype — zero
+    elsewhere, or init's values with init (updated in place and returned).
+    An entry that repeats its predecessor (a pad entry) is computed but not
+    stored, as the kernels skip it."""
+    P, nb, R, bp = res.shape
+    if init is None:
+        out = torch.zeros((P, R, ndev + bp), dtype=out_dtype,
+                          device=res.device)
+    else:
+        out = torch.cat([init, init.new_zeros((P, R, bp))], 2)
+    # repeats store into a scratch block past ndev, dropped below
+    first = torch.ones_like(block_ids, dtype=torch.bool)
+    first[:, 1:] = block_ids[:, 1:] != block_ids[:, :-1]
+    store = torch.where(first, block_ids.long(), ndev // bp)
+    lanes = torch.arange(bp, device=res.device)
+    store = (store[:, :, None] * bp + lanes).reshape(P, 1, nb * bp)
+    out.scatter_(2, store.expand(P, R, nb * bp),
+                 res.permute(0, 2, 1, 3).reshape(P, R, nb * bp).to(
+                     out.dtype))
+    if init is None:
+        return out[:, :, :ndev].contiguous()
+    return init.copy_(out[:, :, :ndev])
+
+
 def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms, op,
                  delta=False, out_dtype=F32):
     """The sweep's plain body, slot by slot over all shards and blocks at
     once, in the reference body's operation order: acc = init (or 0),
     widened to f32; acc += slot k's terms (`_slot_contrib`); out = acc·scale,
-    rounded to the output's dtype (init's, else out_dtype) at the store.
+    rounded to the output's dtype (init's, else out_dtype) at the store
+    (`_store_blocks`).
 
-    slot_terms(k, w, off, own) gives slot k's sources (P, nb, NV, w) and
-    weights (P, nb, 3, w) over lanes [0, w); own is (P, nb, NV, bp); delta:
-    the sources are bf16 deltas.  With init, init is updated in place and
-    returned.  An entry that repeats its predecessor (a pad entry) is
-    computed but not stored, as the kernels skip it."""
-    rows = out_rows(op)
-    P, nb = block_ids.shape
+    slot_terms(k, w, off, own) gives slot k's sources (P, nb, nv, w) and
+    weights (P, nb, 3, w) over lanes [0, w); own is (P, nb, nv, bp), nv =
+    var_T's rows (NV, or 7 for kbench's nv7 twin); delta: the sources are
+    bf16 deltas.  With init, init is updated in place and returned."""
+    P, nv, ndev = var_T.shape
+    nb = block_ids.shape[1]
+    rows = 3 * nv if op == "gg" else nv
     bp = scale.shape[-1]
-    ndev = var_T.shape[2]
-    dev = var_T.device
-    lanes = torch.arange(bp, device=dev)
-    flat = (block_ids.long()[:, :, None] * bp + lanes).reshape(P, 1, nb * bp)
-    own = torch.gather(var_T, 2, flat.expand(P, NV, nb * bp))
-    own = own.reshape(P, NV, nb, bp).permute(0, 2, 1, 3)      # (P, nb, NV, bp)
+    own = _block_cols(var_T, block_ids, bp)                 # (P, nb, nv, bp)
     if init is None:
-        acc = torch.zeros((P, nb, rows, bp), dtype=F32, device=dev)
-        out = torch.zeros((P, rows, ndev + bp), dtype=out_dtype, device=dev)
+        acc = torch.zeros((P, nb, rows, bp), dtype=F32, device=var_T.device)
     else:
-        acc = torch.gather(init, 2, flat.expand(P, rows, nb * bp))
-        acc = acc.reshape(P, rows, nb, bp).permute(0, 2, 1, 3).to(
-            F32, copy=True)
-        out = torch.cat([init, init.new_zeros((P, rows, bp))], 2)
-    # repeats store into a scratch block past ndev, dropped below
-    first = torch.ones_like(block_ids, dtype=torch.bool)
-    first[:, 1:] = block_ids[:, 1:] != block_ids[:, :-1]
-    store = torch.where(first, block_ids.long(), ndev // bp)
-    store = (store[:, :, None] * bp + lanes).reshape(P, 1, nb * bp)
+        acc = _block_cols(init, block_ids, bp).to(F32, copy=True)
     widths, offs = slots.tolist()
     for k, (w, off) in enumerate(zip(widths, offs)):
         if w == 0:
@@ -353,13 +381,7 @@ def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms, op,
         src, wk = slot_terms(k, w, off, own)
         acc[..., :w] = acc[..., :w] + _slot_contrib(op, own[..., :w], src, wk,
                                                     delta)
-    res = acc * scale                                      # (P, nb, rows, bp)
-    out.scatter_(2, store.expand(P, rows, nb * bp),
-                 res.permute(0, 2, 1, 3).reshape(P, rows, nb * bp).to(
-                     out.dtype))
-    if init is None:
-        return out[:, :, :ndev].contiguous()
-    return init.copy_(out[:, :, :ndev])
+    return _store_blocks(acc * scale, block_ids, ndev, init, out_dtype)
 
 
 def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,

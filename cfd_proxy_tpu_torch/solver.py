@@ -24,9 +24,15 @@ bfloat16 --meta-dtype bfloat16`, then with `--grad-dtype bfloat16`).
 `--solver-mode` times the per-time-step dataflow of a real solver (table
 rebuild, `--sweeps-per-step` sweeps with their updates, var halo exchange)
 instead of the static-state iteration; without `--kernel` it takes the
-kernel and block size `solver_mode_defaults` decides.  Every other option
-is accepted by the parser so that it can be refused by name (`CheckError`,
-naming the ROADMAP item that brings it), never ignored.
+kernel and block size `solver_mode_defaults` decides.  The mesh options
+(`--ghost-layers`, `--diag-frac`, `--stretch`, `--hub-frac`,
+`--hub-extra`) are the reference's.  Every other option of the reference's
+parser is accepted so that it can be refused by name (`CheckError`, naming
+the ROADMAP item that brings it, `check_config`), never ignored:
+`--backend xla`, `--dtype float64`, `--profile`, the fake phases
+(`--min-phases`, `--fake-sends`, `--fake-tail-frac`), `--pack-force`,
+`--platform` and `--slice-size`.  `--backend pallas` names the kernel path,
+here the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -84,10 +90,12 @@ class SolverConfig:
     nz: int = 24
     mesh_prefix: str | None = None
     parts: int = 1
+    ghost_layers: int = 1
     nvar: int = 7
     iters: int = 20
     warmup: int = 3
     schedule: str = "all"
+    backend: str = "pallas"     # the kernel path; "xla" is refused (item 10)
     force_rdma: bool = False
     slice_size: int | None = None
     model: str = "gg"
@@ -100,12 +108,23 @@ class SolverConfig:
     grad_dtype: str = "float32"
     solver_mode: bool = False
     sweeps_per_step: int = 1
+    dtype: str = "float32"
     diag_frac: float = 0.2
     jitter: float = 0.05
+    stretch: float = 1.0
+    hub_frac: float = 0.0
+    hub_extra: int = 12
     seed: int = 0
     device: str = "cuda"
     verify: bool = True
     json_out: bool = False
+    # the reference's options the port refuses by name (check_config)
+    min_phases: int = 1
+    fake_sends: int = 0
+    fake_tail_frac: float = 0.0
+    pack_force: str | None = None
+    platform: str | None = None
+    profile_dir: str | None = None
 
 
 def check_config(cfg: SolverConfig) -> None:
@@ -113,8 +132,28 @@ def check_config(cfg: SolverConfig) -> None:
     check(cfg.parts >= 1, "--parts %d: need at least one shard", cfg.parts)
     check(cfg.schedule in ("all", *SCHEDULES), "unknown --schedule %s",
           cfg.schedule)
+    check(cfg.ghost_layers >= 1, "--ghost-layers %d: need at least one",
+          cfg.ghost_layers)
     check(cfg.slice_size is None, "--slice-size %s: multi-node phase "
           "routing comes with ROADMAP queue 1 item 12", cfg.slice_size)
+    check(cfg.backend == "pallas", "--backend %s: the port runs its "
+          "kernels (pallas); the XLA-backend analogue (ELL sweep, f64 exact "
+          "path) comes with ROADMAP queue 1 item 10", cfg.backend)
+    check(cfg.dtype == "float32", "--dtype %s: the kernels are float32; the "
+          "f64 path comes with ROADMAP queue 1 item 10", cfg.dtype)
+    check(cfg.profile_dir is None, "--profile %s: the torch.profiler trace "
+          "comes with ROADMAP queue 1 item 11b", cfg.profile_dir)
+    for opt, value, off in (("min-phases", cfg.min_phases, 1),
+                            ("fake-sends", cfg.fake_sends, 0),
+                            ("fake-tail-frac", cfg.fake_tail_frac, 0.0)):
+        check(value == off, "--%s %s: the fake exchange phases come with "
+              "ROADMAP queue 1 item 11b", opt, value)
+    check(cfg.pack_force is None, "--pack-force %s: the pack lowerings it "
+          "picks work around XLA and are not ported (ROADMAP queue 2, "
+          "not-ported list)", cfg.pack_force)
+    check(cfg.platform is None, "--platform %s: a JAX platform switch, not "
+          "ported (ROADMAP queue 2, not-ported list); use --device cpu|cuda",
+          cfg.platform)
     check(cfg.kernel in KERNELS, "unknown --kernel %s", cfg.kernel)
     check(cfg.model in OPS, "unknown --model %s", cfg.model)
     for name in DTYPE_OPTIONS:
@@ -132,19 +171,43 @@ def check_config(cfg: SolverConfig) -> None:
           "for the plain PyTorch versions)")
 
 
-def build_model(cfg: SolverConfig):
-    if cfg.mesh_prefix:
-        parts = [read_partition(partition_path(cfg.mesh_prefix, i, cfg.parts))
-                 for i in range(cfg.parts)]
-        gmesh = None
-    else:
+def read_parts(cfg: SolverConfig) -> list:
+    """The `--mesh` partition files, with the reference's message when one
+    is missing (`cfd_proxy_tpu/solver.py:147-159`)."""
+    try:
+        return [read_partition(partition_path(cfg.mesh_prefix, i, cfg.parts))
+                for i in range(cfg.parts)]
+    except FileNotFoundError as e:
+        raise SystemExit(
+            f"mesh partition file not found: {e.filename} — expected "
+            f"<prefix>.<parts>p.<i>.nc; the port has no partition tool yet "
+            f"(ROADMAP queue 1 item 11b): write them with the reference's "
+            f"`python -m cfd_proxy_tpu.tools.partition --parts {cfg.parts} "
+            f"--out {cfg.mesh_prefix}` (plus your --nx/--ny/--nz/"
+            f"--ghost-layers/--seed — the tool's defaults are a 24^3 mesh)")
+
+
+def build_model(cfg: SolverConfig, parts: list | None = None):
+    """(model, global mesh or None): the model of cfg's model fields on
+    `parts` when given (shared between configurations), else on the
+    `--mesh` files or on the generated and partitioned mesh."""
+    gmesh = None
+    if parts is None and cfg.mesh_prefix:
+        parts = read_parts(cfg)
+    elif parts is None:
         gmesh = generate_mesh(cfg.nx, cfg.ny, cfg.nz, jitter=cfg.jitter,
-                              diag_frac=cfg.diag_frac, seed=cfg.seed)
-        parts = partition_mesh(gmesh, cfg.parts)
+                              diag_frac=cfg.diag_frac, seed=cfg.seed,
+                              stretch=cfg.stretch, hub_frac=cfg.hub_frac,
+                              hub_extra=cfg.hub_extra)
+        parts = partition_mesh(gmesh, cfg.parts,
+                               ghost_layers=cfg.ghost_layers)
     model = GreenGaussTorch(parts, cfg.nvar, bp=cfg.bp, kcompact=cfg.kcompact,
                             force_rdma=cfg.force_rdma, kernel=cfg.kernel,
                             op=cfg.model, device=cfg.device,
-                            **{k: getattr(cfg, k) for k in DTYPE_OPTIONS})
+                            meta_dtype=cfg.meta_dtype,
+                            src_dtype=cfg.src_dtype,
+                            halo_dtype=cfg.halo_dtype,
+                            grad_dtype=cfg.grad_dtype)
     return model, gmesh
 
 
@@ -329,6 +392,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", dest="mesh_prefix", default=None,
                     help="read pre-partitioned netCDF files <prefix>.<P>p.<i>.nc")
     ap.add_argument("--parts", type=int, default=1)
+    ap.add_argument("--ghost-layers", type=int, default=1)
     ap.add_argument("--nvar", type=int, default=7)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
@@ -357,10 +421,32 @@ def main(argv=None) -> int:
     ap.add_argument("--sweeps-per-step", type=int, default=1,
                     help="solver mode: gradient evaluations per table "
                          "rebuild")
+    ap.add_argument("--diag-frac", type=float, default=0.2)
+    ap.add_argument("--stretch", type=float, default=1.0,
+                    help="geometric z-spacing growth ratio (boundary-layer "
+                         "anisotropy)")
+    ap.add_argument("--hub-frac", type=float, default=0.0,
+                    help="high-valence tail stress: fraction of points "
+                         "gaining --hub-extra second-shell edges")
+    ap.add_argument("--hub-extra", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--no-verify", action="store_true")
     ap.add_argument("--json", action="store_true", help="emit one JSON line")
+    # the reference's options outside the port: parsed, then refused by
+    # name in check_config
+    ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"],
+                    help="pallas: the kernel path (here the CUDA kernels); "
+                         "xla is refused (ROADMAP item 10)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "float64"])
+    ap.add_argument("--profile", dest="profile_dir", default=None)
+    ap.add_argument("--min-phases", type=int, default=1)
+    ap.add_argument("--fake-sends", type=int, default=0)
+    ap.add_argument("--fake-tail-frac", type=float, default=0.0)
+    ap.add_argument("--pack-force", default=None,
+                    choices=["gather", "nocombine", "combine"])
+    ap.add_argument("--platform", default=None)
     a = ap.parse_args(argv)
     if a.kernel is None:
         if a.solver_mode:
@@ -376,15 +462,20 @@ def main(argv=None) -> int:
             a.kernel = "packed"
     cfg = SolverConfig(
         nx=a.nx, ny=a.ny, nz=a.nz, mesh_prefix=a.mesh_prefix, parts=a.parts,
-        nvar=a.nvar, iters=a.iters, warmup=a.warmup, schedule=a.schedule,
+        ghost_layers=a.ghost_layers, nvar=a.nvar, iters=a.iters,
+        warmup=a.warmup, schedule=a.schedule, backend=a.backend,
         force_rdma=a.force_rdma, slice_size=a.slice_size, model=a.model,
         kernel=a.kernel,
         kcompact={"auto": None, "on": True, "off": False}[a.kcompact],
         bp=a.bp, meta_dtype=a.meta_dtype, src_dtype=a.src_dtype,
         halo_dtype=a.halo_dtype, grad_dtype=a.grad_dtype,
         solver_mode=a.solver_mode, sweeps_per_step=a.sweeps_per_step,
-        seed=a.seed, device=a.device,
-        verify=not a.no_verify, json_out=a.json)
+        dtype=a.dtype, diag_frac=a.diag_frac, stretch=a.stretch,
+        hub_frac=a.hub_frac, hub_extra=a.hub_extra, seed=a.seed,
+        device=a.device, verify=not a.no_verify, json_out=a.json,
+        min_phases=a.min_phases, fake_sends=a.fake_sends,
+        fake_tail_frac=a.fake_tail_frac, pack_force=a.pack_force,
+        platform=a.platform, profile_dir=a.profile_dir)
     t0 = time.perf_counter()
     results, stats = run(cfg)
     results["wall_s"] = time.perf_counter() - t0

@@ -40,7 +40,17 @@ faces, nvar 7, random state from a seed):
   bp 512 with bf16 weights, stores and halo, `refresh_state` and the
   solver-mode runner;
 - `reduced_flux`: the flux model at one shard with bf16 sources, weights
-  and stores, bulk, timed.
+  and stores, bulk, timed;
+- `kbench`: the kernel bench (`tools/kbench.py`) at its defaults (96³, bp
+  4096), driven through `kbench.main` with `--check` twice: the full-width
+  variants (K1 as prod, flat, bf16src, w16, bf16sw; the twins stream (K5a),
+  wsum (K5b), nv7 (K5c)) and the prefix variants (K1 as compact,
+  compact_bsw, compact_bso, cflux; the stream twin K5e as cstream_c and
+  cstream_bso); then each twin and the two K1 instances only the bench
+  launches (bf16 deltas alone, bf16 weights alone) against their plain
+  versions, timed with their bounds, and the reference's verdict pairs
+  (compact/cstream_c, compact_bso/cstream_bso, prod/stream, prod/wsum,
+  prod/nv7) timed in turns.
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after, and checked against the f64 golden of its op
@@ -70,6 +80,8 @@ printing anything on stdout.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -103,7 +115,35 @@ FLUX_BF16_TOL = 5e-3   # flux with bf16 sources/stores vs the flux golden
 SCHED_TOL_BF16 = 1e-2  # schedules with bf16 stores, relative to max|bulk|
 HBM_BYTES_PER_MS = 3.35e9      # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9          # H100 SXM: 67 TFLOP/s f32 outside tensor cores
-OPS_PER_SLOT_LANE = {"gg": 64, "flux": 85}   # f32 operations (FMA = 2)
+# f32 operations per slot lane (FMA = 2): the sweep ops, and kbench's
+# twins (ops/twins.py): stream 11 adds, wsum 24 FMAs + 3, nv7 gg on 7 rows
+OPS_PER_SLOT_LANE = {"gg": 64, "flux": 85, "stream": 11, "wsum": 51,
+                     "nv7": 56}
+KB_BP = 4096      # kbench's default block size (its mesh is NX³, seed 0)
+KB_ITERS = 100    # kbench's default chained-loop length
+# kbench's two drives, by table layout: variants (each --check'ed where it
+# has gg or flux semantics) and the K1 instances they must launch
+KB_RUNS = {
+    "full": (("prod", "flat", "bf16src", "w16", "bf16sw", "stream", "wsum",
+              "nv7"),
+             ("pack_srcs", "pack_srcs_d16", "sweep_blocks", "sweep_blocks_d16",
+              "sweep_blocks_w16", "sweep_blocks_w16_d16")),
+    "prefix": (("compact", "compact_bsw", "compact_bso", "cflux", "cstream_c",
+                "cstream_bso"),
+               ("pack_srcs", "pack_srcs_d16", "sweep_blocks",
+                "sweep_blocks_w16_d16", "sweep_blocks_w16_d16_o16",
+                "sweep_blocks_flux")),
+}
+# the twin rows of the kernel table: (kbench variant, drive, instance)
+TWIN_ROWS = {"stream": ("stream", "full", "stream_twin"),
+             "wsum": ("wsum", "full", "wsum_twin"),
+             "nv7": ("nv7", "full", "nv7_sweep"),
+             "cstream_c": ("cstream_c", "prefix", "stream_twin"),
+             "cstream_bso": ("cstream_bso", "prefix",
+                             "stream_twin_w16_d16_o16")}
+# the reference's recorded verdicts (kbench.py docstring), as K1 / twin
+KB_VERDICTS = (("compact", "cstream_c"), ("compact_bso", "cstream_bso"),
+               ("prod", "stream"), ("prod", "wsum"), ("prod", "nv7"))
 KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "pack_srcs": ("cuda", "cfd_proxy_tpu_torch/csrc/pack_srcs.cu",
                   "cfd_proxy_tpu/ops/blocksweep.py:940"),
@@ -171,6 +211,24 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "sweep_blocks_flux_w16_d16_o16": (
         "cuda", "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
         "cfd_proxy_tpu/ops/blocksweep.py:496"),
+    # K1 instances only kbench launches: bf16 deltas alone (bf16src, the
+    # delta body :491), bf16 weights alone (w16, the weight upcast :487)
+    "sweep_blocks_d16": ("cuda", "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
+                         "cfd_proxy_tpu/ops/blocksweep.py:491"),
+    "sweep_blocks_w16": ("cuda", "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
+                         "cfd_proxy_tpu/ops/blocksweep.py:487"),
+    # kbench's twins (ops/twins.py), one row per bench variant: K5a stream,
+    # K5b wsum, K5c nv7, K5e cstream_c (f32) and cstream_bso (bf16)
+    "stream": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_twins.cu",
+               "cfd_proxy_tpu/tools/kbench.py:269"),
+    "wsum": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_twins.cu",
+             "cfd_proxy_tpu/tools/kbench.py:278"),
+    "nv7": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_twins.cu",
+            "cfd_proxy_tpu/tools/kbench.py:300"),
+    "cstream_c": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_twins.cu",
+                  "cfd_proxy_tpu/tools/kbench.py:476"),
+    "cstream_bso": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_twins.cu",
+                    "cfd_proxy_tpu/tools/kbench.py:476"),
 }
 PACKED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
           "sweep_blocks_overlap")
@@ -282,7 +340,7 @@ def sweep_bound(op: str, args, gather: bool, init: bool = False,
         moved += lanes * (4 + 3 * w_bytes) + n_ext * nv * 4
     else:             # sources (NV values or deltas) and 3 weights per lane
         moved += lanes * (nv * tbl.element_size() + 3 * w_bytes)
-    rows = 3 * nv if op == "gg" else nv
+    rows = nv if op == "flux" else 3 * nv
     moved += (2 * cols if init else P * ndev) * rows * out_bytes
     if push is not None:
         moved += 2 * nbytes(push)
@@ -343,8 +401,10 @@ def main() -> int:
                                                           PSDFluxModel)
         from cfd_proxy_tpu_torch.ops import _cuda
         from cfd_proxy_tpu_torch.ops import blocksweep as bs
+        from cfd_proxy_tpu_torch.ops import twins
         from cfd_proxy_tpu_torch.solver import (golden, solver_mode_defaults,
                                                 time_schedule)
+        from cfd_proxy_tpu_torch.tools import kbench
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               f"root of a checkout", file=sys.stderr)
@@ -352,8 +412,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
 
-    # every kernel instance: (wrapper, its count attribute), by row name
-    counters = bs.launch_counters()
+    # every kernel instance: (wrapper, its count attribute), by instance
+    # name (the rows' names, but for the twins': TWIN_ROWS)
+    counters = {**bs.launch_counters(), **twins.launch_counters()}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -1425,6 +1486,83 @@ def main() -> int:
          speedup_vs_f32_flux=flux_p1_s / st.median, steps=TIMED_STEPS,
          kernels=kernel_summary(["sweep_blocks_flux_w16_d16_o16"]))
     del state, fm, k1f
+
+    # ---- kbench: its two drives through kbench.main, each counted and
+    # --check'ed against the golden (its own mesh: NX³, seed 0 — gmesh)
+    kb_runs = {}
+    for drive, (names, k1_names) in KB_RUNS.items():
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = kbench.main(["--nx", str(NX), "--bp", str(KB_BP), "--iters",
+                              str(KB_ITERS), "--variants", ",".join(names),
+                              "--check"])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        out_lines = buf.getvalue().splitlines()
+        if rc != 0:
+            fail(f"kbench ({drive}) exited {rc}: {out_lines}")
+        checked = [n for n in names if n in kbench.TOLS]
+        bad = [n for n in checked
+               if not any(ln.startswith(f"check {n}:") and ln.endswith("OK")
+                          for ln in out_lines)]
+        if bad:
+            fail(f"kbench ({drive}): no passing golden check for {bad}")
+        twin_counts = {k: counts.pop(k) for k in list(counts)
+                       if k in twins.launch_counters()}
+        expect_counts(f"kbench ({drive})", counts, k1_names)
+        for row, (_, d, inst) in TWIN_ROWS.items():
+            if d == drive:
+                launches[row] = twin_counts.get(inst, 0)
+                if not launches[row]:
+                    fail(f"kbench ({drive}) launched no {inst} ({row})")
+        kb_runs[drive] = {"seconds": seconds, "output": out_lines,
+                          "launches": counts, "twin_launches": twin_counts}
+
+    # the same tables (kbench's plan on gmesh), each twin and the K1
+    # instances only kbench launches against their plain versions
+    t0 = time.perf_counter()
+    benches = kbench.make_benches(gmesh, bp=KB_BP, device=dev)
+    names = [n for ns, _ in KB_RUNS.values() for n in ns]
+    table = kbench.variant_table(benches, names)
+    t_bench = time.perf_counter() - t0
+
+    def operands(t):
+        return t["srcs"], t["slot_w"], t["scale"], t["block_ids"], t["slots"]
+
+    kb_plain = {
+        "stream": twins.stream_twin_ref, "cstream_c": twins.stream_twin_ref,
+        "cstream_bso": lambda *a: twins.stream_twin_ref(
+            *a, out_dtype=torch.bfloat16),
+        "wsum": twins.wsum_twin_ref, "nv7": twins.nv7_sweep_ref,
+        "sweep_blocks_d16": bs.sweep_blocks_ref,
+        "sweep_blocks_w16": bs.sweep_blocks_ref}
+    kb_variant = {**{r: v for r, (v, _, _) in TWIN_ROWS.items()},
+                  "sweep_blocks_d16": "bf16src", "sweep_blocks_w16": "w16"}
+    for row, name in kb_variant.items():
+        fn, v, t = table[name]
+        compare_and_time(row, lambda i: fn(v, t),
+                         lambda i: kb_plain[row](v, *operands(t)))
+        op = kbench.VARIANTS[name][4]
+        out_b = 2 if kbench.VARIANTS[name][3] == torch.bfloat16 else 4
+        work[row] = sweep_bound(op, (v, *operands(t)), gather=False,
+                                out_bytes=out_b)
+    # the verdict pairs in turns (A, B, B, A), CUDA-event means of 50 calls
+    verdicts = {}
+    for a, b in KB_VERDICTS:
+        fa, fb = (lambda n=n: table[n][0](*table[n][1:]) for n in (a, b))
+        a1, b1 = cuda_ms(fa, 50), cuda_ms(fb, 50)
+        b2, a2 = cuda_ms(fb, 50), cuda_ms(fa, 50)
+        ta, tb = min(a1, a2), min(b1, b2)
+        verdicts[f"{a}/{b}"] = {"ratio": ta / tb, f"{a}_ms": ta,
+                                f"{b}_ms": tb}
+    b0 = benches[""]
+    emit("kbench", card=smi, bp=KB_BP, nblocks=b0.plan.nblocks,
+         kslots=b0.plan.kslots, wks=list(b0.wks["prefix"]),
+         bench_seconds=t_bench, runs=kb_runs, verdicts=verdicts,
+         kernels=kernel_summary(list(kb_variant)))
+    del benches, table
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name], "max_abs_err": errs[name],

@@ -1,6 +1,8 @@
 """Entry points of the port: the solver CLI on the CPU (static iteration
-and solver mode), and chip_smoke.py's refusal to run (or report success)
-without a CUDA card."""
+and solver mode; the reference's mesh options, each option outside the
+port refused by name, the reference's message for a missing `--mesh`
+file), and chip_smoke.py's refusal to run (or report success) without a
+CUDA card."""
 
 import json
 import os
@@ -10,6 +12,11 @@ import time
 
 import pytest
 import torch
+
+from cfd_proxy_tpu_torch import solver
+from cfd_proxy_tpu_torch.mesh.generator import generate_mesh
+from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
+from cfd_proxy_tpu_torch.utils.errors import CheckError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,6 +75,79 @@ def test_solver_cli_refuses_unported_option():
         capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
     assert res.returncode != 0
     assert "ROADMAP" in res.stderr
+
+
+def test_solver_cli_ghost_layers_matches_reference(capsys):
+    """--ghost-layers 2 reaches the partition: on the same 8³ mesh at 4
+    shards the port's CLI counts the reference CLI's faces (more than one
+    ghost layer gives) and reports its verify numbers."""
+    from cfd_proxy_tpu import solver as ref_solver
+
+    argv = ["--ghost-layers", "2", "--nx", "8", "--ny", "8", "--nz", "8",
+            "--parts", "4", "--iters", "2", "--json"]
+    res = subprocess.run(
+        [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", *argv,
+         "--device", "cpu"],
+        capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
+    assert res.returncode == 0, res.stderr
+    port = json.loads(res.stdout.strip().splitlines()[-1])
+    assert ref_solver.main([*argv, "--warmup", "0"]) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    m = generate_mesh(8, 8, 8, jitter=0.05, diag_frac=0.2, seed=0)
+    one = sum(p.nface for p in partition_mesh(m, 4, ghost_layers=1))
+    assert port["nface"] == ref["nface"] > one
+    assert port["npoint"] == ref["npoint"]
+    assert sorted(port["verification"]) == sorted(ref["verification"])
+    for k, v in ref["verification"].items():
+        assert port["verification"][k] == pytest.approx(v, rel=1e-6,
+                                                        abs=1e-12), k
+    assert port["verification"]["bulk_vs_golden_relmax"] <= 1e-5
+
+
+def test_solver_cli_mesh_options_reach_the_generator(capsys):
+    """--diag-frac, --stretch, --hub-frac and --hub-extra build the
+    reference's generated mesh, and the golden is taken on it."""
+    opts = dict(diag_frac=0.3, stretch=1.2, hub_frac=0.2, hub_extra=4)
+    argv = ["--nx", "6", "--ny", "6", "--nz", "6", "--device", "cpu",
+            "--iters", "2", "--schedule", "bulk", "--json"]
+    for k, v in opts.items():
+        argv += ["--" + k.replace("_", "-"), str(v)]
+    assert solver.main(argv) == 0
+    d = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    m = generate_mesh(6, 6, 6, jitter=0.05, seed=0, **opts)
+    plain = generate_mesh(6, 6, 6, jitter=0.05, diag_frac=0.2, seed=0)
+    assert d["nface"] == m.nface != plain.nface
+    assert d["verification"]["bulk_vs_golden_relmax"] < 1e-5
+
+
+REFUSALS = [(["--backend", "xla"], "item 10"),
+            (["--dtype", "float64"], "item 10"),
+            (["--profile", "trace_dir"], "item 11b"),
+            (["--min-phases", "3"], "item 11b"),
+            (["--fake-sends", "256"], "item 11b"),
+            (["--fake-tail-frac", "0.5"], "item 11b"),
+            (["--pack-force", "gather"], "queue 2"),
+            (["--platform", "cpu"], "queue 2"),
+            (["--slice-size", "2"], "item 12")]
+
+
+@pytest.mark.parametrize("opt,item", REFUSALS, ids=[o[0] for o, _ in REFUSALS])
+def test_solver_cli_refuses_each_unported_option_by_name(opt, item):
+    """The reference's options outside the port parse (argparse would exit
+    2) and are refused by name, naming the ROADMAP item that brings them."""
+    with pytest.raises(CheckError, match=f"{opt[0]} .*ROADMAP.*{item}"):
+        solver.main(["--nx", "6", "--ny", "6", "--nz", "6", "--device",
+                     "cpu", *opt])
+
+
+def test_solver_cli_missing_mesh_file_gives_reference_message(tmp_path):
+    prefix = str(tmp_path / "m")
+    with pytest.raises(SystemExit) as e:
+        solver.main(["--mesh", prefix, "--parts", "2", "--device", "cpu"])
+    msg = str(e.value.code)
+    assert msg.startswith(f"mesh partition file not found: {prefix}.2p.0.nc"
+                          " — expected <prefix>.<parts>p.<i>.nc")
+    assert f"--parts 2 --out {prefix}" in msg and "--ghost-layers" in msg
 
 
 def test_solver_cli_solver_mode_json():

@@ -962,3 +962,47 @@ def test_cuda_bf16_push_on_f32_instances(cuda_model, cuda_gather_model,
     assert fused.launches == before + 1
     _assert_close(g, g_ref, False)
     assert r.dtype == torch.bfloat16 and torch.equal(r, r_ref)
+
+
+# ------------------------------------------------ kbench's twins, on the card
+
+TWINS = [("stream", "launches"), ("wsum", "launches"), ("nv7", "launches"),
+         ("cstream_c", "launches"), ("cstream_bso", "w16_d16_o16_launches")]
+
+
+@pytest.fixture(scope="module")
+def cuda_benches(mesh):
+    """kbench's plans and tables on the card at bp 128 (every prefix width
+    is bp) and bp 256 (every width partial)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from cfd_proxy_tpu_torch.tools import kbench
+
+    return {bp: kbench.make_benches(mesh, bp=bp, device="cuda")
+            for bp in (128, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bp", [128, 256])
+@pytest.mark.parametrize("name,attr", TWINS)
+def test_cuda_kbench_twins_match_plain(cuda_benches, bp, name, attr):
+    """Each twin instance (K5a/K5e f32 and bf16, K5b, K5c) against its plain
+    version on the same tables, counted once: f32 outputs within the sweep
+    bound (the stream body has nothing to contract, so bitwise), the bf16
+    output within one bf16 ulp."""
+    from cfd_proxy_tpu_torch.ops import twins
+    from cfd_proxy_tpu_torch.tools import kbench
+
+    fn, v, t = kbench.variant_table(cuda_benches[bp], [name])[name]
+    wrapper = {"stream": twins.stream_twin, "wsum": twins.wsum_twin,
+               "nv7": twins.nv7_sweep}[kbench.VARIANTS[name][4]]
+    before = getattr(wrapper, attr)
+    got = fn(v, t)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, attr) == before + 1
+    want = fn(v.cpu(), {k: x.cpu() for k, x in t.items()})    # plain version
+    rows = 21 if name == "nv7" else 24
+    assert got.shape == want.shape == (1, rows, v.shape[2])
+    _assert_close(got.cpu(), want, got.dtype == torch.bfloat16)
+    if name == "stream" or name == "cstream_c":
+        assert torch.equal(got.cpu(), want)

@@ -238,6 +238,7 @@ from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.ops import _cuda, blocksweep
 from cfd_proxy_tpu_torch.solver import golden
+from cfd_proxy_tpu_torch.tools import kbench, mbench
 torch.set_num_threads(1)
 m = generate_mesh(6, 5, 4, jitter=0.05, diag_frac=0.2, seed=0)
 g = make_state(m.npoint, 3, seed=1)
@@ -267,6 +268,15 @@ ref = golden("gg", m, g)
 err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
 assert 1e-5 < err < 2e-2, err
 assert native.lib() is not None or native.build() is None
+# the kernel bench and the paired harness, on the plain versions
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    assert kbench.main(["--nx", "5", "--bp", "128", "--iters", "1",
+                        "--variants", "compact_bso,nv7,cstream_bso",
+                        "--check", "--device", "cpu"]) == 0
+    assert mbench.main(["--nx", "6", "--iters", "4", "--repeats", "1",
+                        "--warmup", "0", "--null", "0", "--device", "cpu",
+                        "--b", "schedule=early", "--json"]) in (0, 1)
 assert not any(k == "jax" or k.startswith("jax.") or k == "cfd_proxy_tpu"
                or k.startswith("cfd_proxy_tpu.")
                for k, v in sys.modules.items() if v is not None)
