@@ -83,12 +83,10 @@ def _weights(slot_w: np.ndarray, bf16: bool):
 
 def plans_from_jax(model) -> dict:
     """Plan arrays of a GreenGaussPallas or PSDFluxModel (packed or gather
-    kernel, f32 or bf16 weights, every phase on the in-kernel transport),
-    in the port's layout.  The arrays are the same for both ops; the model
+    kernel, f32 or bf16 weights; `inter_slice` carries the model's
+    `slice_size` routing across), in the port's layout.  The arrays are the same for both ops; the model
     they are loaded into takes the reference's dtype options
     (`GreenGaussTorch.from_arrays(..., meta_dtype=...)`)."""
-    check(not model._dcn_phases, "plans_from_jax: inter-slice phases "
-          "(slice_size) come with ROADMAP queue 1 item 12")
     lay = model.layout
     return {
         "kernel": model.kernel, "ndev": lay.ndev, "bp": int(model.bp), "s_max": lay.s_max,
@@ -99,6 +97,7 @@ def plans_from_jax(model) -> dict:
         "pack_scale": np.asarray(model._pack_scale),
         "dsts": np.asarray(model._dsts), "srcs": np.asarray(model._srcs),
         "perms": list(lay.perms), "has_comm": bool(model._has_comm),
+        "inter_slice": np.asarray(lay.inter_slice, bool),
         "classes": {c: _class_arrays(model, c) for c in CLASSES},
     }
 

@@ -1,0 +1,239 @@
+// The one-sided push between shards that may live in different processes:
+// peer stores behind a readiness barrier, arrival flags, a bounded wait.
+// Shared by the cross-card form of K3 (sweep_overlap.cu) and by K6
+// (push_bench.cu), so the bench times the very code the fused kernel runs.
+//
+// Replaces the push half of cfd_proxy_tpu/ops/blocksweep.py::
+// sweep_blocks_overlap: the readiness barrier (:783-789), the
+// make_async_remote_copy starts (:790-792) and the completion waits
+// (:796-801).  On the TPU a DMA engine moves each phase's buffer to the
+// destination chip and semaphores count readiness and arrival.  Here the
+// destination is an ADDRESS: the receive buffer of shard dsts[p, k], which is
+// this process's own memory or another process's, mapped through CUDA IPC
+// (csrc/ipc.cu, parallel/transport.py::Peer).  CUDA blocks copy the bytes
+// with ordinary 16-byte stores, and 64-bit words in the same mapped memory
+// take the semaphores' place.
+//
+// Memory of one rank (allocated once per transport, so a peer maps it once):
+//
+//     recv   (P_local, nph, seg) uint4      the receive buffers
+//     ready  (P_local, nph) u64             ready[q, k]: receiver of (q, k)'s
+//                                           push has entered its launch
+//     arrive (P_local, nph) u64             arrive[q, k]: push blocks that
+//                                           finished storing into recv[q, k]
+//     done   u64                            this launch's exit tickets
+//
+// `table` holds, per local (p, k): the address of recv[dsts[p, k], k], of
+// that buffer's arrive word, and of ready[srcs[p, k], k] (the word the
+// SENDER into this shard's recv[p, k] waits on).  dsts[:, k] is a permutation
+// with inverse srcs[:, k] (checked on the host), so each word has exactly one
+// writer rank per launch and each buffer exactly one sender.
+//
+// Protocol of one launch, epochs e_r (launches with the barrier so far, this
+// one included) and e_a (launches with the copy):
+//
+//   1. the SIGNAL block (CUDA block 0) adds 1 to ready[srcs[p, k], k] for
+//      every local (p, k): "my recv[p, k] is free" — everything that read it
+//      was enqueued before this launch on the same stream;
+//   2. a PUSH block of (p, k) waits until ready[p, k] >= e_r, copies its
+//      share of sendbufs[p, k] to the destination, fences at system scope,
+//      and adds 1 to the destination's arrive word;
+//   3. the signal block and every push block draw an exit ticket as their
+//      last act; the one that draws the LAST ticket waits until every local
+//      arrive[p, k] >= e_a * chunks, so when the launch has ended every
+//      push into this rank has landed.  (The reference waits at its last
+//      grid step; CUDA has no last block, and a ticket needs no second
+//      launch.  The last block resets the ticket word for the next launch.
+//      The blocks of a fused launch that sweep take no ticket: the wait
+//      concerns the pushes alone, and a ticket per sweep block slowed the
+//      fused kernel and added 40 B of spills on an H100.)
+//
+// The counters only grow (never reset), so no step races a reset.  Signals
+// are red.release.sys, waits ld.acquire.sys: ordinary stores made before a
+// signal (after __threadfence_system and a block barrier) are visible to
+// whoever has seen the signal, in this process or another.
+//
+// Why no launch can deadlock on itself (one rank, where signaller and waiter
+// are blocks of the same grid).  Only two kinds of block wait.  A push block
+// waits for signals that block 0 sends without waiting for anything; block
+// 0 has the lowest index, the hardware hands blocks out in index order, so
+// it is resident before any push block and finishes.  The last-ticket block
+// waits for arrivals from push blocks, all of which have drawn their tickets
+// (and so finished) before it; across ranks it is the one block that may
+// spin while the sweep blocks run beside it.  Push blocks are capped at kPeerPushBlocks in
+// all, far below the 132 x 6 blocks a card keeps resident, so spinning
+// blocks never fill the card.  Across ranks the same holds per launch as
+// long as every rank launches (a rank that never does is a bug: the wait
+// below traps).
+//
+// Every wait is bounded: past kSpinLimitNs on the global timer it traps, so
+// a protocol bug is a launch error, not a hung card.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cfd {
+
+constexpr int kPushThreads = 128;            // = kThreads of the sweep
+constexpr int64_t kPushPiece = 16;           // bytes per store (uint4)
+constexpr int64_t kPushMinPieces = kPushThreads * 4;   // least share a block
+constexpr int64_t kPeerPushBlocks = 264;     // push blocks per launch, at most
+constexpr uint64_t kSpinLimitNs = 20ull * 1000 * 1000 * 1000;
+
+// launch modes (bit set): the reference's debug rungs that are kernel modes
+enum : int {
+  kPushBarrier = 1,   // readiness signals and the wait before the stores
+  kPushCopy = 2,      // the stores, the arrival signals and the final wait
+  kPushLocal0 = 4     // without kPushCopy: phase 0 copied to the LOCAL recv
+};
+
+struct PeerPush {
+  const uint4* sendbufs;    // (P_local, nph, seg)
+  uint4* recv;              // this rank's (P_local, nph, seg)
+  const uint64_t* table;    // (P_local*nph, 3): dst, dst's arrive, src's ready
+  uint64_t* flags;          // ready[npk] | arrive[npk] | done
+  int64_t npk;              // P_local*nph
+  int64_t nph;
+  int64_t seg;              // 16-byte pieces per (shard, phase) buffer
+  int64_t chunks;           // push blocks per (shard, phase)
+  int64_t blocks;           // push blocks in all: npk*chunks
+  uint64_t epoch_ready;
+  uint64_t epoch_arrive;
+  int mode;
+};
+
+// Push blocks per (shard, phase): enough that a block moves at least
+// kPushMinPieces, at most kPeerPushBlocks in all.  Sender and receiver
+// compute it from the same (seg, npk), so the arrival target agrees.
+inline int64_t peer_chunks(int64_t seg, int64_t npk) {
+  if (npk <= 0 || seg <= 0) return 0;
+  int64_t want = (seg + kPushMinPieces - 1) / kPushMinPieces;
+  int64_t cap = kPeerPushBlocks / npk;
+  if (cap < 1) cap = 1;
+  return want < cap ? want : cap;
+}
+
+__device__ __forceinline__ void signal_add(uint64_t* word) {
+  asm volatile("red.release.sys.global.add.u64 [%0], %1;"
+               :: "l"(word), "l"(1ull) : "memory");
+}
+
+__device__ __forceinline__ uint64_t load_acquire(const uint64_t* word) {
+  uint64_t v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(word) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint64_t global_timer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait (one thread) until *word >= target; traps past kSpinLimitNs.
+__device__ __forceinline__ void spin_until(const uint64_t* word,
+                                           uint64_t target) {
+  if (load_acquire(word) >= target) return;
+  const uint64_t t0 = global_timer_ns();
+  unsigned ns = 32;
+  while (load_acquire(word) < target) {
+    __nanosleep(ns);
+    if (ns < 1024) ns *= 2;
+    if (global_timer_ns() - t0 > kSpinLimitNs) __trap();
+  }
+}
+
+// This block's share of one buffer: pieces c*T + t, stride chunks*T.
+__device__ __forceinline__ void copy_share(const uint4* src, uint4* to,
+                                           int64_t seg, int64_t c,
+                                           int64_t chunks) {
+  const int64_t stride = chunks * kPushThreads;
+  int64_t j = c * kPushThreads + threadIdx.x;
+  for (; j + 3 * stride < seg; j += 4 * stride) {   // four loads in flight
+    const uint4 v0 = __ldg(src + j);
+    const uint4 v1 = __ldg(src + j + stride);
+    const uint4 v2 = __ldg(src + j + 2 * stride);
+    const uint4 v3 = __ldg(src + j + 3 * stride);
+    to[j] = v0;
+    to[j + stride] = v1;
+    to[j + 2 * stride] = v2;
+    to[j + 3 * stride] = v3;
+  }
+  for (; j < seg; j += stride) to[j] = __ldg(src + j);
+}
+
+// Step 1: CUDA block 0.
+__device__ __forceinline__ void peer_signal_block(const PeerPush& p) {
+  if (!(p.mode & kPushBarrier)) return;
+  for (int64_t pk = threadIdx.x; pk < p.npk; pk += blockDim.x) {
+    signal_add(reinterpret_cast<uint64_t*>(p.table[3 * pk + 2]));
+  }
+}
+
+// Step 2: push block `blk` in [0, p.blocks).
+__device__ __forceinline__ void peer_push_block(const PeerPush& p,
+                                                int64_t blk) {
+  const int64_t pk = blk / p.chunks;
+  const int64_t c = blk % p.chunks;
+  const uint4* src = p.sendbufs + pk * p.seg;
+  if (!(p.mode & kPushCopy)) {
+    if ((p.mode & kPushLocal0) && pk % p.nph == 0) {
+      copy_share(src, p.recv + pk * p.seg, p.seg, c, p.chunks);
+    }
+    return;
+  }
+  if (p.mode & kPushBarrier) {
+    if (threadIdx.x == 0) spin_until(p.flags + pk, p.epoch_ready);
+    __syncthreads();
+  }
+  copy_share(src, reinterpret_cast<uint4*>(p.table[3 * pk]), p.seg, c,
+             p.chunks);
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    signal_add(reinterpret_cast<uint64_t*>(p.table[3 * pk + 1]));
+  }
+}
+
+// Step 3: the signal block and every push block, as their last act.
+__device__ __forceinline__ void peer_finish_block(const PeerPush& p) {
+  if (threadIdx.x != 0) return;
+  unsigned long long* done =
+      reinterpret_cast<unsigned long long*>(p.flags + 2 * p.npk);
+  if (atomicAdd(done, 1ull) != static_cast<unsigned long long>(p.blocks)) {
+    return;
+  }
+  *done = 0;
+  if (!(p.mode & kPushCopy)) return;
+  const uint64_t target = p.epoch_arrive * static_cast<uint64_t>(p.chunks);
+  for (int64_t pk = 0; pk < p.npk; ++pk) {
+    spin_until(p.flags + p.npk + pk, target);
+  }
+}
+
+// Fill a PeerPush for buffers of `bytes` bytes per (shard, phase); false if
+// the shape cannot be pushed in 16-byte pieces.
+inline bool make_peer_push(PeerPush* p, const void* sendbufs, void* recv,
+                           const void* table, void* flags, int64_t P,
+                           int64_t nph, int64_t bytes, uint64_t epoch_ready,
+                           uint64_t epoch_arrive, int mode) {
+  if (P < 0 || nph < 0 || bytes < 0 || bytes % kPushPiece != 0) return false;
+  p->sendbufs = static_cast<const uint4*>(sendbufs);
+  p->recv = static_cast<uint4*>(recv);
+  p->table = static_cast<const uint64_t*>(table);
+  p->flags = static_cast<uint64_t*>(flags);
+  p->npk = P * nph;
+  p->nph = nph;
+  p->seg = bytes / kPushPiece;
+  p->chunks = peer_chunks(p->seg, p->npk);
+  p->blocks = p->npk * p->chunks;
+  p->epoch_ready = epoch_ready;
+  p->epoch_arrive = epoch_arrive;
+  p->mode = mode;
+  return true;
+}
+
+}  // namespace cfd

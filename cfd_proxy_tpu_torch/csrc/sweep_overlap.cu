@@ -9,8 +9,8 @@
 // On the TPU the kernel starts one make_async_remote_copy per
 // phase at its first grid step, sweeps the interior blocks (K1 or K2
 // accumulating onto the boundary result) while the copies fly, and waits
-// for them at its last step.  Here all P shards live on one card, so a
-// "remote" device is another shard's slice of the same buffer:
+// for them at its last step.  Here a "remote" device is another shard, and
+// the kernel has two forms, by where that shard's receive buffer lives:
 //
 //     recv[dsts[p, k], k] = sendbufs[p, k]       (rows x s_max elements)
 //     grad[p]             = K1/K2-accumulate of the interior plan onto init[p]
@@ -21,24 +21,41 @@
 // push is a copy of bytes, so one body serves f32 and bf16 buffers: each
 // (shard, phase) buffer is rows*s_max*esize bytes, moved in 16-byte pieces.
 //
-// No readiness barrier.  The reference signals every source and waits
-// before its first push, because a remote write may not land while the
-// receiver's buffer is still in use by earlier work on that chip.  Here the
-// send buffers are written by the pack, which runs earlier on the same
-// stream, so they are final before this kernel starts, and `recv` is a
-// buffer of this launch alone (zero-filled by the wrapper, so a phase with
-// no sender would read zeros).  Nothing needs a semaphore.
+// The loopback form (cfd_sweep_overlap, cfd_sweep_overlap_gather): all P
+// shards in one process on one card, `recv` a buffer of this launch alone
+// (zero-filled by the wrapper), indexed by `dsts`.  The send buffers are
+// written by the pack, which runs earlier on the same stream, and nothing
+// else can touch `recv` while the launch runs, so this form needs neither
+// the reference's readiness barrier nor its arrival waits.
 //
-// `recv` is kept apart from the gradient array on purpose: the interior
-// sweep writes the ghost columns of listed blocks (with zero scale), so a
-// push straight into the ghost region would race with it.  The step copies
-// `recv` into the ghost regions after the kernel, as the reference does.
+// The peer form (cfd_sweep_overlap_peer, cfd_sweep_overlap_gather_peer):
+// the shards are spread over processes (ranks), each on its own card or
+// several on one.  `recv` lives as long as the model, so that another rank
+// can map it once (CUDA IPC, parallel/transport.py::Peer), and a push goes
+// to an ADDRESS taken from a table: this rank's memory or a peer's.  A
+// persistent buffer brings back the reference's reason for its barrier (a
+// push may not land while the receiver still reads last step's buffer) and
+// for its waits (nothing may read recv before the push has landed), so this
+// form runs the whole protocol: readiness signals, the wait before the
+// first store, arrival flags, and the wait for them by the block that
+// draws the launch's last exit ticket.  push_common.cuh holds that device
+// code (K6, push_bench.cu, runs the same) and says why no launch can
+// deadlock and how every wait is bounded.  Its `mode` argument carries the
+// reference's kernel debug rungs: no barrier ("nobar"), neither barrier nor
+// copy ("nodma").
+//
+// `recv` is kept apart from the gradient array on purpose, in both forms:
+// the interior sweep writes the ghost columns of listed blocks (with zero
+// scale), so a push straight into the ghost region would race with it.  The
+// step copies `recv` into the ghost regions after the kernel, as the
+// reference does.
 //
 // Bound: memory.  The sweep streams as K1/K2 with init; the push reads and
 // writes rows*s_max*esize bytes per (shard, phase), a few percent of the
 // sweep's bytes at the benchmark sizes, with 16-byte coalesced copies.
 // rows is the op's output row count (3*NV gg, NV flux).
 
+#include "push_common.cuh"
 #include "sweep_common.cuh"
 
 namespace {
@@ -112,6 +129,63 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The peer form: block 0 signals readiness, blocks [1, 1 + p.blocks) push
+// to the table's addresses, the rest sweep; block 0 and the push blocks
+// draw an exit ticket each and the last one waits for the arrivals
+// (push_common.cuh).
+template <cfd::Op kOp, class Src, class O>
+__global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
+sweep_overlap_peer_kernel(cfd::SweepArgs<O> a, Src s, cfd::PeerPush p) {
+  const int64_t blk = blockIdx.x;
+  if (blk > p.blocks) {
+    cfd::sweep_chunk<true, kOp>(a, s, blk - 1 - p.blocks);
+    return;
+  }
+  if (blk == 0) {
+    cfd::peer_signal_block(p);
+  } else {
+    cfd::peer_push_block(p, blk - 1);
+  }
+  cfd::peer_finish_block(p);
+}
+
+// The peer push operands of an entry point, as one argument.
+struct PeerOperands {
+  const void* sendbufs;
+  int esize;
+  const void* table;
+  void* flags;
+  void* recv;
+  int64_t nph;
+  int64_t s_max;
+  uint64_t epoch_ready;
+  uint64_t epoch_arrive;
+  int mode;
+};
+
+template <cfd::Op kOp, class Src, class O>
+int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
+                        const PeerOperands& o, cudaStream_t stream) {
+  static_assert(cfd::kPushThreads == cfd::kThreads,
+                "push and sweep blocks share one launch");
+  const int64_t sweep_blocks = cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+  cfd::PeerPush p;
+  if ((o.esize != 2 && o.esize != 4) ||
+      !cfd::make_peer_push(&p, o.sendbufs, o.recv, o.table, o.flags, P,
+                           o.nph, cfd::op_rows(kOp) * o.s_max * o.esize,
+                           o.epoch_ready, o.epoch_arrive, o.mode)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t grid = 1 + p.blocks + sweep_blocks;
+  if (!cfd::sweep_args_ok(a.K, a.bp, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sweep_overlap_peer_kernel<kOp, Src, O><<<static_cast<unsigned>(grid),
+                                           cfd::kThreads, 0, stream>>>(a, s,
+                                                                       p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Sweep operands, op and dtype flags as in cfd_sweep_packed (`out` holds
@@ -174,5 +248,65 @@ extern "C" int cfd_sweep_overlap_gather(
                               ep};
     return launch_overlap<kOp>(a, P, s, sendbufs, esize, dsts, nph, s_max,
                                recv, stream);
+  });
+}
+
+// The peer forms.  Sweep operands, op and dtype flags as in
+// cfd_sweep_overlap / cfd_sweep_overlap_gather.  sendbufs (P, nph, rows,
+// s_max) of esize-byte elements; table (P*nph, 3) u64 on the device, flags
+// and recv this rank's exchange memory (push_common.cuh; built by
+// parallel/transport.py::Peer); epoch_ready / epoch_arrive: launches so far
+// with the barrier / with the copy, this one included; mode: the
+// kPushBarrier | kPushCopy bit set.
+extern "C" int cfd_sweep_overlap_peer(
+    const float* var_T, int64_t ndev, const void* srcs, const void* slot_w,
+    const float* scale, const int32_t* block_ids, const int32_t* slots, int K,
+    int64_t P, int64_t nb, int64_t L, int bp, int op, int w_bf16,
+    int src_bf16d, int out_bf16, void* out, const void* sendbufs, int esize,
+    const void* table, void* flags, void* recv, int64_t nph, int64_t s_max,
+    uint64_t epoch_ready, uint64_t epoch_arrive, int mode,
+    cudaStream_t stream) {
+  if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
+  const PeerOperands o{sendbufs, esize, table, flags, recv, nph, s_max,
+                       epoch_ready, epoch_arrive, mode};
+  const bool f[] = {op == 1, w_bf16 != 0, src_bf16d != 0, out_bf16 != 0};
+  return cfd::with_flags(f, [&](auto flux, auto w16, auto d16, auto o16) {
+    constexpr cfd::Op kOp =
+        decltype(flux)::value ? cfd::Op::kFlux : cfd::Op::kGG;
+    using W = cfd::Elt<decltype(w16)::value>;
+    using S = cfd::Elt<decltype(d16)::value>;
+    using O = cfd::Elt<decltype(o16)::value>;
+    const cfd::SweepArgs<O> a{var_T, ndev, scale, block_ids, slots, K, nb,
+                              bp, 0, static_cast<O*>(out)};
+    const cfd::PackedSrc<W, S> s{static_cast<const S*>(srcs),
+                                 static_cast<const W*>(slot_w), L};
+    return launch_overlap_peer<kOp>(a, P, s, o, stream);
+  });
+}
+
+extern "C" int cfd_sweep_overlap_gather_peer(
+    const float* var_T, int64_t ndev, const float* exts, int64_t ep,
+    const int32_t* slot_idx, const void* slot_w, const float* scale,
+    const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
+    int64_t nb, int bp, int op, int w_bf16, int out_bf16, void* out,
+    const void* sendbufs, int esize, const void* table, void* flags,
+    void* recv, int64_t nph, int64_t s_max, uint64_t epoch_ready,
+    uint64_t epoch_arrive, int mode, cudaStream_t stream) {
+  if (ep <= 0 || !cfd::op_ok(op)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PeerOperands o{sendbufs, esize, table, flags, recv, nph, s_max,
+                       epoch_ready, epoch_arrive, mode};
+  const bool f[] = {op == 1, w_bf16 != 0, out_bf16 != 0};
+  return cfd::with_flags(f, [&](auto flux, auto w16, auto o16) {
+    constexpr cfd::Op kOp =
+        decltype(flux)::value ? cfd::Op::kFlux : cfd::Op::kGG;
+    using W = cfd::Elt<decltype(w16)::value>;
+    using O = cfd::Elt<decltype(o16)::value>;
+    const cfd::SweepArgs<O> a{var_T, ndev, scale, block_ids, slots, K, nb,
+                              bp, 0, static_cast<O*>(out)};
+    const cfd::GatherSrc<W> s{exts, slot_idx, static_cast<const W*>(slot_w),
+                              ep};
+    return launch_overlap_peer<kOp>(a, P, s, o, stream);
   });
 }

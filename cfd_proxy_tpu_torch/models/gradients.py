@@ -3,7 +3,9 @@
 Counterpart of `cfd_proxy_tpu/models/gradients_pallas.py::GreenGaussPallas`
 and its `PSDFluxModel` (op "gg", Green-Gauss gradients, or op "flux", the
 PSD upwind flux of ops/flux.py; packed or gather kernel; f32, or the
-reduced-precision options below) for P shards held on ONE device:
+reduced-precision options below) for P shards held on ONE device, or
+spread over the W ranks of a `torch.distributed` group, each rank holding
+P/W shards on its own device:
 
 - `__init__`: block-size rule, RCB locality relabel (+ in-block degree sort
   for the compact prefix widths), halo topology, transposed device layout,
@@ -26,15 +28,37 @@ reduced-precision options below) for P shards held on ONE device:
 - `gather_global`: gg device rows d*NV+v → global (N, nvar*3) column
   v*3+d; flux rows v → global (N, nvar).
 
-The halo exchange moves between shards on the same device (the loopback
-transport): phase k's buffer of shard p lands in phase k's ghost region of
-shard dsts[p, k]; the same path moves the sweep's output (3·NV gradient
-rows or NV flux rows) and, in solver mode, the state (NV rows).  The
-reference's ppermute moves only the pairs of layout.perms[k] and leaves
-other receivers zero; the loopback moves the
-completed permutation (dsts), whose extra pairs carry send-masked zeros, so
-the ghost regions come out the same.  Pack, transfer and unpack are plain
-torch ops, as they are XLA ops in the reference.
+The halo exchange: phase k's buffer of shard p lands in phase k's ghost
+region of shard dsts[p, k]; the same path moves the sweep's output (3·NV
+gradient rows or NV flux rows) and, in solver mode, the state (NV rows).
+How the buffers travel is the transport's business
+(parallel/transport.py): `loopback` (every shard in this process: one
+indexed copy; the only choice at W = 1 besides `peer`), `dist`
+(`batch_isend_irecv` between ranks, started before the interior sweep and
+finished after it under `early`), or `peer` (the ranks map each other's
+receive buffers, and under `overlap` the fused kernel stores into them
+from inside its launch, behind a readiness barrier; every other exchange
+of a `peer` model rides `dist`, or `loopback` at W = 1, as the reference's
+bulk and early steps ride ppermute).  The reference's ppermute moves only
+the pairs of layout.perms[k] and leaves other receivers zero, and so does
+`dist`; `loopback` and the kernels move the completed permutation (dsts),
+whose extra pairs carry send-masked zeros, so the ghost regions come out
+the same.  Pack and unpack are plain torch ops, as they are XLA ops in the
+reference.
+
+Routing (`slice_size`, the reference's `_ici_phases` / `_dcn_phases`):
+devices [k·slice_size, (k+1)·slice_size) form a node, and the topology
+colors the pairs that cross nodes into phases of their own
+(`inter_slice`).  Under `overlap` the fused kernel carries only the phases
+inside a node; the others are packed, posted on the collective transport
+before the fused kernel and unpacked after it.  With no phase left for the
+kernel (every phase crosses nodes, or the transport is `dist`) overlap
+runs the early graph.
+
+Every rank builds the whole host plan (the per-class pad dims and prefix
+widths need all shards; the construction is deterministic, so ranks
+agree) and keeps its own slice [lo, hi) of every stacked array on its
+device: set-up memory is not yet rank-local, device memory is.
 
 Reduced precision, the reference's four options, each "float32" or
 "bfloat16": `meta_dtype` stores the slot weights in bf16 (rounded here from
@@ -67,7 +91,6 @@ from cfd_proxy_tpu_torch.ops.blocksweep import (
     F32,
     OPS,
     gather_exts,
-    loopback,
     out_rows,
     pack_srcs,
     slot_table,
@@ -95,6 +118,14 @@ from cfd_proxy_tpu_torch.parallel.topology import (
     build_halo_topology,
     entry_phases,
 )
+from cfd_proxy_tpu_torch.parallel.transport import (
+    TRANSPORTS,
+    Dist,
+    Loopback,
+    Peer,
+    group_size,
+    shard_range,
+)
 from cfd_proxy_tpu_torch.utils.errors import check
 
 # AUTO block-size rule (bp=None), kept from the reference so that both
@@ -117,6 +148,8 @@ SCHEDULE_CLASSES = {
 PLAN_KEYS = ("kernel", "ndev", "bp", "s_max", "ghost_start", "locmap",
              "send_idx", "send_mask", "pack_scale", "dsts", "srcs", "perms",
              "has_comm", "classes")
+# optional: (nphases,) bool, phases that cross nodes (absent: none does)
+OPTIONAL_PLAN_KEYS = ("inter_slice",)
 CLASS_KEYS = {
     # compact tables: src_cols (P, nb, L), slot_w (P, nb, 3, L)
     "packed": ("block_ids", "src_cols", "slot_w", "scale", "wks"),
@@ -153,14 +186,15 @@ def check_entry_phases(parts: list[MeshPartition], topo: HaloTopology,
 
 
 def host_plan_arrays(parts: list[MeshPartition], *, bp: int, kcompact: bool,
-                     force_rdma: bool = False, kernel: str = "packed") -> dict:
+                     force_rdma: bool = False, kernel: str = "packed",
+                     slice_size: int | None = None) -> dict:
     """Layout, exchange tables and the three class plans of RELABELED
     shards as host arrays (PLAN_KEYS), built exactly as
     `GreenGaussPallas.__init__` builds them (gradients_pallas.py:349-542).
     Each class keeps only the tables its kernel reads (CLASS_KEYS): at the
     benchmark size either set runs to hundreds of MB."""
     npoint_pad = max(p.npoint for p in parts) + 1
-    topo = build_halo_topology(parts, npoint_pad)
+    topo = build_halo_topology(parts, npoint_pad, slice_size=slice_size)
     lay = build_tlayout(parts, topo, bp=bp)
     ones = np.ones(lay.ndev, dtype=np.float64)
     raw: dict[str, list] = {c: [] for c in CLASSES}
@@ -211,7 +245,7 @@ def host_plan_arrays(parts: list[MeshPartition], *, bp: int, kcompact: bool,
         "ghost_start": lay.ghost_start, "locmap": lay.locmap,
         "send_idx": lay.send_idx, "send_mask": lay.send_mask,
         "pack_scale": pack_scale, "dsts": lay.dsts, "srcs": lay.srcs,
-        "perms": lay.perms,
+        "perms": lay.perms, "inter_slice": lay.inter_slice,
         # overlap runs the fused kernel only when a phase moves data, or
         # when forced (P=1: self-sends of masked zeros); else it is early
         "has_comm": any(len(p) for p in lay.perms) or force_rdma,
@@ -241,7 +275,8 @@ def auto_bp(parts: list[MeshPartition], bp: int | None) -> int:
 
 class GreenGaussTorch(nn.Module):
     """Block sweep (Green-Gauss gradients or, op "flux", the upwind flux) +
-    halo exchange of P shards on one device."""
+    halo exchange of P shards on one device, or of this rank's P/W shards
+    among the W ranks of a process group."""
 
     def __init__(self, parts: list[MeshPartition], nvar: int, *,
                  bp: int | None = None, kcompact: bool | None = None,
@@ -249,7 +284,9 @@ class GreenGaussTorch(nn.Module):
                  op: str = "gg", device: str | torch.device = "cuda",
                  meta_dtype: str = "float32", src_dtype: str = "float32",
                  halo_dtype: str = "float32", grad_dtype: str = "float32",
-                 arrays: dict | None = None):
+                 arrays: dict | None = None, group=None,
+                 transport: str | None = None,
+                 slice_size: int | None = None, share_device: bool = False):
         """parts: the raw partitions (relabeled here, as the reference
         does), or — with `arrays` — partitions ALREADY relabeled by the
         model the arrays come from (see `from_arrays`).  kernel: "packed"
@@ -258,8 +295,28 @@ class GreenGaussTorch(nn.Module):
         rows) or "flux" (NV rows); the plans do not depend on it.
         meta_dtype, src_dtype, halo_dtype, grad_dtype: "float32" or
         "bfloat16" (module docstring); bf16 sources need the packed
-        kernel."""
+        kernel.  group: the `torch.distributed` group whose W ranks share
+        the shards (W divides P; None: this process holds them all), every
+        rank building the model with the same arguments.  transport:
+        "loopback" (W = 1 only), "dist" or "peer" (module docstring;
+        default loopback at W = 1, else dist).  slice_size: devices per
+        node, for the phase routing (ignored with `arrays`, which carry
+        their own).  share_device: several ranks sit on this device (nccl
+        cannot run so, and says so here)."""
         super().__init__()
+        self.group = group
+        self.rank, self.world = group_size(group)
+        self.lo, self.hi = shard_range(len(parts), self.rank, self.world)
+        self.nlocal = self.hi - self.lo
+        if transport is None:
+            transport = "loopback" if self.world == 1 else "dist"
+        check(transport in TRANSPORTS, "unknown transport %r (one of %s)",
+              transport, "/".join(TRANSPORTS))
+        check(transport != "loopback" or self.world == 1, "the loopback "
+              "transport holds every shard in one process; %d ranks need "
+              "dist or peer", self.world)
+        self.transport_kind = transport
+        self.share_device = bool(share_device)
         for name, value in (("meta_dtype", meta_dtype),
                             ("src_dtype", src_dtype),
                             ("halo_dtype", halo_dtype),
@@ -298,7 +355,8 @@ class GreenGaussTorch(nn.Module):
             # grouping of the relabel (the relabel keeps the comm graph, so
             # the final topology has the same phases)
             pre_topo = build_halo_topology(parts,
-                                           max(p.npoint for p in parts) + 1)
+                                           max(p.npoint for p in parts) + 1,
+                                           slice_size=slice_size)
             eph = entry_phases(parts, pre_topo)
             check_entry_phases(parts, pre_topo, eph)
             self.parts = [
@@ -309,7 +367,8 @@ class GreenGaussTorch(nn.Module):
             ]
             arrays = host_plan_arrays(self.parts, bp=self.bp,
                                       kcompact=self.kcompact,
-                                      force_rdma=force_rdma, kernel=kernel)
+                                      force_rdma=force_rdma, kernel=kernel,
+                                      slice_size=slice_size)
             check(len(arrays["perms"]) == max(pre_topo.nphases, 1),
                   "phase coloring changed across the relabel (%d -> %d "
                   "phases)", pre_topo.nphases, len(arrays["perms"]))
@@ -350,21 +409,30 @@ class GreenGaussTorch(nn.Module):
         for k in ("send_idx", "send_mask", "pack_scale"):
             check(np.shape(a[k]) == exch, "%s shape %s, expected %s", k,
                   np.shape(a[k]), exch)
+        lo, hi, n = self.lo, self.hi, self.nlocal
 
         def dev(x, dtype):
-            return torch.tensor(np.ascontiguousarray(x, dtype),
+            """This rank's slice [lo, hi) of a stacked (P, ...) array."""
+            return torch.tensor(np.ascontiguousarray(np.asarray(x)[lo:hi],
+                                                     dtype),
                                 device=self.device)
 
-        # the static push map: host int32 for the fused kernel (checked on
-        # the host there), device int64 for the loopback transport
+        # the static push map over ALL shards, host int32 (the transports
+        # and the fused kernel's wrapper check it on the host)
         self.dsts = torch.tensor(np.asarray(a["dsts"], np.int32))
         self.srcs = torch.tensor(np.asarray(a["srcs"], np.int32))
-        self.dst_index = self.dsts.long().to(self.device)
+        inter = np.asarray(a.get("inter_slice", np.zeros(self.nphases)), bool)
+        check(inter.shape == (self.nphases,), "inter_slice shape %s, "
+              "expected (%d,)", inter.shape, self.nphases)
+        # the reference's _ici_phases / _dcn_phases
+        self.ici_phases = [k for k in range(self.nphases) if not inter[k]]
+        self.dcn_phases = [k for k in range(self.nphases) if inter[k]]
+        self._load_transports()
         # pack: buf[p, k, r, j] = g[p, r, send_idx[p, k, j]] * scale
         self.pack_cols = dev(a["send_idx"], np.int64)[:, :, None, :]
         self.send_mask = dev(a["send_mask"], np.float32)[:, :, None, :]
         self.pack_scale = dev(a["pack_scale"], np.float32)[:, :, None, :]
-        self.pack_shard = torch.arange(P, device=self.device).view(P, 1, 1, 1)
+        self.pack_shard = torch.arange(n, device=self.device).view(n, 1, 1, 1)
         # sized for the most rows any exchange moves (3·NV gradients)
         self.pack_row = torch.arange(3 * NV, device=self.device).view(
             1, 1, 3 * NV, 1)
@@ -384,7 +452,7 @@ class GreenGaussTorch(nn.Module):
             pl = {"block_ids": dev(bids, np.int32),
                   "slot_w": self._weights(c, ca["slot_w"], dev),
                   "scale": dev(ca["scale"], np.float32),
-                  "slots": dev(slot_table(wks), np.int32)}
+                  "slots": torch.tensor(slot_table(wks), device=self.device)}
             if self.kernel == "gather":
                 pl.update(self._gather_tables(c, ca, wks, bids.shape[1], dev))
             else:
@@ -398,6 +466,54 @@ class GreenGaussTorch(nn.Module):
             self.plans[c] = pl
             self.wks[c] = wks
 
+    def _load_transports(self) -> None:
+        """The exchange's carriers (module docstring).  `transport`: every
+        phase, for bulk, early and the state.  Under overlap the fused
+        kernel carries `kernel_phases` (through `peer`, or inside its own
+        launch) and `coll` carries `coll_phases`."""
+        perms, dsts = self.perms, self.dsts.numpy()
+
+        def carrier(phases):
+            if self.world == 1:
+                return Loopback(dsts[:, phases], self.device)
+            return Dist([perms[k] for k in phases], len(self.parts),
+                        self.group, self.device, self.share_device)
+
+        every = list(range(self.nphases))
+        self.transport = carrier(every)
+        in_kernel = self.transport_kind in ("loopback", "peer")
+        self.kernel_phases = list(self.ici_phases) if in_kernel else []
+        self.coll_phases = [k for k in every if k not in self.kernel_phases]
+        # all phases in the kernel (no slice_size): today's single launch
+        self.routed = bool(self.kernel_phases) and bool(self.coll_phases)
+        self.coll = carrier(self.coll_phases) if self.routed else None
+        # the fused kernel's push map: the in-kernel phases' columns
+        self.kernel_map = (
+            (self.dsts[:, self.kernel_phases].contiguous(),
+             self.srcs[:, self.kernel_phases].contiguous())
+            if self.routed else (self.dsts, self.srcs))
+        self.peer = None
+        if self.transport_kind == "peer":
+            check(self.device.type == "cuda", "the peer transport maps "
+                  "device memory between ranks and has no CPU form (use "
+                  "--transport dist on the CPU)")
+            if self.kernel_phases and self.has_comm:
+                sel = self.kernel_phases
+                self.peer = Peer(dsts[:, sel], self.srcs.numpy()[:, sel],
+                                 rows=self.rows, s_max=self.s_max,
+                                 dtype=self.halo_t, device=self.device,
+                                 group=self.group)
+        self.transport_name = (
+            "peer+" + self.transport.name if self.transport_kind == "peer"
+            else self.transport.name)
+
+    def close(self) -> None:
+        """Release the peer transport's mapped memory (collective over the
+        group; a no-op for the other transports)."""
+        if self.peer is not None:
+            self.peer.close()
+            self.peer = None
+
     def _weights(self, c: str, w, dev) -> torch.Tensor:
         """A class's slot weights on the device in the meta dtype: f32 host
         weights are rounded here (to nearest even, as the reference's
@@ -409,7 +525,7 @@ class GreenGaussTorch(nn.Module):
                   w.dtype)
             check(w.dtype == F32 or self.w_t == BF16, "class %s slot_w is "
                   "bf16: build the model with meta_dtype='bfloat16'", c)
-            w = w.to(self.device)
+            w = w[self.lo:self.hi].to(self.device)
         else:
             w = dev(w, np.float32)
         return w.to(self.w_t).contiguous()
@@ -463,8 +579,9 @@ class GreenGaussTorch(nn.Module):
         gradients."""
         check(gvar.shape[1] == self.nvar, "state has %d vars, model %d",
               gvar.shape[1], self.nvar)
-        host = np.zeros((len(self.parts), NV, self.ndev), np.float32)
-        for i, (p, m) in enumerate(zip(self.parts, self.locmap)):
+        host = np.zeros((self.nlocal, NV, self.ndev), np.float32)
+        for i in range(self.nlocal):
+            p, m = self.parts[self.lo + i], self.locmap[self.lo + i]
             host[i][: self.nvar, m] = gvar[p.global_ids].T
         var_T = torch.from_numpy(host).to(self.device)
         return {"var_T": var_T,
@@ -486,7 +603,7 @@ class GreenGaussTorch(nn.Module):
     def _var_exchange(self, var_T: torch.Tensor) -> torch.Tensor:
         """Refresh every ghost var column from its owner, IN PLACE: the
         owners' columns by send_idx × send_mask (no scale), through the
-        loopback transport, into the static ghost regions, rows 0..NV-1.
+        collective transport, into the static ghost regions, rows 0..NV-1.
         Skipped when no phase moves data, as the reference skips phases
         with an empty perm."""
         if self.moves:
@@ -500,11 +617,11 @@ class GreenGaussTorch(nn.Module):
         of the classes the schedules read (default: all).  Returns the
         state dict `distribute_state` returns.  Counterpart of
         `GreenGaussPallas.refresh_state`."""
-        check(tuple(var_T.shape) == (len(self.parts), NV, self.ndev)
+        check(tuple(var_T.shape) == (self.nlocal, NV, self.ndev)
               and var_T.dtype == torch.float32
               and var_T.device == self.device,
               "var_T must be (%d, %d, %d) f32 on %s, got %s %s on %s",
-              len(self.parts), NV, self.ndev, self.device,
+              self.nlocal, NV, self.ndev, self.device,
               tuple(var_T.shape), var_T.dtype, var_T.device)
         var_T = self._var_exchange(var_T)
         return {"var_T": var_T,
@@ -545,21 +662,28 @@ class GreenGaussTorch(nn.Module):
         rows = self.pack_row[:, :, : x.shape[1]]
         return (x[self.pack_shard, rows, self.pack_cols] * scale).to(wire)
 
-    def _unpack(self, x: torch.Tensor, recv: torch.Tensor) -> None:
+    def _unpack(self, x: torch.Tensor, recv: torch.Tensor,
+                phases: list | None = None) -> None:
         """Phase k's buffers into its ghost region [ghost_start + k·s_max,
-        +s_max), cast into x's dtype: the regions are adjacent, so one
-        strided copy."""
+        +s_max), cast into x's dtype.  Every phase (phases None): the
+        regions are adjacent, so one strided copy; else recv holds the
+        listed phases, each copied into its own region."""
         P, nph, rows = recv.shape[:3]
         lo = self.ghost_start
-        x[:, :, lo:lo + nph * self.s_max].view(
-            P, rows, nph, self.s_max).copy_(recv.permute(0, 2, 1, 3))
+        if phases is None:
+            x[:, :, lo:lo + nph * self.s_max].view(
+                P, rows, nph, self.s_max).copy_(recv.permute(0, 2, 1, 3))
+            return
+        for j, k in enumerate(phases):
+            x[:, :, lo + k * self.s_max:lo + (k + 1) * self.s_max].copy_(
+                recv[:, j])
 
     def _exchange(self, x: torch.Tensor, scale: torch.Tensor,
                   wire: torch.dtype) -> None:
         """x's ghost columns from their owners, in place, through the
-        loopback transport, the payload in the wire dtype: the gradient
+        collective transport, the payload in the wire dtype: the gradient
         exchange's is the halo dtype, the var exchange's f32."""
-        self._unpack(x, loopback(self._pack(x, scale, wire), self.dst_index))
+        self._unpack(x, self.transport.exchange(self._pack(x, scale, wire)))
 
     def forward(self, var_T: torch.Tensor, tables: dict,
                 schedule: str = "bulk") -> torch.Tensor:
@@ -571,25 +695,47 @@ class GreenGaussTorch(nn.Module):
             if schedule == "bulk" and self.moves:
                 self._exchange(g, self.send_mask, self.halo_t)
             return g
-        zeros = torch.zeros((len(self.parts), self.rows, self.ndev),
+        zeros = torch.zeros((self.nlocal, self.rows, self.ndev),
                             dtype=self.grad_t, device=self.device)
         gb = self._sweep("boundary", var_T, tables, init=zeros)
-        if schedule == "overlap" and self.has_comm:
-            fused = sweep_blocks_overlap_gather if self.kernel == "gather" \
-                else sweep_blocks_overlap
-            g, recv = fused(var_T, *self._operands("interior", tables), gb,
-                            self._pack(gb, self.pack_scale, self.halo_t),
-                            self.dsts, self.srcs, self.op)
+        if schedule == "overlap" and self.has_comm and self.kernel_phases:
+            return self._overlap(var_T, tables, gb)
+        # early, or overlap with nothing for the fused kernel to carry
+        # (nothing moves, or every phase is a collective one): start the
+        # exchange, sweep the interior onto the boundary sums, finish it
+        pending = (self.transport.start(self._pack(gb, self.pack_scale,
+                                                   self.halo_t))
+                   if self.moves else None)
+        g = self._sweep("interior", var_T, tables, init=gb)
+        if pending is not None:
+            self._unpack(g, self.transport.finish(pending))
+        return g
+
+    def _overlap(self, var_T: torch.Tensor, tables: dict,
+                 gb: torch.Tensor) -> torch.Tensor:
+        """The fused step: the interior sweep onto the boundary sums gb
+        with the push of `kernel_phases` inside the launch; the collective
+        phases, if the routing left any, are posted before the kernel and
+        unpacked after it (gradients_pallas.py:898-1010)."""
+        fused = sweep_blocks_overlap_gather if self.kernel == "gather" \
+            else sweep_blocks_overlap
+        bufs = self._pack(gb, self.pack_scale, self.halo_t)
+        pending = None
+        if self.routed:
+            pending = self.coll.start(bufs[:, self.coll_phases].contiguous())
+            bufs = bufs[:, self.kernel_phases].contiguous()
+        if self.peer is not None:       # it holds its own push map
+            push = (None, None, self.op)
+            how = {"peer": self.peer}
+        else:
+            push, how = (*self.kernel_map, self.op), {}
+        g, recv = fused(var_T, *self._operands("interior", tables), gb, bufs,
+                        *push, **how)
+        if not self.routed:
             self._unpack(g, recv)
             return g
-        # early, or overlap with nothing to move: start the exchange, sweep
-        # the interior onto the boundary sums, finish the exchange
-        recv = (loopback(self._pack(gb, self.pack_scale, self.halo_t),
-                         self.dst_index)
-                if self.moves else None)
-        g = self._sweep("interior", var_T, tables, init=gb)
-        if recv is not None:
-            self._unpack(g, recv)
+        self._unpack(g, recv, self.kernel_phases)
+        self._unpack(g, self.coll.finish(pending), self.coll_phases)
         return g
 
     def iter_args(self, state: dict) -> tuple:
@@ -656,7 +802,7 @@ class GreenGaussTorch(nn.Module):
         grad = grad.detach()
         if grad.dtype == BF16:
             grad = grad.float()
-        arr = grad.cpu().numpy()
+        arr = self._all_shards(grad).numpy()
         N = sum(p.nowned for p in self.parts)
         if self.op == "flux":
             out = np.zeros((N, self.nvar), dtype=arr.dtype)
@@ -671,6 +817,19 @@ class GreenGaussTorch(nn.Module):
                 for d in range(3):
                     out[gids, v * 3 + d] = arr[i, d * NV + v, : p.nowned]
         return out
+
+
+    def _all_shards(self, x: torch.Tensor) -> torch.Tensor:
+        """(P_local, ...) on this rank → (P, ...) on the host, the same on
+        every rank: one all_gather over the group (on the device under
+        nccl, on the host under gloo, which gathers CPU tensors)."""
+        if self.world == 1:
+            return x.cpu()
+        if torch.distributed.get_backend(self.group) != "nccl":
+            x = x.cpu()
+        out = [torch.empty_like(x) for _ in range(self.world)]
+        torch.distributed.all_gather(out, x.contiguous(), group=self.group)
+        return torch.cat(out).cpu()
 
 
 class PSDFluxModel(GreenGaussTorch):

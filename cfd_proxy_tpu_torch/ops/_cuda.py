@@ -30,8 +30,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("pack_srcs.cu", "sweep_packed.cu", "sweep_gather.cu",
-           "sweep_overlap.cu", "kbench_twins.cu")
-HEADERS = ("sweep_common.cuh",)
+           "sweep_overlap.cu", "kbench_twins.cu", "push_bench.cu", "ipc.cu")
+HEADERS = ("sweep_common.cuh", "push_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -126,6 +126,7 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     L = ctypes.CDLL(build()["path"])
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    u64 = ctypes.c_uint64
     # pack: var_T, ndev, src_cols, P, nb, L, delta, block_ids, slots, K, bp,
     # out, stream
     L.cfd_pack_srcs.restype = ctypes.c_int
@@ -137,6 +138,9 @@ def lib() -> ctypes.CDLL:
     gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32]
     # sendbufs, esize, dsts, nph, s_max, recv, stream
     push = [vp, i32, vp, i64, i64, vp, vp]
+    # the peer form's: sendbufs, esize, table, flags, recv, nph, s_max,
+    # epoch_ready, epoch_arrive, mode, stream
+    peer = [vp, i32, vp, vp, vp, i64, i64, u64, u64, i32, vp]
     # (accumulate,) op (0 gg, 1 flux), then the dtype flags: w_bf16,
     # (packed: src_bf16d,) out_bf16, and out
     for name, args in (
@@ -145,6 +149,20 @@ def lib() -> ctypes.CDLL:
             ("cfd_sweep_gather", [*gather, i32, i32, i32, i32, vp, vp]),
             ("cfd_sweep_overlap_gather", [*gather, i32, i32, i32, vp,
                                           *push]),
+            ("cfd_sweep_overlap_peer", [*sweep, i32, i32, i32, i32, vp,
+                                        *peer]),
+            ("cfd_sweep_overlap_gather_peer", [*gather, i32, i32, i32, vp,
+                                               *peer]),
+            # K6: sendbufs, P, nph, bytes, table, flags, recv, epoch_ready,
+            # epoch_arrive, mode, stream
+            ("cfd_push_phases", [vp, i64, i64, i64, vp, vp, vp, u64, u64,
+                                 i32, vp]),
+            # mapped exchange memory (csrc/ipc.cu): device first
+            ("cfd_ipc_alloc", [i32, i64, ctypes.POINTER(vp)]),
+            ("cfd_ipc_free", [i32, vp]),
+            ("cfd_ipc_export", [vp, ctypes.c_char_p]),
+            ("cfd_ipc_open", [i32, ctypes.c_char_p, ctypes.POINTER(vp)]),
+            ("cfd_ipc_close", [i32, vp]),
             # the kbench twins (ops/twins.py): the packed sweep's operands,
             # (stream: bf16,) out, stream
             ("cfd_stream_twin", [*sweep, i32, vp, vp]),

@@ -9,8 +9,12 @@ The packed formulation in the COMPACT layout (`sweep_blocks`, fed by
 `pack_srcs`) and the gather formulation with rectangular slot tables
 (`sweep_blocks_gather`, fed by `gather_exts`), each with its fused overlap
 form.  Every operand carries a leading shard axis P: the
-reference runs one shard per chip under `shard_map`; here all shards sit on
-one device and one launch covers them.  Each wrapper checks its inputs and
+reference runs one shard per chip under `shard_map`; here the shards of one
+process (all of them, or one rank's share: parallel/transport.py) sit on
+one device and one launch covers them.  The fused overlap wrappers push
+inside one launch-private buffer (the loopback form) or, given a `Peer`
+transport, to mapped addresses of this or another rank behind a readiness
+barrier (the peer form).  Each wrapper checks its inputs and
 then
 
 - on CPU tensors runs the plain PyTorch version beside it (`*_ref`), the
@@ -32,7 +36,8 @@ sums stay f32, and only the store rounds (to nearest even).
 
 Launch counts.  Each wrapper counts the launches of each of its kernel
 instances in a plain integer attribute, `<form><tag>launches`: form "" or
-"init_" (the accumulate form), after "flux_" for the flux op; tag "" for
+"init_" (the accumulate form), after "flux_" for the flux op and, for the
+fused kernel's peer form, "peer_" before both; tag "" for
 f32 operands, else "w16_" (bf16 weights), "d16_" (bf16 deltas) and "o16_"
 (bf16 output), in that order (`sweep_blocks.launches`,
 `sweep_blocks.flux_init_w16_d16_o16_launches`, `pack_srcs.d16_launches`).
@@ -85,15 +90,15 @@ def _tag(w16: bool = False, d16: bool = False, o16: bool = False) -> str:
 
 # every instance's count attribute: forms × precision tags per wrapper
 _SWEEP_FORMS = ("", "init_", "flux_", "flux_init_")
-_FUSED_FORMS = ("", "flux_")
+_FUSED_FORMS = ("", "flux_", "peer_", "peer_flux_")
 _PACKED_TAGS = tuple(_tag(w, d, o) for w in (0, 1) for d in (0, 1)
                      for o in (0, 1))
 _GATHER_TAGS = tuple(_tag(w, False, o) for w in (0, 1) for o in (0, 1))
 
 
-def _count(fn, init, op: str, tag: str = "") -> None:
+def _count(fn, init, op: str, tag: str = "", peer: bool = False) -> None:
     """Add one to the count of the kernel instance just launched."""
-    name = ("flux_" if op == "flux" else "") + \
+    name = "peer_" * peer + ("flux_" if op == "flux" else "") + \
         ("" if init is None else "init_") + tag + "launches"
     setattr(fn, name, getattr(fn, name) + 1)
 
@@ -615,14 +620,49 @@ def loopback(sendbufs: torch.Tensor, dsts: torch.Tensor) -> torch.Tensor:
     return recv
 
 
+def _push_plain(sendbufs, dsts, transport):
+    """The push's plain version: through `transport` (a `Loopback` or `Dist`
+    of parallel/transport.py, which carries its own map) when given, else
+    the loopback of the push map dsts."""
+    if transport is not None:
+        return transport.exchange(sendbufs)
+    return loopback(sendbufs, dsts.to(sendbufs.device))
+
+
 def sweep_blocks_overlap_ref(var_T, srcs, slot_w, scale, block_ids, slots,
-                             init, sendbufs, dsts, src_devs, op="gg"):
+                             init, sendbufs, dsts, src_devs, op="gg",
+                             transport=None):
     """Plain version of the fused kernel: the interior sweep accumulating
-    onto init (in place), then the push of every shard's send buffers."""
+    onto init (in place), then the push of every shard's send buffers —
+    with `transport`, of this rank's, through it (dsts and src_devs are
+    then not read)."""
     del src_devs                    # the push map alone moves the data
     grad = sweep_blocks_ref(var_T, srcs, slot_w, scale, block_ids, slots,
                             init, op)
-    return grad, loopback(sendbufs, dsts.to(sendbufs.device))
+    return grad, _push_plain(sendbufs, dsts, transport)
+
+
+def expect_aligned(sendbufs: torch.Tensor, name: str) -> None:
+    """The push is a byte copy in 16-byte pieces, whatever the dtype."""
+    s_max = sendbufs.shape[-1]
+    check((s_max * sendbufs.element_size()) % 16 == 0
+          and sendbufs.data_ptr() % 16 == 0 and sendbufs.is_contiguous(),
+          "%s: rows of s_max %d %s elements must be a multiple of 16 "
+          "bytes on a 16-byte aligned base (16-byte copies)", name, s_max,
+          sendbufs.dtype)
+
+
+def check_push_map(d: np.ndarray, s: np.ndarray) -> None:
+    """Every d[:, k] must be a permutation of the shards and s[:, k] its
+    inverse: one push per receiver, so no two shards write the same recv
+    buffer."""
+    P, nph = d.shape
+    check(d.shape == s.shape, "dsts %s and src_devs %s differ in shape",
+          d.shape, s.shape)
+    check(((d >= 0) & (d < P)).all(), "dsts outside [0, %d): %s", P,
+          np.unique(d[(d < 0) | (d >= P)]).tolist())
+    check((s[d, np.arange(nph)[None, :]] == np.arange(P)[:, None]).all(),
+          "dsts/src_devs are not mutually inverse permutations per phase")
 
 
 def _check_push(sendbufs, dsts, src_devs, P, dev, rows):
@@ -637,12 +677,7 @@ def _check_push(sendbufs, dsts, src_devs, P, dev, rows):
     _shape(src_devs, "src_devs", (P, nph))
     s_max = sendbufs.shape[3]
     _shape(sendbufs, "sendbufs", (P, nph, rows, s_max))
-    # the push is a byte copy in 16-byte pieces, whatever the dtype
-    check((s_max * sendbufs.element_size()) % 16 == 0
-          and sendbufs.data_ptr() % 16 == 0,
-          "sendbufs: rows of s_max %d %s elements must be a multiple of 16 "
-          "bytes on a 16-byte aligned base (16-byte copies)", s_max,
-          sendbufs.dtype)
+    expect_aligned(sendbufs, "sendbufs")
     dmap = _push_table(dsts.numpy().tobytes(), src_devs.numpy().tobytes(),
                        tuple(dsts.shape), str(dev))
     return nph, s_max, dmap
@@ -651,27 +686,42 @@ def _check_push(sendbufs, dsts, src_devs, P, dev, rows):
 @lru_cache(maxsize=16)
 def _push_table(dsts: bytes, src_devs: bytes, shape: tuple,
                 device: str) -> torch.Tensor:
-    """Check a push map once per distinct map and hold its device copy.
-
-    Every dsts[:, k] must be a permutation of the shards and src_devs[:, k]
-    its inverse: one push per receiver, so no two shards write the same
-    recv buffer.  A map that fails raises (and is not cached)."""
-    P, nph = shape
+    """Check a push map (`check_push_map`) once per distinct map and hold
+    its device copy.  A map that fails raises (and is not cached)."""
     d = np.frombuffer(dsts, np.int32).reshape(shape)
-    s = np.frombuffer(src_devs, np.int32).reshape(shape)
-    check(((d >= 0) & (d < P)).all(), "dsts outside [0, %d): %s", P,
-          np.unique(d[(d < 0) | (d >= P)]).tolist())
-    check((s[d, np.arange(nph)[None, :]] == np.arange(P)[:, None]).all(),
-          "dsts/src_devs are not mutually inverse permutations per phase")
+    check_push_map(d, np.frombuffer(src_devs, np.int32).reshape(shape))
     return torch.from_numpy(d.copy()).to(device)
+
+
+def _check_peer(peer, sendbufs, P, dev, rows, debug) -> str:
+    """Validate the peer form's push operands; returns the launch mode."""
+    check(dev.type == "cuda", "the peer form pushes to mapped device "
+          "memory: CUDA tensors only")
+    check(debug in (None, "nobar", "nodma"), "unknown overlap debug mode %r "
+          "(nobar or nodma)", debug)
+    peer.check_sendbufs(sendbufs)
+    check(sendbufs.shape[0] == P and sendbufs.shape[2] == rows,
+          "sendbufs %s for %d shards of %d rows", tuple(sendbufs.shape), P,
+          rows)
+    return debug or "full"
+
+
+def _peer_args(peer, sendbufs, mode: str) -> tuple:
+    """The peer form's push arguments (ops/_cuda.py), advancing the
+    transport's launch epochs."""
+    ready, arrive, bits = peer.epochs(mode)
+    return (sendbufs.data_ptr(), sendbufs.element_size(),
+            peer.table.data_ptr(), peer.flags, peer.recv.data_ptr(),
+            sendbufs.shape[1], sendbufs.shape[3], ready, arrive, bits)
 
 
 def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
                          slot_w: torch.Tensor, scale: torch.Tensor,
                          block_ids: torch.Tensor, slots: torch.Tensor,
                          init: torch.Tensor, sendbufs: torch.Tensor,
-                         dsts: torch.Tensor, src_devs: torch.Tensor,
-                         op: str = "gg"):
+                         dsts: torch.Tensor | None,
+                         src_devs: torch.Tensor | None,
+                         op: str = "gg", peer=None, debug: str | None = None):
     """Fused interior sweep + halo push → (grad, recv).
 
     The sweep operands, `init` and `op` are as in `sweep_blocks` (grad is
@@ -681,14 +731,37 @@ def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
     int32 on the CPU: the static push map (destination shard of p's phase-k
     payload, and the reference's `srcs`, its inverse); both are checked on
     the host.  recv (P, nph, rows, s_max): recv[dsts[p, k], k] =
-    sendbufs[p, k].  Counterpart of
-    `cfd_proxy_tpu.ops.blocksweep.sweep_blocks_overlap` (packed, compact).
-    Kernel: csrc/sweep_overlap.cu."""
+    sendbufs[p, k].
+
+    With `peer` (a `Peer` of parallel/transport.py, CUDA only; dsts and
+    src_devs are then not read: the transport holds the map) the operands
+    are one rank's shards and the push goes to the transport's mapped
+    addresses, in this process or another, behind the readiness barrier;
+    recv is the transport's persistent buffer, valid until the next launch
+    on it.  debug "nobar" / "nodma": the reference's kernel debug rungs (no
+    barrier; neither barrier nor copy, recv untouched), for timing only.
+    Counterpart of `cfd_proxy_tpu.ops.blocksweep.sweep_blocks_overlap`
+    (packed, compact).  Kernel: csrc/sweep_overlap.cu."""
     check(init is not None, "sweep_blocks_overlap accumulates onto init")
     rows = _check_op(op)
     dims = _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init,
                         rows)
     dev = var_T.device
+    if peer is not None:
+        mode = _check_peer(peer, sendbufs, dims[0], dev, rows, debug)
+        from cfd_proxy_tpu_torch.ops import _cuda
+
+        flags = _flags(slot_w, srcs, init)
+        with torch.cuda.device(dev):
+            rc = _cuda.lib().cfd_sweep_overlap_peer(
+                *_sweep_ptrs(var_T, srcs, slot_w, scale, block_ids, slots,
+                             dims),
+                OPS.index(op), *flags, init.data_ptr(),
+                *_peer_args(peer, sendbufs, mode), _stream(dev))
+        _cuda.check_launch(rc, "sweep_blocks_overlap (peer)")
+        _count(sweep_blocks_overlap, None, op, _tag(*flags), peer=True)
+        return init, peer.recv
+    check(debug is None, "debug %r: a mode of the peer form", debug)
     nph, s_max, dmap = _check_push(sendbufs, dsts, src_devs, dims[0], dev,
                                    rows)
     if _device_kind(var_T) == "cpu":
@@ -710,30 +783,33 @@ def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
     return init, recv
 
 
-# K3 and K3-flux in every precision (the push moves bytes: f32 or bf16
-# send buffers run the same instance)
+# K3 and K3-flux, loopback and peer form, in every precision (the push
+# moves bytes: f32 or bf16 send buffers run the same instance)
 _zero_counts(sweep_blocks_overlap, _FUSED_FORMS, _PACKED_TAGS)
 
 
 def sweep_blocks_overlap_gather_ref(var_T, exts, slot_idx, slot_w, scale,
                                     block_ids, slots, init, sendbufs, dsts,
-                                    src_devs, op="gg"):
+                                    src_devs, op="gg", transport=None):
     """Plain version of the fused kernel's gather form."""
     del src_devs
     grad = sweep_blocks_gather_ref(var_T, exts, slot_idx, slot_w, scale,
                                    block_ids, slots, init, op)
-    return grad, loopback(sendbufs, dsts.to(sendbufs.device))
+    return grad, _push_plain(sendbufs, dsts, transport)
 
 
 def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
                                 slot_idx: torch.Tensor, slot_w: torch.Tensor,
                                 scale: torch.Tensor, block_ids: torch.Tensor,
                                 slots: torch.Tensor, init: torch.Tensor,
-                                sendbufs: torch.Tensor, dsts: torch.Tensor,
-                                src_devs: torch.Tensor, op: str = "gg"):
+                                sendbufs: torch.Tensor,
+                                dsts: torch.Tensor | None,
+                                src_devs: torch.Tensor | None,
+                                op: str = "gg", peer=None,
+                                debug: str | None = None):
     """Fused interior sweep (gather formulation) + halo push → (grad,
-    recv): the sweep operands as in `sweep_blocks_gather`, the push as in
-    `sweep_blocks_overlap`.  Counterpart of
+    recv): the sweep operands as in `sweep_blocks_gather`, the push (and
+    `peer`, `debug`) as in `sweep_blocks_overlap`.  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks_overlap(..., packed=False)`.
     Kernel: csrc/sweep_overlap.cu (its gather instances)."""
     check(init is not None, "sweep_blocks_overlap_gather accumulates onto "
@@ -742,6 +818,22 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
                          slots, init, rows)
     dev = var_T.device
+    if peer is not None:
+        mode = _check_peer(peer, sendbufs, dims[0], dev, rows, debug)
+        from cfd_proxy_tpu_torch.ops import _cuda
+
+        w16, o16 = _flags(slot_w, init)
+        with torch.cuda.device(dev):
+            rc = _cuda.lib().cfd_sweep_overlap_gather_peer(
+                *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale,
+                              block_ids, slots, dims),
+                OPS.index(op), w16, o16, init.data_ptr(),
+                *_peer_args(peer, sendbufs, mode), _stream(dev))
+        _cuda.check_launch(rc, "sweep_blocks_overlap_gather (peer)")
+        _count(sweep_blocks_overlap_gather, None, op, _tag(w16, False, o16),
+               peer=True)
+        return init, peer.recv
+    check(debug is None, "debug %r: a mode of the peer form", debug)
     nph, s_max, dmap = _check_push(sendbufs, dsts, src_devs, dims[0], dev,
                                    rows)
     if _device_kind(var_T) == "cpu":

@@ -1,7 +1,8 @@
 """Benchmark CLI of the port — counterpart of `cfd_proxy_tpu/solver.py`.
 
 Builds the model on a generated (or read) mesh cut into P shards, all held
-on one device, distributes the state, times each schedule's chained loop
+on one device or (`--ranks W`) spread over W processes, each with its own
+device, distributes the state, times each schedule's chained loop
 with the reference's two-point sampler (and the compute-only `nocomm` floor
 when several schedules run, for the overlap efficiency), verifies every
 schedule against bulk and bulk against the f64 golden, and prints the same
@@ -11,6 +12,27 @@ table and verify lines as the reference CLI:
         --parts 8 --schedule all --iters 300
     python -m cfd_proxy_tpu_torch.solver --nx 96 --ny 96 --nz 96 \
         --schedule bulk --solver-mode --sweeps-per-step 4
+    python -m cfd_proxy_tpu_torch.solver --nx 96 --ny 96 --nz 96 \
+        --parts 8 --ranks 2 --transport peer --share-device \
+        --dist-backend gloo
+
+Ranks.  `--ranks W` (W divides `--parts`) starts W processes on this
+machine (parallel/launch.py), rank r holding shards [r·P/W, (r+1)·P/W) on
+`cuda:r`; under `torchrun` (RANK and WORLD_SIZE set) the processes are
+there already and `--ranks` must name their number.  More ranks than cards
+need `--share-device` (rank r on `cuda:(r mod cards)`; a check of the
+mechanism, not a timing: the processes time-slice the card).
+`--transport` picks how halos travel (parallel/transport.py): `loopback`
+(W = 1, the default there), `dist` (`batch_isend_irecv`; the default for
+W > 1) or `peer` (mapped device memory, the fused kernel pushes from
+inside its launch); `--dist-backend` the group's backend, `nccl` (the
+default on CUDA) or `gloo` (the default on the CPU; with CUDA tensors it
+stages through the host, and the result names it `dist/gloo-staged`).
+`--slice-size S` routes the phases that cross nodes of S devices through
+the collective transport under `overlap`.  Each rank times its own loop
+after a barrier and every sample is the slowest rank's (one all-reduce MAX
+per sample, outside the timed loops), as an MPI run of CFD-Proxy reports
+it; rank 0 prints.
 
 The port runs Green-Gauss gradients (`--model gg`) or the PSD upwind flux
 (`--model flux`, ops/flux.py) with the packed (compact layout) or the
@@ -30,9 +52,9 @@ kernel and block size `solver_mode_defaults` decides.  The mesh options
 parser is accepted so that it can be refused by name (`CheckError`, naming
 the ROADMAP item that brings it, `check_config`), never ignored:
 `--backend xla`, `--dtype float64`, `--profile`, the fake phases
-(`--min-phases`, `--fake-sends`, `--fake-tail-frac`), `--pack-force`,
-`--platform` and `--slice-size`.  `--backend pallas` names the kernel path,
-here the CUDA kernels.
+(`--min-phases`, `--fake-sends`, `--fake-tail-frac`), `--pack-force` and
+`--platform`.  `--backend pallas` names the kernel path, here the CUDA
+kernels.
 """
 
 from __future__ import annotations
@@ -56,6 +78,8 @@ from cfd_proxy_tpu_torch.ops.blocksweep import OPS
 from cfd_proxy_tpu_torch.ops.flux import compute_psd_flux, flux_residual_scale
 from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
                                             scale_gradients)
+from cfd_proxy_tpu_torch.parallel import launch
+from cfd_proxy_tpu_torch.parallel.transport import DIST_BACKENDS, TRANSPORTS
 from cfd_proxy_tpu_torch.utils.errors import check
 from cfd_proxy_tpu_torch.utils.timing import (IterationStats,
                                               format_stats_table,
@@ -66,6 +90,7 @@ SCHEDULES = ("bulk", "early", "overlap")     # what --schedule all times
 # two-point timing noise: no overlap efficiency is reported (the reference's
 # gate, cfd_proxy_tpu/solver.py:371-375)
 NOISE_GATE = 0.05
+RANKS_TIMEOUT_S = 1800.0    # a multi-rank run is killed past this
 
 
 def solver_mode_defaults(sweeps_per_step: int = 1) -> tuple[str, int | None]:
@@ -118,6 +143,10 @@ class SolverConfig:
     device: str = "cuda"
     verify: bool = True
     json_out: bool = False
+    ranks: int = 1
+    transport: str | None = None    # None: loopback at one rank, else dist
+    dist_backend: str | None = None     # None: nccl on cuda, gloo on cpu
+    share_device: bool = False
     # the reference's options the port refuses by name (check_config)
     min_phases: int = 1
     fake_sends: int = 0
@@ -134,8 +163,32 @@ def check_config(cfg: SolverConfig) -> None:
           cfg.schedule)
     check(cfg.ghost_layers >= 1, "--ghost-layers %d: need at least one",
           cfg.ghost_layers)
-    check(cfg.slice_size is None, "--slice-size %s: multi-node phase "
-          "routing comes with ROADMAP queue 1 item 12", cfg.slice_size)
+    check(cfg.slice_size is None or cfg.slice_size >= 1,
+          "--slice-size %s: need at least one device per node",
+          cfg.slice_size)
+    check(cfg.ranks >= 1 and cfg.parts % cfg.ranks == 0,
+          "--ranks %d does not divide --parts %d (rank r holds shards "
+          "[r*P/W, (r+1)*P/W))", cfg.ranks, cfg.parts)
+    check(cfg.transport in (None, *TRANSPORTS), "unknown --transport %s",
+          cfg.transport)
+    check(cfg.transport != "loopback" or cfg.ranks == 1, "--transport "
+          "loopback holds every shard in one process; --ranks %d needs dist "
+          "or peer", cfg.ranks)
+    check(cfg.transport != "peer" or cfg.device == "cuda", "--transport "
+          "peer maps device memory between ranks and has no CPU form (use "
+          "--transport dist with --device cpu)")
+    check(cfg.dist_backend in (None, *DIST_BACKENDS),
+          "unknown --dist-backend %s", cfg.dist_backend)
+    check(dist_backend(cfg) != "nccl" or cfg.device == "cuda",
+          "--dist-backend nccl moves CUDA tensors only (use gloo with "
+          "--device cpu)")
+    check(not (cfg.ranks > 1 and cfg.share_device
+               and dist_backend(cfg) == "nccl"), "--dist-backend nccl with "
+          "two ranks on one device (--share-device) is not supported by "
+          "NCCL: use --dist-backend gloo")
+    env = launch.world_from_env()
+    check(env is None or env[1] == cfg.ranks, "--ranks %d, but the launcher "
+          "started %s processes (WORLD_SIZE)", cfg.ranks, env and env[1])
     check(cfg.backend == "pallas", "--backend %s: the port runs its "
           "kernels (pallas); the XLA-backend analogue (ELL sweep, f64 exact "
           "path) comes with ROADMAP queue 1 item 10", cfg.backend)
@@ -166,9 +219,20 @@ def check_config(cfg: SolverConfig) -> None:
           "tables)")
     check(cfg.device in ("cuda", "cpu"), "--device %s: cuda or cpu",
           cfg.device)
+    if cfg.device == "cuda" and cfg.ranks > 1 and not cfg.share_device:
+        cards = torch.cuda.device_count()
+        check(cfg.ranks <= cards, "--ranks %d exceeds the %d CUDA devices "
+              "torch sees (one rank per card; --share-device puts several "
+              "ranks on one, for checks only)", cfg.ranks, cards)
     check(cfg.device != "cuda" or torch.cuda.is_available(),
           "--device cuda but torch sees no CUDA device (use --device cpu "
           "for the plain PyTorch versions)")
+
+
+def dist_backend(cfg: SolverConfig) -> str:
+    """The process group's backend: the option, else nccl on CUDA and gloo
+    on the CPU."""
+    return cfg.dist_backend or ("nccl" if cfg.device == "cuda" else "gloo")
 
 
 def read_parts(cfg: SolverConfig) -> list:
@@ -187,10 +251,12 @@ def read_parts(cfg: SolverConfig) -> list:
             f"--ghost-layers/--seed — the tool's defaults are a 24^3 mesh)")
 
 
-def build_model(cfg: SolverConfig, parts: list | None = None):
+def build_model(cfg: SolverConfig, parts: list | None = None, group=None,
+                device: str | None = None):
     """(model, global mesh or None): the model of cfg's model fields on
     `parts` when given (shared between configurations), else on the
-    `--mesh` files or on the generated and partitioned mesh."""
+    `--mesh` files or on the generated and partitioned mesh; with `group`,
+    this rank's share of it on `device`."""
     gmesh = None
     if parts is None and cfg.mesh_prefix:
         parts = read_parts(cfg)
@@ -203,7 +269,10 @@ def build_model(cfg: SolverConfig, parts: list | None = None):
                                ghost_layers=cfg.ghost_layers)
     model = GreenGaussTorch(parts, cfg.nvar, bp=cfg.bp, kcompact=cfg.kcompact,
                             force_rdma=cfg.force_rdma, kernel=cfg.kernel,
-                            op=cfg.model, device=cfg.device,
+                            op=cfg.model, device=device or cfg.device,
+                            group=group, transport=cfg.transport,
+                            slice_size=cfg.slice_size,
+                            share_device=cfg.share_device,
                             meta_dtype=cfg.meta_dtype,
                             src_dtype=cfg.src_dtype,
                             halo_dtype=cfg.halo_dtype,
@@ -239,7 +308,12 @@ def time_schedule(model: GreenGaussTorch, state: dict, schedule: str,
         run(small)
         run(big)
     stats = IterationStats(schedule)
-    sample = two_point_sampler(lambda: run(small), lambda: run(big), iters)
+    if model.world == 1:
+        sample = two_point_sampler(lambda: run(small), lambda: run(big),
+                                   iters)
+    else:
+        sample = launch.slowest_rank_sampler(
+            model.group, dev, lambda: run(small), lambda: run(big), iters)
     for _ in range(repeats):
         v = sample()
         if v is not None:
@@ -299,14 +373,23 @@ def verify_model(model: GreenGaussTorch, state: dict, schedules, gmesh,
     out = {}
     for s in schedules:
         if s != "bulk":
-            out[f"{s}_vs_bulk_maxabs"] = float(
-                (model.step(state, s).float() - ref.float()).abs().max())
+            out[f"{s}_vs_bulk_maxabs"] = _max_over_ranks(model, (
+                model.step(state, s).float() - ref.float()).abs().max())
     if gmesh is not None:
         gg = golden(model.op, gmesh, gvar)
         got = model.gather_global(ref)
         denom = max(1.0, float(np.abs(gg).max()))
         out["bulk_vs_golden_relmax"] = float(np.abs(got - gg).max() / denom)
     return out
+
+
+def _max_over_ranks(model, x: torch.Tensor) -> float:
+    if model.world > 1:
+        dist = torch.distributed
+        if dist.get_backend(model.group) != "nccl":
+            x = x.cpu()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=model.group)
+    return float(x)
 
 
 def device_name(device: torch.device) -> str:
@@ -316,8 +399,35 @@ def device_name(device: torch.device) -> str:
 
 
 def run(cfg: SolverConfig) -> tuple[dict, list[IterationStats]]:
+    """Rank 0's (results, stats).  One rank runs here; several are started
+    (or, under torchrun, joined) and run `run_rank` each."""
     check_config(cfg)
-    model, gmesh = build_model(cfg)
+    if cfg.ranks == 1:
+        return run_rank(cfg)
+    if launch.world_from_env() is not None:         # under torchrun
+        return _joined_rank(cfg)
+    return launch.spawn(cfg.ranks, _joined_rank, (cfg,),
+                        timeout_s=RANKS_TIMEOUT_S)[0]
+
+
+def _joined_rank(cfg: SolverConfig):
+    """One rank of a multi-process run: select the device, join the group,
+    run, release the mapped memory."""
+    group, _, _, device = launch.join_rank(cfg.device, dist_backend(cfg),
+                                           cfg.share_device)
+    return run_rank(cfg, group, device)
+
+
+def run_rank(cfg: SolverConfig, group=None, device: str | None = None
+             ) -> tuple[dict, list[IterationStats]]:
+    model, gmesh = build_model(cfg, group=group, device=device)
+    try:
+        return _run_model(cfg, model, gmesh)
+    finally:
+        model.close()
+
+
+def _run_model(cfg: SolverConfig, model, gmesh):
     nface = sum(p.nface for p in model.parts)
     npoint = sum(p.nowned for p in model.parts)
     gvar = make_state(npoint, cfg.nvar, seed=cfg.seed + 1)
@@ -354,6 +464,10 @@ def run(cfg: SolverConfig) -> tuple[dict, list[IterationStats]]:
         "dtype": "float32",
         **{k: getattr(cfg, k) for k in DTYPE_OPTIONS},
         "backend": "torch",
+        "ranks": model.world,
+        "transport": model.transport_name,
+        "kernel_phases": model.kernel_phases,
+        "collective_phases": model.coll_phases,
         "kernel": cfg.kernel,
         "bp": model.bp,
         "wks": {c: list(w) for c, w in model.wks.items()},
@@ -403,6 +517,17 @@ def main(argv=None) -> int:
                          "(one shard: self-send phases)")
     ap.add_argument("--slice-size", type=int, default=None,
                     help="devices per node (multi-node phase routing)")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes the shards are spread over (divides "
+                         "--parts)")
+    ap.add_argument("--transport", default=None, choices=list(TRANSPORTS),
+                    help="default: loopback at one rank, else dist")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=list(DIST_BACKENDS),
+                    help="default: nccl on cuda, gloo on cpu")
+    ap.add_argument("--share-device", action="store_true",
+                    help="allow more ranks than cards (rank r on cuda:(r "
+                         "mod cards)); for checks, not for timing")
     ap.add_argument("--model", default="gg", choices=list(OPS),
                     help="gg: Green-Gauss gradients; flux: the PSD upwind "
                          "flux (ops/flux.py)")
@@ -473,18 +598,25 @@ def main(argv=None) -> int:
         dtype=a.dtype, diag_frac=a.diag_frac, stretch=a.stretch,
         hub_frac=a.hub_frac, hub_extra=a.hub_extra, seed=a.seed,
         device=a.device, verify=not a.no_verify, json_out=a.json,
+        ranks=a.ranks, transport=a.transport, dist_backend=a.dist_backend,
+        share_device=a.share_device,
         min_phases=a.min_phases, fake_sends=a.fake_sends,
         fake_tail_frac=a.fake_tail_frac, pack_force=a.pack_force,
         platform=a.platform, profile_dir=a.profile_dir)
     t0 = time.perf_counter()
     results, stats = run(cfg)
     results["wall_s"] = time.perf_counter() - t0
+    env = launch.world_from_env()
+    if env is not None and env[0] != 0:
+        return 0                    # under torchrun rank 0 prints
     if cfg.json_out:
         print(json.dumps(_finite_or_none(results)))
     else:
         print(f"device={results['device']} parts={results['npart']} "
               f"points={results['npoint']} faces={results['nface']} "
               f"model={results['model']} "
+              + (f"ranks={results['ranks']} " if results["ranks"] > 1 else "")
+              + f"transport={results['transport']} "
               f"nvar={results['nvar']} dtype={results['dtype']} "
               + "".join(f"{k}={results[k]} " for k in DTYPE_OPTIONS
                         if results[k] != "float32")

@@ -230,6 +230,28 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "cstream_bso": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_twins.cu",
                     "cfd_proxy_tpu/tools/kbench.py:476"),
 }
+# K3's peer form (address table, readiness barrier :783-789, arrival waits
+# :796-801) and K6, the push bench's kernel, one row per mode
+KERNELS.update({
+    "sweep_blocks_overlap_peer": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:783"),
+    "sweep_blocks_overlap_gather_peer": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:783"),
+    "sweep_blocks_overlap_peer_w16_d16_o16": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:783"),
+    **{f"push_phases_{m}": ("cuda", "cfd_proxy_tpu_torch/csrc/push_bench.cu",
+                            "cfd_proxy_tpu/tools/icibench.py:75")
+       for m in ("full", "nobar", "baronly", "empty")},
+})
+PEER_STEPS = 5        # timed steps of a two-process run (time-sliced)
+PEER_W2_LIMIT_S = 420     # the two-process phase is killed past this
+ICI_PHASES = (1, 2, 4)                  # the push bench's grid: the
+ICI_MB = (0.125, 1.0, 8.0, 32.0)        # reference's defaults
+ICI_ROW = (4, 8.0)    # (phases, MB per phase) of K6's kernel-table rows
+SLEEP_CYCLES_PER_S = 2.0e9     # torch.cuda._sleep: about the SM clock
 PACKED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
           "sweep_blocks_overlap")
 GATHER = ("sweep_blocks_gather", "sweep_blocks_gather_init",
@@ -384,6 +406,41 @@ def device_profile(model, state, schedule: str, n: int = 20) -> dict:
             "wall_ms": wall * 1e3 / n, "steps": n, "top_ms": top}
 
 
+def kernel_device_ms(fn, n: int) -> float:
+    """Mean device milliseconds per call of n calls of fn that run back to
+    back on the card: a sleep kernel holds the stream while the host
+    enqueues all n, so no call waits for the host (a CUDA-event mean over
+    calls enqueued onto an idle stream measures the host's launch rate
+    when the kernel is shorter than a launch).  The sleep is lengthened
+    until it outlasts the enqueueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0       # an upper bound: may have waited
+    torch.cuda.synchronize()
+    cycles = int((2 * host_s + 2e-4) * SLEEP_CYCLES_PER_S)
+    for _ in range(6):
+        held = torch.cuda.Event()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        held.record()
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        covered = not held.query()          # still asleep: all n were queued
+        torch.cuda.synchronize()
+        if covered:
+            return e0.elapsed_time(e1) / n
+        cycles *= 2
+    fail("kernel_device_ms: the host could not enqueue ahead of the card")
+
+
 def main() -> int:
     import torch
 
@@ -401,10 +458,13 @@ def main() -> int:
                                                           PSDFluxModel)
         from cfd_proxy_tpu_torch.ops import _cuda
         from cfd_proxy_tpu_torch.ops import blocksweep as bs
-        from cfd_proxy_tpu_torch.ops import twins
+        from cfd_proxy_tpu_torch.ops import push, twins
+        from cfd_proxy_tpu_torch.parallel import launch, workers
+        from cfd_proxy_tpu_torch.parallel.transport import (Dist, Loopback,
+                                                            Peer)
         from cfd_proxy_tpu_torch.solver import (golden, solver_mode_defaults,
                                                 time_schedule)
-        from cfd_proxy_tpu_torch.tools import kbench
+        from cfd_proxy_tpu_torch.tools import icibench, kbench
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               f"root of a checkout", file=sys.stderr)
@@ -414,7 +474,8 @@ def main() -> int:
 
     # every kernel instance: (wrapper, its count attribute), by instance
     # name (the rows' names, but for the twins': TWIN_ROWS)
-    counters = {**bs.launch_counters(), **twins.launch_counters()}
+    counters = {**bs.launch_counters(), **twins.launch_counters(),
+                **push.launch_counters()}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -905,7 +966,8 @@ def main() -> int:
     if bad:
         fail(f"solver-mode timing fell below the two-point noise floor: "
              f"{bad}")
-    del packed_models, gather_models, configs, m
+    del configs, m      # the models stay: the peer phases hold their results
+    # against these same plans
 
     ulp_stats = {}
 
@@ -1335,7 +1397,8 @@ def main() -> int:
         idle={s: (None if p["device_ms"] is None
                   else 1.0 - p["device_ms"] / p8_ms[s])
               for s, p in prof.items()})
-    del state, pm, prof
+    full_stack_p8 = pm          # K3's peer form reuses its operands
+    del state, prof
 
     # the bf16 halo alone: owned columns never ride the wire, so they equal
     # the f32 model's (main_path_p8) bitwise; every ghost column is the
@@ -1563,6 +1626,353 @@ def main() -> int:
          bench_seconds=t_bench, runs=kb_runs, verdicts=verdicts,
          kernels=kernel_summary(list(kb_variant)))
     del benches, table
+
+
+    # ---- the peer transport in one process: K3's peer form (address
+    # table, readiness barrier, arrival flags, last-ticket wait) inside one
+    # launch, at P=1 (force_rdma self-sends) and P=8, held bitwise against
+    # the loopback overlap step of the same plans
+    def peer_phase(path, loop_model, build, names, band=(None, GOLDEN_TOL)):
+        t0 = time.perf_counter()
+        pmod = build()
+        t_model = time.perf_counter() - t0
+        reset_counts()
+        state = pmod.distribute_state(gvar, schedules=["overlap"])
+        g = pmod.step(state, "overlap")
+        counts = read_counts()
+        expect_counts(path, counts, names)
+        rel = golden_relmax(pmod, g)
+        lo, hi = band
+        if not (rel <= hi and (lo is None or rel > lo)):
+            fail(f"{path}: overlap vs golden relmax {rel:.3e} outside "
+                 f"({lo}, {hi}]")
+        lstate = loop_model.distribute_state(gvar, schedules=["overlap"])
+        g_loop = loop_model.step(lstate, "overlap")
+        torch.cuda.synchronize()
+        if not torch.equal(g, g_loop):
+            fail(f"{path}: overlap through the peer transport differs from "
+                 f"the loopback overlap step")
+        info = {"model_seconds": t_model, "transport": pmod.transport_name,
+                "kernel_phases": pmod.kernel_phases,
+                "vs_golden_relmax": rel, "band": [lo, hi],
+                "equals_loopback_bitwise": True, "launches": counts}
+        if len(pmod.parts) > 1:
+            info["ghost_columns_checked"] = ghost_check(path, pmod, g)
+        return pmod, state, lstate, info
+
+    def overlap_turns(pmod, pstate, lmod, lstate):
+        """The overlap step through both transports in turns (loopback,
+        peer, peer, loopback), the better median of each."""
+        ms = {"loopback": [], "peer": []}
+        for name in ("loopback", "peer", "peer", "loopback"):
+            m, st_ = (pmod, pstate) if name == "peer" else (lmod, lstate)
+            ms[name].append(time_schedule(m, st_, "overlap", TIMED_STEPS,
+                                          warmup=2, repeats=5).median * 1e3)
+        return {k: min(v) for k, v in ms.items()}
+
+    pm1, pstate, lstate, info = peer_phase(
+        "peer_p1", packed_models[1],
+        lambda: GreenGaussTorch(parts, NVAR, force_rdma=True, device=dev,
+                                transport="peer"),
+        ("sweep_blocks_overlap_peer",))
+    info["overlap_step_ms"] = overlap_turns(pm1, pstate, packed_models[1],
+                                            lstate)
+    emit("peer_p1", card=smi, parts=1, force_rdma=True, steps=TIMED_STEPS,
+         **info)
+    pm1.close()
+    del pm1, pstate, lstate
+
+    pm8, pstate, lstate, info = peer_phase(
+        "peer_p8", packed_models[P_MULTI],
+        lambda: GreenGaussTorch(parts8, NVAR, device=dev, transport="peer"),
+        ("sweep_blocks_overlap_peer",))
+    # the f32 results a two-process run must reproduce bit for bit
+    lm8 = packed_models[P_MULTI]
+    st_all = lm8.distribute_state(gvar)
+    want_digest = {s: workers.digest(lm8.gather_global(lm8.step(st_all, s)))
+                   for s in ("bulk", "early", "overlap")}
+    del st_all
+    info["overlap_step_ms"] = overlap_turns(pm8, pstate, lm8, lstate)
+    prof = {"peer": device_profile(pm8, pstate, "overlap"),
+            "loopback": device_profile(lm8, lstate, "overlap")}
+    info["profile"] = prof
+    info["idle"] = {k: (None if p_["device_ms"] is None else
+                        1.0 - p_["device_ms"] / info["overlap_step_ms"][k])
+                    for k, p_ in prof.items()}
+    # K3's peer form against its plain version and beside the loopback
+    # form, at the P=8 interior + push shapes: packed f32, gather, and the
+    # packed full bf16 stack
+    peer_rows = {}
+    for row, lmod, fused, plain, wire in (
+            ("sweep_blocks_overlap_peer", lm8, bs.sweep_blocks_overlap,
+             bs.sweep_blocks_overlap_ref, torch.float32),
+            ("sweep_blocks_overlap_gather_peer", gather_models[P_MULTI],
+             bs.sweep_blocks_overlap_gather,
+             bs.sweep_blocks_overlap_gather_ref, torch.float32),
+            ("sweep_blocks_overlap_peer_w16_d16_o16", full_stack_p8,
+             bs.sweep_blocks_overlap, bs.sweep_blocks_overlap_ref,
+             torch.bfloat16)):
+        state = lmod.distribute_state(gvar, schedules=["overlap", "bulk"])
+        iargs = (state["var_T"], *lmod._operands("interior",
+                                                 state["tables"]))
+        gb = lmod.step(state, "nocomm")             # any finite init
+        sendbufs = lmod._pack(gb, lmod.pack_scale, wire)
+        peer = Peer(lmod.dsts.numpy(), lmod.srcs.numpy(), rows=lmod.rows,
+                    s_max=lmod.s_max, dtype=wire, device=dev)
+        compare_and_time(
+            row,
+            lambda i: fused(*iargs, i, sendbufs, None, None, peer=peer),
+            lambda i: plain(*iargs, i, sendbufs, lmod.dsts, lmod.srcs),
+            init=gb, push=True)
+        work[row] = sweep_bound(
+            "gg", iargs, gather=lmod.kernel == "gather", init=True,
+            push=sendbufs, out_bytes=gb.element_size())
+        buf = gb.clone()
+        kp = lambda: fused(*iargs, buf, sendbufs, None, None, peer=peer)
+        kl = lambda: fused(*iargs, buf, sendbufs, lmod.dsts, lmod.srcs)
+        l1, p1 = cuda_ms(kl, 50), cuda_ms(kp, 50)
+        p2, l2 = cuda_ms(kp, 50), cuda_ms(kl, 50)
+        modes = {m: cuda_ms(lambda m=m: fused(*iargs, buf, sendbufs, None,
+                                              None, peer=peer, debug=m), 50)
+                 for m in ("nobar", "nodma")}
+        peer_rows[row] = {"peer_ms": min(p1, p2), "loopback_ms": min(l1, l2),
+                          "peer_over_loopback": min(p1, p2) / min(l1, l2),
+                          **{f"{m}_ms": v for m, v in modes.items()},
+                          # back to back on the card, no host gaps (the
+                          # loopback wrapper's time includes its fill of
+                          # recv, a kernel of its own)
+                          "peer_kernel_device_ms": kernel_device_ms(
+                              kp, 20),
+                          "loopback_kernel_device_ms": kernel_device_ms(
+                              kl, 20)}
+        peer.close()
+        del state, iargs, gb, sendbufs, buf, peer, kp, kl
+    # the gather and bf16 peer forms through the model too, counted
+    for row, lmod, opts in (
+            ("sweep_blocks_overlap_gather_peer", gather_models[P_MULTI],
+             {"bp": GATHER_BP, "kernel": "gather"}),
+            ("sweep_blocks_overlap_peer_w16_d16_o16", full_stack_p8, FULL)):
+        m_, _, _, sub = peer_phase(
+            "peer_p8", lmod,
+            lambda: GreenGaussTorch(parts8, NVAR, device=dev,
+                                    transport="peer", **opts),
+            (row,), band=(BAND_FULL if opts is FULL else (None, GOLDEN_TOL)))
+        m_.close()
+        info[row] = sub
+        del m_
+    emit("peer_p8", card=smi, parts=P_MULTI, steps=TIMED_STEPS,
+         kernels=kernel_summary(list(peer_rows)), beside_loopback=peer_rows,
+         **info)
+    pm8.close()
+    del pm8, pstate, lstate, full_stack_p8
+
+    # ---- two processes on the one GPU (time-sliced: a check, no timing):
+    # 96^3, P=8, W=2, every schedule through peer (mapped memory, K3's peer
+    # form across processes) and through dist over gloo, staged through the
+    # host; then slice_size 4, where overlap mixes in-kernel and collective
+    # phases.  Digests of every rank's gathered outputs against this
+    # process's loopback results.
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    mode = mode.splitlines()[0].strip() if mode else "unknown"
+    if mode == "Exclusive_Process":
+        emit("peer_w2", not_runnable=f"compute mode {mode}")
+    else:
+        def w2case(**model):
+            return workers.ModelCase(
+                nx=NX, ny=NX, nz=NX, parts=P_MULTI, device="cuda", nvar=NVAR,
+                mesh_seed=SEED, state_seed=SEED + 1, diag_frac=0.2,
+                backend="gloo", share_device=True, timed_steps=PEER_STEPS,
+                digest=True, model=model)
+
+        # the routed plan's own one-process result (another phase coloring,
+        # so another ghost layout and summation order than slice_size None)
+        rm8 = GreenGaussTorch(parts8, NVAR, device=dev, slice_size=4)
+        st_all = rm8.distribute_state(gvar)
+        routed = {s: rm8.step(st_all, s) for s in ("bulk", "early", "overlap")}
+        rel, cross, scale = check_schedules("peer_w2 (slice_size 4, one "
+                                            "process)", rm8, routed)
+        routed_digest = {s: workers.digest(rm8.gather_global(g))
+                         for s, g in routed.items()}
+        routed_info = {"kernel_phases": rm8.kernel_phases,
+                       "collective_phases": rm8.coll_phases,
+                       "vs_golden_relmax": rel}
+        if not (rm8.kernel_phases and rm8.coll_phases):
+            fail("peer_w2: slice_size 4 left no phase to route")
+        del rm8, st_all, routed
+        torch.cuda.empty_cache()
+        jobs = {"peer": w2case(transport="peer"),
+                "dist": w2case(transport="dist"),
+                "slice4": w2case(transport="peer", slice_size=4)}
+        t0 = time.perf_counter()
+        res = launch.spawn(2, workers.batch,
+                           ([("model_outputs", (c,)) for c in jobs.values()],),
+                           timeout_s=PEER_W2_LIMIT_S)
+        w2 = {"seconds": time.perf_counter() - t0, "compute_mode": mode,
+              "note": "two processes on one GPU, time-sliced: step_ms is "
+                      "no measure of speed"}
+        for i, (name, want) in enumerate((("peer", want_digest),
+                                          ("dist", want_digest),
+                                          ("slice4", routed_digest))):
+            for r in res:
+                if r[i]["outputs"] != want:
+                    fail(f"peer_w2 ({name}): rank {r[i]['rank']} differs "
+                         f"from the one-process result")
+            w2[name] = {k: res[0][i][k] for k in (
+                "transport", "kernel_phases", "collective_phases", "step_ms",
+                "launches")}
+            w2[name]["launches_rank1"] = res[1][i]["launches"]
+            w2[name]["equals_one_process_bitwise"] = True
+        for name, tname in (("peer", "peer+dist/gloo-staged"),
+                            ("dist", "dist/gloo-staged"),
+                            ("slice4", "peer+dist/gloo-staged")):
+            if w2[name]["transport"] != tname:
+                fail(f"peer_w2 ({name}): transport {w2[name]['transport']}")
+        for name in ("peer", "slice4"):
+            if not w2[name]["launches"].get("sweep_blocks_overlap_peer"):
+                fail(f"peer_w2 ({name}): no launch of K3's peer form")
+        if w2["dist"]["launches"].get("sweep_blocks_overlap_peer"):
+            fail("peer_w2 (dist): launched the peer form")
+        if (w2["slice4"]["kernel_phases"] != routed_info["kernel_phases"]
+                or not w2["slice4"]["collective_phases"]):
+            fail(f"peer_w2 (slice4): phases {w2['slice4']}")
+        emit("peer_w2", card=smi, parts=P_MULTI, ranks=2,
+             slice4_one_process=routed_info, **w2)
+
+    # ---- NCCL at one rank: the group comes up and one phase buffer goes
+    # through Dist as a self-send on the backend (batch_isend_irecv)
+    import tempfile
+
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            tr = Dist([[(0, 0)]], 1, dist.group.WORLD, dev, self_sends=True)
+            buf = torch.randn((1, 1, 24, lm8.s_max), device=dev,
+                              generator=torch.Generator(dev).manual_seed(7))
+            t0 = time.perf_counter()
+            got = tr.exchange(buf)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            ok = bool(torch.equal(got, buf))
+            total = torch.ones(4, device=dev)
+            dist.all_reduce(total)
+            torch.cuda.synchronize()
+            emit("nccl_w1", card=smi, transport=tr.name,
+                 nccl=".".join(map(str, torch.cuda.nccl.version())),
+                 self_send_bitwise=ok, bytes=nbytes(buf),
+                 first_exchange_seconds=first_s,
+                 all_reduce_ok=bool((total == 1).all()))
+            if tr.name != "dist/nccl" or not ok:
+                fail("nccl_w1: the self-send through dist/nccl differs")
+        finally:
+            dist.destroy_process_group()
+    del lm8
+
+    # ---- the push bench: the tool at one rank (self-sends), the
+    # reference's grid, every mode, counted; then K6 against its plain
+    # version (bitwise) and beside Tensor.copy_ of the same bytes, in turns
+    ici = {}
+    reset_counts()
+    for m in push.MODES:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = icibench.main(["--phases", *map(str, ICI_PHASES), "--mb",
+                                *map(str, ICI_MB), "--mode", m])
+        lines = buf.getvalue().splitlines()
+        rows_ = [ln.split() for ln in lines
+                 if ln.strip() and ln.split()[0].isdigit()]
+        if rc != 0 or len(rows_) != len(ICI_PHASES) * len(ICI_MB):
+            fail(f"icibench --mode {m}: rc {rc}, output {lines}")
+        if any("suggested" in ln for ln in lines):
+            fail("icibench printed a link suggestion without --link-gbps")
+        ici[m] = {"seconds": time.perf_counter() - t0, "output": lines}
+    counts = read_counts()
+    expect_counts("icibench", counts,
+                  [f"push_phases_{m}" for m in push.MODES])
+
+    def k6_setup(nph, mb):
+        lanes = icibench.payload_lanes(mb, 24)
+        peer = icibench.make_transport(1, nph, 24, lanes, dev, None)
+        send = torch.randn((1, nph, 24, lanes), device=dev,
+                           generator=torch.Generator(dev).manual_seed(nph))
+        return peer, send, Loopback(np.zeros((1, nph), np.int64), dev)
+
+    # the grid, mode full: K6, copy_, copy_, K6 (CUDA-event means of 50)
+    grid = []
+    for nph in ICI_PHASES:
+        for mb in ICI_MB:
+            peer, send, plain_t = k6_setup(nph, mb)
+            got = push.push_phases(send, peer, "full")
+            if not torch.equal(got, push.push_phases_ref(send, plain_t)):
+                fail(f"push_phases (full, {nph} x {mb} MB) differs from its "
+                     f"plain version")
+            dst = torch.empty_like(send)
+            k1 = cuda_ms(lambda: push.push_phases(send, peer, "full"), 50)
+            c1 = cuda_ms(lambda: dst.copy_(send), 50)
+            c2 = cuda_ms(lambda: dst.copy_(send), 50)
+            k2 = cuda_ms(lambda: push.push_phases(send, peer, "full"), 50)
+            b = bound(2 * nbytes(send), 0)
+            kd = kernel_device_ms(
+                lambda: push.push_phases(send, peer, "full"), 20)
+            cd = kernel_device_ms(lambda: dst.copy_(send), 20)
+            grid.append({"phases": nph, "mb_per_phase": nbytes(send) / nph
+                         / 1e6, "ms": min(k1, k2), "copy_ms": min(c1, c2),
+                         "device_ms": kd, "copy_device_ms": cd,
+                         "bound_ms": b["bound_ms"],
+                         "share": b["bound_ms"] / kd,
+                         "copy_share": b["bound_ms"] / cd})
+            peer.close()
+            del peer, send, dst, got
+    # the fixed cost per mode: every mode at the smallest payload, back to
+    # back on the card (kernel_device_ms: launches this short, enqueued onto
+    # an idle stream, would measure the host's launch rate)
+    fixed = {}
+    for nph in (1, 4):
+        peer, send, _ = k6_setup(nph, ICI_MB[0])
+        order = (*push.MODES, *reversed(push.MODES))
+        ms = {}
+        for m in order:
+            ms.setdefault(m, []).append(kernel_device_ms(
+                lambda m=m: push.push_phases(send, peer, m), 100))
+        fixed[f"{nph}x{ICI_MB[0]}MB"] = {m: min(v) for m, v in ms.items()}
+        peer.close()
+        del peer, send
+    # the kernel-table rows: each mode at ICI_ROW
+    nph, mb = ICI_ROW
+    k6_device = {}
+    peer, send, plain_t = k6_setup(nph, mb)
+    dst = torch.empty_like(send)
+    for m in push.MODES:
+        row = f"push_phases_{m}"
+        got = push.push_phases(send, peer, m)
+        want = push.push_phases_ref(send, plain_t, m)
+        torch.cuda.synchronize()
+        moved = send if m in ("full", "nobar") else send[:, :1]
+        same = got if m in ("full", "nobar") else got[:, :1]
+        if not torch.equal(same, want[:, :moved.shape[1]]):
+            fail(f"{row} differs from its plain version")
+        errs[row], scales[row] = 0.0, float(want.abs().max())
+        times[row] = paired_ms(
+            lambda m=m: push.push_phases(send, peer, m),
+            lambda m=m: push.push_phases_ref(send, plain_t, m))
+        work[row] = bound(2 * nbytes(moved), 0)
+        library[row] = cuda_ms(
+            lambda: dst[:, :moved.shape[1]].copy_(moved), 50)
+        k6_device[row] = kernel_device_ms(
+            lambda m=m: push.push_phases(send, peer, m), 20)
+    peer.close()
+    del peer, send, dst
+    emit("icibench", card=smi, ranks=1, runs=ici, launches=counts,
+         grid_full=grid, fixed_cost_ms=fixed,
+         kernels={f"push_phases_{m}": {
+             **times[f"push_phases_{m}"], **work[f"push_phases_{m}"],
+             "copy_ms": library[f"push_phases_{m}"],
+             "device_ms": k6_device[f"push_phases_{m}"]}
+             for m in push.MODES})
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name], "max_abs_err": errs[name],

@@ -67,11 +67,12 @@ def test_solver_cli_all_schedules_json(parts, extra):
 
 
 def test_solver_cli_refuses_unported_option():
-    """Multi-node phase routing is the option still outside the port (the
-    reduced-precision options are in it: tests/test_torch_precision.py)."""
+    """The XLA backend is an option still outside the port (the
+    reduced-precision options and the multi-node phase routing are in it:
+    tests/test_torch_precision.py, tests/test_torch_transport.py)."""
     res = subprocess.run(
         [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "6",
-         "--ny", "6", "--nz", "6", "--device", "cpu", "--slice-size", "2"],
+         "--ny", "6", "--nz", "6", "--device", "cpu", "--backend", "xla"],
         capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
     assert res.returncode != 0
     assert "ROADMAP" in res.stderr
@@ -127,8 +128,7 @@ REFUSALS = [(["--backend", "xla"], "item 10"),
             (["--fake-sends", "256"], "item 11b"),
             (["--fake-tail-frac", "0.5"], "item 11b"),
             (["--pack-force", "gather"], "queue 2"),
-            (["--platform", "cpu"], "queue 2"),
-            (["--slice-size", "2"], "item 12")]
+            (["--platform", "cpu"], "queue 2")]
 
 
 @pytest.mark.parametrize("opt,item", REFUSALS, ids=[o[0] for o, _ in REFUSALS])

@@ -1006,3 +1006,136 @@ def test_cuda_kbench_twins_match_plain(cuda_benches, bp, name, attr):
     _assert_close(got.cpu(), want, got.dtype == torch.bfloat16)
     if name == "stream" or name == "cstream_c":
         assert torch.equal(got.cpu(), want)
+
+
+# --------------------- the peer form of K3 and the push bench's K6, on the card
+
+def _peer_for(model, dtype=torch.float32):
+    from cfd_proxy_tpu_torch.parallel.transport import Peer
+
+    return Peer(model.dsts.numpy(), model.srcs.numpy(), rows=model.rows,
+                s_max=model.s_max, dtype=dtype, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("kernel", ["packed", "gather"])
+def test_cuda_overlap_peer_kernels_match_plain(cuda_model, cuda_gather_model,
+                                               cuda_flux_models, kernel, op,
+                                               wire):
+    """K3's peer form (address table, readiness barrier, arrival flags in
+    one launch, one rank) against its plain version in every form K3 has:
+    packed and gather, gg and flux, f32 and bf16 push.  The sweep within
+    the sweep bound, the pushed buffers bitwise, over three launches on one
+    transport (the epochs advance; recv is overwritten each time)."""
+    if op == "flux":
+        model, state = cuda_flux_models[kernel]
+    else:
+        model, state = cuda_gather_model if kernel == "gather" else cuda_model
+    args = (state["var_T"], *model._operands("interior", state["tables"]))
+    fused, ref = ((bs.sweep_blocks_overlap_gather,
+                   bs.sweep_blocks_overlap_gather_ref) if kernel == "gather"
+                  else (bs.sweep_blocks_overlap, bs.sweep_blocks_overlap_ref))
+    dtype = torch.bfloat16 if wire == "bf16" else torch.float32
+    peer = _peer_for(model, dtype)
+    gen = torch.Generator("cuda").manual_seed(21)
+    P = len(model.parts)
+    attr = "peer_flux_launches" if op == "flux" else "peer_launches"
+    before = getattr(fused, attr)
+    try:
+        for _ in range(3):
+            init = torch.randn((P, model.rows, model.ndev), device="cuda",
+                               generator=gen)
+            send = torch.randn((P, model.nphases, model.rows, model.s_max),
+                               device="cuda", generator=gen).to(dtype)
+            g, r = fused(*args, init.clone(), send, None, None, op=op,
+                         peer=peer)
+            g_ref, r_ref = ref(*args, init.clone(), send, model.dsts,
+                               model.srcs, op=op)
+            torch.cuda.synchronize()
+            _assert_close(g, g_ref, False)
+            assert r.dtype == dtype and torch.equal(r, r_ref)
+        assert getattr(fused, attr) == before + 3
+    finally:
+        peer.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("debug", ["nobar", "nodma"])
+def test_cuda_overlap_peer_debug_modes(cuda_model, debug):
+    """The kernel debug rungs: nobar pushes without the barrier (right on
+    one rank), nodma leaves recv as it was; the sweep is the same."""
+    model, state = cuda_model
+    args = (state["var_T"], *model._operands("interior", state["tables"]))
+    peer = _peer_for(model)
+    gen = torch.Generator("cuda").manual_seed(22)
+    P = len(model.parts)
+    init = torch.randn((P, 24, model.ndev), device="cuda", generator=gen)
+    send = torch.randn((P, model.nphases, 24, model.s_max), device="cuda",
+                       generator=gen)
+    try:
+        g, r = bs.sweep_blocks_overlap(*args, init.clone(), send, None, None,
+                                       peer=peer, debug=debug)
+        g_ref, r_ref = bs.sweep_blocks_overlap_ref(
+            *args, init.clone(), send, model.dsts, model.srcs)
+        torch.cuda.synchronize()
+        _assert_close(g, g_ref, False)
+        want = r_ref if debug == "nobar" else torch.zeros_like(r_ref)
+        assert torch.equal(r, want)
+    finally:
+        peer.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nph", [1, 4])
+@pytest.mark.parametrize("mode", ["full", "nobar", "baronly", "empty"])
+def test_cuda_push_phases_matches_plain(mode, nph):
+    """K6 per mode against its plain version, bitwise, at a payload whose
+    16-byte pieces do not divide among the push blocks evenly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from cfd_proxy_tpu_torch.ops import push
+    from cfd_proxy_tpu_torch.parallel.transport import Loopback
+    from cfd_proxy_tpu_torch.tools.icibench import make_transport
+
+    rows, lanes = 24, 128 * 37
+    peer = make_transport(1, nph, rows, lanes, "cuda", None)
+    plain = Loopback(np.zeros((1, nph), np.int32), "cuda")
+    send = torch.randn((1, nph, rows, lanes), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(23))
+    before = getattr(push.push_phases, mode + "_launches")
+    try:
+        for _ in range(2):
+            got = push.push_phases(send, peer, mode)
+            want = push.push_phases_ref(send, plain, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            send = send + 1.0
+        assert getattr(push.push_phases, mode + "_launches") == before + 2
+    finally:
+        peer.close()
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_one_card():
+    """Two processes on one card map each other's exchange memory: K6 ring
+    and the model's every schedule through the peer transport at W = 2
+    equal the one-process results bitwise (workers in the package)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from cfd_proxy_tpu_torch.parallel import launch, workers
+
+    one = workers.model_outputs(workers.ModelCase(
+        nx=9, ny=8, nz=7, parts=4, device="cuda", model={"bp": 128}))
+    two = launch.spawn(2, workers.model_outputs, (workers.ModelCase(
+        nx=9, ny=8, nz=7, parts=4, device="cuda", backend="gloo",
+        share_device=True, model={"bp": 128, "transport": "peer"}),),
+        timeout_s=300)
+    for s, want in one["outputs"].items():
+        assert np.array_equal(two[0]["outputs"][s], want), s
+        assert np.array_equal(two[1]["outputs"][s], want), s
+    assert two[0]["launches"].get("sweep_blocks_overlap_peer", 0) >= 1
+    ring = launch.spawn(2, workers.push_ring, (2, 24, 128 * 5, "cuda", True),
+                        timeout_s=300)
+    assert all(r["bitwise"] for r in ring)

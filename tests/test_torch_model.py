@@ -131,7 +131,7 @@ def test_iterate_fn_chains_steps(mesh, gvar):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("slice_size", 2),
+    ("profile_dir", "trace_dir"),
 ])
 def test_options_outside_slice_raise(field, value):
     cfg = SolverConfig(device="cpu", **{field: value})
@@ -149,6 +149,9 @@ def test_options_outside_slice_raise(field, value):
     {"src_dtype": "bfloat16"},
     {"halo_dtype": "bfloat16"},
     {"grad_dtype": "bfloat16"},
+    {"slice_size": 2},
+    {"parts": 4, "ranks": 2},
+    {"parts": 4, "ranks": 2, "transport": "dist", "dist_backend": "gloo"},
 ])
 def test_ported_options_accepted(fields):
     """The gather kernel, solver mode, the flux model and the
