@@ -32,7 +32,10 @@
 //   gg   avg = own[v] + 0.5f*d_k[v]          (not 0.5f*(own + src))
 //   flux src_k[v] = own[v] + d_k[v], then the flux terms above unchanged
 //
-// The state var_T and scale stay f32 in every form.
+// scale stays f32 in every form, and so does the state var_T, but for one
+// instance of K1 (sweep_packed.cu): the kernel bench's var16, which reads a
+// bf16 state, widened as it is loaded like every other bf16 operand
+// (own_ref[:].astype(f32) in the reference body).
 // The two formulations differ only in where slot k's source and weights
 // are read, which the `Src` policy of sweep_chunk decides:
 //
@@ -125,6 +128,11 @@ __device__ __forceinline__ float ld(const bf16* p) {
   return __bfloat162float(
       __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
+// int8 (the kernel bench's quantized deltas): a 1-byte read-only load; the
+// int -> float conversion is exact.
+__device__ __forceinline__ float ld(const int8_t* p) {
+  return static_cast<float>(__ldg(p));
+}
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -133,10 +141,10 @@ __device__ __forceinline__ void store(bf16* p, float x) {
 }
 
 // Operands both formulations share; OutT is the output's (and init's)
-// element type.
-template <class OutT>
+// element type, VarT the state's (bf16 in K1's var16 instance only).
+template <class OutT, class VarT = float>
 struct SweepArgs {
-  const float* var_T;       // (P, NV, ndev)
+  const VarT* var_T;        // (P, NV, ndev)
   int64_t ndev;
   const float* scale;       // (P, nb, bp)
   const int32_t* block_ids; // (P, nb)
@@ -180,10 +188,10 @@ struct PackedSrc {
   const WT* slot_w;         // (P, nb, 3, L)
   int64_t L;
 
-  template <class OutT>
+  template <class Args>
   __device__ __forceinline__ SlotPtrs<SrcT, WT> slot(
-      const SweepArgs<OutT>&, int64_t g, int /*k*/, int off, int lane,
-      const float* /*own_blk*/) const {
+      const Args&, int64_t g, int /*k*/, int off, int lane,
+      const void* /*own_blk*/) const {
     const int64_t j = static_cast<int64_t>(off) + lane;
     return {srcs + g * kNV * L + j, L, slot_w + g * 3 * L + j, L};
   }
@@ -220,8 +228,8 @@ inline int64_t sweep_grid(int64_t P, int64_t nb, int bp, int64_t* chunks) {
 // One kThreads-column chunk of one (shard, entry); `blk` in
 // [0, P*nb*chunks).  The early returns are uniform over the CUDA block up
 // to the barrier.
-template <bool kAccumulate, Op kOp, class Src, class OutT>
-__device__ __forceinline__ void sweep_chunk(const SweepArgs<OutT>& a,
+template <bool kAccumulate, Op kOp, class Src, class OutT, class VarT>
+__device__ __forceinline__ void sweep_chunk(const SweepArgs<OutT, VarT>& a,
                                             const Src& s, int64_t blk) {
   constexpr int R = op_rows(kOp);
   __shared__ int s_width[kMaxSlots];
@@ -242,12 +250,12 @@ __device__ __forceinline__ void sweep_chunk(const SweepArgs<OutT>& a,
   const int64_t ndev = a.ndev;
   const int64_t base = static_cast<int64_t>(a.block_ids[g]) * a.bp;
   const int64_t col = base + lane;
-  const float* own_p = a.var_T + shard * kNV * ndev;
+  const VarT* own_p = a.var_T + shard * kNV * ndev;
   OutT* out_p = a.out + shard * R * ndev;
 
   float own[kNV];
 #pragma unroll
-  for (int v = 0; v < kNV; ++v) own[v] = __ldg(own_p + v * ndev + col);
+  for (int v = 0; v < kNV; ++v) own[v] = ld(own_p + v * ndev + col);
 
   float acc[R];
 #pragma unroll

@@ -5,8 +5,10 @@
 // Replaces: cfd_proxy_tpu/ops/blocksweep.py::sweep_blocks, packed branch
 // with `wks` (body _block_compute_packed, its gg body :489-494 and its flux
 // body :495-504), with and without `init`, with src_format "f32" or "bf16d",
-// slot_w f32 or bf16 and out_dtype f32 or bf16.  The per-thread body, its
-// bound, the precisions and the handling of pad entries are in
+// slot_w f32 or bf16 and out_dtype f32 or bf16; and the one form the kernel
+// bench's var16 variant reaches with a bf16 state (own_ref[:].astype(f32),
+// :469): gg, no init, bf16 weights, deltas and output.  The per-thread
+// body, its bound, the precisions and the handling of pad entries are in
 // sweep_common.cuh.
 //
 // Without init the wrapper hands a zero-filled output, so columns of blocks
@@ -34,8 +36,20 @@ sweep_packed_kernel(cfd::SweepArgs<O> a, cfd::PackedSrc<W, S> s) {
   cfd::sweep_chunk<kAccumulate, kOp>(a, s, blockIdx.x);
 }
 
-template <bool kAccumulate, cfd::Op kOp, class W, class S, class O>
-int launch_packed(const float* var_T, int64_t ndev, const void* srcs,
+// K1 on a bf16 state (var16): the same body, the own values widened as
+// they are loaded.  A kernel of its own, so that the f32-state instances
+// keep their names and code.
+__global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
+sweep_packed_v16_kernel(cfd::SweepArgs<cfd::bf16, cfd::bf16> a,
+                        cfd::PackedSrc<cfd::bf16, cfd::bf16> s) {
+  cfd::sweep_chunk<false, cfd::Op::kGG>(a, s, blockIdx.x);
+}
+
+// V: the state's element type; bf16 runs the var16 kernel (W, S and O are
+// then bf16, gg, no init: checked by the entry point).
+template <bool kAccumulate, cfd::Op kOp, class W, class S, class O,
+          class V = float>
+int launch_packed(const void* var_T, int64_t ndev, const void* srcs,
                   const void* slot_w, const float* scale,
                   const int32_t* block_ids, const int32_t* slots, int K,
                   int64_t P, int64_t nb, int64_t L, int bp, void* out,
@@ -46,12 +60,18 @@ int launch_packed(const float* var_T, int64_t ndev, const void* srcs,
   if (!cfd::sweep_args_ok(K, bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cfd::SweepArgs<O> a{var_T, ndev, scale, block_ids, slots, K, nb, bp,
-                            chunks, static_cast<O*>(out)};
+  const cfd::SweepArgs<O, V> a{static_cast<const V*>(var_T), ndev, scale,
+                               block_ids, slots, K, nb, bp, chunks,
+                               static_cast<O*>(out)};
   const cfd::PackedSrc<W, S> s{static_cast<const S*>(srcs),
                                static_cast<const W*>(slot_w), L};
-  sweep_packed_kernel<kAccumulate, kOp, W, S, O>
-      <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
+  if constexpr (std::is_same<V, cfd::bf16>::value) {
+    sweep_packed_v16_kernel
+        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
+  } else {
+    sweep_packed_kernel<kAccumulate, kOp, W, S, O>
+        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -61,17 +81,28 @@ int launch_packed(const float* var_T, int64_t ndev, const void* srcs,
 // on the current device; K <= 64; op as in cfd::op_ok; `out` has
 // cfd::op_rows rows (3*NV gg, NV flux).  accumulate != 0: `out` holds init
 // on entry.  w_bf16 / src_bf16d / out_bf16 != 0: slot_w is bf16, srcs holds
-// bf16 deltas, out (and init) is bf16; else f32.  Launches on `stream`;
-// returns the launch's cudaError_t (0 = success).
-extern "C" int cfd_sweep_packed(const float* var_T, int64_t ndev,
+// bf16 deltas, out (and init) is bf16; else f32.  var_bf16 != 0: var_T is
+// bf16, which only the gg op without init on bf16 weights, deltas and output
+// takes (any other combination is refused before a launch).  Launches on
+// `stream`; returns the launch's cudaError_t (0 = success).
+extern "C" int cfd_sweep_packed(const void* var_T, int64_t ndev,
                                 const void* srcs, const void* slot_w,
                                 const float* scale, const int32_t* block_ids,
                                 const int32_t* slots, int K, int64_t P,
                                 int64_t nb, int64_t L, int bp, int accumulate,
                                 int op, int w_bf16, int src_bf16d,
-                                int out_bf16, void* out,
+                                int out_bf16, int var_bf16, void* out,
                                 cudaStream_t stream) {
   if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
+  if (var_bf16) {
+    if (accumulate || op != 0 || !w_bf16 || !src_bf16d || !out_bf16) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_packed<false, cfd::Op::kGG, cfd::bf16, cfd::bf16, cfd::bf16,
+                         cfd::bf16>(var_T, ndev, srcs, slot_w, scale,
+                                    block_ids, slots, K, P, nb, L, bp, out,
+                                    stream);
+  }
   const bool flags[] = {accumulate != 0, op == 1, w_bf16 != 0,
                         src_bf16d != 0, out_bf16 != 0};
   return cfd::with_flags(flags, [&](auto acc, auto flux, auto w16, auto d16,

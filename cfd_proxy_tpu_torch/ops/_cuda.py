@@ -30,7 +30,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("pack_srcs.cu", "sweep_packed.cu", "sweep_gather.cu",
-           "sweep_overlap.cu", "kbench_twins.cu", "push_bench.cu", "ipc.cu")
+           "sweep_overlap.cu", "kbench_twins.cu", "kbench_rungs.cu",
+           "push_bench.cu", "ipc.cu")
 HEADERS = ("sweep_common.cuh", "push_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -142,9 +143,10 @@ def lib() -> ctypes.CDLL:
     # epoch_ready, epoch_arrive, mode, stream
     peer = [vp, i32, vp, vp, vp, i64, i64, u64, u64, i32, vp]
     # (accumulate,) op (0 gg, 1 flux), then the dtype flags: w_bf16,
-    # (packed: src_bf16d,) out_bf16, and out
+    # (packed: src_bf16d,) out_bf16, (K1 alone: var_bf16,) and out
     for name, args in (
-            ("cfd_sweep_packed", [*sweep, i32, i32, i32, i32, i32, vp, vp]),
+            ("cfd_sweep_packed", [*sweep, i32, i32, i32, i32, i32, i32, vp,
+                                  vp]),
             ("cfd_sweep_overlap", [*sweep, i32, i32, i32, i32, vp, *push]),
             ("cfd_sweep_gather", [*gather, i32, i32, i32, i32, vp, vp]),
             ("cfd_sweep_overlap_gather", [*gather, i32, i32, i32, vp,
@@ -167,7 +169,10 @@ def lib() -> ctypes.CDLL:
             # (stream: bf16,) out, stream
             ("cfd_stream_twin", [*sweep, i32, vp, vp]),
             ("cfd_wsum_twin", [*sweep, vp, vp]),
-            ("cfd_nv7_sweep", [*sweep, vp, vp])):
+            ("cfd_nv7_sweep", [*sweep, vp, vp]),
+            # the bench's rungs: rung (its index in twins.RUNGS), extra
+            # (wsum or i8_scale, else null), out, stream
+            ("cfd_kbench_rung", [*sweep, i32, vp, vp, vp])):
         fn = getattr(L, name)
         fn.restype = ctypes.c_int
         fn.argtypes = args

@@ -24,8 +24,9 @@ then
 
 There is no fallback from one to the other.
 
-Precision.  The state `var_T` and `scale` are f32.  Every wrapper takes the
-reduced-precision options of the reference from its operands' dtypes, f32
+Precision.  The state `var_T` and `scale` are f32 (`sweep_blocks` alone also
+takes a bf16 state, in the one form the kernel bench's var16 variant runs:
+its docstring).  Every wrapper takes the reduced-precision options of the reference from its operands' dtypes, f32
 or bf16: the weights `slot_w` (meta_dtype); the packed sources `srcs`,
 where bf16 means DELTAS src − own (src_format "bf16d", written by
 `pack_srcs(..., src_format="bf16d")`; the gather tables stay f32); the
@@ -40,7 +41,8 @@ instances in a plain integer attribute, `<form><tag>launches`: form "" or
 fused kernel's peer form, "peer_" before both; tag "" for
 f32 operands, else "w16_" (bf16 weights), "d16_" (bf16 deltas) and "o16_"
 (bf16 output), in that order (`sweep_blocks.launches`,
-`sweep_blocks.flux_init_w16_d16_o16_launches`, `pack_srcs.d16_launches`).
+`sweep_blocks.flux_init_w16_d16_o16_launches`, `pack_srcs.d16_launches`);
+`sweep_blocks` on a bf16 state counts in `v16_w16_d16_o16_launches`.
 `launch_counters()` lists them all, so a run can show which bodies its main
 path ran.
 
@@ -83,9 +85,10 @@ def _check_op(op: str) -> int:
     return out_rows(op)
 
 
-def _tag(w16: bool = False, d16: bool = False, o16: bool = False) -> str:
+def _tag(w16: bool = False, d16: bool = False, o16: bool = False,
+         v16: bool = False) -> str:
     """The precision part of a count attribute (module docstring)."""
-    return "w16_" * w16 + "d16_" * d16 + "o16_" * o16
+    return "v16_" * v16 + "w16_" * w16 + "d16_" * d16 + "o16_" * o16
 
 
 # every instance's count attribute: forms × precision tags per wrapper
@@ -103,8 +106,11 @@ def _count(fn, init, op: str, tag: str = "", peer: bool = False) -> None:
     setattr(fn, name, getattr(fn, name) + 1)
 
 
-def _zero_counts(fn, forms, tags) -> None:
-    fn.count_attrs = tuple(f + t + "launches" for f in forms for t in tags)
+def _zero_counts(fn, forms, tags, extra=()) -> None:
+    """Give wrapper fn a zeroed count attribute per form × tag, and per name
+    of `extra`."""
+    fn.count_attrs = (*(f + t + "launches" for f in forms for t in tags),
+                      *(e + "launches" for e in extra))
     for a in fn.count_attrs:
         setattr(fn, a, 0)
 
@@ -374,7 +380,8 @@ def _sweep_plain(var_T, scale, block_ids, slots, init, slot_terms, op,
     nb = block_ids.shape[1]
     rows = 3 * nv if op == "gg" else nv
     bp = scale.shape[-1]
-    own = _block_cols(var_T, block_ids, bp)                 # (P, nb, nv, bp)
+    # a bf16 state is widened first (own_ref[:].astype(f32))
+    own = _block_cols(var_T, block_ids, bp).float()         # (P, nb, nv, bp)
     if init is None:
         acc = torch.zeros((P, nb, rows, bp), dtype=F32, device=var_T.device)
     else:
@@ -397,7 +404,7 @@ def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,
                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of the packed sweep (_block_compute_packed): slot k's
     sources and weights are lanes [off_k, off_k + wks[k]) of the compact
-    tables; bf16 srcs are deltas."""
+    tables; bf16 srcs are deltas; a bf16 var_T is widened where read."""
     return _sweep_plain(
         var_T, scale, block_ids, slots, init,
         lambda k, w, off, own: (srcs[..., off:off + w],
@@ -405,11 +412,12 @@ def sweep_blocks_ref(var_T: torch.Tensor, srcs: torch.Tensor,
         srcs.dtype == BF16, _out_dtype(init, out_dtype))
 
 
-def _check_common(var_T, scale, block_ids, slots, init, P, nb, rows):
+def _check_common(var_T, scale, block_ids, slots, init, P, nb, rows,
+                  var_dtypes=F32):
     """Validate the operands both formulations share; returns (bp, ndev,
     K)."""
     dev = var_T.device
-    _expect(var_T, "var_T", F32, 3, dev)
+    _expect(var_T, "var_T", var_dtypes, 3, dev)
     _expect(scale, "scale", F32, 4, dev)
     _expect(block_ids, "block_ids", torch.int32, 2, dev)
     _expect(slots, "slots", torch.int32, 2, dev)
@@ -431,14 +439,15 @@ def _check_common(var_T, scale, block_ids, slots, init, P, nb, rows):
     return bp, ndev, K
 
 
-def _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init, rows):
+def _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init, rows,
+                 var_dtypes=F32):
     """Validate the packed sweep's operands; returns (P, nb, L, bp, ndev,
     K)."""
     _expect(srcs, "srcs", DTYPES, 4, var_T.device)
     _expect(slot_w, "slot_w", DTYPES, 4, var_T.device)
     P, nb, _, L = srcs.shape
     bp, ndev, K = _check_common(var_T, scale, block_ids, slots, init, P, nb,
-                                rows)
+                                rows, var_dtypes)
     _shape(srcs, "srcs", (P, nb, NV, L))
     _shape(slot_w, "slot_w", (P, nb, 3, L))
     return P, nb, L, bp, ndev, K
@@ -475,11 +484,23 @@ def sweep_blocks(var_T: torch.Tensor, srcs: torch.Tensor,
     init's values, and out_dtype, if given, must be init's.  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(..., packed=True, wks=...,
     init=..., op=..., src_format=..., out_dtype=...)`.  Kernel:
-    csrc/sweep_packed.cu."""
+    csrc/sweep_packed.cu.
+
+    A bf16 var_T (the kernel bench's var16: the deltas were packed against
+    the f32 of that bf16 state) is taken in the one form the bench reaches:
+    op "gg" without init on bf16 weights, bf16 deltas and a bf16 output;
+    any other combination is refused."""
     rows = _check_op(op)
     dims = _check_sweep(var_T, srcs, slot_w, scale, block_ids, slots, init,
-                        rows)
+                        rows, DTYPES)
     odt = _out_dtype(init, out_dtype)
+    v16 = var_T.dtype == BF16
+    check(not v16 or (op == "gg" and init is None
+                      and slot_w.dtype == srcs.dtype == odt == BF16),
+          "sweep_blocks: a bf16 var_T runs op gg without init on bf16 "
+          "slot_w, bf16 delta srcs and out_dtype bf16 only (got op %s, init "
+          "%s, slot_w %s, srcs %s, out %s)", op,
+          None if init is None else "given", slot_w.dtype, srcs.dtype, odt)
     if _device_kind(var_T) == "cpu":
         return sweep_blocks_ref(var_T, srcs, slot_w, scale, block_ids, slots,
                                 init, op, odt)
@@ -493,16 +514,17 @@ def sweep_blocks(var_T: torch.Tensor, srcs: torch.Tensor,
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_packed(
             *_sweep_ptrs(var_T, srcs, slot_w, scale, block_ids, slots, dims),
-            int(init is not None), OPS.index(op), *flags, out.data_ptr(),
-            _stream(dev))
+            int(init is not None), OPS.index(op), *flags, int(v16),
+            out.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks")
-    _count(sweep_blocks, init, op, _tag(*flags))
+    _count(sweep_blocks, init, op, _tag(*flags, v16=v16))
     return out
 
 
 # K1 (gg, zero-filled), K1-init, K1-flux, K1-flux-init, each in every
-# precision
-_zero_counts(sweep_blocks, _SWEEP_FORMS, _PACKED_TAGS)
+# precision, and K1 on a bf16 state in its one form
+_zero_counts(sweep_blocks, _SWEEP_FORMS, _PACKED_TAGS,
+             extra=(_tag(True, True, True, v16=True),))
 
 
 # ---------------------------------------------------------- gather sweep

@@ -28,6 +28,32 @@ arithmetic:
   on 7 variable rows end to end: var_T (P, 7, ndev), srcs (P, nb, 7, L),
   out (P, 21, ndev) — the NV=8 padding dropped.
 
+and the bench's rungs on the prefix tables (csrc/kbench_rungs.cu), each a
+variation of K1's body that changes its arithmetic or its bytes:
+
+- `bso_twin` — K5f, `_bso_kernel(hoist_own)` (:546, through `_bso_fn` :575):
+  the bf16 stack (bf16 deltas δ, bf16 weights, bf16 output) with the weights
+  PRE-HALVED by the host, w′ = bf16(0.5·w), and o2 = own + own:
+      hoist_own False (`bso_fold`):  acc += w′_k⊗(o2 + δ_k)
+      hoist_own True  (`bso_wsum`):  acc += w′_k⊗δ_k, then acc += wsum⊗o2
+  with wsum (P, nb, 3, bp) f32 = 0.5·Σ_k slot_w read once per point.  The
+  fold form is K1's w⊗(own + 0.5·δ) scaled through by two, which is exact:
+  it equals K1-w16-d16-o16 bit for bit while no halved weight is subnormal.
+  The hoisted form applies the own term once: measurement only.
+- `bso_acc3_twin` — K5g, `bso_acc3_kernel` (:614): K1-w16-d16-o16's function
+  with one (NV, bp) accumulator per dimension d, joined at the store.  K1's
+  products in K1's order: bit for bit K1.
+- `i8_sweep` — K5d, `i8_kernel` (:424, through `i8_fn` :446): K1's gg delta
+  body on int8 deltas q with a per-(block, variable) step s =
+  i8_scale[p, b, v, 0]: δ = f32(q)·s, avg = own + 0.5·δ; bf16 weights and
+  output.
+- `flux_fact_twin` — K5h, `cflux_fact_kernel` (:691): the upwind flux
+  factored, f32: udw, uow, a as K1's flux body; cu = 0.5·(udw + a), cg =
+  0.5·(uow − a); acc += cu·own + cg·src.  Algebraically K1-flux.
+- `stream_flux_twin` — K5i, `cstream_flux_kernel` (:743): the flux kernel's
+  stream twin, f32: s1, s2 as the stream twin;
+  out[v] = s1[v]·(s2[0] + s2[1] + s2[2])·scale, NV rows.
+
 The conventions are ops/blocksweep.py's: stacked (P, ...) operands in the
 compact layout with a `slot_table(wks)`; precision taken from the
 operands' dtypes; a CPU tensor runs the plain version beside the wrapper
@@ -37,7 +63,9 @@ columns of blocks the plan does not list, and a pad entry (one that repeats
 its predecessor) is skipped; each instance counts its launches in a plain
 integer attribute (`stream_twin.launches`,
 `stream_twin.w16_d16_o16_launches`, `wsum_twin.launches`,
-`nv7_sweep.launches`), listed by `launch_counters()`.
+`nv7_sweep.launches`, `bso_twin.launches` and `bso_twin.hoist_launches`,
+`bso_acc3_twin.launches`, `i8_sweep.launches`, `flux_fact_twin.launches`,
+`stream_flux_twin.launches`), listed by `launch_counters()`.
 """
 
 from __future__ import annotations
@@ -49,15 +77,22 @@ from cfd_proxy_tpu_torch.ops.blocksweep import BF16, F32, NV
 from cfd_proxy_tpu_torch.utils.errors import check
 
 NV7 = 7     # nv7_sweep's variable rows
+I8 = torch.int8
+SCALE_LANES = 128   # lanes of one (block, variable) row of i8_scale
+# the rungs of csrc/kbench_rungs.cu; the kernel takes one as its index here
+RUNGS = ("fold", "fold_wsum", "acc3", "i8", "flux_fact", "stream_flux")
 
 
-def _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, nv, dtypes):
-    """Validate a twin's operands (K1's layout with nv variable rows);
-    returns (P, nb, L, bp, ndev, K)."""
+def _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, nv, dtypes,
+                w_dtypes=None):
+    """Validate a twin's operands (K1's layout with nv variable rows; srcs
+    of `dtypes`, slot_w of `w_dtypes`, by default the same); returns (P, nb,
+    L, bp, ndev, K)."""
     dev = var_T.device
     bs._expect(var_T, "var_T", F32, 3, dev)
     bs._expect(srcs, "srcs", dtypes, 4, dev)
-    bs._expect(slot_w, "slot_w", dtypes, 4, dev)
+    bs._expect(slot_w, "slot_w", dtypes if w_dtypes is None else w_dtypes,
+               4, dev)
     bs._expect(scale, "scale", F32, 4, dev)
     bs._expect(block_ids, "block_ids", torch.int32, 2, dev)
     bs._expect(slots, "slots", torch.int32, 2, dev)
@@ -223,8 +258,236 @@ def nv7_sweep(var_T: torch.Tensor, srcs: torch.Tensor, slot_w: torch.Tensor,
 bs._zero_counts(nv7_sweep, ("",), ("",))
 
 
+# ------------------------------------- the rungs on the prefix tables
+
+def _rung(fn, rung: str, args: tuple, dims: tuple, rows: int,
+          out_dtype: torch.dtype, extra: torch.Tensor | None = None,
+          tag: str = "") -> torch.Tensor:
+    """Launch rung `rung` of csrc/kbench_rungs.cu for wrapper fn."""
+    return _launch(fn, "cfd_kbench_rung", args, dims, rows, out_dtype,
+                   (RUNGS.index(rung),
+                    None if extra is None else extra.data_ptr()), tag)
+
+
+def _outer(wk: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """w⊗t: weights (P, nb, 3, w) × terms (P, nb, nv, w) → (P, nb, 3·nv, w),
+    row d·nv+v."""
+    P, nb, nv, w = t.shape
+    return (wk[:, :, :, None] * t[:, :, None]).reshape(P, nb, 3 * nv, w)
+
+
+def bso_twin_ref(var_T: torch.Tensor, srcs: torch.Tensor,
+                 slot_w: torch.Tensor, scale: torch.Tensor,
+                 block_ids: torch.Tensor, slots: torch.Tensor,
+                 wsum: torch.Tensor | None = None,
+                 hoist_own: bool = False) -> torch.Tensor:
+    """Plain version of the pre-halved bf16 stack, in the reference's
+    operation order: o2 = own + own; per live slot acc += w′_k⊗(o2 + δ_k),
+    or hoisted acc += w′_k⊗δ_k and once at the end acc += wsum⊗o2; out =
+    bf16(acc·scale)."""
+    bp = scale.shape[-1]
+    own = bs._block_cols(var_T, block_ids, bp)              # (P, nb, NV, bp)
+    o2 = own + own
+    P, nb, nv, _ = own.shape
+    acc = torch.zeros((P, nb, 3 * nv, bp), dtype=F32, device=var_T.device)
+    for w, off in _live_slots(slots):
+        d = srcs[..., off:off + w].float()
+        t = d if hoist_own else o2[..., :w] + d
+        acc[..., :w] += _outer(slot_w[..., off:off + w].float(), t)
+    if hoist_own:
+        acc = acc + _outer(wsum, o2)
+    return bs._store_blocks(acc * scale, block_ids, var_T.shape[2],
+                            out_dtype=BF16)
+
+
+def bso_twin(var_T: torch.Tensor, srcs: torch.Tensor, slot_w: torch.Tensor,
+             scale: torch.Tensor, block_ids: torch.Tensor,
+             slots: torch.Tensor, wsum: torch.Tensor | None = None,
+             hoist_own: bool = False) -> torch.Tensor:
+    """The bf16 stack on pre-halved weights (K5f) → (P, 3·NV, ndev) bf16.
+
+    var_T f32; srcs (P, nb, NV, L) bf16 deltas; slot_w (P, nb, 3, L) bf16,
+    HALVED by the caller (bf16(0.5·w)); the rest as in
+    `blocksweep.sweep_blocks`.  hoist_own False (`launches`): the own term
+    folded into each slot.  hoist_own True (`hoist_launches`): the own term
+    applied once through wsum (P, nb, 3, bp) f32 = 0.5·Σ_k slot_w, which
+    only this form takes.  Kernel: csrc/kbench_rungs.cu."""
+    dims = _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, NV,
+                       BF16)
+    check(hoist_own == (wsum is not None),
+          "bso_twin: wsum goes with hoist_own=True, and only with it")
+    if hoist_own:
+        bs._expect(wsum, "wsum", F32, 4, var_T.device)
+        bs._shape(wsum, "wsum", (dims[0], dims[1], 3, dims[3]))
+    args = (var_T, srcs, slot_w, scale, block_ids, slots)
+    if bs._device_kind(var_T) == "cpu":
+        return bso_twin_ref(*args, wsum, hoist_own)
+    return _rung(bso_twin, "fold_wsum" if hoist_own else "fold", args, dims,
+                 3 * NV, BF16, wsum, "hoist_" * hoist_own)
+
+
+bs._zero_counts(bso_twin, ("",), ("", "hoist_"))
+
+
+def bso_acc3_twin_ref(var_T: torch.Tensor, srcs: torch.Tensor,
+                      slot_w: torch.Tensor, scale: torch.Tensor,
+                      block_ids: torch.Tensor,
+                      slots: torch.Tensor) -> torch.Tensor:
+    """Plain version of the three-accumulator form, in the reference's
+    operation order: per live slot avg = own + 0.5·δ_k, then for each d
+    acc_d += w_k[d]·avg; the three joined as rows d·NV+v; out =
+    bf16(acc·scale)."""
+    bp = scale.shape[-1]
+    own = bs._block_cols(var_T, block_ids, bp)              # (P, nb, NV, bp)
+    accs = [torch.zeros_like(own) for _ in range(3)]
+    for w, off in _live_slots(slots):
+        avg = own[..., :w] + 0.5 * srcs[..., off:off + w].float()
+        wk = slot_w[..., off:off + w].float()
+        for d in range(3):
+            accs[d][..., :w] += wk[:, :, d:d + 1] * avg
+    return bs._store_blocks(torch.cat(accs, dim=2) * scale, block_ids,
+                            var_T.shape[2], out_dtype=BF16)
+
+
+def bso_acc3_twin(var_T: torch.Tensor, srcs: torch.Tensor,
+                  slot_w: torch.Tensor, scale: torch.Tensor,
+                  block_ids: torch.Tensor,
+                  slots: torch.Tensor) -> torch.Tensor:
+    """K1-w16-d16-o16's function with one accumulator set per dimension
+    (K5g) → (P, 3·NV, ndev) bf16; operands as that K1 instance's: bf16
+    deltas and bf16 weights.  Kernel: csrc/kbench_rungs.cu."""
+    dims = _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, NV,
+                       BF16)
+    args = (var_T, srcs, slot_w, scale, block_ids, slots)
+    if bs._device_kind(var_T) == "cpu":
+        return bso_acc3_twin_ref(*args)
+    return _rung(bso_acc3_twin, "acc3", args, dims, 3 * NV, BF16)
+
+
+bs._zero_counts(bso_acc3_twin, ("",), ("",))
+
+
+def i8_sweep_ref(var_T: torch.Tensor, srcs: torch.Tensor,
+                 slot_w: torch.Tensor, scale: torch.Tensor,
+                 block_ids: torch.Tensor, slots: torch.Tensor,
+                 i8_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int8 rung, in the reference's operation order:
+    s = i8_scale[..., :1]; per live slot δ = f32(q_k)·s, avg = own + 0.5·δ,
+    acc += w_k⊗avg; out = bf16(acc·scale)."""
+    bp = scale.shape[-1]
+    own = bs._block_cols(var_T, block_ids, bp)              # (P, nb, NV, bp)
+    P, nb, nv, _ = own.shape
+    acc = torch.zeros((P, nb, 3 * nv, bp), dtype=F32, device=var_T.device)
+    s = i8_scale[..., :1]                                   # (P, nb, NV, 1)
+    for w, off in _live_slots(slots):
+        dk = srcs[..., off:off + w].float() * s
+        avg = own[..., :w] + 0.5 * dk
+        acc[..., :w] += _outer(slot_w[..., off:off + w].float(), avg)
+    return bs._store_blocks(acc * scale, block_ids, var_T.shape[2],
+                            out_dtype=BF16)
+
+
+def i8_sweep(var_T: torch.Tensor, srcs: torch.Tensor, slot_w: torch.Tensor,
+             scale: torch.Tensor, block_ids: torch.Tensor,
+             slots: torch.Tensor,
+             i8_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """K1's gg delta body on int8 deltas (K5d) → (P, 3·NV, ndev) bf16.
+
+    var_T f32; srcs (P, nb, NV, L) int8, the deltas in steps of i8_scale
+    (P, nb, NV, 128) f32, of which lane 0 of each (block, variable) row is
+    read; slot_w (P, nb, 3, L) bf16; the rest as in
+    `blocksweep.sweep_blocks`.  Kernel: csrc/kbench_rungs.cu."""
+    dims = _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, NV, I8,
+                       BF16)
+    check(i8_scale is not None, "i8_sweep: int8 sources need their i8_scale")
+    bs._expect(i8_scale, "i8_scale", F32, 4, var_T.device)
+    bs._shape(i8_scale, "i8_scale", (dims[0], dims[1], NV, SCALE_LANES))
+    args = (var_T, srcs, slot_w, scale, block_ids, slots)
+    if bs._device_kind(var_T) == "cpu":
+        return i8_sweep_ref(*args, i8_scale)
+    return _rung(i8_sweep, "i8", args, dims, 3 * NV, BF16, i8_scale)
+
+
+bs._zero_counts(i8_sweep, ("",), ("",))
+
+
+def flux_fact_twin_ref(var_T: torch.Tensor, srcs: torch.Tensor,
+                       slot_w: torch.Tensor, scale: torch.Tensor,
+                       block_ids: torch.Tensor,
+                       slots: torch.Tensor) -> torch.Tensor:
+    """Plain version of the factored flux, in the reference's operation
+    order: per live slot udw = Σ_d own[d]·w_k[d], uow = Σ_d src_k[d]·w_k[d],
+    a = max(|udw|, |uow|), cu = 0.5·(udw + a), cg = 0.5·(uow − a),
+    acc += cu·own + cg·src_k; out = acc·scale."""
+    bp = scale.shape[-1]
+    own = bs._block_cols(var_T, block_ids, bp)              # (P, nb, NV, bp)
+    acc = torch.zeros_like(own)
+    for w, off in _live_slots(slots):
+        own_k, gat = own[..., :w], srcs[..., off:off + w]
+        wk = slot_w[..., off:off + w]
+        udw = (own_k[:, :, :3] * wk).sum(2, keepdim=True)   # (P, nb, 1, w)
+        uow = (gat[:, :, :3] * wk).sum(2, keepdim=True)
+        a = torch.maximum(udw.abs(), uow.abs())
+        acc[..., :w] += (0.5 * (udw + a)) * own_k + (0.5 * (uow - a)) * gat
+    return bs._store_blocks(acc * scale, block_ids, var_T.shape[2])
+
+
+def flux_fact_twin(var_T: torch.Tensor, srcs: torch.Tensor,
+                   slot_w: torch.Tensor, scale: torch.Tensor,
+                   block_ids: torch.Tensor,
+                   slots: torch.Tensor) -> torch.Tensor:
+    """The factored upwind flux (K5h) → (P, NV, ndev) f32; f32 operands as
+    `blocksweep.sweep_blocks(op="flux")` takes them.  Kernel:
+    csrc/kbench_rungs.cu."""
+    dims = _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, NV, F32)
+    args = (var_T, srcs, slot_w, scale, block_ids, slots)
+    if bs._device_kind(var_T) == "cpu":
+        return flux_fact_twin_ref(*args)
+    return _rung(flux_fact_twin, "flux_fact", args, dims, NV, F32)
+
+
+bs._zero_counts(flux_fact_twin, ("",), ("",))
+
+
+def stream_flux_twin_ref(var_T: torch.Tensor, srcs: torch.Tensor,
+                         slot_w: torch.Tensor, scale: torch.Tensor,
+                         block_ids: torch.Tensor,
+                         slots: torch.Tensor) -> torch.Tensor:
+    """Plain version of the flux stream twin, in the reference's operation
+    order: s1 and s2 as `stream_twin_ref`;
+    (s1·((s2[0] + s2[1]) + s2[2]))·scale."""
+    bp = scale.shape[-1]
+    s1 = bs._block_cols(var_T, block_ids, bp).clone()       # (P, nb, NV, bp)
+    P, nb = s1.shape[:2]
+    s2 = torch.zeros((P, nb, 3, bp), dtype=F32, device=var_T.device)
+    for w, off in _live_slots(slots):
+        s1[..., :w] += srcs[..., off:off + w]
+        s2[..., :w] += slot_w[..., off:off + w]
+    res = s1 * (s2[:, :, 0:1] + s2[:, :, 1:2] + s2[:, :, 2:3])
+    return bs._store_blocks(res * scale, block_ids, var_T.shape[2])
+
+
+def stream_flux_twin(var_T: torch.Tensor, srcs: torch.Tensor,
+                     slot_w: torch.Tensor, scale: torch.Tensor,
+                     block_ids: torch.Tensor,
+                     slots: torch.Tensor) -> torch.Tensor:
+    """The flux kernel's stream twin (K5i) → (P, NV, ndev) f32; f32 operands
+    as `flux_fact_twin`'s.  Kernel: csrc/kbench_rungs.cu."""
+    dims = _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, NV, F32)
+    args = (var_T, srcs, slot_w, scale, block_ids, slots)
+    if bs._device_kind(var_T) == "cpu":
+        return stream_flux_twin_ref(*args)
+    return _rung(stream_flux_twin, "stream_flux", args, dims, NV, F32)
+
+
+bs._zero_counts(stream_flux_twin, ("",), ("",))
+
+
 def launch_counters() -> dict:
     """{instance name: (wrapper, count attribute)} of the twins' kernel
     instances: "stream_twin", "stream_twin_w16_d16_o16", "wsum_twin",
-    "nv7_sweep"."""
-    return bs.launch_counters((stream_twin, wsum_twin, nv7_sweep))
+    "nv7_sweep", "bso_twin", "bso_twin_hoist", "bso_acc3_twin", "i8_sweep",
+    "flux_fact_twin", "stream_flux_twin"."""
+    return bs.launch_counters((stream_twin, wsum_twin, nv7_sweep, bso_twin,
+                               bso_acc3_twin, i8_sweep, flux_fact_twin,
+                               stream_flux_twin))

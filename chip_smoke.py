@@ -42,15 +42,21 @@ faces, nvar 7, random state from a seed):
 - `reduced_flux`: the flux model at one shard with bf16 sources, weights
   and stores, bulk, timed;
 - `kbench`: the kernel bench (`tools/kbench.py`) at its defaults (96³, bp
-  4096), driven through `kbench.main` with `--check` twice: the full-width
-  variants (K1 as prod, flat, bf16src, w16, bf16sw; the twins stream (K5a),
-  wsum (K5b), nv7 (K5c)) and the prefix variants (K1 as compact,
+  4096), driven through `kbench.main` with `--check` three times: the
+  full-width variants (K1 as prod, flat, bf16src, w16, bf16sw; the twins
+  stream (K5a), wsum (K5b), nv7 (K5c)), the prefix variants (K1 as compact,
   compact_bsw, compact_bso, cflux; the stream twin K5e as cstream_c and
-  cstream_bso); then each twin and the two K1 instances only the bench
-  launches (bf16 deltas alone, bf16 weights alone) against their plain
-  versions, timed with their bounds, and the reference's verdict pairs
+  cstream_bso) and the rungs on the prefix tables (K1 on the bf16 state as
+  var16; compact_i8 (K5d), bso_fold and bso_wsum (K5f), bso_acc3 (K5g),
+  cflux_fact (K5h), cstream_flux (K5i)); then each twin, each rung and the
+  three K1 instances only the bench launches (bf16 deltas alone, bf16
+  weights alone, the bf16 state) against their plain versions, timed with
+  their bounds; bso_acc3 and bso_fold against compact_bso bit for bit; the
+  bf16 variants' abs-sum fingerprints summed in f32 (the bench's own sum
+  is a bf16 number, eight bits wide); and the reference's verdict pairs
   (compact/cstream_c, compact_bso/cstream_bso, prod/stream, prod/wsum,
-  prod/nv7) timed in turns.
+  prod/nv7, cflux/cstream_flux, cflux/cflux_fact, compact_bso over
+  bso_fold, bso_wsum, bso_acc3, var16 and compact_i8) timed in turns.
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after, and checked against the f64 golden of its op
@@ -116,13 +122,19 @@ SCHED_TOL_BF16 = 1e-2  # schedules with bf16 stores, relative to max|bulk|
 HBM_BYTES_PER_MS = 3.35e9      # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9          # H100 SXM: 67 TFLOP/s f32 outside tensor cores
 # f32 operations per slot lane (FMA = 2): the sweep ops, and kbench's
-# twins (ops/twins.py): stream 11 adds, wsum 24 FMAs + 3, nv7 gg on 7 rows
+# twins (ops/twins.py): stream 11 adds, wsum 24 FMAs + 3, nv7 gg on 7 rows;
+# its rungs: fold 8 adds + 24 FMAs, fold_wsum 24 FMAs, acc3 and var16 gg's,
+# i8 gg's + 8 multiplies, flux_fact two 3-term dots, |.|, max, cu, cg and
+# 8 × (multiply, FMA, add), stream_flux 11 adds
 OPS_PER_SLOT_LANE = {"gg": 64, "flux": 85, "stream": 11, "wsum": 51,
-                     "nv7": 56}
+                     "nv7": 56, "fold": 56, "fold_wsum": 48, "acc3": 64,
+                     "var16": 64, "i8": 72, "flux_fact": 49,
+                     "stream_flux": 11}
+FLUX_ROWS = ("flux", "flux_fact", "stream_flux")    # ops writing NV rows
 KB_BP = 4096      # kbench's default block size (its mesh is NX³, seed 0)
 KB_ITERS = 100    # kbench's default chained-loop length
-# kbench's two drives, by table layout: variants (each --check'ed where it
-# has gg or flux semantics) and the K1 instances they must launch
+# kbench's three drives: variants (each --check'ed where it has gg or flux
+# semantics) and the K1 instances they must launch
 KB_RUNS = {
     "full": (("prod", "flat", "bf16src", "w16", "bf16sw", "stream", "wsum",
               "nv7"),
@@ -133,6 +145,9 @@ KB_RUNS = {
                ("pack_srcs", "pack_srcs_d16", "sweep_blocks",
                 "sweep_blocks_w16_d16", "sweep_blocks_w16_d16_o16",
                 "sweep_blocks_flux")),
+    "rungs": (("var16", "compact_i8", "bso_fold", "bso_wsum", "bso_acc3",
+               "cflux_fact", "cstream_flux"),
+              ("pack_srcs", "pack_srcs_d16", "sweep_blocks_v16_w16_d16_o16")),
 }
 # the twin rows of the kernel table: (kbench variant, drive, instance)
 TWIN_ROWS = {"stream": ("stream", "full", "stream_twin"),
@@ -140,10 +155,25 @@ TWIN_ROWS = {"stream": ("stream", "full", "stream_twin"),
              "nv7": ("nv7", "full", "nv7_sweep"),
              "cstream_c": ("cstream_c", "prefix", "stream_twin"),
              "cstream_bso": ("cstream_bso", "prefix",
-                             "stream_twin_w16_d16_o16")}
-# the reference's recorded verdicts (kbench.py docstring), as K1 / twin
+                             "stream_twin_w16_d16_o16"),
+             "compact_i8": ("compact_i8", "rungs", "i8_sweep"),
+             "bso_fold": ("bso_fold", "rungs", "bso_twin"),
+             "bso_wsum": ("bso_wsum", "rungs", "bso_twin_hoist"),
+             "bso_acc3": ("bso_acc3", "rungs", "bso_acc3_twin"),
+             "cflux_fact": ("cflux_fact", "rungs", "flux_fact_twin"),
+             "cstream_flux": ("cstream_flux", "rungs", "stream_flux_twin")}
+# the reference's recorded verdicts (kbench.py docstring), as A / B
 KB_VERDICTS = (("compact", "cstream_c"), ("compact_bso", "cstream_bso"),
-               ("prod", "stream"), ("prod", "wsum"), ("prod", "nv7"))
+               ("prod", "stream"), ("prod", "wsum"), ("prod", "nv7"),
+               ("cflux", "cstream_flux"), ("cflux", "cflux_fact"),
+               ("compact_bso", "bso_fold"), ("compact_bso", "bso_wsum"),
+               ("compact_bso", "bso_acc3"), ("compact_bso", "var16"),
+               ("compact_bso", "compact_i8"))
+# the variants whose output K1-w16-d16-o16's (compact_bso) equals bitwise
+KB_BITWISE = ("bso_acc3", "bso_fold")
+# the bf16 variants whose fingerprint is also summed in f32
+KB_BF16 = ("compact_bso", "var16", "compact_i8", "bso_fold", "bso_wsum",
+           "bso_acc3")
 KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "pack_srcs": ("cuda", "cfd_proxy_tpu_torch/csrc/pack_srcs.cu",
                   "cfd_proxy_tpu/ops/blocksweep.py:940"),
@@ -229,6 +259,24 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
                   "cfd_proxy_tpu/tools/kbench.py:476"),
     "cstream_bso": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_twins.cu",
                     "cfd_proxy_tpu/tools/kbench.py:476"),
+    # kbench's rungs on the prefix tables: K1 on the bf16 state (var16, the
+    # own upcast :469), K5d compact_i8, K5f bso_fold and bso_wsum, K5g
+    # bso_acc3, K5h cflux_fact, K5i cstream_flux
+    "sweep_blocks_v16_w16_d16_o16": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_packed.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:469"),
+    "compact_i8": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_rungs.cu",
+                   "cfd_proxy_tpu/tools/kbench.py:424"),
+    "bso_fold": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_rungs.cu",
+                 "cfd_proxy_tpu/tools/kbench.py:546"),
+    "bso_wsum": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_rungs.cu",
+                 "cfd_proxy_tpu/tools/kbench.py:546"),
+    "bso_acc3": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_rungs.cu",
+                 "cfd_proxy_tpu/tools/kbench.py:614"),
+    "cflux_fact": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_rungs.cu",
+                   "cfd_proxy_tpu/tools/kbench.py:691"),
+    "cstream_flux": ("cuda", "cfd_proxy_tpu_torch/csrc/kbench_rungs.cu",
+                     "cfd_proxy_tpu/tools/kbench.py:743"),
 }
 # K3's peer form (address table, readiness barrier :783-789, arrival waits
 # :796-801) and K6, the push bench's kernel, one row per mode
@@ -325,11 +373,14 @@ def bound(moved: int, ops: int) -> dict:
 
 
 def sweep_bound(op: str, args, gather: bool, init: bool = False,
-                push=None, out_bytes: int = 4) -> dict:
+                push=None, out_bytes: int = 4, extra: str = "") -> dict:
     """Bound of one sweep call on args = (var_T, table, plan operands...),
     counting only what the call touches, each operand at its stored width
-    (bf16 weights, deltas and outputs 2 bytes; out_bytes: the output's).  The listed entries (not a pad
-    entry, which repeats its predecessor and is skipped) read their own
+    (bf16 weights, deltas, outputs and state 2 bytes, int8 deltas 1;
+    out_bytes: the output's; extra: "wsum", three more f32 per listed
+    column, or "i8_scale", NV f32 per listed entry).  The listed entries
+    (not a pad entry, which repeats its predecessor and is skipped) read
+    their own
     columns of var_T and scale, and per slot k the table lanes [0, wks[k]):
     packed, sources and weights; gathered, the W-index and weights, plus
     each ext column a live lane names (a source in the block's own columns
@@ -350,7 +401,9 @@ def sweep_bound(op: str, args, gather: bool, init: bool = False,
     widths = slots[0].long()
     lanes = entries * int(widths.sum())
     cols = entries * bp
-    moved = cols * (nv + 1) * 4 + nbytes(block_ids, slots)   # own, scale
+    moved = (cols * (nv * var_T.element_size() + 4)          # own, scale
+             + nbytes(block_ids, slots))
+    moved += {"": 0, "wsum": cols * 12, "i8_scale": entries * nv * 4}[extra]
     w_bytes = plan[-4].element_size()                        # slot_w
     if gather:        # slot_idx (i32) and slot_w (3 weights) per live lane
         idx = plan[0][first].long()                        # (entries, K, bp)
@@ -362,7 +415,7 @@ def sweep_bound(op: str, args, gather: bool, init: bool = False,
         moved += lanes * (4 + 3 * w_bytes) + n_ext * nv * 4
     else:             # sources (NV values or deltas) and 3 weights per lane
         moved += lanes * (nv * tbl.element_size() + 3 * w_bytes)
-    rows = nv if op == "flux" else 3 * nv
+    rows = nv if op in FLUX_ROWS else 3 * nv
     moved += (2 * cols if init else P * ndev) * rows * out_bytes
     if push is not None:
         moved += 2 * nbytes(push)
@@ -1550,7 +1603,7 @@ def main() -> int:
          kernels=kernel_summary(["sweep_blocks_flux_w16_d16_o16"]))
     del state, fm, k1f
 
-    # ---- kbench: its two drives through kbench.main, each counted and
+    # ---- kbench: its three drives through kbench.main, each counted and
     # --check'ed against the golden (its own mesh: NX³, seed 0 — gmesh)
     kb_runs = {}
     for drive, (names, k1_names) in KB_RUNS.items():
@@ -1583,8 +1636,8 @@ def main() -> int:
         kb_runs[drive] = {"seconds": seconds, "output": out_lines,
                           "launches": counts, "twin_launches": twin_counts}
 
-    # the same tables (kbench's plan on gmesh), each twin and the K1
-    # instances only kbench launches against their plain versions
+    # the same tables (kbench's plan on gmesh), each twin, each rung and
+    # the K1 instances only kbench launches against their plain versions
     t0 = time.perf_counter()
     benches = kbench.make_benches(gmesh, bp=KB_BP, device=dev)
     names = [n for ns, _ in KB_RUNS.values() for n in ns]
@@ -1594,23 +1647,59 @@ def main() -> int:
     def operands(t):
         return t["srcs"], t["slot_w"], t["scale"], t["block_ids"], t["slots"]
 
+    def plain_of(ref, extra="", **kw):
+        """A row's plain version as a function of (var_T, tables)."""
+        return lambda v, t: ref(v, *operands(t),
+                                *((t[extra],) if extra else ()), **kw)
+
+    o16 = {"out_dtype": torch.bfloat16}
     kb_plain = {
-        "stream": twins.stream_twin_ref, "cstream_c": twins.stream_twin_ref,
-        "cstream_bso": lambda *a: twins.stream_twin_ref(
-            *a, out_dtype=torch.bfloat16),
-        "wsum": twins.wsum_twin_ref, "nv7": twins.nv7_sweep_ref,
-        "sweep_blocks_d16": bs.sweep_blocks_ref,
-        "sweep_blocks_w16": bs.sweep_blocks_ref}
+        "stream": plain_of(twins.stream_twin_ref),
+        "cstream_c": plain_of(twins.stream_twin_ref),
+        "cstream_bso": plain_of(twins.stream_twin_ref, **o16),
+        "wsum": plain_of(twins.wsum_twin_ref),
+        "nv7": plain_of(twins.nv7_sweep_ref),
+        "sweep_blocks_d16": plain_of(bs.sweep_blocks_ref),
+        "sweep_blocks_w16": plain_of(bs.sweep_blocks_ref),
+        "sweep_blocks_v16_w16_d16_o16": plain_of(bs.sweep_blocks_ref, **o16),
+        "compact_i8": plain_of(twins.i8_sweep_ref, "i8_scale"),
+        "bso_fold": plain_of(twins.bso_twin_ref),
+        "bso_wsum": plain_of(twins.bso_twin_ref, "wsum", hoist_own=True),
+        "bso_acc3": plain_of(twins.bso_acc3_twin_ref),
+        "cflux_fact": plain_of(twins.flux_fact_twin_ref),
+        "cstream_flux": plain_of(twins.stream_flux_twin_ref)}
     kb_variant = {**{r: v for r, (v, _, _) in TWIN_ROWS.items()},
-                  "sweep_blocks_d16": "bf16src", "sweep_blocks_w16": "w16"}
+                  "sweep_blocks_d16": "bf16src", "sweep_blocks_w16": "w16",
+                  "sweep_blocks_v16_w16_d16_o16": "var16"}
+    kb_extra = {"bso_wsum": "wsum", "compact_i8": "i8_scale"}
     for row, name in kb_variant.items():
         fn, v, t = table[name]
         compare_and_time(row, lambda i: fn(v, t),
-                         lambda i: kb_plain[row](v, *operands(t)))
+                         lambda i: kb_plain[row](v, t))
         op = kbench.VARIANTS[name][4]
         out_b = 2 if kbench.VARIANTS[name][3] == torch.bfloat16 else 4
         work[row] = sweep_bound(op, (v, *operands(t)), gather=False,
-                                out_bytes=out_b)
+                                out_bytes=out_b, extra=kb_extra.get(row, ""))
+    # K5g and K5f's fold form add K1-w16-d16-o16's products in its order
+    kb_out = {n: table[n][0](*table[n][1:]) for n in KB_BF16}
+    for n in KB_BITWISE:
+        differ = int((kb_out[n] != kb_out["compact_bso"]).sum())
+        if differ:
+            fail(f"kbench: {n} differs from compact_bso at {differ} "
+                 f"elements (expected bit for bit)")
+    # the bf16 variants' fingerprints summed in f32, against the f64 golden
+    # of the model paths' state (the bench's own sum is rounded to bf16)
+    gold_sum = float(np.abs(ref).sum())
+    fingerprints = {n: abs(float(o.float().abs().sum()) - gold_sum) / gold_sum
+                    for n, o in kb_out.items()}
+    # the bench loop's chained update v + 1e-30·g[:, :NV] on the f32 state
+    # and on var16's bf16 state: the part of a paired ratio of the bench
+    # that is not the kernel's
+    g16 = kb_out["compact_bso"]
+    update_ms = {
+        k: cuda_ms(lambda v=table[n][1]: v + 1e-30 * g16[:, :v.shape[1]], 50)
+        for k, n in (("f32_state", "compact_bso"), ("bf16_state", "var16"))}
+    del kb_out, g16
     # the verdict pairs in turns (A, B, B, A), CUDA-event means of 50 calls
     verdicts = {}
     for a, b in KB_VERDICTS:
@@ -1624,6 +1713,8 @@ def main() -> int:
     emit("kbench", card=smi, bp=KB_BP, nblocks=b0.plan.nblocks,
          kslots=b0.plan.kslots, wks=list(b0.wks["prefix"]),
          bench_seconds=t_bench, runs=kb_runs, verdicts=verdicts,
+         bitwise_compact_bso=list(KB_BITWISE),
+         fingerprint_rel_f32_sum=fingerprints, chained_update_ms=update_ms,
          kernels=kernel_summary(list(kb_variant)))
     del benches, table
 

@@ -20,8 +20,12 @@ kernel name).  Then:
   at bp 4096 on the card;
 - the port's `--check` fingerprints equal the JAX kbench's printed ones to
   1e-6 relative, for the K1 variants and nv7;
-- `--paired` reports the median ratio; each variant not ported yet is
-  refused by name.
+- `--paired` reports the median ratio; no variant of the reference's table
+  is refused (`REFUSED` is empty), unknown names are.
+
+The rungs on the prefix tables (var16, compact_i8, bso_*, cflux_fact,
+cstream_flux) are held the same way in tests/test_torch_kbench_rungs.py,
+through `capture_jax_kernels` here.
 """
 
 import re
@@ -69,11 +73,13 @@ def _compact(a) -> torch.Tensor:
     return t[None].contiguous()
 
 
-@pytest.fixture(scope="module")
-def jax_kernels():
-    """variant → (captured inputs, captured output) of its twin kernel's
-    first call in a JAX kbench run (its state at the start of the chained
-    loop)."""
+def capture_jax_kernels(cases: dict) -> dict:
+    """{key: (variant, kernel name, bp)} → {key: (captured inputs, captured
+    output)} of that kernel's first call in a JAX kbench run on the variant
+    alone (its state at the start of the chained loop).  Kernels of the
+    same name in one run (the source pack's and the sweep's are both
+    `kernel`) are told apart by their operand count: the sweeps and twins
+    take five or six."""
     import jax
     from jax.experimental import pallas as pl
 
@@ -82,7 +88,7 @@ def jax_kernels():
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         orig = pl.pallas_call
-        for name, (kernel, bp) in TWINS.items():
+        for key, (name, kernel, bp) in cases.items():
             seen = {}
 
             def recording(kern, *a, **kw):
@@ -90,9 +96,10 @@ def jax_kernels():
 
                 def call(*args):
                     res = f(*args)
-                    seen.setdefault(getattr(kern, "__name__", ""),
-                                    ([np.array(x) for x in args],
-                                     np.array(res)))
+                    if len(args) >= 5:
+                        seen.setdefault(getattr(kern, "__name__", ""),
+                                        ([np.array(x) for x in args],
+                                         np.array(res)))
                     return res
 
                 return call
@@ -102,8 +109,14 @@ def jax_kernels():
                 rc = jax_kbench.main(["--nx", str(NX), "--bp", str(bp),
                                       "--iters", "1", "--variants", name])
             assert rc == 0
-            out[name] = seen[kernel]
+            out[key] = seen[kernel]
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_kernels():
+    """variant → (captured inputs, captured output) of its twin kernel."""
+    return capture_jax_kernels({n: (n, *kb) for n, kb in TWINS.items()})
 
 
 @pytest.fixture(scope="module")
@@ -201,11 +214,24 @@ def test_bp_alt_variants(capsys):
     assert set(_fingerprints(out)) == {"prod_alt", "compact_bsw_alt"}
 
 
-@pytest.mark.parametrize("name", sorted(kbench.REFUSED))
-def test_unported_variants_refused_by_name(name):
-    with pytest.raises(CheckError, match=name):
-        kbench.main(["--nx", str(NX), "--variants", f"prod,{name}",
-                     "--device", "cpu"])
+def test_unported_variants_refused_by_name():
+    """No variant is left to refuse: every name of the reference's variant
+    table (and its *_alt names) is one the port runs."""
+    import inspect
+
+    from cfd_proxy_tpu.tools import kbench as jax_kbench
+
+    assert kbench.REFUSED == {}
+    src = inspect.getsource(jax_kbench.main)
+    table = src[src.index("    variants = {"):]
+    names = set(re.findall(r'^        "(\w+)": \(', table[:table.index("}")],
+                           re.M))
+    alts = set(re.findall(r'variants\["(\w+)"\] = ', src))
+    assert len(names) == 21 and "var16" in names and len(alts) == 4
+    assert names == set(kbench.VARIANTS)
+    assert alts == {a + "_alt" for a in kbench.ALT}
+    kbench.check_names(sorted(names))
+    kbench.check_names(sorted(alts), bp_alt=256)
 
 
 def test_unknown_and_alt_without_bp_alt_refused():

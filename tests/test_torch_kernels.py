@@ -967,7 +967,11 @@ def test_cuda_bf16_push_on_f32_instances(cuda_model, cuda_gather_model,
 # ------------------------------------------------ kbench's twins, on the card
 
 TWINS = [("stream", "launches"), ("wsum", "launches"), ("nv7", "launches"),
-         ("cstream_c", "launches"), ("cstream_bso", "w16_d16_o16_launches")]
+         ("cstream_c", "launches"), ("cstream_bso", "w16_d16_o16_launches"),
+         ("bso_fold", "launches"), ("bso_wsum", "hoist_launches"),
+         ("bso_acc3", "launches"), ("compact_i8", "launches"),
+         ("cflux_fact", "launches"), ("cstream_flux", "launches"),
+         ("var16", "v16_w16_d16_o16_launches")]
 
 
 @pytest.fixture(scope="module")
@@ -986,26 +990,76 @@ def cuda_benches(mesh):
 @pytest.mark.parametrize("bp", [128, 256])
 @pytest.mark.parametrize("name,attr", TWINS)
 def test_cuda_kbench_twins_match_plain(cuda_benches, bp, name, attr):
-    """Each twin instance (K5a/K5e f32 and bf16, K5b, K5c) against its plain
-    version on the same tables, counted once: f32 outputs within the sweep
-    bound (the stream body has nothing to contract, so bitwise), the bf16
-    output within one bf16 ulp."""
+    """Each twin instance (K5a/K5e f32 and bf16, K5b, K5c, the rungs K5d,
+    K5f in both forms, K5g, K5h, K5i) and K1 on the bf16 state (var16, held
+    to `sweep_blocks_ref`) against its plain version on the same tables,
+    counted once: f32 outputs within the sweep bound (the stream bodies have
+    nothing to contract, so bitwise), bf16 outputs within one bf16 ulp."""
     from cfd_proxy_tpu_torch.ops import twins
     from cfd_proxy_tpu_torch.tools import kbench
 
     fn, v, t = kbench.variant_table(cuda_benches[bp], [name])[name]
+    kind = kbench.VARIANTS[name][4]
     wrapper = {"stream": twins.stream_twin, "wsum": twins.wsum_twin,
-               "nv7": twins.nv7_sweep}[kbench.VARIANTS[name][4]]
+               "nv7": twins.nv7_sweep, "fold": twins.bso_twin,
+               "fold_wsum": twins.bso_twin, "acc3": twins.bso_acc3_twin,
+               "i8": twins.i8_sweep, "flux_fact": twins.flux_fact_twin,
+               "stream_flux": twins.stream_flux_twin,
+               "var16": bs.sweep_blocks}[kind]
     before = getattr(wrapper, attr)
     got = fn(v, t)
     torch.cuda.synchronize()
     assert getattr(wrapper, attr) == before + 1
     want = fn(v.cpu(), {k: x.cpu() for k, x in t.items()})    # plain version
-    rows = 21 if name == "nv7" else 24
+    rows = {"nv7": 21, "flux_fact": 8, "stream_flux": 8}.get(kind, 24)
     assert got.shape == want.shape == (1, rows, v.shape[2])
+    assert got.dtype == want.dtype == kbench.VARIANTS[name][3]
     _assert_close(got.cpu(), want, got.dtype == torch.bfloat16)
-    if name == "stream" or name == "cstream_c":
+    if name in ("stream", "cstream_c", "cstream_flux"):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bp", [128, 256])
+@pytest.mark.parametrize("name", ["bso_acc3", "bso_fold"])
+def test_cuda_rungs_equal_compact_bso_bitwise(cuda_benches, bp, name):
+    """On the card too: three accumulator sets (K5g) and the pre-halved
+    weights (K5f, fold form) give K1-w16-d16-o16's output bit for bit (the
+    same products, contracted into the same multiply-adds)."""
+    from cfd_proxy_tpu_torch.tools import kbench
+
+    table = kbench.variant_table(cuda_benches[bp], [name, "compact_bso"])
+    (fn, v, t), (ref_fn, ref_v, ref_t) = table[name], table["compact_bso"]
+    before = bs.sweep_blocks.w16_d16_o16_launches
+    got, want = fn(v, t), ref_fn(ref_v, ref_t)
+    torch.cuda.synchronize()
+    assert bs.sweep_blocks.w16_d16_o16_launches == before + 1
+    assert float(want.float().abs().max()) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32_weights", "flux", "init"])
+def test_cuda_bf16_state_refused_outside_its_form(cuda_benches, case):
+    """A bf16 var_T on the card launches K1's one bf16-state instance or
+    raises before a launch: nothing else is instantiated."""
+    from cfd_proxy_tpu_torch.tools import kbench
+
+    _, v, t = kbench.variant_table(cuda_benches[128], ["var16"])["var16"]
+    o = [t["srcs"], t["slot_w"], t["scale"], t["block_ids"], t["slots"]]
+    before = {a: getattr(bs.sweep_blocks, a)
+              for a in bs.sweep_blocks.count_attrs}
+    with pytest.raises(CheckError, match="bf16 var_T"):
+        if case == "f32_weights":
+            o[1] = o[1].float()
+            bs.sweep_blocks(v, *o, out_dtype=torch.bfloat16)
+        elif case == "flux":
+            bs.sweep_blocks(v, *o, op="flux", out_dtype=torch.bfloat16)
+        else:
+            bs.sweep_blocks(v, *o, init=torch.zeros(
+                (1, 24, v.shape[2]), dtype=torch.bfloat16, device="cuda"))
+    assert before == {a: getattr(bs.sweep_blocks, a)
+                      for a in bs.sweep_blocks.count_attrs}
 
 
 # --------------------- the peer form of K3 and the push bench's K6, on the card
