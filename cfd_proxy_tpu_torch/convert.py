@@ -24,7 +24,7 @@ import torch
 
 from cfd_proxy_tpu_torch.models.gradients import CLASSES
 from cfd_proxy_tpu_torch.ops.plan import (BlockPlan, compact_slot_w,
-                                          compact_src_cols)
+                                          compact_src_cols, compact_widx)
 from cfd_proxy_tpu_torch.utils.errors import check
 
 
@@ -33,9 +33,10 @@ def _class_arrays(model, cls: str) -> dict:
     model's kernel (models/gradients.py CLASS_KEYS).
 
     Gather: the reference's rectangular `slot_idx`, `slot_w` and `ext_idx`
-    as they are.  Packed: the compact `src_cols` are derived from the
-    reference's `slot_idx`, `ext_idx`, `block_ids` and `ep`
-    (ops/plan.py::compact_src_cols); with kcompact off the reference keeps
+    as they are.  Packed: the compact `src_cols` and `widx` are derived
+    from the reference's `slot_idx`, `ext_idx`, `block_ids` and `ep`
+    (ops/plan.py::compact_src_cols, compact_widx), and `ext_idx` is carried
+    as it is; with kcompact off the reference keeps
     rectangular tables, which the port stores as the compact layout with
     every slot at full width."""
     pa = {k: np.asarray(v) for k, v in model._plans_dev[cls].items()}
@@ -60,16 +61,17 @@ def _class_arrays(model, cls: str) -> dict:
                 "ext_idx": np.ascontiguousarray(pa["ext_idx"], np.int32)}
     if slot_w.ndim == 5:                        # rectangular (P, nb, K, 3, bp)
         slot_w = compact_slot_w(slot_w, wks)
-    # compact_src_cols reads block_ids, slot_idx, ext_idx and ep only; the
-    # rectangular weights are not rebuilt for it
-    src_cols = np.stack([
-        compact_src_cols(BlockPlan(
-            npoint_dev=model.layout.ndev, bp=bp, ep=ep, kslots=ks,
-            nblocks=nb, block_ids=pa["block_ids"][d],
-            slot_idx=pa["slot_idx"][d], slot_w=None,
-            ext_idx=pa["ext_idx"][d], scale=None), wks)
-        for d in range(len(model.parts))])
-    return {**common, "src_cols": src_cols,
+    # compact_src_cols and compact_widx read block_ids, slot_idx, ext_idx
+    # and ep only; the rectangular weights are not rebuilt for them
+    plans = [BlockPlan(
+        npoint_dev=model.layout.ndev, bp=bp, ep=ep, kslots=ks, nblocks=nb,
+        block_ids=pa["block_ids"][d], slot_idx=pa["slot_idx"][d], slot_w=None,
+        ext_idx=pa["ext_idx"][d], scale=None)
+        for d in range(len(model.parts))]
+    return {**common,
+            "src_cols": np.stack([compact_src_cols(pl, wks) for pl in plans]),
+            "widx": np.stack([compact_widx(pl, wks) for pl in plans]),
+            "ext_idx": np.ascontiguousarray(pa["ext_idx"], np.int32),
             "slot_w": _weights(slot_w, bf16)}
 
 

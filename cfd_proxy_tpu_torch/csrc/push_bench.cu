@@ -21,7 +21,10 @@
 // Bound: memory.  Each phase reads and writes S bytes; at the smallest
 // payloads the launch and the flag round trips are the whole cost, which is
 // what the modes measure.  Design: push_common.cuh (at most kPeerPushBlocks
-// blocks, each striding over its buffer with four 16-byte loads in flight).
+// blocks, each striding over its buffer with four 16-byte loads in flight;
+// one system-scope fence per block; waits that poll before they sleep).
+// PERF.md section 6 has its times per mode beside Tensor.copy_'s, and
+// those of a bulk-copy ring that was measured and not kept.
 
 #include "push_common.cuh"
 
@@ -56,4 +59,18 @@ extern "C" int cfd_push_phases(const void* sendbufs, int64_t P, int64_t nph,
   push_phases_kernel<<<static_cast<unsigned>(1 + p.blocks),
                        cfd::kPushThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K6's registers and local bytes per thread, static shared bytes and
+// resident blocks per SM, into out[0..4] (as cfd_overlap_peer_info).
+// Returns the cudaError_t.
+extern "C" int cfd_push_phases_info(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, push_phases_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 3, push_phases_kernel, cfd::kPushThreads, 0));
 }

@@ -36,8 +36,9 @@
 //      every local (p, k): "my recv[p, k] is free" — everything that read it
 //      was enqueued before this launch on the same stream;
 //   2. a PUSH block of (p, k) waits until ready[p, k] >= e_r, copies its
-//      share of sendbufs[p, k] to the destination, fences at system scope,
-//      and adds 1 to the destination's arrive word;
+//      share of sendbufs[p, k] to the destination, meets at a block
+//      barrier, and its thread 0 fences once at system scope and adds 1 to
+//      the destination's arrive word;
 //   3. the signal block and every push block draw an exit ticket as their
 //      last act; the one that draws the LAST ticket waits until every local
 //      arrive[p, k] >= e_a * chunks, so when the launch has ended every
@@ -49,9 +50,21 @@
 //      fused kernel and added 40 B of spills on an H100.)
 //
 // The counters only grow (never reset), so no step races a reset.  Signals
-// are red.release.sys, waits ld.acquire.sys: ordinary stores made before a
-// signal (after __threadfence_system and a block barrier) are visible to
-// whoever has seen the signal, in this process or another.
+// are red.release.sys, waits ld.acquire.sys: the block's ordinary stores,
+// ordered before the signalling thread by the block barrier and made
+// visible by its one __threadfence_system (as a grid barrier orders a
+// block's stores), are visible to whoever has seen the signal, in this
+// process or another.  A wait polls kSpinPolls times before it sleeps, and
+// then sleeps at most kSleepMaxNs between polls, so a block oversleeps a
+// signal by well under 1 us.
+//
+// The copy.  Push blocks stride over their buffer with four 16-byte loads
+// in flight per thread (copy_share), at most kPeerPushBlocks blocks: about
+// 2 MB in flight, 64 % of the copy bound at 4 x 32 MB on an H100 (700 W),
+// against Tensor.copy_'s 87 %.  More in flight costs the fused kernel: a
+// TMA bulk-copy ring per push block and eight loads per thread both grew
+// the sweep body's spills (72 -> 104 B) and K3-peer's time by up to 29 %,
+// though the ring made K6 alone 6-7 % faster (PERF.md section 6).
 //
 // Why no launch can deadlock on itself (one rank, where signaller and waiter
 // are blocks of the same grid).  Only two kinds of block wait.  A push block
@@ -81,6 +94,8 @@ constexpr int64_t kPushPiece = 16;           // bytes per store (uint4)
 constexpr int64_t kPushMinPieces = kPushThreads * 4;   // least share a block
 constexpr int64_t kPeerPushBlocks = 264;     // push blocks per launch, at most
 constexpr uint64_t kSpinLimitNs = 20ull * 1000 * 1000 * 1000;
+constexpr int kSpinPolls = 64;               // polls of a wait before it sleeps
+constexpr unsigned kSleepMaxNs = 128;        // its longest sleep between polls
 
 // launch modes (bit set): the reference's debug rungs that are kernel modes
 enum : int {
@@ -133,15 +148,19 @@ __device__ __forceinline__ uint64_t global_timer_ns() {
   return t;
 }
 
-// Wait (one thread) until *word >= target; traps past kSpinLimitNs.
+// Wait (one thread) until *word >= target: kSpinPolls polls, then polls
+// between sleeps doubling from 16 ns to kSleepMaxNs; traps past
+// kSpinLimitNs.
 __device__ __forceinline__ void spin_until(const uint64_t* word,
                                            uint64_t target) {
   if (load_acquire(word) >= target) return;
   const uint64_t t0 = global_timer_ns();
-  unsigned ns = 32;
-  while (load_acquire(word) < target) {
-    __nanosleep(ns);
-    if (ns < 1024) ns *= 2;
+  unsigned ns = 16;
+  for (int polls = 0; load_acquire(word) < target; ++polls) {
+    if (polls >= kSpinPolls) {
+      __nanosleep(ns);
+      if (ns < kSleepMaxNs) ns *= 2;
+    }
     if (global_timer_ns() - t0 > kSpinLimitNs) __trap();
   }
 }
@@ -191,9 +210,9 @@ __device__ __forceinline__ void peer_push_block(const PeerPush& p,
   }
   copy_share(src, reinterpret_cast<uint4*>(p.table[3 * pk]), p.seg, c,
              p.chunks);
-  __threadfence_system();
   __syncthreads();
   if (threadIdx.x == 0) {
+    __threadfence_system();
     signal_add(reinterpret_cast<uint64_t*>(p.table[3 * pk + 1]));
   }
 }

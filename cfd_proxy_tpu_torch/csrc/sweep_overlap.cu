@@ -310,3 +310,38 @@ extern "C" int cfd_sweep_overlap_gather_peer(
     return launch_overlap_peer<kOp>(a, P, s, o, stream);
   });
 }
+
+// Registers and local bytes per thread (spills and stack), static shared
+// bytes and resident blocks per SM of the gg peer instance (packed, or
+// gather) with the given dtype flags, into out[0..4].  Returns the
+// cudaError_t.
+extern "C" int cfd_overlap_peer_info(int gather, int w_bf16, int src_bf16d,
+                                     int out_bf16, int* out) {
+  auto info = [out](auto kernel) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+    out[2] = static_cast<int>(a.sharedSizeBytes);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 3, kernel, cfd::kThreads, 0));
+  };
+  if (gather) {
+    const bool f[] = {w_bf16 != 0, out_bf16 != 0};
+    return cfd::with_flags(f, [&](auto w16, auto o16) {
+      using W = cfd::Elt<decltype(w16)::value>;
+      using O = cfd::Elt<decltype(o16)::value>;
+      return info(
+          sweep_overlap_peer_kernel<cfd::Op::kGG, cfd::GatherSrc<W>, O>);
+    });
+  }
+  const bool f[] = {w_bf16 != 0, src_bf16d != 0, out_bf16 != 0};
+  return cfd::with_flags(f, [&](auto w16, auto d16, auto o16) {
+    using W = cfd::Elt<decltype(w16)::value>;
+    using S = cfd::Elt<decltype(d16)::value>;
+    using O = cfd::Elt<decltype(o16)::value>;
+    return info(
+        sweep_overlap_peer_kernel<cfd::Op::kGG, cfd::PackedSrc<W, S>, O>);
+  });
+}

@@ -106,6 +106,7 @@ from cfd_proxy_tpu_torch.ops.plan import (
     build_block_plan,
     compact_slot_w,
     compact_src_cols,
+    compact_widx,
     prefix_widths,
 )
 from cfd_proxy_tpu_torch.parallel.tlayout import (
@@ -151,8 +152,11 @@ PLAN_KEYS = ("kernel", "ndev", "bp", "s_max", "ghost_start", "locmap",
 # optional: (nphases,) bool, phases that cross nodes (absent: none does)
 OPTIONAL_PLAN_KEYS = ("inter_slice",)
 CLASS_KEYS = {
-    # compact tables: src_cols (P, nb, L), slot_w (P, nb, 3, L)
-    "packed": ("block_ids", "src_cols", "slot_w", "scale", "wks"),
+    # compact tables: src_cols (P, nb, L), slot_w (P, nb, 3, L), and what
+    # the pack kernel stages and resolves: widx (P, nb, L), ext_idx
+    # (P, nb, ep)
+    "packed": ("block_ids", "src_cols", "widx", "ext_idx", "slot_w", "scale",
+               "wks"),
     # rectangular tables: slot_idx (P, nb, K, bp), slot_w (P, nb, K, 3, bp),
     # ext_idx (P, nb, ep)
     "gather": ("block_ids", "slot_idx", "slot_w", "ext_idx", "ep", "scale",
@@ -238,6 +242,8 @@ def host_plan_arrays(parts: list[MeshPartition], *, bp: int, kcompact: bool,
         else:
             ca.update(src_cols=np.stack([compact_src_cols(pl, wks)
                                          for pl in padded]),
+                      widx=np.stack([compact_widx(pl, wks) for pl in padded]),
+                      ext_idx=np.stack([pl.ext_idx for pl in padded]),
                       slot_w=compact_slot_w(sw, wks))
         classes[c] = ca
     return {
@@ -456,13 +462,8 @@ class GreenGaussTorch(nn.Module):
             if self.kernel == "gather":
                 pl.update(self._gather_tables(c, ca, wks, bids.shape[1], dev))
             else:
-                cols = np.asarray(ca["src_cols"])
-                check(cols.shape[2] == sum(wks) == pl["slot_w"].shape[3],
-                      "class %s compact length mismatch: src_cols %d, Σwks "
-                      "%d, slot_w %d", c, cols.shape[2], sum(wks),
-                      pl["slot_w"].shape[3])
-                _check_range(cols, self.ndev, f"class {c} src_cols")
-                pl["src_cols"] = dev(cols, np.int32)
+                pl.update(self._packed_tables(c, ca, wks, bids.shape[1],
+                                              pl["slot_w"].shape[3], dev))
             self.plans[c] = pl
             self.wks[c] = wks
 
@@ -547,6 +548,28 @@ class GreenGaussTorch(nn.Module):
         # ext_idx as the int64 index gather_exts uses on every rebuild
         return {"slot_idx": dev(sidx, np.int32), "ext_idx": dev(ext, np.int64)}
 
+    def _packed_tables(self, c: str, ca: dict, wks: tuple, nb: int, nw: int,
+                       dev) -> dict:
+        """A packed class's source columns (the pack's plain version), and
+        its compact W-index and ext lists (the pack kernel's staging),
+        range-checked here once (the kernel reads var_T and shared memory
+        through them)."""
+        P, L = len(self.parts), sum(wks)
+        cols, widx = np.asarray(ca["src_cols"]), np.asarray(ca["widx"])
+        ext = np.asarray(ca["ext_idx"])
+        check(L == nw, "class %s compact length mismatch: Σwks %d, slot_w "
+              "%d", c, L, nw)
+        for name, arr in (("src_cols", cols), ("widx", widx)):
+            check(arr.shape == (P, nb, L), "class %s %s shape %s, expected "
+                  "%s", c, name, arr.shape, (P, nb, L))
+        check(ext.ndim == 3 and ext.shape[:2] == (P, nb), "class %s ext_idx "
+              "shape %s, expected (%d, %d, ep)", c, ext.shape, P, nb)
+        _check_range(cols, self.ndev, f"class {c} src_cols")
+        _check_range(widx, self.bp + ext.shape[2], f"class {c} widx")
+        _check_range(ext, self.ndev, f"class {c} ext_idx")
+        return {"src_cols": dev(cols, np.int32), "widx": dev(widx, np.int32),
+                "ext_idx": dev(ext, np.int32)}
+
     @classmethod
     def from_arrays(cls, parts: list[MeshPartition], nvar: int,
                     arrays: dict, *, device: str | torch.device = "cuda",
@@ -595,10 +618,15 @@ class GreenGaussTorch(nn.Module):
             return {c: gather_exts(var_T, self.plans[c]["ext_idx"])
                     for c in classes}
         return {c: pack_srcs(var_T, self.plans[c]["src_cols"],
-                             src_format=self.src_format,
-                             block_ids=self.plans[c]["block_ids"],
-                             slots=self.plans[c]["slots"], bp=self.bp)
+                             src_format=self.src_format, bp=self.bp,
+                             **self.pack_operands(c))
                 for c in classes}
+
+    def pack_operands(self, c: str) -> dict:
+        """The plan operands `pack_srcs` takes for class c beside var_T,
+        src_cols and bp: block_ids, slots, widx, ext_idx."""
+        pl = self.plans[c]
+        return {k: pl[k] for k in ("block_ids", "slots", "widx", "ext_idx")}
 
     def _var_exchange(self, var_T: torch.Tensor) -> torch.Tensor:
         """Refresh every ghost var column from its owner, IN PLACE: the

@@ -128,11 +128,11 @@ def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(build()["path"])
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     u64 = ctypes.c_uint64
-    # pack: var_T, ndev, src_cols, P, nb, L, delta, block_ids, slots, K, bp,
-    # out, stream
+    # pack: var_T, ndev, widx, ext_idx, ep, block_ids, slots, K, bp, P, nb,
+    # L, delta, rows, out, stream
     L.cfd_pack_srcs.restype = ctypes.c_int
-    L.cfd_pack_srcs.argtypes = [vp, i64, vp, i64, i64, i64, i32, vp, vp,
-                                i32, i32, vp, vp]
+    L.cfd_pack_srcs.argtypes = [vp, i64, vp, vp, i32, vp, vp, i32, i32, i64,
+                                i64, i64, i32, i32, vp, vp]
     sweep = [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i64, i32]
     # gather: var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids,
     # slots, K, P, nb, bp
@@ -159,6 +159,12 @@ def lib() -> ctypes.CDLL:
             # epoch_arrive, mode, stream
             ("cfd_push_phases", [vp, i64, i64, i64, vp, vp, vp, u64, u64,
                                  i32, vp]),
+            # kernel facts (registers, local bytes, static shared bytes,
+            # blocks per SM) into an int[4]: K3-peer (gather, w_bf16,
+            # src_bf16d, out_bf16), K6 (none), K4 (delta, smem)
+            ("cfd_overlap_peer_info", [i32, i32, i32, i32, vp]),
+            ("cfd_push_phases_info", [vp]),
+            ("cfd_pack_srcs_info", [i32, i32, vp]),
             # mapped exchange memory (csrc/ipc.cu): device first
             ("cfd_ipc_alloc", [i32, i64, ctypes.POINTER(vp)]),
             ("cfd_ipc_free", [i32, vp]),
@@ -177,6 +183,18 @@ def lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = args
     return L
+
+
+def kernel_info(name: str, *args: int) -> dict:
+    """Registers and local bytes per thread, static shared bytes and
+    resident blocks per SM of a kernel instance, as the CUDA runtime
+    reports them: `name` one of "cfd_overlap_peer_info",
+    "cfd_push_phases_info", "cfd_pack_srcs_info", args as it takes them."""
+    out = (ctypes.c_int * 4)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    check_launch(getattr(lib(), name)(*args, ptr), name)
+    return dict(zip(("regs", "local_bytes", "static_smem", "blocks_per_sm"),
+                    out))
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -71,6 +71,9 @@ from cfd_proxy_tpu_torch.utils.errors import check
 OPS = ("gg", "flux")   # the kernels take an op as its index here
 SRC_FORMATS = ("f32", "bf16d")   # packed source values, or bf16 deltas
 MAX_SLOTS = 64         # slot-table capacity of the sweep kernel
+# shared memory the pack kernel may stage rows in: an H100 block's, less
+# its static slot table (csrc/pack_srcs.cu)
+PACK_SMEM = 227 * 1024 - 2 * MAX_SLOTS * 4
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = (F32, BF16)   # the stored types a reduced-precision operand takes
 
@@ -244,17 +247,24 @@ def gather_exts(var_T: torch.Tensor, ext_idx: torch.Tensor) -> torch.Tensor:
 
 def pack_srcs(var_T: torch.Tensor, src_cols: torch.Tensor, *,
               src_format: str = "f32", block_ids: torch.Tensor | None = None,
-              slots: torch.Tensor | None = None,
-              bp: int | None = None) -> torch.Tensor:
+              slots: torch.Tensor | None = None, bp: int | None = None,
+              widx: torch.Tensor | None = None,
+              ext_idx: torch.Tensor | None = None) -> torch.Tensor:
     """(P, NV, ndev) f32 × (P, nb, L) i32 → (P, nb, NV, L) packed source
     table: f32 values, or (src_format "bf16d") bf16 deltas source − own.
 
     Counterpart of `cfd_proxy_tpu.ops.blocksweep.pack_srcs` (compact) fed by
-    `gather_exts`: `src_cols` (ops/plan.py::compact_src_cols) already
-    resolves every slot to its device column.  The bf16d form also needs
-    each entry's own column: the class's block_ids (P, nb) i32, its slot
-    table slots (2, K) i32 (`slot_table(wks)`, Σ widths = L) and the block
-    size bp.  Kernel: csrc/pack_srcs.cu."""
+    `gather_exts`.  `src_cols` (ops/plan.py::compact_src_cols) resolves
+    every slot to its device column; the plain version gathers through it.
+    The kernel (csrc/pack_srcs.cu) runs the reference's two stages instead:
+    it stages each block's own columns and its ext columns `ext_idx` (P,
+    nb, EP) i32 in shared memory and resolves each lane's compact W-index
+    `widx` (P, nb, L) i32 (ops/plan.py::compact_widx: own columns at
+    [0, bp), ext column r at bp + r) against them; both, the class's
+    block_ids (P, nb) i32 and the block size bp are needed on CUDA tensors
+    (their ranges are the caller's to check, once: the model does at
+    set-up).  The bf16d form also needs each entry's own lane: the slot
+    table slots (2, K) i32 (`slot_table(wks)`, Σ widths = L)."""
     dev = var_T.device
     _expect(var_T, "var_T", F32, 3, dev)
     _expect(src_cols, "src_cols", torch.int32, 3, dev)
@@ -269,31 +279,65 @@ def pack_srcs(var_T: torch.Tensor, src_cols: torch.Tensor, *,
         check(block_ids is not None and slots is not None and bp is not None,
               "the bf16d pack needs block_ids, slots and bp (each entry's "
               "own column)")
-        _expect(block_ids, "block_ids", torch.int32, 2, dev)
         _expect(slots, "slots", torch.int32, 2, dev)
-        _shape(block_ids, "block_ids", (P, nb))
         K = slots.shape[1]
         check(slots.shape[0] == 2 and 1 <= K <= MAX_SLOTS,
               "slots shape %s: expected (2, K) with 1 <= K <= %d",
               tuple(slots.shape), MAX_SLOTS)
+    if block_ids is not None:
+        _expect(block_ids, "block_ids", torch.int32, 2, dev)
+        _shape(block_ids, "block_ids", (P, nb))
+    if bp is not None:
         check(bp > 0 and ndev % bp == 0, "ndev %d not a multiple of bp %s",
               ndev, bp)
+    if widx is not None:
+        _expect(widx, "widx", torch.int32, 3, dev)
+        _shape(widx, "widx", (P, nb, L))
+    if ext_idx is not None:
+        _expect(ext_idx, "ext_idx", torch.int32, 3, dev)
+        check(tuple(ext_idx.shape[:2]) == (P, nb), "ext_idx shape %s, "
+              "expected (%d, %d, EP)", tuple(ext_idx.shape), P, nb)
     if _device_kind(var_T) == "cpu":
         return pack_srcs_ref(var_T, src_cols, src_format, block_ids, slots,
                              bp)
     from cfd_proxy_tpu_torch.ops import _cuda
 
+    check(widx is not None and ext_idx is not None and block_ids is not None
+          and bp is not None, "the pack kernel stages each block's columns: "
+          "it needs widx, ext_idx, block_ids and bp")
+    ep = ext_idx.shape[2]
+    check(bp % 4 == 0 and var_T.data_ptr() % 16 == 0, "the pack kernel "
+          "loads own columns 16 bytes at a time: bp %d must be a multiple "
+          "of 4 and var_T 16-byte aligned", bp)
+    check(_pack_stride(bp, ep) * 4 <= PACK_SMEM, "the pack kernel stages a "
+          "row of bp + EP = %d columns: more than one block's shared memory",
+          bp + ep)
+    rows = pack_rows(bp, ep)
     out = torch.empty((P, nb, NV, L), dtype=BF16 if delta else F32,
                       device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_pack_srcs(
-            var_T.data_ptr(), ndev, src_cols.data_ptr(), P, nb, L, int(delta),
-            block_ids.data_ptr() if delta else None,
-            slots.data_ptr() if delta else None, K, int(bp or 0),
-            out.data_ptr(), _stream(dev))
+            var_T.data_ptr(), ndev, widx.data_ptr(), ext_idx.data_ptr(), ep,
+            block_ids.data_ptr(), slots.data_ptr() if delta else None, K, bp,
+            P, nb, L, int(delta), rows, out.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "pack_srcs")
     _count(pack_srcs, None, "gg", _tag(d16=delta))
     return out
+
+
+def _pack_stride(bp: int, ep: int) -> int:
+    """Floats per staged row (csrc/pack_srcs.cu::row_stride)."""
+    return -(-(bp + ep) // 4) * 4
+
+
+def pack_rows(bp: int, ep: int) -> int:
+    """Variable rows the pack kernel stages per CUDA block: two (the
+    fastest on an H100, PERF.md section 6), halved until they fit in
+    PACK_SMEM bytes."""
+    rows = 2
+    while rows > 1 and rows * _pack_stride(bp, ep) * 4 > PACK_SMEM:
+        rows //= 2
+    return rows
 
 
 _zero_counts(pack_srcs, ("",), ("", _tag(d16=True)))

@@ -4,8 +4,10 @@ The host half of `cfd_proxy_tpu/ops/blocksweep.py`: the port imports
 nothing of the JAX package and carries its own host layer, held equal to
 the originals by tests (tests/test_torch_plan.py for this module).  The
 code is the original's line for line, plus
-`compact_src_cols`, which the port's pack kernel reads instead of the
-reference's ext tables + W-indices, and the two plan-padding helpers of
+`compact_src_cols`, every compact table entry's device column (what the
+pack's plain version gathers), `compact_widx`, the same entries as
+W-indices into the block's own and ext columns (what the pack kernel
+resolves), and the two plan-padding helpers of
 `cfd_proxy_tpu/models/gradients_pallas.py` that make every shard's plan
 the same shape.
 
@@ -235,6 +237,18 @@ def compact_src_cols(plan: BlockPlan, wks: tuple[int, ...]) -> np.ndarray:
           len(wks), cols.shape[1])
     parts = [cols[:, k, :w] for k, w in enumerate(wks) if w]
     return np.ascontiguousarray(np.concatenate(parts, axis=-1))
+
+
+def compact_widx(plan: BlockPlan, wks: tuple[int, ...]) -> np.ndarray:
+    """(nblocks, L) i32 W-index of every entry of the COMPACT packed table:
+    `slot_idx` prefix-compacted exactly like `compact_slot_w` compacts the
+    weights.  Own columns sit at [0, bp), ext column r at bp + r
+    (`ext_idx[b, r]`), so resolving it against the block's staged columns
+    gives `compact_src_cols`."""
+    K = plan.slot_idx.shape[1]
+    check(K == len(wks), "wks length %d != kslots %d", len(wks), K)
+    parts = [plan.slot_idx[:, k, :w] for k, w in enumerate(wks) if w]
+    return np.ascontiguousarray(np.concatenate(parts, axis=-1), np.int32)
 
 
 def _pad_plan_dims(plan: BlockPlan, ep: int, kslots: int) -> BlockPlan:

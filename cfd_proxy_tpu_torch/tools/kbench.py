@@ -92,7 +92,7 @@ from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
                                             scale_gradients)
 from cfd_proxy_tpu_torch.ops.plan import (NV, build_block_plan,
                                           compact_slot_w, compact_src_cols,
-                                          prefix_widths)
+                                          compact_widx, prefix_widths)
 from cfd_proxy_tpu_torch.utils.errors import check
 from cfd_proxy_tpu_torch.utils.timing import two_point_sampler
 
@@ -242,12 +242,16 @@ class Bench:
                     layout, self.var_q.float())).to(BF16)
             if fmt == "i8":
                 return self._i8(layout)[0]
-            cols = torch.from_numpy(compact_src_cols(
-                self.plan, self.wks[layout])[None]).to(self.device)
-            kw = {} if fmt == "f32" else dict(
+            def dev(a):
+                return torch.from_numpy(a[None]).to(self.device)
+
+            wks = self.wks[layout]
+            return bs.pack_srcs(
+                self.var_T, dev(compact_src_cols(self.plan, wks)),
                 src_format=fmt, block_ids=self.block_ids,
-                slots=self.slots(layout), bp=self.bp)
-            return bs.pack_srcs(self.var_T, cols, **kw)
+                slots=self.slots(layout), bp=self.bp,
+                widx=dev(compact_widx(self.plan, wks)),
+                ext_idx=dev(self.plan.ext_idx))
 
         return self._get(("srcs", layout, fmt), make)
 

@@ -295,6 +295,7 @@ KERNELS.update({
        for m in ("full", "nobar", "baronly", "empty")},
 })
 PEER_STEPS = 5        # timed steps of a two-process run (time-sliced)
+PEER_MIN_BLOCKS = 6   # K3's resident blocks per SM (sweep_overlap.cu kMinBlocks)
 PEER_W2_LIMIT_S = 420     # the two-process phase is killed past this
 ICI_PHASES = (1, 2, 4)                  # the push bench's grid: the
 ICI_MB = (0.125, 1.0, 8.0, 32.0)        # reference's defaults
@@ -316,8 +317,13 @@ REDUCED_GATHER = ("sweep_blocks_gather_w16_o16",
                   "sweep_blocks_overlap_gather_w16_o16")
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0,
+                      **kw}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -492,6 +498,22 @@ def kernel_device_ms(fn, n: int) -> float:
             return e0.elapsed_time(e1) / n
         cycles *= 2
     fail("kernel_device_ms: the host could not enqueue ahead of the card")
+
+
+def pack_facts(kw: dict) -> dict:
+    """K4's staging at these operands (rows per CUDA block, EP) and the
+    instance's registers, local bytes, shared memory and resident blocks
+    per SM."""
+    from cfd_proxy_tpu_torch.ops import _cuda
+    from cfd_proxy_tpu_torch.ops import blocksweep as bs
+
+    ep = kw["ext_idx"].shape[2]
+    rows = bs.pack_rows(kw["bp"], ep)
+    smem = rows * bs._pack_stride(kw["bp"], ep) * 4
+    delta = int(kw.get("src_format") == "bf16d")
+    return {"rows": rows, "ep": ep,
+            "kernel": {**_cuda.kernel_info("cfd_pack_srcs_info", delta, smem),
+                       "dynamic_smem": smem}}
 
 
 def main() -> int:
@@ -670,7 +692,8 @@ def main() -> int:
     # ---- kernels vs their plain versions, at the main path's shapes
     var_T = state["var_T"]
     args = (pl["slot_w"], pl["scale"], pl["block_ids"], pl["slots"])
-    tbl = bs.pack_srcs(var_T, pl["src_cols"])
+    pk32 = dict(bp=model.bp, **model.pack_operands("bulk"))
+    tbl = bs.pack_srcs(var_T, pl["src_cols"], **pk32)
     tbl_ref = bs.pack_srcs_ref(var_T, pl["src_cols"])
     torch.cuda.synchronize()
     errs = {"pack_srcs": float((tbl - tbl_ref).abs().max())}
@@ -706,9 +729,10 @@ def main() -> int:
 
     # ---- timing: kernels vs plain (same call, in turns), then the bulk step
     times = {
-        "pack_srcs": paired_ms(lambda: bs.pack_srcs(var_T, pl["src_cols"]),
-                               lambda: bs.pack_srcs_ref(var_T,
-                                                        pl["src_cols"])),
+        "pack_srcs": {**paired_ms(
+            lambda: bs.pack_srcs(var_T, pl["src_cols"], **pk32),
+            lambda: bs.pack_srcs_ref(var_T, pl["src_cols"])),
+            **pack_facts(pk32)},
         "sweep_blocks": paired_ms(
             lambda: bs.sweep_blocks(var_T, tbl, *args),
             lambda: bs.sweep_blocks_ref(var_T, tbl, *args))}
@@ -1287,10 +1311,10 @@ def main() -> int:
     # against their plain versions, at these shapes
     pl = rm.plans["bulk"]
     var_T = state["var_T"]
-    pk = dict(src_format="bf16d", block_ids=pl["block_ids"],
-              slots=pl["slots"], bp=rm.bp)
+    pk = dict(src_format="bf16d", bp=rm.bp, **rm.pack_operands("bulk"))
     tbl16 = bs.pack_srcs(var_T, pl["src_cols"], **pk)
-    tbl16_ref = bs.pack_srcs_ref(var_T, pl["src_cols"], **pk)
+    tbl16_ref = bs.pack_srcs_ref(var_T, pl["src_cols"], "bf16d",
+                                 pl["block_ids"], pl["slots"], rm.bp)
     torch.cuda.synchronize()
     if not torch.equal(tbl16, tbl16_ref):
         fail("pack_srcs (bf16d) differs from its plain version")
@@ -1299,9 +1323,11 @@ def main() -> int:
     work["pack_srcs_d16"] = bound(nbytes(var_T, pl["src_cols"],
                                          pl["block_ids"], pl["slots"],
                                          tbl16_ref), 0)
-    times["pack_srcs_d16"] = paired_ms(
+    times["pack_srcs_d16"] = {**paired_ms(
         lambda: bs.pack_srcs(var_T, pl["src_cols"], **pk),
-        lambda: bs.pack_srcs_ref(var_T, pl["src_cols"], **pk))
+        lambda: bs.pack_srcs_ref(var_T, pl["src_cols"], "bf16d",
+                                 pl["block_ids"], pl["slots"], rm.bp)),
+        **pack_facts(pk)}
     del tbl16_ref
     k1bf = (var_T, *rm._operands("bulk", state["tables"]))
     # the plain version's own golden error on the same operands: the
@@ -1794,15 +1820,15 @@ def main() -> int:
     # form, at the P=8 interior + push shapes: packed f32, gather, and the
     # packed full bf16 stack
     peer_rows = {}
-    for row, lmod, fused, plain, wire in (
+    for row, lmod, fused, plain, wire, flags in (
             ("sweep_blocks_overlap_peer", lm8, bs.sweep_blocks_overlap,
-             bs.sweep_blocks_overlap_ref, torch.float32),
+             bs.sweep_blocks_overlap_ref, torch.float32, (0, 0, 0, 0)),
             ("sweep_blocks_overlap_gather_peer", gather_models[P_MULTI],
              bs.sweep_blocks_overlap_gather,
-             bs.sweep_blocks_overlap_gather_ref, torch.float32),
+             bs.sweep_blocks_overlap_gather_ref, torch.float32, (1, 0, 0, 0)),
             ("sweep_blocks_overlap_peer_w16_d16_o16", full_stack_p8,
              bs.sweep_blocks_overlap, bs.sweep_blocks_overlap_ref,
-             torch.bfloat16)):
+             torch.bfloat16, (0, 1, 1, 1))):
         state = lmod.distribute_state(gvar, schedules=["overlap", "bulk"])
         iargs = (state["var_T"], *lmod._operands("interior",
                                                  state["tables"]))
@@ -1836,6 +1862,14 @@ def main() -> int:
                               kp, 20),
                           "loopback_kernel_device_ms": kernel_device_ms(
                               kl, 20)}
+        # the instance's registers, local bytes, shared memory and resident
+        # blocks per SM
+        facts = _cuda.kernel_info("cfd_overlap_peer_info", *flags)
+        if facts["blocks_per_sm"] < PEER_MIN_BLOCKS:
+            fail(f"{row}: {facts['blocks_per_sm']} resident blocks per SM, "
+                 f"below {PEER_MIN_BLOCKS}")
+        peer_rows[row]["kernel"] = facts
+        times[row]["kernel"] = facts
         peer.close()
         del state, iargs, gb, sendbufs, buf, peer, kp, kl
     # the gather and bf16 peer forms through the model too, counted
@@ -2032,6 +2066,7 @@ def main() -> int:
         fixed[f"{nph}x{ICI_MB[0]}MB"] = {m: min(v) for m, v in ms.items()}
         peer.close()
         del peer, send
+    k6_facts = _cuda.kernel_info("cfd_push_phases_info")
     # the kernel-table rows: each mode at ICI_ROW
     nph, mb = ICI_ROW
     k6_device = {}
@@ -2055,10 +2090,11 @@ def main() -> int:
             lambda: dst[:, :moved.shape[1]].copy_(moved), 50)
         k6_device[row] = kernel_device_ms(
             lambda m=m: push.push_phases(send, peer, m), 20)
+        times[row]["kernel"] = k6_facts
     peer.close()
     del peer, send, dst
     emit("icibench", card=smi, ranks=1, runs=ici, launches=counts,
-         grid_full=grid, fixed_cost_ms=fixed,
+         grid_full=grid, fixed_cost_ms=fixed, kernel=k6_facts,
          kernels={f"push_phases_{m}": {
              **times[f"push_phases_{m}"], **work[f"push_phases_{m}"],
              "copy_ms": library[f"push_phases_{m}"],
@@ -2068,6 +2104,7 @@ def main() -> int:
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name], "max_abs_err": errs[name],
              **times[name], **work[name],
+             "share": work[name]["bound_ms"] / times[name]["ms"],
              "library_ms": library.get(name)}
             for name, (route, src, line) in KERNELS.items()]
     print(json.dumps({"kernels": rows}), flush=True)

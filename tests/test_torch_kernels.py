@@ -609,8 +609,9 @@ def _plan_args(model, cls):
 @pytest.mark.cuda
 def test_cuda_pack_srcs_kernel_equals_plain_bitwise(cuda_model):
     model, state = cuda_model
-    for pl in model.plans.values():
-        got = bs.pack_srcs(state["var_T"], pl["src_cols"])
+    for c, pl in model.plans.items():
+        got = bs.pack_srcs(state["var_T"], pl["src_cols"], bp=model.bp,
+                           **model.pack_operands(c))
         ref = bs.pack_srcs_ref(state["var_T"], pl["src_cols"])
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
@@ -827,11 +828,12 @@ def test_cuda_pack_deltas_kernel_equals_plain_bitwise(cuda_model):
     """K4's bf16d form: deltas against each entry's own column, every
     class (pad lanes and pad entries included), bitwise."""
     model, state = cuda_model
-    for pl in model.plans.values():
+    for c, pl in model.plans.items():
         kw = dict(src_format="bf16d", block_ids=pl["block_ids"],
                   slots=pl["slots"], bp=model.bp)
         before = bs.pack_srcs.d16_launches
-        got = bs.pack_srcs(state["var_T"], pl["src_cols"], **kw)
+        got = bs.pack_srcs(state["var_T"], pl["src_cols"], widx=pl["widx"],
+                           ext_idx=pl["ext_idx"], **kw)
         ref = bs.pack_srcs_ref(state["var_T"], pl["src_cols"], **kw)
         torch.cuda.synchronize()
         assert bs.pack_srcs.d16_launches == before + 1
@@ -843,8 +845,7 @@ def _packed_operands(model, state, cls, w16, d16):
     delta table."""
     pl = model.plans[cls]
     tbl = (bs.pack_srcs(state["var_T"], pl["src_cols"], src_format="bf16d",
-                        block_ids=pl["block_ids"], slots=pl["slots"],
-                        bp=model.bp)
+                        bp=model.bp, **model.pack_operands(cls))
            if d16 else state["tables"][cls])
     w = pl["slot_w"].to(torch.bfloat16) if w16 else pl["slot_w"]
     return state["var_T"], tbl, w, pl["scale"], pl["block_ids"], pl["slots"]

@@ -174,6 +174,8 @@ def test_bad_solver_options_raise(fields, match):
 
 @pytest.mark.parametrize("kernel,key,hi", [
     ("packed", "src_cols", "ndev"),
+    ("packed", "widx", "bp+ep"),
+    ("packed", "ext_idx", "ndev"),
     ("gather", "slot_idx", "bp+ep"),
     ("gather", "ext_idx", "ndev"),
 ])
@@ -188,7 +190,7 @@ def test_from_arrays_rejects_out_of_range_indices(mesh, kernel, key, hi):
                               kernel=kernel)
     GreenGaussTorch.from_arrays(own.parts, NVAR, arrays, device="cpu")
     ca = arrays["classes"]["interior"]
-    bound = own.ndev if hi == "ndev" else 128 + ca["ep"]
+    bound = own.ndev if hi == "ndev" else 128 + ca["ext_idx"].shape[-1]
     ca[key] = ca[key].copy()
     ca[key].flat[-1] = bound
     with pytest.raises(CheckError, match=f"{key} outside"):

@@ -114,7 +114,8 @@ def test_copy_has_original_code(orig, copy):
     ref, got = _module_functions(orig), _module_functions(copy)
     shared = sorted(set(ref) & set(got))
     assert shared
-    assert set(got) - set(ref) <= {"compact_src_cols", *PAD_HELPERS}
+    assert set(got) - set(ref) <= {"compact_src_cols", "compact_widx",
+                                   *PAD_HELPERS}
     for name in shared:
         assert got[name] == ref[name], f"{copy}::{name} differs from {orig}"
 
