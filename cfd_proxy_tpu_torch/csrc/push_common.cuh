@@ -73,11 +73,16 @@
 // it is resident before any push block and finishes.  The last-ticket block
 // waits for arrivals from push blocks, all of which have drawn their tickets
 // (and so finished) before it; across ranks it is the one block that may
-// spin while the sweep blocks run beside it.  Push blocks are capped at kPeerPushBlocks in
-// all, far below the 132 x 6 blocks a card keeps resident, so spinning
-// blocks never fill the card.  Across ranks the same holds per launch as
-// long as every rank launches (a rank that never does is a bug: the wait
-// below traps).
+// spin while the sweep blocks run beside it.  Push blocks are capped at
+// kPeerPushBlocks in all, below the 132 x 6 blocks a card keeps resident in
+// the packed and direct gather forms (132 x 4 in the staged gather form at
+// the 96^3 eight-shard plans, whose 48 KB table every block of the launch
+// carries).  A staged table large enough to leave fewer resident blocks
+// than push blocks only delays the sweep blocks: every wait of a push block
+// is for a block 0 that is resident before it (the lowest index of its
+// grid, here or on the other rank), so the spinning blocks always drain.
+// Across ranks the same holds per launch as long as every rank launches (a
+// rank that never does is a bug: the wait below traps).
 //
 // Every wait is bounded: past kSpinLimitNs on the global timer it traps, so
 // a protocol bug is a launch error, not a hung card.

@@ -48,9 +48,10 @@
 //   entry's pre-gathered ext table), with rectangular (P, nb, K, 3, bp)
 //   weights.  The reference's _masked_gather (W/128 compare-and-select
 //   passes) exists because a TPU gather shuffles within one vreg; here it
-//   is one indexed load per variable.  Pad slots hold W-index 0 and zero
-//   weight: they read own column 0 and add nothing (under flux too: with
-//   w = 0, udw = uow = a = 0).
+//   is one indexed load per variable (of global memory in the direct body,
+//   of shared memory in the staged one: below).  Pad slots hold W-index 0
+//   and zero weight: they read own column 0 and add nothing (under flux
+//   too: with w = 0, udw = uow = a = 0).
 //
 // The reference's gather kernel skips slot k for a whole 128-lane tile when
 // wks[k] <= t*128; wks are multiples of 128, so the per-lane test below
@@ -77,28 +78,44 @@
 // Bound: memory.  Per point it streams own 32 B, scale 4 B, out 96 B (gg)
 // or 32 B (flux) (and init as much again when accumulating) and, per live
 // slot, 12 B of weights plus, packed, 32 B of sources or, gathered, a 4 B
-// W-index and 32 B of gathered values that mostly hit L1/L2 (the block's
-// own columns and its RCB-local ext table); bf16 weights, deltas and
-// outputs halve their streams (6 B of weights and 16 B of deltas per slot
-// lane, 48 B or 16 B of output per point).  A bf16 load is one 2-byte
-// element per thread, still coalesced along the point columns, in
-// transactions half as wide: the simple form, not yet paired into
-// __nv_bfloat162 loads.  The math is 24 FMAs per slot
+// W-index; a gathered source is a column of the block table, which holds
+// the block's own columns (read anyway) and its ext columns (read once per
+// block at best); bf16 weights, deltas and outputs halve their streams (6 B
+// of weights and 16 B of deltas per slot lane, 48 B or 16 B of output per
+// point).  A bf16 load is one 2-byte element per thread, still coalesced
+// along the point columns, in transactions half as wide: the simple form,
+// not yet paired into __nv_bfloat162 loads.  The math is 24 FMAs per slot
 // (gg) or ~6 + 4*8 operations (flux).  Design: the accumulators (24 gg, 8
 // flux) and the 8 own values stay in registers for the whole slot loop, so
 // nothing but the streams touches memory; every stream is coalesced along
-// the point columns.  The gather form reads the block table straight from
-// global memory through the read-only cache rather than staging it in
-// shared memory: a 128-thread CUDA block covers one 128-lane chunk of a
-// block, so staging the whole NV x (bp + EP) table per CUDA block would
-// read it bp/128 times over, and it needs no size limit at any bp.  Slot
-// widths are per-slot and need not be monotone (a slot of zero-normal faces
-// can be narrower than a later one), so every slot is tested and none ends
-// the loop; zero-width slots have no table entries and no offset of their
-// own.  The operation order is the reference body's; nvcc's default FMA
-// contraction moves results by a few ulp (under flux it can also move
-// max(|udw|, |uow|) to the other branch near a tie, where the two are
-// within those few ulp of each other, so the result stays continuous).
+// the point columns.  Slot widths are per-slot and need not be monotone (a
+// slot of zero-normal faces can be narrower than a later one), so every
+// slot is tested and none ends the loop; zero-width slots have no table
+// entries and no offset of their own.  The operation order is the
+// reference body's; nvcc's default FMA contraction moves results by a few
+// ulp (under flux it can also move max(|udw|, |uow|) to the other branch
+// near a tie, where the two are within those few ulp of each other, so the
+// result stays continuous).
+//
+// The gather form has two bodies, one per CUDA block shape:
+//
+// - sweep_chunk with GatherSrc (the DIRECT body): one CUDA block per
+//   (shard, entry, 128-lane chunk); each live slot lane reads its eight
+//   sources straight from global memory through the read-only cache, eight
+//   scattered 4-byte loads at stride ndev (own) or EP (ext).  A warp's load
+//   of one variable touches up to 32 sectors, eight times per slot: the
+//   body runs at about half of its bound (PERF.md section 6).  It needs no
+//   shared memory, so it takes any bp.
+// - sweep_entry_staged (the STAGED body): one CUDA block per listed
+//   (shard, entry), which stages the entry's table [own (NV, bp) ‖ the live
+//   ext columns (NV, ext_cnt)] in shared memory with 16-byte loads, once,
+//   then walks the entry's bp lanes blockDim.x at a time and resolves every
+//   slot lane's W-index there.  Each table column is read from device
+//   memory once per entry, which is what the bound counts.  It needs
+//   staged_bytes(bp, EP) of shared memory, so the wrappers take it only
+//   where that fits with room for several CUDA blocks per SM
+//   (ops/blocksweep.py::gather_body); both bodies compute the same values
+//   in the same order, so they agree bit for bit.
 
 #pragma once
 
@@ -299,6 +316,198 @@ __device__ __forceinline__ void sweep_chunk(const SweepArgs<OutT, VarT>& a,
   const float sc = __ldg(a.scale + g * a.bp + lane);
 #pragma unroll
   for (int r = 0; r < R; ++r) store(out_p + r * ndev + col, acc[r] * sc);
+}
+
+// ---- The staged gather body (see the header comment).
+
+// Dynamic shared memory of the staged body for a block table of bp own and
+// ep ext columns: NV f32 values per column.
+__host__ __device__ constexpr int64_t staged_bytes(int64_t bp, int64_t ep) {
+  return static_cast<int64_t>(kNV) * (bp + ep) * 4;
+}
+
+// The most a staged table may take: an H100 block's 227 KB of shared
+// memory less the static slot-width table (ops/blocksweep.py::
+// GATHER_STAGE_MAX).
+constexpr int64_t kStagedMaxSmem = 227 * 1024 - kMaxSlots * 4;
+
+// Host side of a staged launch of `kernel`: the operands allow the body (bp
+// and ep multiples of 4 for the 16-byte loads, the table within
+// kStagedMaxSmem: its size into *smem), and the instance's dynamic shared
+// memory limit is raised once (*raised: the launching instance's flag; past
+// 48 KB in all, the static table included, a launch needs it).
+template <class Kernel>
+inline bool staged_launch_ok(Kernel kernel, bool* raised, int64_t bp,
+                             int64_t ep, int64_t* smem) {
+  *smem = staged_bytes(bp, ep);
+  if (bp % 4 != 0 || ep % 4 != 0 || *smem > kStagedMaxSmem) return false;
+  if (!*raised) {
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kStagedMaxSmem) != cudaSuccess) {
+      return false;
+    }
+    *raised = true;
+  }
+  return true;
+}
+
+// The staged table of one entry in shared memory, column-major in two
+// planes of float4: plane h holds variables 4h..4h+3 of column i at
+// s[h*W + i], so a slot lane's eight sources are two 16-byte loads, and
+// neighbouring columns sit in neighbouring banks.  W = bp + EP columns, own
+// columns at [0, bp), ext column r at bp + r: the W-index addresses it as
+// it is.
+struct StagedTable {
+  float4* s;
+  int W;
+
+  // Copies `quads` groups of four columns of an NV-row table (row v at
+  // src + v*stride, 16-byte aligned) to columns [col0, col0 + 4*quads):
+  // eight 16-byte loads along the rows per group, transposed in registers.
+  __device__ __forceinline__ void stage(const float* src, int64_t stride,
+                                        int quads, int col0) const {
+    for (int q = threadIdx.x; q < quads; q += blockDim.x) {
+      float4 r[kNV];
+#pragma unroll
+      for (int v = 0; v < kNV; ++v) {
+        r[v] = __ldg(reinterpret_cast<const float4*>(src + v * stride) + q);
+      }
+      float4* lo = s + col0 + 4 * q;
+      float4* hi = lo + W;
+      lo[0] = make_float4(r[0].x, r[1].x, r[2].x, r[3].x);
+      lo[1] = make_float4(r[0].y, r[1].y, r[2].y, r[3].y);
+      lo[2] = make_float4(r[0].z, r[1].z, r[2].z, r[3].z);
+      lo[3] = make_float4(r[0].w, r[1].w, r[2].w, r[3].w);
+      hi[0] = make_float4(r[4].x, r[5].x, r[6].x, r[7].x);
+      hi[1] = make_float4(r[4].y, r[5].y, r[6].y, r[7].y);
+      hi[2] = make_float4(r[4].z, r[5].z, r[6].z, r[7].z);
+      hi[3] = make_float4(r[4].w, r[5].w, r[6].w, r[7].w);
+    }
+  }
+
+  __device__ __forceinline__ void load(int i, float (&x)[kNV]) const {
+    const float4 a = s[i];
+    const float4 b = s[W + i];
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+};
+
+// One listed (shard, entry) g in [0, P*nb), by one CUDA block of any size:
+// stage the table, then every lane of the entry, blockDim.x at a time.
+// ext_cnt (P*nb) holds each entry's live ext columns (null: all EP); a live
+// lane's W-index stays below bp + ext_cnt[g] (the model derives the counts
+// from the W-indices).  The early return is uniform over the CUDA block.
+// The per-lane arithmetic is sweep_chunk's, in its order.
+template <bool kAccumulate, Op kOp, class WT, class OutT>
+__device__ __forceinline__ void sweep_entry_staged(
+    const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int32_t* ext_cnt,
+    int64_t g) {
+  constexpr int R = op_rows(kOp);
+  __shared__ int s_width[kMaxSlots];
+  extern __shared__ float4 s_tbl[];
+  const int64_t b = g % a.nb;
+  if (b > 0 && a.block_ids[g] == a.block_ids[g - 1]) return;   // pad entry
+  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
+    s_width[k] = a.slots[k];
+  }
+  const int64_t shard = g / a.nb;
+  const int64_t ndev = a.ndev;
+  const int64_t base = static_cast<int64_t>(a.block_ids[g]) * a.bp;
+  const int ep = static_cast<int>(s.ep);
+  const int live = ext_cnt == nullptr ? ep : min(max(ext_cnt[g], 0), ep);
+  const StagedTable t{s_tbl, a.bp + ep};
+  t.stage(a.var_T + shard * kNV * ndev + base, ndev, a.bp / 4, 0);
+  t.stage(s.exts + g * kNV * s.ep, s.ep, (live + 3) / 4, a.bp);
+  __syncthreads();
+
+  OutT* out_p = a.out + shard * R * ndev;
+  for (int lane = threadIdx.x; lane < a.bp; lane += blockDim.x) {
+    const int64_t col = base + lane;
+    float own[kNV];
+    t.load(lane, own);
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[r] = kAccumulate ? widen(out_p[r * ndev + col]) : 0.0f;
+    }
+    // the live slots in slot order; slot k's successor's W-index and
+    // weights are loaded before slot k is computed, so two slots' loads are
+    // in flight (the init forms 14-20 % faster on an H100)
+    auto fetch = [&](int kk, int& ii, float (&ww)[3]) {
+      const int64_t row = g * a.K + kk;     // (shard, entry, slot)
+      ii = __ldg(s.slot_idx + row * a.bp + lane);
+      const WT* wp = s.slot_w + row * 3 * a.bp + lane;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) ww[d] = ld(wp + d * a.bp);
+    };
+    int k = 0;
+    while (k < a.K && lane >= s_width[k]) ++k;
+    int i = 0;
+    float w[3] = {0.0f, 0.0f, 0.0f};
+    if (k < a.K) fetch(k, i, w);
+    while (k < a.K) {
+      int kn = k + 1;
+      while (kn < a.K && lane >= s_width[kn]) ++kn;
+      int i_n = 0;
+      float w_n[3] = {0.0f, 0.0f, 0.0f};
+      if (kn < a.K) fetch(kn, i_n, w_n);
+      float src[kNV];
+      t.load(i, src);
+      if constexpr (kOp == Op::kGG) {
+#pragma unroll
+        for (int v = 0; v < kNV; ++v) {
+          const float avg = 0.5f * (own[v] + src[v]);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) acc[d * kNV + v] += w[d] * avg;
+        }
+      } else {
+        const float udw = own[0] * w[0] + own[1] * w[1] + own[2] * w[2];
+        const float uow = src[0] * w[0] + src[1] * w[1] + src[2] * w[2];
+        const float am = fmaxf(fabsf(udw), fabsf(uow));
+#pragma unroll
+        for (int v = 0; v < kNV; ++v) {
+          acc[v] += 0.5f * (udw * own[v] + uow * src[v]) -
+                    0.5f * am * (src[v] - own[v]);
+        }
+      }
+      k = kn;
+      i = i_n;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) w[d] = w_n[d];
+    }
+    const float sc = __ldg(a.scale + g * a.bp + lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r) store(out_p + r * ndev + col, acc[r] * sc);
+  }
+}
+
+// The zero-filled forms of the gather sweep write the columns of the
+// blocks a shard's list leaves out as zeros themselves, so the wrapper
+// hands an uninitialised output.  A list is strictly ascending, then pad
+// repeats: listed entry g clears the blocks after its predecessor's and
+// before its own, and the last listed entry (followed by nothing or by a
+// repeat of itself) also those after its own.  Lanes lane, lane + step, ...
+// below bp of each such block; a pad entry clears nothing.
+template <int R, class OutT>
+__device__ __forceinline__ void clear_gaps(const SweepArgs<OutT>& a,
+                                           int64_t g, int lane, int step) {
+  const int64_t b = g % a.nb;
+  const int64_t cur = a.block_ids[g];
+  if (b > 0 && a.block_ids[g - 1] == cur) return;               // pad entry
+  const int64_t lo = b > 0 ? a.block_ids[g - 1] + 1 : 0;
+  const bool last = b == a.nb - 1 || a.block_ids[g + 1] == cur;
+  const int64_t hi = last ? a.ndev / a.bp : cur + 1;
+  OutT* out_p = a.out + (g / a.nb) * R * a.ndev;
+  for (int64_t blk = lo; blk < hi; ++blk) {
+    if (blk == cur) continue;
+    for (int l = lane; l < a.bp; l += step) {
+      const int64_t col = blk * a.bp + l;
+#pragma unroll
+      for (int r = 0; r < R; ++r) store(out_p + r * a.ndev + col, 0.0f);
+    }
+  }
 }
 
 // Host-side checks shared by the entry points; a bad shape never launches.

@@ -17,7 +17,15 @@
 //
 // The first CUDA blocks of the grid do the pushes (the block scheduler
 // hands out low indices first, so the copies start first, as the
-// reference's do); the rest run the interior sweep (sweep_common.cuh).  The
+// reference's do); the rest run the interior sweep (sweep_common.cuh): in
+// the gather forms, the body ops/blocksweep.py::gather_body picks for the
+// fused kernel: staged, one sweep block per listed entry with its table in
+// the launch's dynamic shared memory (which the push blocks are given too
+// and leave unused), or direct.  The flux form keeps the direct body: the
+// staged one took 1.0035x the direct one's time in turns at the eight-shard
+// 96^3 interior plan on an H100, where its four 128-thread blocks per SM
+// leave the flux body (8 accumulators, little work per load) short of the
+// direct body's six.  The
 // push is a copy of bytes, so one body serves f32 and bf16 buffers: each
 // (shard, phase) buffer is rows*s_max*esize bytes, moved in 16-byte pieces.
 //
@@ -53,7 +61,10 @@
 // Bound: memory.  The sweep streams as K1/K2 with init; the push reads and
 // writes rows*s_max*esize bytes per (shard, phase), a few percent of the
 // sweep's bytes at the benchmark sizes, with 16-byte coalesced copies.
-// rows is the op's output row count (3*NV gg, NV flux).
+// rows is the op's output row count (3*NV gg, NV flux).  The staged gather
+// form runs four 128-thread blocks per SM at the eight-shard tables, half
+// the warps K2's 256-thread blocks keep, so it gains less than K2 (PERF.md
+// section 6).
 
 #include "push_common.cuh"
 #include "sweep_common.cuh"
@@ -89,8 +100,8 @@ __device__ __forceinline__ void push_chunk(const PushArgs& p, int64_t blk) {
 // Resident blocks per SM that ptxas is asked to allow for (see
 // sweep_packed.cu).  Measured on an H100 at the one-shard 96^3 shapes, in
 // turns: no hint 0.240 ms, 5 0.243 ms, 6 0.190 ms, 8 0.241 ms.
-// The gather, flux and reduced-precision instances keep the same hint
-// (untuned).
+// The direct gather, flux and reduced-precision instances keep the same
+// hint (untuned).
 constexpr int kMinBlocks = 6;
 
 template <cfd::Op kOp, class Src, class O>
@@ -103,13 +114,51 @@ sweep_overlap_kernel(cfd::SweepArgs<O> a, Src s, PushArgs p) {
   cfd::sweep_chunk<true, kOp>(a, s, blockIdx.x - p.blocks);
 }
 
-// Checks the push shape, sizes the grid and launches one instance.
+// The gather forms' staged sweep blocks: one per listed entry
+// (sweep_common.cuh::sweep_entry_staged), of kThreads like the push blocks
+// (the push code is written for them); the launch's dynamic shared memory
+// holds one staged table per block.  Resident blocks per SM asked of
+// ptxas: the staged table (48 KB at the eight-shard 96^3 interior plan at
+// bp 512) admits four, so the sweep keeps up to 128 registers (it takes
+// 66-80) and spills nothing, where the direct body at six blocks spills 80
+// bytes.  The push blocks' waits drain at any occupancy a staged table
+// leaves (push_common.cuh).
+constexpr int kStagedMinBlocks = 4;
+
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kThreads, kStagedMinBlocks)
+sweep_overlap_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                            const int32_t* ext_cnt, PushArgs p) {
+  if (static_cast<int64_t>(blockIdx.x) < p.blocks) {
+    push_chunk(p, blockIdx.x);
+    return;
+  }
+  cfd::sweep_entry_staged<true, kOp>(a, s, ext_cnt, blockIdx.x - p.blocks);
+}
+
+// The staged form of a gather launch: the live ext counts and the body.
+struct Staging {
+  const int32_t* ext_cnt;   // (P, nb) live ext columns, or null
+  bool on;                  // the staged body, else the direct one
+};
+
+// The gather fetch policy, and its weight type.
+template <class Src>
+struct IsGather : std::false_type {};
+template <class WT>
+struct IsGather<cfd::GatherSrc<WT>> : std::true_type {
+  using W = WT;
+};
+
+// Checks the push shape, sizes the grid and launches one instance: the
+// staged gather body when `st.on` (Src a GatherSrc), else sweep_chunk.
 template <cfd::Op kOp, class Src, class O>
 int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                    const void* sendbufs, int esize, const int32_t* dsts,
                    int64_t nph, int64_t s_max, void* recv,
-                   cudaStream_t stream) {
-  const int64_t sweep_blocks = cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+                   cudaStream_t stream, Staging st = {nullptr, false}) {
+  const int64_t sweep_blocks =
+      st.on ? P * a.nb : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
   const int64_t row_bytes = s_max * esize;
   if ((esize != 2 && esize != 4) || row_bytes % kPushBytes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -124,6 +173,20 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
   }
   const PushArgs p{static_cast<const uint4*>(sendbufs), dsts, nph, seg,
                    push_chunks, push_blocks, static_cast<uint4*>(recv)};
+  if constexpr (IsGather<Src>::value) {
+    if (st.on) {
+      const auto kernel =
+          sweep_overlap_staged_kernel<kOp, typename IsGather<Src>::W, O>;
+      static bool raised = false;
+      int64_t smem = 0;
+      if (!cfd::staged_launch_ok(kernel, &raised, a.bp, s.ep, &smem)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      kernel<<<static_cast<unsigned>(grid), cfd::kThreads,
+               static_cast<size_t>(smem), stream>>>(a, s, st.ext_cnt, p);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   sweep_overlap_kernel<kOp, Src, O><<<static_cast<unsigned>(grid),
                                       cfd::kThreads, 0, stream>>>(a, s, p);
   return static_cast<int>(cudaGetLastError());
@@ -139,6 +202,24 @@ sweep_overlap_peer_kernel(cfd::SweepArgs<O> a, Src s, cfd::PeerPush p) {
   const int64_t blk = blockIdx.x;
   if (blk > p.blocks) {
     cfd::sweep_chunk<true, kOp>(a, s, blk - 1 - p.blocks);
+    return;
+  }
+  if (blk == 0) {
+    cfd::peer_signal_block(p);
+  } else {
+    cfd::peer_push_block(p, blk - 1);
+  }
+  cfd::peer_finish_block(p);
+}
+
+// The same with the staged gather body in the sweep blocks.
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kThreads, kStagedMinBlocks)
+sweep_overlap_peer_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                                 const int32_t* ext_cnt, cfd::PeerPush p) {
+  const int64_t blk = blockIdx.x;
+  if (blk > p.blocks) {
+    cfd::sweep_entry_staged<true, kOp>(a, s, ext_cnt, blk - 1 - p.blocks);
     return;
   }
   if (blk == 0) {
@@ -165,10 +246,12 @@ struct PeerOperands {
 
 template <cfd::Op kOp, class Src, class O>
 int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
-                        const PeerOperands& o, cudaStream_t stream) {
+                        const PeerOperands& o, cudaStream_t stream,
+                        Staging st = {nullptr, false}) {
   static_assert(cfd::kPushThreads == cfd::kThreads,
                 "push and sweep blocks share one launch");
-  const int64_t sweep_blocks = cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+  const int64_t sweep_blocks =
+      st.on ? P * a.nb : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
   cfd::PeerPush p;
   if ((o.esize != 2 && o.esize != 4) ||
       !cfd::make_peer_push(&p, o.sendbufs, o.recv, o.table, o.flags, P,
@@ -179,6 +262,20 @@ int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
   const int64_t grid = 1 + p.blocks + sweep_blocks;
   if (!cfd::sweep_args_ok(a.K, a.bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (IsGather<Src>::value) {
+    if (st.on) {
+      const auto kernel =
+          sweep_overlap_peer_staged_kernel<kOp, typename IsGather<Src>::W, O>;
+      static bool raised = false;
+      int64_t smem = 0;
+      if (!cfd::staged_launch_ok(kernel, &raised, a.bp, s.ep, &smem)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      kernel<<<static_cast<unsigned>(grid), cfd::kThreads,
+               static_cast<size_t>(smem), stream>>>(a, s, st.ext_cnt, p);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
   sweep_overlap_peer_kernel<kOp, Src, O><<<static_cast<unsigned>(grid),
                                            cfd::kThreads, 0, stream>>>(a, s,
@@ -224,13 +321,15 @@ extern "C" int cfd_sweep_overlap(const float* var_T, int64_t ndev,
   });
 }
 
-// The gather form: sweep operands, op and dtype flags as in
-// cfd_sweep_gather, push operands as in cfd_sweep_overlap.
+// The gather form: sweep operands (ext_cnt and the body flag `staged`
+// included), op and dtype flags as in cfd_sweep_gather, push operands as in
+// cfd_sweep_overlap.
 extern "C" int cfd_sweep_overlap_gather(
     const float* var_T, int64_t ndev, const float* exts, int64_t ep,
     const int32_t* slot_idx, const void* slot_w, const float* scale,
     const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
-    int64_t nb, int bp, int op, int w_bf16, int out_bf16, void* out,
+    int64_t nb, int bp, const int32_t* ext_cnt, int staged, int op,
+    int w_bf16, int out_bf16, void* out,
     const void* sendbufs, int esize, const int32_t* dsts, int64_t nph,
     int64_t s_max, void* recv, cudaStream_t stream) {
   if (ep <= 0 || !cfd::op_ok(op)) {
@@ -247,7 +346,7 @@ extern "C" int cfd_sweep_overlap_gather(
     const cfd::GatherSrc<W> s{exts, slot_idx, static_cast<const W*>(slot_w),
                               ep};
     return launch_overlap<kOp>(a, P, s, sendbufs, esize, dsts, nph, s_max,
-                               recv, stream);
+                               recv, stream, Staging{ext_cnt, staged != 0});
   });
 }
 
@@ -288,7 +387,8 @@ extern "C" int cfd_sweep_overlap_gather_peer(
     const float* var_T, int64_t ndev, const float* exts, int64_t ep,
     const int32_t* slot_idx, const void* slot_w, const float* scale,
     const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
-    int64_t nb, int bp, int op, int w_bf16, int out_bf16, void* out,
+    int64_t nb, int bp, const int32_t* ext_cnt, int staged, int op,
+    int w_bf16, int out_bf16, void* out,
     const void* sendbufs, int esize, const void* table, void* flags,
     void* recv, int64_t nph, int64_t s_max, uint64_t epoch_ready,
     uint64_t epoch_arrive, int mode, cudaStream_t stream) {
@@ -307,7 +407,8 @@ extern "C" int cfd_sweep_overlap_gather_peer(
                               bp, 0, static_cast<O*>(out)};
     const cfd::GatherSrc<W> s{exts, slot_idx, static_cast<const W*>(slot_w),
                               ep};
-    return launch_overlap_peer<kOp>(a, P, s, o, stream);
+    return launch_overlap_peer<kOp>(a, P, s, o, stream,
+                                    Staging{ext_cnt, staged != 0});
   });
 }
 
@@ -343,5 +444,48 @@ extern "C" int cfd_overlap_peer_info(int gather, int w_bf16, int src_bf16d,
     using O = cfd::Elt<decltype(o16)::value>;
     return info(
         sweep_overlap_peer_kernel<cfd::Op::kGG, cfd::PackedSrc<W, S>, O>);
+  });
+}
+
+// The same facts of a gather instance of the fused kernel, loopback or
+// peer form, direct or staged body (at `smem` bytes of dynamic shared
+// memory), op and dtype flags as in cfd_sweep_overlap_gather.
+extern "C" int cfd_overlap_gather_info(int peer, int staged, int op,
+                                       int w_bf16, int out_bf16, int smem,
+                                       int* out) {
+  auto info = [out, smem](auto kernel) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+    out[2] = static_cast<int>(a.sharedSizeBytes);
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cfd::kStagedMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 3, kernel, cfd::kThreads, smem));
+  };
+  if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool f[] = {peer != 0, staged != 0, op == 1, w_bf16 != 0,
+                    out_bf16 != 0};
+  return cfd::with_flags(f, [&](auto pr, auto st, auto flux, auto w16,
+                                auto o16) {
+    using W = cfd::Elt<decltype(w16)::value>;
+    using O = cfd::Elt<decltype(o16)::value>;
+    constexpr cfd::Op kOp =
+        decltype(flux)::value ? cfd::Op::kFlux : cfd::Op::kGG;
+    if constexpr (decltype(pr)::value) {
+      if constexpr (decltype(st)::value) {
+        return info(sweep_overlap_peer_staged_kernel<kOp, W, O>);
+      } else {
+        return info(sweep_overlap_peer_kernel<kOp, cfd::GatherSrc<W>, O>);
+      }
+    } else if constexpr (decltype(st)::value) {
+      return info(sweep_overlap_staged_kernel<kOp, W, O>);
+    } else {
+      return info(sweep_overlap_kernel<kOp, cfd::GatherSrc<W>, O>);
+    }
   });
 }

@@ -90,6 +90,7 @@ from cfd_proxy_tpu_torch.ops.blocksweep import (
     BF16,
     F32,
     OPS,
+    ext_counts,
     gather_exts,
     out_rows,
     pack_srcs,
@@ -533,8 +534,9 @@ class GreenGaussTorch(nn.Module):
 
     def _gather_tables(self, c: str, ca: dict, wks: tuple, nb: int,
                        dev) -> dict:
-        """A gather class's W-index table and ext lists, range-checked here
-        once (the kernel reads var_T and the ext table through them)."""
+        """A gather class's W-index table, ext lists and live ext counts
+        (`ext_counts`), range-checked here once (the kernel reads var_T,
+        the ext table and its staged copy through them)."""
         P, K, bp, ep = len(self.parts), len(wks), self.bp, int(ca["ep"])
         sidx, ext = np.asarray(ca["slot_idx"]), np.asarray(ca["ext_idx"])
         for name, arr, want in (
@@ -545,8 +547,10 @@ class GreenGaussTorch(nn.Module):
                   c, name, np.shape(arr), want)
         _check_range(sidx, bp + ep, f"class {c} slot_idx")
         _check_range(ext, self.ndev, f"class {c} ext_idx")
-        # ext_idx as the int64 index gather_exts uses on every rebuild
-        return {"slot_idx": dev(sidx, np.int32), "ext_idx": dev(ext, np.int64)}
+        # ext_idx as the int64 index gather_exts uses on every rebuild; the
+        # live ext columns per entry, which the staged sweep body stages
+        return {"slot_idx": dev(sidx, np.int32), "ext_idx": dev(ext, np.int64),
+                "ext_cnt": dev(ext_counts(sidx, bp), np.int32)}
 
     def _packed_tables(self, c: str, ca: dict, wks: tuple, nb: int, nw: int,
                        dev) -> dict:
@@ -672,13 +676,21 @@ class GreenGaussTorch(nn.Module):
         pl = self.plans[cls]
         return (tables[cls], *(pl[k] for k in SWEEP_OPERANDS[self.kernel]))
 
+    def _gather_kw(self, cls: str) -> dict:
+        """The gather sweeps' keyword operand: the class's live ext counts
+        (none for the packed kernel)."""
+        if self.kernel != "gather":
+            return {}
+        return {"ext_cnt": self.plans[cls]["ext_cnt"]}
+
     def _sweep(self, cls: str, var_T, tables, init=None):
         """A class's sweep; its output (init's, else a new one) is stored
         in the grad dtype."""
         sweep = sweep_blocks_gather if self.kernel == "gather" else \
             sweep_blocks
         return sweep(var_T, *self._operands(cls, tables), init=init,
-                     op=self.op, out_dtype=self.grad_t)
+                     op=self.op, out_dtype=self.grad_t,
+                     **self._gather_kw(cls))
 
     def _pack(self, x: torch.Tensor, scale: torch.Tensor,
               wire: torch.dtype = F32) -> torch.Tensor:
@@ -758,7 +770,7 @@ class GreenGaussTorch(nn.Module):
         else:
             push, how = (*self.kernel_map, self.op), {}
         g, recv = fused(var_T, *self._operands("interior", tables), gb, bufs,
-                        *push, **how)
+                        *push, **how, **self._gather_kw("interior"))
         if not self.routed:
             self._unpack(g, recv)
             return g

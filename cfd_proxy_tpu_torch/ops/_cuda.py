@@ -135,8 +135,9 @@ def lib() -> ctypes.CDLL:
                                 i64, i64, i32, i32, vp, vp]
     sweep = [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i64, i32]
     # gather: var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids,
-    # slots, K, P, nb, bp
-    gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32]
+    # slots, K, P, nb, bp, ext_cnt, staged (the body)
+    gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32, vp,
+              i32]
     # sendbufs, esize, dsts, nph, s_max, recv, stream
     push = [vp, i32, vp, i64, i64, vp, vp]
     # the peer form's: sendbufs, esize, table, flags, recv, nph, s_max,
@@ -161,8 +162,13 @@ def lib() -> ctypes.CDLL:
                                  i32, vp]),
             # kernel facts (registers, local bytes, static shared bytes,
             # blocks per SM) into an int[4]: K3-peer (gather, w_bf16,
-            # src_bf16d, out_bf16), K6 (none), K4 (delta, smem)
+            # src_bf16d, out_bf16), K6 (none), K4 (delta, smem), K2
+            # (staged, accumulate, op, w_bf16, out_bf16, smem), K3's gather
+            # form (peer, staged, op, w_bf16, out_bf16, smem)
             ("cfd_overlap_peer_info", [i32, i32, i32, i32, vp]),
+            ("cfd_sweep_gather_info", [i32, i32, i32, i32, i32, i32, vp]),
+            ("cfd_overlap_gather_info", [i32, i32, i32, i32, i32, i32,
+                                         vp]),
             ("cfd_push_phases_info", [vp]),
             ("cfd_pack_srcs_info", [i32, i32, vp]),
             # mapped exchange memory (csrc/ipc.cu): device first
@@ -189,7 +195,8 @@ def kernel_info(name: str, *args: int) -> dict:
     """Registers and local bytes per thread, static shared bytes and
     resident blocks per SM of a kernel instance, as the CUDA runtime
     reports them: `name` one of "cfd_overlap_peer_info",
-    "cfd_push_phases_info", "cfd_pack_srcs_info", args as it takes them."""
+    "cfd_push_phases_info", "cfd_pack_srcs_info", "cfd_sweep_gather_info",
+    "cfd_overlap_gather_info", args as it takes them."""
     out = (ctypes.c_int * 4)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
     check_launch(getattr(lib(), name)(*args, ptr), name)

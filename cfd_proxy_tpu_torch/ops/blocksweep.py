@@ -42,7 +42,10 @@ fused kernel's peer form, "peer_" before both; tag "" for
 f32 operands, else "w16_" (bf16 weights), "d16_" (bf16 deltas) and "o16_"
 (bf16 output), in that order (`sweep_blocks.launches`,
 `sweep_blocks.flux_init_w16_d16_o16_launches`, `pack_srcs.d16_launches`);
-`sweep_blocks` on a bf16 state counts in `v16_w16_d16_o16_launches`.
+`sweep_blocks` on a bf16 state counts in `v16_w16_d16_o16_launches`; the
+gather wrappers count their direct body after the tag
+(`sweep_blocks_gather.direct_launches`, their staged body in the names
+without it: `gather_body`).
 `launch_counters()` lists them all, so a run can show which bodies its main
 path ran.
 
@@ -74,6 +77,10 @@ MAX_SLOTS = 64         # slot-table capacity of the sweep kernel
 # shared memory the pack kernel may stage rows in: an H100 block's, less
 # its static slot table (csrc/pack_srcs.cu)
 PACK_SMEM = 227 * 1024 - 2 * MAX_SLOTS * 4
+# the gather sweep's staged body: the most shared memory its table may take,
+# an H100 block's less the static slot table (csrc/sweep_gather.cu)
+GATHER_STAGE_MAX = 227 * 1024 - MAX_SLOTS * 4
+GATHER_BODIES = ("staged", "direct")
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = (F32, BF16)   # the stored types a reduced-precision operand takes
 
@@ -100,6 +107,8 @@ _FUSED_FORMS = ("", "flux_", "peer_", "peer_flux_")
 _PACKED_TAGS = tuple(_tag(w, d, o) for w in (0, 1) for d in (0, 1)
                      for o in (0, 1))
 _GATHER_TAGS = tuple(_tag(w, False, o) for w in (0, 1) for o in (0, 1))
+# the gather wrappers count the direct body apart: "<tag>direct_launches"
+_GATHER_BODY_TAGS = (*_GATHER_TAGS, *(t + "direct_" for t in _GATHER_TAGS))
 
 
 def _count(fn, init, op: str, tag: str = "", peer: bool = False) -> None:
@@ -599,11 +608,46 @@ def sweep_blocks_gather_ref(var_T: torch.Tensor, exts: torch.Tensor,
                         out_dtype=_out_dtype(init, out_dtype))
 
 
+def staged_bytes(bp: int, ep: int) -> int:
+    """Shared memory of the gather sweep's staged table: NV f32 values per
+    column, bp own and EP ext columns (csrc/sweep_common.cuh)."""
+    return NV * (bp + ep) * 4
+
+
+def gather_body(bp: int, ep: int, op: str = "gg",
+                fused: bool = False) -> str:
+    """The gather sweep's body at block size bp and ext width EP (the live
+    ext count's maximum, rounded up to 128 by the plan), by one fixed rule:
+    "staged" (one CUDA block per listed entry stages its [own ‖ ext] table
+    in shared memory) where bp and EP are multiples of 4 (16-byte loads)
+    and the table fits one CUDA block's shared memory (GATHER_STAGE_MAX
+    bytes); else "direct" (the sources read from device memory, any bp).
+    The staged body won wherever it fits in K2, even at one CUDA block per
+    SM (csrc/sweep_gather.cu), and in the fused kernel's gg form (fused:
+    K3's gather form); the fused flux form keeps the direct body, which
+    the staged one did not beat (csrc/sweep_overlap.cu)."""
+    ok = bp % 4 == 0 and ep % 4 == 0 and not (fused and op == "flux")
+    return "staged" if ok and staged_bytes(bp, ep) <= GATHER_STAGE_MAX \
+        else "direct"
+
+
+def ext_counts(slot_idx: np.ndarray, bp: int) -> np.ndarray:
+    """(P, nb, K, bp) W-indices → (P, nb) int32 live ext columns per entry:
+    the largest ext W-index + 1 − bp (0 for an entry without one).  The
+    plan's ext list holds exactly the columns its slots name, in rank
+    order, so this is the reference plan's `ext_cnt`; every W-index of the
+    entry lies below bp + the count, so the staged body stages no more."""
+    if slot_idx.size == 0:
+        return np.zeros(slot_idx.shape[:2], np.int32)
+    top = slot_idx.reshape(*slot_idx.shape[:2], -1).max(axis=2)
+    return np.maximum(top.astype(np.int64) - bp + 1, 0).astype(np.int32)
+
+
 def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
-                  init, rows):
+                  init, rows, ext_cnt=None):
     """Validate the gather sweep's operands; returns (P, nb, EP, bp, ndev,
-    K).  The W-indices' range is checked where the plan is loaded
-    (models/gradients.py), not per call."""
+    K).  The W-indices' range and the live ext counts are checked where the
+    plan is loaded (models/gradients.py), not per call."""
     dev = var_T.device
     _expect(exts, "exts", F32, 4, dev)
     _expect(slot_idx, "slot_idx", torch.int32, 4, dev)
@@ -615,15 +659,32 @@ def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
     _shape(slot_idx, "slot_idx", (P, nb, K, bp))
     _shape(slot_w, "slot_w", (P, nb, K, 3, bp))
     check(ep > 0, "exts: EP must be positive")
+    if ext_cnt is not None:
+        _expect(ext_cnt, "ext_cnt", torch.int32, 2, dev)
+        _shape(ext_cnt, "ext_cnt", (P, nb))
     return P, nb, ep, bp, ndev, K
 
 
 def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
-                 dims):
+                 dims, ext_cnt, op, fused=False):
+    """The gather entry points' sweep operands, the live ext counts and the
+    body `gather_body` picks (1 staged, 0 direct); the staged body loads
+    var_T and exts 16 bytes at a time."""
     P, nb, ep, bp, ndev, K = dims
+    staged = gather_body(bp, ep, op, fused) == "staged"
+    check(not staged or (var_T.data_ptr() % 16 == 0
+                         and exts.data_ptr() % 16 == 0),
+          "the staged gather sweep loads var_T and exts 16 bytes at a time: "
+          "both must be 16-byte aligned")
     return (var_T.data_ptr(), ndev, exts.data_ptr(), ep, slot_idx.data_ptr(),
             slot_w.data_ptr(), scale.data_ptr(), block_ids.data_ptr(),
-            slots.data_ptr(), K, P, nb, bp)
+            slots.data_ptr(), K, P, nb, bp,
+            None if ext_cnt is None else ext_cnt.data_ptr(), int(staged))
+
+
+def _body_tag(ptrs: tuple) -> str:
+    """The count tag of the body _gather_ptrs picked."""
+    return "" if ptrs[-1] else "direct_"
 
 
 def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
@@ -632,7 +693,8 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
                         slots: torch.Tensor,
                         init: torch.Tensor | None = None,
                         op: str = "gg",
-                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                        out_dtype: torch.dtype | None = None, *,
+                        ext_cnt: torch.Tensor | None = None) -> torch.Tensor:
     """Gather-formulation sweep → (P, rows, ndev), rows and output dtype as
     in `sweep_blocks`.
 
@@ -640,12 +702,15 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     slot_idx (P, nb, K, bp) i32 W-indices in [0, bp + EP); slot_w
     (P, nb, K, 3, bp) f32 or bf16; scale, block_ids, init and out_dtype as
     in `sweep_blocks`; slots (2, K) i32 from `slot_table(wks)` (only the
-    widths are read).  Counterpart of
+    widths are read); ext_cnt (P, nb) i32, each entry's live ext columns
+    (`ext_counts`; every W-index below bp + its count), which the staged
+    body stages instead of all EP (None: all).  The kernel's body is
+    `gather_body(bp, EP)`'s.  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(..., packed=False, wks=...,
     init=..., op=..., out_dtype=...)`.  Kernel: csrc/sweep_gather.cu."""
     rows = _check_op(op)
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                         slots, init, rows)
+                         slots, init, rows, ext_cnt)
     odt = _out_dtype(init, out_dtype)
     if _device_kind(var_T) == "cpu":
         return sweep_blocks_gather_ref(var_T, exts, slot_idx, slot_w, scale,
@@ -654,22 +719,25 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
 
     dev = var_T.device
     P, _, _, _, ndev, _ = dims
-    out = (torch.zeros((P, rows, ndev), dtype=odt, device=dev)
+    # the kernel zeroes the columns of unlisted blocks itself
+    out = (torch.empty((P, rows, ndev), dtype=odt, device=dev)
            if init is None else init)
     w16, o16 = _flags(slot_w, out)
+    ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
+                        slots, dims, ext_cnt, op)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_gather(
-            *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                          slots, dims),
-            int(init is not None), OPS.index(op), w16, o16, out.data_ptr(),
-            _stream(dev))
+            *ptrs, int(init is not None), OPS.index(op), w16, o16,
+            out.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_gather")
-    _count(sweep_blocks_gather, init, op, _tag(w16, False, o16))
+    _count(sweep_blocks_gather, init, op,
+           _tag(w16, False, o16) + _body_tag(ptrs))
     return out
 
 
-# K2, K2-init, K2-flux, K2-flux-init, each with f32 or bf16 weights and out
-_zero_counts(sweep_blocks_gather, _SWEEP_FORMS, _GATHER_TAGS)
+# K2, K2-init, K2-flux, K2-flux-init, each with f32 or bf16 weights and out,
+# each in its staged and direct body
+_zero_counts(sweep_blocks_gather, _SWEEP_FORMS, _GATHER_BODY_TAGS)
 
 
 # ------------------------------------------------------- fused overlap
@@ -872,32 +940,35 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
                                 dsts: torch.Tensor | None,
                                 src_devs: torch.Tensor | None,
                                 op: str = "gg", peer=None,
-                                debug: str | None = None):
+                                debug: str | None = None, *,
+                                ext_cnt: torch.Tensor | None = None):
     """Fused interior sweep (gather formulation) + halo push → (grad,
-    recv): the sweep operands as in `sweep_blocks_gather`, the push (and
-    `peer`, `debug`) as in `sweep_blocks_overlap`.  Counterpart of
+    recv): the sweep operands (and `ext_cnt`) as in `sweep_blocks_gather`,
+    the body `gather_body(bp, EP, op, fused=True)`'s, the push (and `peer`,
+    `debug`) as in
+    `sweep_blocks_overlap`.  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks_overlap(..., packed=False)`.
     Kernel: csrc/sweep_overlap.cu (its gather instances)."""
     check(init is not None, "sweep_blocks_overlap_gather accumulates onto "
           "init")
     rows = _check_op(op)
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                         slots, init, rows)
+                         slots, init, rows, ext_cnt)
     dev = var_T.device
     if peer is not None:
         mode = _check_peer(peer, sendbufs, dims[0], dev, rows, debug)
         from cfd_proxy_tpu_torch.ops import _cuda
 
         w16, o16 = _flags(slot_w, init)
+        ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
+                            slots, dims, ext_cnt, op, fused=True)
         with torch.cuda.device(dev):
             rc = _cuda.lib().cfd_sweep_overlap_gather_peer(
-                *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale,
-                              block_ids, slots, dims),
-                OPS.index(op), w16, o16, init.data_ptr(),
+                *ptrs, OPS.index(op), w16, o16, init.data_ptr(),
                 *_peer_args(peer, sendbufs, mode), _stream(dev))
         _cuda.check_launch(rc, "sweep_blocks_overlap_gather (peer)")
-        _count(sweep_blocks_overlap_gather, None, op, _tag(w16, False, o16),
-               peer=True)
+        _count(sweep_blocks_overlap_gather, None, op,
+               _tag(w16, False, o16) + _body_tag(ptrs), peer=True)
         return init, peer.recv
     check(debug is None, "debug %r: a mode of the peer form", debug)
     nph, s_max, dmap = _check_push(sendbufs, dsts, src_devs, dims[0], dev,
@@ -910,17 +981,19 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
 
     recv = torch.zeros_like(sendbufs)
     w16, o16 = _flags(slot_w, init)
+    ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
+                        slots, dims, ext_cnt, op, fused=True)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_overlap_gather(
-            *_gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                          slots, dims),
-            OPS.index(op), w16, o16, init.data_ptr(), sendbufs.data_ptr(),
-            sendbufs.element_size(), dmap.data_ptr(), nph, s_max,
-            recv.data_ptr(), _stream(dev))
+            *ptrs, OPS.index(op), w16, o16, init.data_ptr(),
+            sendbufs.data_ptr(), sendbufs.element_size(), dmap.data_ptr(),
+            nph, s_max, recv.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_overlap_gather")
-    _count(sweep_blocks_overlap_gather, None, op, _tag(w16, False, o16))
+    _count(sweep_blocks_overlap_gather, None, op,
+           _tag(w16, False, o16) + _body_tag(ptrs))
     return init, recv
 
 
-# K3-gather and K3-gather-flux with f32 or bf16 weights and out
-_zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _GATHER_TAGS)
+# K3-gather and K3-gather-flux with f32 or bf16 weights and out, loopback
+# and peer form, each in its staged and direct body
+_zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _GATHER_BODY_TAGS)

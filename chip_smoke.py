@@ -19,7 +19,11 @@ faces, nvar 7, random state from a seed):
   solver_mode=True)`: table rebuild, sweep + update, var exchange);
 - `solver_p8`: the same at 8 shards, with the var exchange's ghost columns
   checked against their owners;
-- `gather_auto_bp`: the gather kernel at the AUTO block size (4096);
+- `gather_auto_bp`: the gather kernel at the AUTO block size (4096), under
+  the body the rule (`blocksweep.gather_body`) picks there; both bodies
+  held against the plain version and timed in turns;
+- `gather_large_bp`: the gather kernel at bp 8192, where the staged table
+  does not fit a CUDA block's shared memory: the direct body;
 - `solver_mode_timing`: the solver-mode step at P=1 and P=8, bulk, for
   gather/bp 512 and packed/AUTO at 1, 2 and 4 sweeps per step — the
   numbers `solver.solver_mode_defaults` is decided from;
@@ -57,6 +61,12 @@ faces, nvar 7, random state from a seed):
   (compact/cstream_c, compact_bso/cstream_bso, prod/stream, prod/wsum,
   prod/nv7, cflux/cstream_flux, cflux/cflux_fact, compact_bso over
   bso_fold, bso_wsum, bso_acc3, var16 and compact_i8) timed in turns.
+
+The gather paths print each plan's EP, its live-EP maximum and the body
+the rule picks; K2 and K3-gather count each body apart (the direct body's
+rows end in `_direct`: K2 at bp 8192, and K3's gather flux form, which
+keeps it), so the kernel table lists each under the body its path launched, with that instance's registers, local bytes, shared memory
+and resident blocks per SM.
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after, and checked against the f64 golden of its op
@@ -102,6 +112,8 @@ TIMED_STEPS = 200
 SOLVER_STEPS = 100   # timed solver-mode steps per configuration
 SOLVER_RUN = 4       # solver-mode steps of the counted runner
 GATHER_BP = 512      # the gather kernel's solver-mode block size
+LARGE_BP = 8192      # a block size whose gather table no block's shared
+                     # memory holds: the gather sweep's direct body
 SWEEPS = (1, 2, 4)   # sweeps per solver-mode step
 K1_TOL = 1e-6    # sweep kernels vs plain: FMA contraction, relative to max|ref|
 GOLDEN_TOL = 1e-5   # every schedule vs f64 golden (the reference's gate)
@@ -186,6 +198,11 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
                              "cfd_proxy_tpu/ops/blocksweep.py:687"),
     "sweep_blocks_gather": ("cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
                             "cfd_proxy_tpu/ops/blocksweep.py:549"),
+    # K2's direct body, which the gather_body rule picks where the staged
+    # table does not fit (bp 8192)
+    "sweep_blocks_gather_direct": ("cuda",
+                                   "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+                                   "cfd_proxy_tpu/ops/blocksweep.py:549"),
     "sweep_blocks_gather_init": ("cuda",
                                  "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
                                  "cfd_proxy_tpu/ops/blocksweep.py:549"),
@@ -208,7 +225,8 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "sweep_blocks_gather_flux_init": (
         "cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
         "cfd_proxy_tpu/ops/blocksweep.py:420"),
-    "sweep_blocks_overlap_gather_flux": (
+    # K3's gather flux form keeps its direct body (blocksweep.gather_body)
+    "sweep_blocks_overlap_gather_flux_direct": (
         "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
         "cfd_proxy_tpu/ops/blocksweep.py:747"),
     # the reduced-precision instances the counted paths launch: w16 bf16
@@ -296,6 +314,9 @@ KERNELS.update({
 })
 PEER_STEPS = 5        # timed steps of a two-process run (time-sliced)
 PEER_MIN_BLOCKS = 6   # K3's resident blocks per SM (sweep_overlap.cu kMinBlocks)
+# the same of K3's staged gather instances (kStagedMinBlocks), which the
+# 48 KB table of the P=8 interior plan admits
+STAGED_MIN_BLOCKS = 4
 PEER_W2_LIMIT_S = 420     # the two-process phase is killed past this
 ICI_PHASES = (1, 2, 4)                  # the push bench's grid: the
 ICI_MB = (0.125, 1.0, 8.0, 32.0)        # reference's defaults
@@ -308,7 +329,7 @@ GATHER = ("sweep_blocks_gather", "sweep_blocks_gather_init",
 FLUX_PACKED = ("pack_srcs", "sweep_blocks_flux", "sweep_blocks_flux_init",
                "sweep_blocks_overlap_flux")
 FLUX_GATHER = ("sweep_blocks_gather_flux", "sweep_blocks_gather_flux_init",
-               "sweep_blocks_overlap_gather_flux")
+               "sweep_blocks_overlap_gather_flux_direct")
 REDUCED_PACKED = ("pack_srcs_d16", "sweep_blocks_w16_d16_o16",
                   "sweep_blocks_init_w16_d16_o16",
                   "sweep_blocks_overlap_w16_d16_o16")
@@ -430,6 +451,45 @@ def sweep_bound(op: str, args, gather: bool, init: bool = False,
     zero = int((scale[first] == 0).flatten(1).all(1).sum())
     return {**bound(moved, lanes * OPS_PER_SLOT_LANE[op] + cols * rows),
             "entries": entries, "zero_scale_entries": zero}
+
+
+@contextlib.contextmanager
+def gather_body_forced(bs, body: str):
+    """The gather wrappers of module bs on one body while the block runs
+    (the rule's own pick is what every counted path launches)."""
+    rule = bs.gather_body
+    bs.gather_body = lambda *args, **kw: body
+    try:
+        yield
+    finally:
+        bs.gather_body = rule
+
+
+def gather_facts(bs, model, cls: str, fused: bool = False,
+                 peer: bool = False) -> dict:
+    """The gather plan of class cls (EP, the live-EP maximum, the body the
+    rule picks for K2, or, fused, for K3's gather form) and that body's
+    instance (K2, or K3's loopback or peer form) of the model's op:
+    registers, local bytes, shared memory and resident blocks per SM, at
+    this plan's shapes and the model's precision."""
+    import torch
+
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    pl = model.plans[cls]
+    ep = int(pl["ext_idx"].shape[2])
+    body = bs.gather_body(model.bp, ep, model.op, fused)
+    staged = int(body == "staged")
+    smem = bs.staged_bytes(model.bp, ep) if staged else 0
+    op = bs.OPS.index(model.op)
+    w16 = int(model.w_t == torch.bfloat16)
+    o16 = int(model.grad_t == torch.bfloat16)
+    facts = (_cuda.kernel_info("cfd_overlap_gather_info", int(peer), staged,
+                               op, w16, o16, smem) if fused else
+             _cuda.kernel_info("cfd_sweep_gather_info", staged, 0, op, w16,
+                               o16, smem))
+    return {"ep": ep, "ep_live_max": int(pl["ext_cnt"].max()), "body": body,
+            "kernel": {**facts, "dynamic_smem": smem}}
 
 
 def device_profile(model, state, schedule: str, n: int = 20) -> dict:
@@ -563,12 +623,17 @@ def main() -> int:
                 if getattr(fn, attr)}
 
     launches = dict.fromkeys(KERNELS, 0)    # summed over the counted paths
+    # of them, the bench tools' loop iterations (kbench, icibench): what a
+    # ranking by launches on the model's paths leaves out
+    bench_launches = dict.fromkeys(KERNELS, 0)
 
     def expect_counts(path, counts, names):
         for k, n in counts.items():
             if k not in launches:
                 fail(f"{path} launched {k}, which has no kernel row")
             launches[k] += n
+            if path.startswith(("kbench", "icibench")):
+                bench_launches[k] += n
         missing = [k for k in names if counts.get(k, 0) <= 0]
         if missing:
             fail(f"{path} launched no {missing} kernel")
@@ -918,6 +983,10 @@ def main() -> int:
         emit(path, parts=npart, kernel="gather", bp=gm.bp, ndev=gm.ndev,
              model_seconds=t_model,
              ep={c: int(gm.plans[c]["ext_idx"].shape[2]) for c in gm.plans},
+             ep_live_max={c: int(gm.plans[c]["ext_cnt"].max())
+                          for c in gm.plans},
+             body={c: bs.gather_body(gm.bp, int(pl_["ext_idx"].shape[2]))
+                   for c, pl_ in gm.plans.items()},
              kslots={c: len(w) for c, w in gm.wks.items()},
              wks={c: list(w) for c, w in gm.wks.items()},
              vs_golden_relmax=rel, tol=GOLDEN_TOL, cross=cross,
@@ -927,45 +996,117 @@ def main() -> int:
         gather_models[npart] = gm
         del state, v
 
-    # ---- the gather kernel at the AUTO block size (4096 at one shard): K2
-    # stages nothing in shared memory, so no bp is too large for it
+    # ---- the gather kernel at the AUTO block size (4096 at one shard), the
+    # body the rule picks there counted; then both bodies against the plain
+    # version, timed in turns (the rule's evidence at one CUDA block per SM)
     reset_counts()
     gm = GreenGaussTorch(parts, NVAR, kernel="gather", device=dev)
-    rel_auto = golden_relmax(gm, gm.step(gm.distribute_state(
-        gvar, schedules=["bulk"]), "bulk"))
+    state = gm.distribute_state(gvar, schedules=["bulk"])
+    rel_auto = golden_relmax(gm, gm.step(state, "bulk"))
     counts = read_counts()
-    emit("gather_auto_bp", parts=1, bp=gm.bp,
-         ep=int(gm.plans["bulk"]["ext_idx"].shape[2]),
-         bulk_vs_golden_relmax=rel_auto, tol=GOLDEN_TOL, launches=counts)
-    expect_counts("gather_auto_bp", counts, ("sweep_blocks_gather",))
+    auto = gather_facts(bs, gm, "bulk")
+    expect_counts("gather_auto_bp", counts, (
+        "sweep_blocks_gather" + "_direct" * (auto["body"] == "direct"),))
     if not rel_auto <= GOLDEN_TOL:
         fail(f"gather at bp {gm.bp}: bulk vs golden {rel_auto:.3e}")
-    del gm
+    k2a = (state["var_T"], *gm._operands("bulk", state["tables"]))
+    kw = gm._gather_kw("bulk")
+    want = bs.sweep_blocks_gather_ref(*k2a)
+    scale_a = float(want.abs().max())
+    bodies, outs = {}, {}
+    for b in bs.GATHER_BODIES:
+        with gather_body_forced(bs, b):
+            outs[b] = bs.sweep_blocks_gather(*k2a, **kw)
+            torch.cuda.synchronize()
+        err = float((outs[b] - want).abs().max())
+        if not err <= K1_TOL * scale_a:
+            fail(f"gather_auto_bp: the {b} body differs from the plain "
+                 f"version: {err:.3e} > {K1_TOL} x {scale_a:.3e}")
+        bodies[b] = {"max_abs_err": err}
+    staged_eq = bool(torch.equal(outs["staged"], outs["direct"]))
+    ms = {b: [] for b in bs.GATHER_BODIES}
+    for b in ("direct", "staged", "staged", "direct"):
+        with gather_body_forced(bs, b):
+            ms[b].append(cuda_ms(lambda: bs.sweep_blocks_gather(*k2a, **kw),
+                                 50))
+    for b in bs.GATHER_BODIES:
+        bodies[b]["ms"] = min(ms[b])
+    emit("gather_auto_bp", parts=1, bp=gm.bp, ep=auto["ep"],
+         ep_live_max=auto["ep_live_max"], body=auto["body"],
+         staged_bytes=bs.staged_bytes(gm.bp, auto["ep"]),
+         kernel=auto["kernel"], bulk_vs_golden_relmax=rel_auto,
+         tol=GOLDEN_TOL, launches=counts, card=smi, bodies=bodies,
+         staged_equals_direct_bitwise=staged_eq, tol_rel=K1_TOL)
+    if not staged_eq:
+        fail("gather_auto_bp: the staged and direct bodies differ")
+    del gm, state, k2a, want, outs
+
+    # ---- the gather kernel at bp 8192 (one shard), where the staged table
+    # would not fit one CUDA block's shared memory: the direct body, counted,
+    # then against its plain version and timed (its kernel-table row)
+    reset_counts()
+    gm = GreenGaussTorch(parts, NVAR, kernel="gather", bp=LARGE_BP,
+                         device=dev)
+    state = gm.distribute_state(gvar, schedules=["bulk"])
+    rel_large = golden_relmax(gm, gm.step(state, "bulk"))
+    counts = read_counts()
+    large = gather_facts(bs, gm, "bulk")
+    if large["body"] != "direct":
+        fail(f"gather_large_bp: the rule picks {large['body']} at bp "
+             f"{gm.bp}, EP {large['ep']}; the kernel table expects direct")
+    expect_counts("gather_large_bp", counts, ("sweep_blocks_gather_direct",))
+    if not rel_large <= GOLDEN_TOL:
+        fail(f"gather at bp {gm.bp}: bulk vs golden {rel_large:.3e}")
+    k2l = (state["var_T"], *gm._operands("bulk", state["tables"]))
+    kw = gm._gather_kw("bulk")
+    row = "sweep_blocks_gather_direct"
+    got = bs.sweep_blocks_gather(*k2l, **kw)
+    want = bs.sweep_blocks_gather_ref(*k2l)
+    torch.cuda.synchronize()
+    errs[row] = float((got - want).abs().max())
+    scales = {row: float(want.abs().max())}
+    if not errs[row] <= K1_TOL * scales[row]:
+        fail(f"{row} differs from its plain version: {errs[row]:.3e} > "
+             f"{K1_TOL} x {scales[row]:.3e}")
+    work[row] = sweep_bound("gg", k2l, gather=True)
+    times[row] = {**paired_ms(lambda: bs.sweep_blocks_gather(*k2l, **kw),
+                              lambda: bs.sweep_blocks_gather_ref(*k2l)),
+                  **large}
+    emit("gather_large_bp", parts=1, bp=gm.bp, ep=large["ep"],
+         ep_live_max=large["ep_live_max"], body=large["body"],
+         staged_bytes=bs.staged_bytes(gm.bp, large["ep"]),
+         bulk_vs_golden_relmax=rel_large, tol=GOLDEN_TOL, launches=counts,
+         card=smi, max_abs_err=errs[row], max_abs_ref=scales[row],
+         tol_rel=K1_TOL, times=times[row])
+    del gm, state, k2l, got, want
 
     # ---- K2, K2-init and K3-gather vs their plain versions: K2 at the P=1
     # bulk shapes, K2-init and K3-gather at the P=8 interior + push
     gm = gather_models[1]
     state = gm.distribute_state(gvar, schedules=["bulk"])
     k2 = (state["var_T"], *gm._operands("bulk", state["tables"]))
-    out = bs.sweep_blocks_gather(*k2)
+    kw = gm._gather_kw("bulk")
+    out = bs.sweep_blocks_gather(*k2, **kw)
     out_ref = bs.sweep_blocks_gather_ref(*k2)
     torch.cuda.synchronize()
     errs["sweep_blocks_gather"] = float((out - out_ref).abs().max())
-    scales = {"sweep_blocks_gather": float(out_ref.abs().max())}
+    scales["sweep_blocks_gather"] = float(out_ref.abs().max())
     work["sweep_blocks_gather"] = sweep_bound("gg", k2, gather=True)
-    times["sweep_blocks_gather"] = paired_ms(
-        lambda: bs.sweep_blocks_gather(*k2),
-        lambda: bs.sweep_blocks_gather_ref(*k2))
+    times["sweep_blocks_gather"] = {
+        **paired_ms(lambda: bs.sweep_blocks_gather(*k2, **kw),
+                    lambda: bs.sweep_blocks_gather_ref(*k2)),
+        **gather_facts(bs, gm, "bulk")}
     del out, out_ref, state, k2
     gm = gather_models[P_MULTI]
     state = gm.distribute_state(gvar)
     iargs = (state["var_T"], *gm._operands("interior", state["tables"]))
+    kw = gm._gather_kw("interior")
     gb = gm.step(state, "nocomm")               # any finite init
     sendbufs = gm._pack(gb, gm.pack_scale)
-    got = bs.sweep_blocks_gather(*iargs, init=gb.clone())
+    got = bs.sweep_blocks_gather(*iargs, init=gb.clone(), **kw)
     want = bs.sweep_blocks_gather_ref(*iargs, init=gb.clone())
     g3, r3 = bs.sweep_blocks_overlap_gather(*iargs, gb.clone(), sendbufs,
-                                            gm.dsts, gm.srcs)
+                                            gm.dsts, gm.srcs, **kw)
     g3r, r3r = bs.sweep_blocks_overlap_gather_ref(*iargs, gb.clone(),
                                                   sendbufs, gm.dsts, gm.srcs)
     torch.cuda.synchronize()
@@ -980,14 +1121,17 @@ def main() -> int:
     work["sweep_blocks_overlap_gather"] = sweep_bound(
         "gg", iargs, gather=True, init=True, push=sendbufs)
     buf = gb.clone()
-    times["sweep_blocks_gather_init"] = paired_ms(
-        lambda: bs.sweep_blocks_gather(*iargs, init=buf),
-        lambda: bs.sweep_blocks_gather_ref(*iargs, init=buf))
-    times["sweep_blocks_overlap_gather"] = paired_ms(
-        lambda: bs.sweep_blocks_overlap_gather(*iargs, buf, sendbufs,
-                                               gm.dsts, gm.srcs),
-        lambda: bs.sweep_blocks_overlap_gather_ref(*iargs, buf, sendbufs,
-                                                   gm.dsts, gm.srcs))
+    times["sweep_blocks_gather_init"] = {
+        **paired_ms(lambda: bs.sweep_blocks_gather(*iargs, init=buf, **kw),
+                    lambda: bs.sweep_blocks_gather_ref(*iargs, init=buf)),
+        **gather_facts(bs, gm, "interior")}
+    times["sweep_blocks_overlap_gather"] = {
+        **paired_ms(
+            lambda: bs.sweep_blocks_overlap_gather(*iargs, buf, sendbufs,
+                                                   gm.dsts, gm.srcs, **kw),
+            lambda: bs.sweep_blocks_overlap_gather_ref(*iargs, buf, sendbufs,
+                                                       gm.dsts, gm.srcs)),
+        **gather_facts(bs, gm, "interior", fused=True)}
     emit("kernels_gather", card=smi,
          max_abs_err={k: errs[k] for k in GATHER}, max_abs_ref=scales,
          tol_rel=K1_TOL, sweep_blocks_overlap_gather_recv_bitwise=recv_equal,
@@ -1201,6 +1345,7 @@ def main() -> int:
     if counts.get("pack_srcs", 0):
         fail("flux_p8: the gather model launched the source pack")
     gather_info = {"bp": gm.bp, "model_seconds": t_model,
+                   "plans": {c: gather_facts(bs, gm, c) for c in gm.plans},
                    "vs_golden_relmax": rel, "cross": cross,
                    "max_abs_bulk": scale, "cross_tol": SCHED_TOL * scale,
                    "step_ghost_columns_checked": ghost_check(
@@ -1246,30 +1391,37 @@ def main() -> int:
     # K2-flux at the bulk shapes, K2-flux-init and K3-gather-flux at the
     # interior + push shapes, against their plain versions
     k2f = (state["var_T"], *gm._operands("bulk", state["tables"]))
+    kw = gm._gather_kw("bulk")
     compare_and_time("sweep_blocks_gather_flux",
-                     lambda i: bs.sweep_blocks_gather(*k2f, op="flux"),
+                     lambda i: bs.sweep_blocks_gather(*k2f, op="flux", **kw),
                      lambda i: bs.sweep_blocks_gather_ref(*k2f, op="flux"))
     work["sweep_blocks_gather_flux"] = sweep_bound("flux", k2f, gather=True)
+    times["sweep_blocks_gather_flux"].update(gather_facts(bs, gm, "bulk"))
     del k2f
     iargs = (state["var_T"], *gm._operands("interior", state["tables"]))
+    kw = gm._gather_kw("interior")
     gb = gm.step(state, "nocomm")               # any finite init
     sendbufs = gm._pack(gb, gm.pack_scale)
     compare_and_time(
         "sweep_blocks_gather_flux_init",
-        lambda i: bs.sweep_blocks_gather(*iargs, init=i, op="flux"),
+        lambda i: bs.sweep_blocks_gather(*iargs, init=i, op="flux", **kw),
         lambda i: bs.sweep_blocks_gather_ref(*iargs, init=i, op="flux"),
         init=gb)
     compare_and_time(
-        "sweep_blocks_overlap_gather_flux",
+        "sweep_blocks_overlap_gather_flux_direct",
         lambda i: bs.sweep_blocks_overlap_gather(*iargs, i, sendbufs, gm.dsts,
-                                                 gm.srcs, op="flux"),
+                                                 gm.srcs, op="flux", **kw),
         lambda i: bs.sweep_blocks_overlap_gather_ref(
             *iargs, i, sendbufs, gm.dsts, gm.srcs, op="flux"),
         init=gb, push=True)
     work["sweep_blocks_gather_flux_init"] = sweep_bound(
         "flux", iargs, gather=True, init=True)
-    work["sweep_blocks_overlap_gather_flux"] = sweep_bound(
+    work["sweep_blocks_overlap_gather_flux_direct"] = sweep_bound(
         "flux", iargs, gather=True, init=True, push=sendbufs)
+    times["sweep_blocks_gather_flux_init"].update(
+        gather_facts(bs, gm, "interior"))
+    times["sweep_blocks_overlap_gather_flux_direct"].update(
+        gather_facts(bs, gm, "interior", fused=True))
     del iargs, gb, sendbufs, state, gm
     bad = [s for s, v in flux_ms.items() if not np.isfinite(v)]
     emit("flux_p8", card=smi, parts=P_MULTI, packed=packed_info,
@@ -1521,6 +1673,7 @@ def main() -> int:
     if counts.get("pack_srcs", 0) or counts.get("pack_srcs_d16", 0):
         fail("reduced_p8: the gather model launched the source pack")
     gather_info = {"bp": gm.bp, "model_seconds": t_model,
+                   "plans": {c: gather_facts(bs, gm, c) for c in gm.plans},
                    "options": {"meta_dtype": BF, "grad_dtype": BF,
                                "halo_dtype": BF},
                    "vs_golden_relmax": rel, "band": BAND_FULL,
@@ -1563,24 +1716,28 @@ def main() -> int:
     # K2 at the bulk shapes, K2-init and K3-gather at the interior + push
     # shapes, bf16 weights and out, against their plain versions
     k2 = (state["var_T"], *gm._operands("bulk", state["tables"]))
+    kw = gm._gather_kw("bulk")
     compare_and_time(
         "sweep_blocks_gather_w16_o16",
-        lambda i: bs.sweep_blocks_gather(*k2, out_dtype=torch.bfloat16),
+        lambda i: bs.sweep_blocks_gather(*k2, out_dtype=torch.bfloat16,
+                                         **kw),
         lambda i: bs.sweep_blocks_gather_ref(*k2, out_dtype=torch.bfloat16))
     work["sweep_blocks_gather_w16_o16"] = sweep_bound("gg", k2, gather=True,
                                                       out_bytes=2)
+    times["sweep_blocks_gather_w16_o16"].update(gather_facts(bs, gm, "bulk"))
     del k2
     iargs = (state["var_T"], *gm._operands("interior", state["tables"]))
+    kw = gm._gather_kw("interior")
     gb = gm.step(state, "nocomm")               # any finite bf16 init
     sendbufs = gm._pack(gb, gm.pack_scale, torch.bfloat16)
     compare_and_time(
         "sweep_blocks_gather_init_w16_o16",
-        lambda i: bs.sweep_blocks_gather(*iargs, init=i),
+        lambda i: bs.sweep_blocks_gather(*iargs, init=i, **kw),
         lambda i: bs.sweep_blocks_gather_ref(*iargs, init=i), init=gb)
     compare_and_time(
         "sweep_blocks_overlap_gather_w16_o16",
         lambda i: bs.sweep_blocks_overlap_gather(*iargs, i, sendbufs,
-                                                 gm.dsts, gm.srcs),
+                                                 gm.dsts, gm.srcs, **kw),
         lambda i: bs.sweep_blocks_overlap_gather_ref(*iargs, i, sendbufs,
                                                      gm.dsts, gm.srcs),
         init=gb, push=True)
@@ -1588,6 +1745,10 @@ def main() -> int:
         "gg", iargs, gather=True, init=True, out_bytes=2)
     work["sweep_blocks_overlap_gather_w16_o16"] = sweep_bound(
         "gg", iargs, gather=True, init=True, push=sendbufs, out_bytes=2)
+    times["sweep_blocks_gather_init_w16_o16"].update(
+        gather_facts(bs, gm, "interior"))
+    times["sweep_blocks_overlap_gather_w16_o16"].update(
+        gather_facts(bs, gm, "interior", fused=True))
     del iargs, gb, sendbufs, state, gm
     emit("reduced_p8", card=smi, parts=P_MULTI, packed=packed_info,
          halo_only=halo_info, gather=gather_info, steps=TIMED_STEPS,
@@ -1657,6 +1818,7 @@ def main() -> int:
         for row, (_, d, inst) in TWIN_ROWS.items():
             if d == drive:
                 launches[row] = twin_counts.get(inst, 0)
+                bench_launches[row] = launches[row]     # all kbench's loop
                 if not launches[row]:
                     fail(f"kbench ({drive}) launched no {inst} ({row})")
         kb_runs[drive] = {"seconds": seconds, "output": out_lines,
@@ -1832,25 +1994,40 @@ def main() -> int:
         state = lmod.distribute_state(gvar, schedules=["overlap", "bulk"])
         iargs = (state["var_T"], *lmod._operands("interior",
                                                  state["tables"]))
+        kw = lmod._gather_kw("interior")
         gb = lmod.step(state, "nocomm")             # any finite init
         sendbufs = lmod._pack(gb, lmod.pack_scale, wire)
         peer = Peer(lmod.dsts.numpy(), lmod.srcs.numpy(), rows=lmod.rows,
                     s_max=lmod.s_max, dtype=wire, device=dev)
         compare_and_time(
             row,
-            lambda i: fused(*iargs, i, sendbufs, None, None, peer=peer),
+            lambda i: fused(*iargs, i, sendbufs, None, None, peer=peer,
+                            **kw),
             lambda i: plain(*iargs, i, sendbufs, lmod.dsts, lmod.srcs),
             init=gb, push=True)
         work[row] = sweep_bound(
             "gg", iargs, gather=lmod.kernel == "gather", init=True,
             push=sendbufs, out_bytes=gb.element_size())
         buf = gb.clone()
-        kp = lambda: fused(*iargs, buf, sendbufs, None, None, peer=peer)
-        kl = lambda: fused(*iargs, buf, sendbufs, lmod.dsts, lmod.srcs)
+        kp = lambda: fused(*iargs, buf, sendbufs, None, None, peer=peer,
+                           **kw)
+        kl = lambda: fused(*iargs, buf, sendbufs, lmod.dsts, lmod.srcs,
+                           **kw)
+        # the peer form equals its loopback form bit for bit
+        g_p, r_p = fused(*iargs, gb.clone(), sendbufs, None, None,
+                         peer=peer, **kw)
+        g_p, r_p = g_p.clone(), r_p.clone()
+        g_l, r_l = fused(*iargs, gb.clone(), sendbufs, lmod.dsts, lmod.srcs,
+                         **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(g_p, g_l) and torch.equal(r_p, r_l)):
+            fail(f"{row} differs from its loopback form")
+        del g_p, r_p, g_l, r_l
         l1, p1 = cuda_ms(kl, 50), cuda_ms(kp, 50)
         p2, l2 = cuda_ms(kp, 50), cuda_ms(kl, 50)
         modes = {m: cuda_ms(lambda m=m: fused(*iargs, buf, sendbufs, None,
-                                              None, peer=peer, debug=m), 50)
+                                              None, peer=peer, debug=m,
+                                              **kw), 50)
                  for m in ("nobar", "nodma")}
         peer_rows[row] = {"peer_ms": min(p1, p2), "loopback_ms": min(l1, l2),
                           "peer_over_loopback": min(p1, p2) / min(l1, l2),
@@ -1863,11 +2040,19 @@ def main() -> int:
                           "loopback_kernel_device_ms": kernel_device_ms(
                               kl, 20)}
         # the instance's registers, local bytes, shared memory and resident
-        # blocks per SM
-        facts = _cuda.kernel_info("cfd_overlap_peer_info", *flags)
-        if facts["blocks_per_sm"] < PEER_MIN_BLOCKS:
+        # blocks per SM (the gather row: the body the rule picks)
+        least = PEER_MIN_BLOCKS
+        if lmod.kernel == "gather":
+            plan = gather_facts(bs, lmod, "interior", fused=True, peer=True)
+            facts = plan.pop("kernel")
+            peer_rows[row]["plan"] = plan
+            if plan["body"] == "staged":
+                least = STAGED_MIN_BLOCKS
+        else:
+            facts = _cuda.kernel_info("cfd_overlap_peer_info", *flags)
+        if facts["blocks_per_sm"] < least:
             fail(f"{row}: {facts['blocks_per_sm']} resident blocks per SM, "
-                 f"below {PEER_MIN_BLOCKS}")
+                 f"below {least}")
         peer_rows[row]["kernel"] = facts
         times[row]["kernel"] = facts
         peer.close()
@@ -2102,7 +2287,10 @@ def main() -> int:
              for m in push.MODES})
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
-             "launches": launches[name], "max_abs_err": errs[name],
+             "launches": launches[name],
+             "model_path_launches": launches[name] - bench_launches[name],
+             "bench_loop_launches": bench_launches[name],
+             "max_abs_err": errs[name],
              **times[name], **work[name],
              "share": work[name]["bound_ms"] / times[name]["ms"],
              "library_ms": library.get(name)}

@@ -1,5 +1,5 @@
 """Kernel times of one checkout of the port at the smoke run's shapes, for
-comparing two commits' source pack and push path on one card.
+comparing two commits' source pack, push path and gather sweep on one card.
 
     python3 chip_turns.py --root DIR --label NAME
     python3 chip_turns.py --summary FILE
@@ -10,7 +10,13 @@ line with: the times of K4 and K4-bf16d as the model's table rebuild calls
 them on the one-shard bulk table; K6 in mode full at 4 x 8 MB and 4 x 32 MB
 per phase and in every mode at 1 x 0.125 MB; K3's peer form at the 8-shard
 interior + push shapes (packed f32, gather at bp 512, packed full bf16
-stack); and ptxas's registers and spill bytes of every K6 and K3-peer
+stack); the gather sweep at bp 512 as the model calls it (K2 and
+K2-w16-o16 on the bulk plan at one and eight shards, K2-flux at eight;
+K2-init, K2-init-w16-o16 and K2-flux-init on the eight-shard interior
+plan; K3-gather, K3-gather-w16-o16 and K3-gather-flux at the eight-shard
+interior + push shapes; the peer form is the K3-peer gather row above);
+and
+ptxas's registers and spill bytes of every K6, K3-peer and gather
 instance.  The mesh is the smoke run's (96³, seed 0, nvar 7).  Times are
 CUDA-event means of 50 calls (`chip_smoke.cuda_ms`), K6 back to back on the
 card (`chip_smoke.kernel_device_ms`), both from DIR's `chip_smoke.py`.  Run
@@ -34,12 +40,17 @@ FULL = {k: BF16 for k in ("src_dtype", "meta_dtype", "grad_dtype",
                           "halo_dtype")}
 K6_CELLS = ((4, 8.0), (4, 32.0))
 K6_SMALL = 0.125
-PTXAS_KERNELS = ("overlap_peer", "push_phases")
+# K6, K3-peer, K2 and K3's gather instances (their mangled names)
+PTXAS_KERNELS = ("overlap_peer", "push_phases", "sweep_gather", "GatherSrc")
+GATHER_MODELS = (("", 1, {}), ("", 8, {}),
+                 ("_w16_o16", 1, {"meta_dtype": BF16, "grad_dtype": BF16}),
+                 ("_w16_o16", 8, {"meta_dtype": BF16, "grad_dtype": BF16}),
+                 ("_flux", 8, {"op": "flux"}))
 
 
 def ptxas_facts(log: str) -> dict:
-    """{entry: [registers, spill store bytes]} of the K6 and K3-peer
-    instances in a ptxas report."""
+    """{entry: [registers, spill store bytes]} of the K6, K3-peer and
+    gather instances in a ptxas report."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -125,11 +136,41 @@ def measure(root: str) -> dict:
                     s_max=m8.s_max, dtype=wire, device=dev)
         fused = (bs.sweep_blocks_overlap_gather if m8.kernel == "gather"
                  else bs.sweep_blocks_overlap)
+        # the gather model's keyword operand, in a tree that has one
+        kw = (m8._gather_kw("interior") if hasattr(m8, "_gather_kw")
+              else {})
         buf = gb.clone()
         ms[name] = cs.cuda_ms(
-            lambda: fused(*iargs, buf, sendbufs, None, None, peer=peer), 50)
+            lambda: fused(*iargs, buf, sendbufs, None, None, peer=peer,
+                          **kw), 50)
         peer.close()
         del m8, st, iargs, gb, sendbufs, peer, buf
+    # the gather sweep at bp 512, as the model calls it (its output's zero
+    # fill included where it has one); K3-gather in both forms
+    for tag, npart, opts in GATHER_MODELS:
+        m = GreenGaussTorch(parts1 if npart == 1 else parts8, NVAR,
+                            kernel="gather", bp=GATHER_BP, device=dev,
+                            **opts)
+        st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
+        var_T, tbs = st["var_T"], st["tables"]
+        ms[f"sweep_blocks_gather{tag}_P{npart}"] = cs.cuda_ms(
+            lambda: m._sweep("bulk", var_T, tbs), 50)
+        if npart == 1:
+            del m, st, var_T, tbs
+            continue
+        gb = m.step(st, "nocomm")
+        buf = gb.clone()
+        ms[f"sweep_blocks_gather_init{tag}_P{npart}"] = cs.cuda_ms(
+            lambda: m._sweep("interior", var_T, tbs, init=buf), 50)
+        # the keyword operand of a tree whose model has one
+        kw = m._gather_kw("interior") if hasattr(m, "_gather_kw") else {}
+        iargs = (var_T, *m._operands("interior", tbs))
+        sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
+        fused = bs.sweep_blocks_overlap_gather
+        ms[f"sweep_blocks_overlap_gather{tag}_P{npart}"] = cs.cuda_ms(
+            lambda: fused(*iargs, buf, sendbufs, m.dsts, m.srcs, op=m.op,
+                          **kw), 50)
+        del m, st, var_T, tbs, gb, buf, iargs, sendbufs
     bad = [k for k, v in ms.items() if not np.isfinite(v)]
     if bad:
         raise SystemExit(f"chip_turns: no finite time for {bad}")

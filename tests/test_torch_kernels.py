@@ -776,6 +776,13 @@ def test_cuda_flux_sweep_kernels_match_plain(cuda_flux_models, kernel, cls,
     assert float((got - want).abs().max()) <= SWEEP_TOL * scale
 
 
+def _body_tag(model, cls, op, fused=False):
+    """The count tag of the body `gather_body` picks for a gather model's
+    class: "direct_" for the direct body, "" for the staged one."""
+    ep = model.plans[cls]["ext_idx"].shape[2]
+    return "direct_" * (bs.gather_body(model.bp, ep, op, fused) == "direct")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["packed", "gather"])
 def test_cuda_flux_overlap_kernels_match_plain(cuda_flux_models, kernel):
@@ -791,13 +798,15 @@ def test_cuda_flux_overlap_kernels_match_plain(cuda_flux_models, kernel):
     fused, ref = ((bs.sweep_blocks_overlap_gather,
                    bs.sweep_blocks_overlap_gather_ref) if kernel == "gather"
                   else (bs.sweep_blocks_overlap, bs.sweep_blocks_overlap_ref))
-    before = fused.flux_launches
+    attr = "flux_" + (_body_tag(model, "interior", "flux", fused=True)
+                      if kernel == "gather" else "") + "launches"
+    before = getattr(fused, attr)
     g, r = fused(*args, init.clone(), send, model.dsts, model.srcs,
                  op="flux")
     g_ref, r_ref = ref(*args, init.clone(), send, model.dsts, model.srcs,
                        op="flux")
     torch.cuda.synchronize()
-    assert fused.flux_launches == before + 1
+    assert getattr(fused, attr) == before + 1
     scale = float(g_ref.abs().max())
     assert float((g - g_ref).abs().max()) <= SWEEP_TOL * scale
     assert torch.equal(r, r_ref)
@@ -916,7 +925,8 @@ def test_cuda_reduced_precision_gather_kernels(cuda_gather_model, op, form,
           else bs.sweep_blocks_gather)
     attr = (("flux_" if op == "flux" else "")
             + ("init_" if form == "init" else "")
-            + bs._tag(w16, False, o16) + "launches")
+            + bs._tag(w16, False, o16)
+            + _body_tag(model, cls, op, fused=form == "overlap") + "launches")
     before = getattr(fn, attr)
     r = r_ref = None
     if form == "overlap":
@@ -1096,7 +1106,9 @@ def test_cuda_overlap_peer_kernels_match_plain(cuda_model, cuda_gather_model,
     peer = _peer_for(model, dtype)
     gen = torch.Generator("cuda").manual_seed(21)
     P = len(model.parts)
-    attr = "peer_flux_launches" if op == "flux" else "peer_launches"
+    attr = ("peer_" + "flux_" * (op == "flux")
+            + (_body_tag(model, "interior", op, fused=True)
+               if kernel == "gather" else "") + "launches")
     before = getattr(fused, attr)
     try:
         for _ in range(3):

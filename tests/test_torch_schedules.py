@@ -193,7 +193,7 @@ def test_from_arrays_equals_own_host_layer_sharded(mesh, gvar, npart,
     assert conv.kernel == own.kernel == kernel
     assert sorted(own.plans["bulk"]) == sorted(
         ("block_ids", "scale", "slots", "slot_w")
-        + (("slot_idx", "ext_idx") if kernel == "gather"
+        + (("slot_idx", "ext_idx", "ext_cnt") if kernel == "gather"
            else ("src_cols", "widx", "ext_idx")))
     assert conv.wks == own.wks and conv.ndev == own.ndev
     assert conv.perms == own.perms and conv.has_comm == own.has_comm
