@@ -97,15 +97,15 @@
 // near a tie, where the two are within those few ulp of each other, so the
 // result stays continuous).
 //
-// The gather form has two bodies, one per CUDA block shape:
+// The gather form has three bodies, one per CUDA block shape:
 //
 // - sweep_chunk with GatherSrc (the DIRECT body): one CUDA block per
 //   (shard, entry, 128-lane chunk); each live slot lane reads its eight
 //   sources straight from global memory through the read-only cache, eight
 //   scattered 4-byte loads at stride ndev (own) or EP (ext).  A warp's load
 //   of one variable touches up to 32 sectors, eight times per slot: the
-//   body runs at about half of its bound (PERF.md section 6).  It needs no
-//   shared memory, so it takes any bp.
+//   body ran at 21 % of its bound at bp 8192 (PERF.md section 6).  It needs
+//   no shared memory, so it takes any bp.
 // - sweep_entry_staged (the STAGED body): one CUDA block per listed
 //   (shard, entry), which stages the entry's table [own (NV, bp) ‖ the live
 //   ext columns (NV, ext_cnt)] in shared memory with 16-byte loads, once,
@@ -113,12 +113,22 @@
 //   slot lane's W-index there.  Each table column is read from device
 //   memory once per entry, which is what the bound counts.  It needs
 //   staged_bytes(bp, EP) of shared memory, so the wrappers take it only
-//   where that fits with room for several CUDA blocks per SM
-//   (ops/blocksweep.py::gather_body); both bodies compute the same values
-//   in the same order, so they agree bit for bit.
+//   where two such blocks fit one SM (ops/blocksweep.py::gather_body).
+// - sweep_entry_cluster (the CLUSTER body): past that, where half the
+//   table fits one CUDA block (at 96^3 AUTO's bp 4096, 188 KB, and bp
+//   8192, 340 KB), a cluster of two CUDA blocks per listed entry, on two
+//   SMs; block r stages plane r of
+//   the staged layout (variables 4r..4r+3, 16 B per column) and sweeps
+//   every other warp-sized run of the entry's lanes, reading its own plane
+//   from its shared memory and the other block's through the cluster's
+//   distributed shared memory, 16 B each.  Every table column, W-index and
+//   weight is still read from device memory once.
+// All three compute the same values in the same order (sweep_lane_staged
+// is sweep_chunk's arithmetic), so they agree bit for bit.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -332,14 +342,15 @@ __host__ __device__ constexpr int64_t staged_bytes(int64_t bp, int64_t ep) {
 constexpr int64_t kStagedMaxSmem = 227 * 1024 - kMaxSlots * 4;
 
 // Host side of a staged launch of `kernel`: the operands allow the body (bp
-// and ep multiples of 4 for the 16-byte loads, the table within
-// kStagedMaxSmem: its size into *smem), and the instance's dynamic shared
-// memory limit is raised once (*raised: the launching instance's flag; past
-// 48 KB in all, the static table included, a launch needs it).
+// and ep multiples of 4 for the 16-byte loads, the table, or with `ctas`
+// CUDA blocks sharing it each block's 1/ctas of it, within kStagedMaxSmem:
+// its size into *smem), and the instance's dynamic shared memory limit is
+// raised once (*raised: the launching instance's flag; past 48 KB in all,
+// the static table included, a launch needs it).
 template <class Kernel>
 inline bool staged_launch_ok(Kernel kernel, bool* raised, int64_t bp,
-                             int64_t ep, int64_t* smem) {
-  *smem = staged_bytes(bp, ep);
+                             int64_t ep, int64_t* smem, int ctas = 1) {
+  *smem = staged_bytes(bp, ep) / ctas;
   if (bp % 4 != 0 || ep % 4 != 0 || *smem > kStagedMaxSmem) return false;
   if (!*raised) {
     if (cudaFuncSetAttribute(kernel,
@@ -394,17 +405,83 @@ struct StagedTable {
   }
 };
 
+// One lane of a staged entry g (the staged and cluster bodies): its own
+// values and every live slot's sources come from the staged table through
+// load(i, x) (column i, eight variables); the W-index and weights from
+// device memory.  sweep_chunk's arithmetic, in its order.
+template <bool kAccumulate, Op kOp, class WT, class OutT, class Load>
+__device__ __forceinline__ void sweep_lane_staged(
+    const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int* s_width,
+    int64_t g, int64_t base, int lane, const Load& load) {
+  constexpr int R = op_rows(kOp);
+  OutT* out_p = a.out + (g / a.nb) * R * a.ndev;
+  const int64_t col = base + lane;
+  float own[kNV];
+  load(lane, own);
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    acc[r] = kAccumulate ? widen(out_p[r * a.ndev + col]) : 0.0f;
+  }
+  // the live slots in slot order; slot k's successor's W-index and weights
+  // are loaded before slot k is computed, so two slots' loads are in flight
+  // (the init forms 14-20 % faster on an H100)
+  auto fetch = [&](int kk, int& ii, float (&ww)[3]) {
+    const int64_t row = g * a.K + kk;     // (shard, entry, slot)
+    ii = __ldg(s.slot_idx + row * a.bp + lane);
+    const WT* wp = s.slot_w + row * 3 * a.bp + lane;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) ww[d] = ld(wp + d * a.bp);
+  };
+  int k = 0;
+  while (k < a.K && lane >= s_width[k]) ++k;
+  int i = 0;
+  float w[3] = {0.0f, 0.0f, 0.0f};
+  if (k < a.K) fetch(k, i, w);
+  while (k < a.K) {
+    int kn = k + 1;
+    while (kn < a.K && lane >= s_width[kn]) ++kn;
+    int i_n = 0;
+    float w_n[3] = {0.0f, 0.0f, 0.0f};
+    if (kn < a.K) fetch(kn, i_n, w_n);
+    float src[kNV];
+    load(i, src);
+    if constexpr (kOp == Op::kGG) {
+#pragma unroll
+      for (int v = 0; v < kNV; ++v) {
+        const float avg = 0.5f * (own[v] + src[v]);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d * kNV + v] += w[d] * avg;
+      }
+    } else {
+      const float udw = own[0] * w[0] + own[1] * w[1] + own[2] * w[2];
+      const float uow = src[0] * w[0] + src[1] * w[1] + src[2] * w[2];
+      const float am = fmaxf(fabsf(udw), fabsf(uow));
+#pragma unroll
+      for (int v = 0; v < kNV; ++v) {
+        acc[v] += 0.5f * (udw * own[v] + uow * src[v]) -
+                  0.5f * am * (src[v] - own[v]);
+      }
+    }
+    k = kn;
+    i = i_n;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) w[d] = w_n[d];
+  }
+  const float sc = __ldg(a.scale + g * a.bp + lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) store(out_p + r * a.ndev + col, acc[r] * sc);
+}
+
 // One listed (shard, entry) g in [0, P*nb), by one CUDA block of any size:
 // stage the table, then every lane of the entry, blockDim.x at a time.
 // ext_cnt (P*nb) holds each entry's live ext columns (null: all EP); a live
 // lane's W-index stays below bp + ext_cnt[g] (the model derives the counts
 // from the W-indices).  The early return is uniform over the CUDA block.
-// The per-lane arithmetic is sweep_chunk's, in its order.
 template <bool kAccumulate, Op kOp, class WT, class OutT>
 __device__ __forceinline__ void sweep_entry_staged(
     const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int32_t* ext_cnt,
     int64_t g) {
-  constexpr int R = op_rows(kOp);
   __shared__ int s_width[kMaxSlots];
   extern __shared__ float4 s_tbl[];
   const int64_t b = g % a.nb;
@@ -422,65 +499,100 @@ __device__ __forceinline__ void sweep_entry_staged(
   t.stage(s.exts + g * kNV * s.ep, s.ep, (live + 3) / 4, a.bp);
   __syncthreads();
 
-  OutT* out_p = a.out + shard * R * ndev;
+  auto load = [&](int i, float (&x)[kNV]) { t.load(i, x); };
   for (int lane = threadIdx.x; lane < a.bp; lane += blockDim.x) {
-    const int64_t col = base + lane;
-    float own[kNV];
-    t.load(lane, own);
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      acc[r] = kAccumulate ? widen(out_p[r * ndev + col]) : 0.0f;
-    }
-    // the live slots in slot order; slot k's successor's W-index and
-    // weights are loaded before slot k is computed, so two slots' loads are
-    // in flight (the init forms 14-20 % faster on an H100)
-    auto fetch = [&](int kk, int& ii, float (&ww)[3]) {
-      const int64_t row = g * a.K + kk;     // (shard, entry, slot)
-      ii = __ldg(s.slot_idx + row * a.bp + lane);
-      const WT* wp = s.slot_w + row * 3 * a.bp + lane;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) ww[d] = ld(wp + d * a.bp);
-    };
-    int k = 0;
-    while (k < a.K && lane >= s_width[k]) ++k;
-    int i = 0;
-    float w[3] = {0.0f, 0.0f, 0.0f};
-    if (k < a.K) fetch(k, i, w);
-    while (k < a.K) {
-      int kn = k + 1;
-      while (kn < a.K && lane >= s_width[kn]) ++kn;
-      int i_n = 0;
-      float w_n[3] = {0.0f, 0.0f, 0.0f};
-      if (kn < a.K) fetch(kn, i_n, w_n);
-      float src[kNV];
-      t.load(i, src);
-      if constexpr (kOp == Op::kGG) {
-#pragma unroll
-        for (int v = 0; v < kNV; ++v) {
-          const float avg = 0.5f * (own[v] + src[v]);
-#pragma unroll
-          for (int d = 0; d < 3; ++d) acc[d * kNV + v] += w[d] * avg;
-        }
-      } else {
-        const float udw = own[0] * w[0] + own[1] * w[1] + own[2] * w[2];
-        const float uow = src[0] * w[0] + src[1] * w[1] + src[2] * w[2];
-        const float am = fmaxf(fabsf(udw), fabsf(uow));
-#pragma unroll
-        for (int v = 0; v < kNV; ++v) {
-          acc[v] += 0.5f * (udw * own[v] + uow * src[v]) -
-                    0.5f * am * (src[v] - own[v]);
-        }
-      }
-      k = kn;
-      i = i_n;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) w[d] = w_n[d];
-    }
-    const float sc = __ldg(a.scale + g * a.bp + lane);
-#pragma unroll
-    for (int r = 0; r < R; ++r) store(out_p + r * ndev + col, acc[r] * sc);
+    sweep_lane_staged<kAccumulate, kOp>(a, s, s_width, g, base, lane, load);
   }
+}
+
+// ---- The cluster gather body (see the header comment).
+
+// The CTAs of one cluster: CTA r stages plane r of the table, variables
+// 4r..4r+3 (StagedTable's planes).
+constexpr int kClusterCtas = 2;
+// Lanes alternate between the CTAs in runs of one warp.
+constexpr int kClusterRun = 32;
+
+// Dynamic shared memory of one CTA of the cluster body: one float4 plane,
+// 16 B per column, half the staged table.
+__host__ __device__ constexpr int64_t cluster_bytes(int64_t bp, int64_t ep) {
+  return staged_bytes(bp, ep) / kClusterCtas;
+}
+
+// The lane of position j of CTA `rank`: run j / kClusterRun of that CTA is
+// run (j / kClusterRun)·kClusterCtas + rank of the entry, so the runs
+// alternate between the CTAs and each sweeps half of every slot's prefix.
+__host__ __device__ constexpr int cluster_lane(int j, int rank) {
+  return ((j / kClusterRun) * kClusterCtas + rank) * kClusterRun +
+         j % kClusterRun;
+}
+
+// Copies `quads` groups of four columns of the four rows at src + u*stride
+// (u < 4, 16-byte aligned) into plane p at columns [col0, col0 + 4*quads):
+// StagedTable::stage for one plane.
+__device__ __forceinline__ void stage_plane(float4* p, const float* src,
+                                            int64_t stride, int quads,
+                                            int col0) {
+  for (int q = threadIdx.x; q < quads; q += blockDim.x) {
+    float4 r[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      r[u] = __ldg(reinterpret_cast<const float4*>(src + u * stride) + q);
+    }
+    float4* d = p + col0 + 4 * q;
+    d[0] = make_float4(r[0].x, r[1].x, r[2].x, r[3].x);
+    d[1] = make_float4(r[0].y, r[1].y, r[2].y, r[3].y);
+    d[2] = make_float4(r[0].z, r[1].z, r[2].z, r[3].z);
+    d[3] = make_float4(r[0].w, r[1].w, r[2].w, r[3].w);
+  }
+}
+
+// One listed (shard, entry) g by a cluster of kClusterCtas CUDA blocks:
+// each stages its plane of the table (ext_cnt as in sweep_entry_staged),
+// the cluster synchronises, and each sweeps its half of the lanes, reading
+// its own plane from its shared memory and the other through the
+// cluster's distributed shared memory.  The last barrier keeps every plane
+// alive until the other CTA's reads are done.  The early return is uniform
+// over the cluster (both CTAs see the same entry).
+template <bool kAccumulate, Op kOp, class WT, class OutT>
+__device__ __forceinline__ void sweep_entry_cluster(
+    const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int32_t* ext_cnt,
+    int64_t g) {
+  __shared__ int s_width[kMaxSlots];
+  extern __shared__ float4 s_plane[];
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t b = g % a.nb;
+  if (b > 0 && a.block_ids[g] == a.block_ids[g - 1]) return;   // pad entry
+  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
+    s_width[k] = a.slots[k];
+  }
+  const int64_t ndev = a.ndev;
+  const int64_t base = static_cast<int64_t>(a.block_ids[g]) * a.bp;
+  const int ep = static_cast<int>(s.ep);
+  const int live = ext_cnt == nullptr ? ep : min(max(ext_cnt[g], 0), ep);
+  stage_plane(s_plane, a.var_T + ((g / a.nb) * kNV + 4 * rank) * ndev + base,
+              ndev, a.bp / 4, 0);
+  stage_plane(s_plane, s.exts + (g * kNV + 4 * rank) * s.ep, s.ep,
+              (live + 3) / 4, a.bp);
+  cluster.sync();                 // both planes (and s_width) written
+
+  const float4* peer = cluster.map_shared_rank(s_plane, rank ^ 1);
+  auto load = [&](int i, float (&x)[kNV]) {
+    const float4 mine = s_plane[i];
+    const float4 theirs = peer[i];
+    const float4 lo = rank == 0 ? mine : theirs;
+    const float4 hi = rank == 0 ? theirs : mine;
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+  };
+  for (int j = threadIdx.x;; j += blockDim.x) {
+    const int lane = cluster_lane(j, rank);
+    if (lane >= a.bp) break;
+    sweep_lane_staged<kAccumulate, kOp>(a, s, s_width, g, base, lane, load);
+  }
+  cluster.sync();                 // the other CTA's reads of this plane
 }
 
 // The zero-filled forms of the gather sweep write the columns of the

@@ -13,11 +13,12 @@
 // per-thread arithmetic, the precisions, the W-index and the handling of
 // pad entries are in sweep_common.cuh.
 //
-// Two bodies, chosen by the wrapper (ops/blocksweep.py::gather_body) from
-// (bp, EP) alone, by one fixed rule: the STAGED body where bp and EP are
-// multiples of 4 and the staged table fits one CUDA block's shared memory
-// (cfd::kStagedMaxSmem, 227 KB less the static slot table), else the
-// DIRECT body.
+// Three bodies, chosen by the wrapper (ops/blocksweep.py::gather_body) from
+// (bp, EP) alone, by one fixed rule, where bp and EP are multiples of 4:
+// the STAGED body where two blocks' staged tables fit one SM's shared
+// memory, else the CLUSTER body where half the table fits one block
+// (cfd::kStagedMaxSmem, 227 KB less the static slot table); else, and
+// wherever bp or EP is not a multiple of 4, the DIRECT body.
 //
 // - Staged (sweep_common.cuh::sweep_entry_staged): one CUDA block of
 //   kStagedThreads per listed (shard, entry), two lanes per thread at bp
@@ -36,13 +37,23 @@
 //   a row-major table (eight 4-byte shared loads per slot lane) was 5-9 %
 //   slower, 128-thread blocks 26 % slower on the eight-shard bulk plan
 //   (half the warps per SM at its 56 KB table).
-//   The staged body wins wherever it fits: at the one-shard plan at AUTO's
-//   bp 4096 (EP 1920, a 188 KB table, one CUDA block per SM) it took 0.186
-//   ms against the direct body's 0.250.
+//   It runs where two of its blocks fit one SM.
+// - Cluster (sweep_common.cuh::sweep_entry_cluster): past 3 608 columns
+//   (bp + EP; at 96^3 AUTO's bp 4096, EP 1920: 188 KB, and bp 8192, EP
+//   2688: 340 KB) a cluster of two CUDA blocks per listed entry (launched
+//   with the cluster attribute, cudaLaunchKernelEx) holds one float4 plane
+//   each, cluster_bytes(bp, EP) = 16 B per column (94 KB at bp 4096: two
+//   blocks of 256 threads per SM; 170 KB at bp 8192: one of 512;
+//   blocksweep.cluster_threads).  The launch first asks the
+//   runtime how many such clusters can be resident
+//   (cudaOccupancyMaxActiveClusters) and refuses to launch if none can.
+//   On an H100 at bp 8192 it takes 0.139 ms (47 % of its bound; the direct
+//   body 0.306, 21 %), at AUTO's bp 4096 0.138 (two blocks of 256 threads
+//   an SM; the staged body 0.186): the rule takes it wherever two staged
+//   blocks do not fit one SM.
 // - Direct (sweep_chunk with GatherSrc): one CUDA block of 128 threads per
 //   (shard, entry, 128-lane chunk), sources read from device memory; no
-//   shared memory, so it runs at any bp: where bp + EP passes 7 256
-//   columns (bp 8192 at 96^3) it is the only body.
+//   shared memory, so it runs at any bp.
 //
 // Bound: sweep_common.cuh's, with every table column read once per entry
 // (chip_smoke.py::sweep_bound).  Registers: the accumulators (24 gg, 8
@@ -78,6 +89,13 @@ constexpr int kStagedThreads = 256;
 constexpr int kStagedMinBlocks = 4;
 constexpr int kStagedInitMinBlocks = 2;
 
+// The cluster body's CUDA blocks: at most this many threads (the launch
+// takes blocksweep.cluster_threads), one or two blocks per SM.
+constexpr int kClusterMaxThreads = 512;
+
+// The bodies as the entry points take them (blocksweep.GATHER_BODY_CODES).
+enum Body { kDirect = 0, kStaged = 1, kCluster = 2 };
+
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
 __global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
 sweep_gather_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s) {
@@ -105,11 +123,55 @@ sweep_gather_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
 }
 
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(kClusterMaxThreads, 1)
+sweep_gather_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                            const int32_t* ext_cnt) {
+  const int64_t g = blockIdx.x / cfd::kClusterCtas;   // one entry a cluster
+  if constexpr (!kAccumulate) {   // the cluster's blocks split the gaps
+    const int rank = static_cast<int>(blockIdx.x % cfd::kClusterCtas);
+    cfd::clear_gaps<cfd::op_rows(kOp)>(
+        a, g, rank * static_cast<int>(blockDim.x) + threadIdx.x,
+        cfd::kClusterCtas * blockDim.x);
+  }
+  cfd::sweep_entry_cluster<kAccumulate, kOp>(a, s, ext_cnt, g);
+}
+
+// The launch configuration of `clusters` clusters of the cluster body
+// (cfg.attrs points at *attr).
+inline cudaLaunchConfig_t cluster_config(int64_t clusters, int threads,
+                                         int64_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cfd::kClusterCtas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cfd::kClusterCtas));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of the cluster body that can be resident at once on this card
+// at `threads` threads and `smem` dynamic bytes a block, into *n.
+template <class Kernel>
+cudaError_t resident_clusters(Kernel kernel, int threads, int64_t smem,
+                              int* n) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, threads, smem, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(
+      n, reinterpret_cast<const void*>(kernel), &cfg);
+}
+
+template <bool kAccumulate, cfd::Op kOp, class W, class O>
 int launch_gather(const float* var_T, int64_t ndev, const float* exts,
                   int64_t ep, const int32_t* slot_idx, const void* slot_w,
                   const float* scale, const int32_t* block_ids,
                   const int32_t* slots, int K, int64_t P, int64_t nb, int bp,
-                  const int32_t* ext_cnt, int staged, void* out,
+                  const int32_t* ext_cnt, int body, int threads, void* out,
                   cudaStream_t stream) {
   if (P == 0 || nb == 0) return 0;
   int64_t chunks = 0;
@@ -121,11 +183,39 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
                             chunks, static_cast<O*>(out)};
   const cfd::GatherSrc<W> s{exts, slot_idx, static_cast<const W*>(slot_w),
                             ep};
-  if (!staged) {
+  if (body == kDirect) {
     sweep_gather_kernel<kAccumulate, kOp, W, O>
         <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
     return static_cast<int>(cudaGetLastError());
   }
+  if (body == kCluster) {
+    const auto kernel = sweep_gather_cluster_kernel<kAccumulate, kOp, W, O>;
+    static bool raised = false;
+    static int64_t resident_smem = -1;   // the residency last checked
+    static int resident_threads = 0;
+    int64_t smem = 0;
+    if (threads < 32 || threads > kClusterMaxThreads || threads % 32 != 0 ||
+        P * nb * cfd::kClusterCtas > 0x7fffffffLL ||
+        !cfd::staged_launch_ok(kernel, &raised, bp, ep, &smem,
+                               cfd::kClusterCtas)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (smem != resident_smem || threads != resident_threads) {
+      int n = 0;
+      const cudaError_t e = resident_clusters(kernel, threads, smem, &n);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      resident_smem = smem;
+      resident_threads = threads;
+    }
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(P * nb, threads, smem, stream, &attr);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, s, ext_cnt);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (body != kStaged) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = sweep_gather_staged_kernel<kAccumulate, kOp, W, O>;
   static bool raised = false;
   int64_t smem = 0;
@@ -143,23 +233,26 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
 // on the current device; K <= 64; every slot_idx in [0, bp + ep) (checked
 // where the plan is loaded); op as in cfd::op_ok; `out` has cfd::op_rows
 // rows.  `slots` holds the per-slot widths (its offset row is not read: the
-// gather tables are rectangular).  staged != 0: the staged body (bp and ep
+// gather tables are rectangular).  body (enum Body): kStaged (bp and ep
 // multiples of 4, var_T and exts 16-byte aligned, cfd::staged_bytes(bp, ep)
-// within a block's shared memory), which reads ext_cnt (P, nb) i32, each
-// entry's live ext columns, every live slot_idx below bp + ext_cnt (null:
-// ep for every entry); staged == 0: the direct body (ext_cnt not read).
-// accumulate != 0: `out` holds init on entry.  w_bf16 / out_bf16 != 0:
-// slot_w / out (and init) are bf16; else f32.  Launches on `stream`;
-// returns the launch's cudaError_t (0 = success).
+// within a block's shared memory) and kCluster (the same, with
+// cfd::cluster_bytes(bp, ep) within it, `threads` a multiple of 32 up to
+// kClusterMaxThreads) read ext_cnt (P, nb) i32, each entry's live ext
+// columns, every live slot_idx below bp + ext_cnt (null: ep for every
+// entry); kDirect reads neither ext_cnt nor `threads`.  accumulate != 0:
+// `out` holds init on entry.  w_bf16 / out_bf16 != 0: slot_w / out (and
+// init) are bf16; else f32.  Launches on `stream`; returns the launch's
+// cudaError_t (0 = success; cudaErrorInvalidConfiguration when no cluster
+// of the cluster body can be resident).
 extern "C" int cfd_sweep_gather(const float* var_T, int64_t ndev,
                                 const float* exts, int64_t ep,
                                 const int32_t* slot_idx, const void* slot_w,
                                 const float* scale, const int32_t* block_ids,
                                 const int32_t* slots, int K, int64_t P,
                                 int64_t nb, int bp, const int32_t* ext_cnt,
-                                int staged, int accumulate, int op,
-                                int w_bf16, int out_bf16, void* out,
-                                cudaStream_t stream) {
+                                int body, int accumulate, int op,
+                                int w_bf16, int out_bf16, int threads,
+                                void* out, cudaStream_t stream) {
   if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
   const bool flags[] = {accumulate != 0, op == 1, w_bf16 != 0,
                         out_bf16 != 0};
@@ -171,17 +264,19 @@ extern "C" int cfd_sweep_gather(const float* var_T, int64_t ndev,
                          cfd::Elt<decltype(w16)::value>,
                          cfd::Elt<decltype(o16)::value>>(
         var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids, slots, K,
-        P, nb, bp, ext_cnt, staged, out, stream);
+        P, nb, bp, ext_cnt, body, threads, out, stream);
   });
 }
 
 // Registers and local bytes per thread (spills and stack), static shared
 // bytes and resident blocks per SM at `smem` bytes of dynamic shared memory
-// of one K2 instance (body, init form, op and dtype flags as in
-// cfd_sweep_gather), into out[0..4].  Returns the cudaError_t.
-extern "C" int cfd_sweep_gather_info(int staged, int accumulate, int op,
+// (and, the cluster body, `threads` threads a block) of one K2 instance
+// (body, init form, op and dtype flags as in cfd_sweep_gather), into
+// out[0..4]; the cluster body also the clusters that can be resident at
+// once into out[4] (else 0).  Returns the cudaError_t.
+extern "C" int cfd_sweep_gather_info(int body, int accumulate, int op,
                                      int w_bf16, int out_bf16, int smem,
-                                     int* out) {
+                                     int threads, int* out) {
   if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
   const bool flags[] = {accumulate != 0, op == 1, w_bf16 != 0,
                         out_bf16 != 0};
@@ -192,7 +287,8 @@ extern "C" int cfd_sweep_gather_info(int staged, int accumulate, int op,
         decltype(flux)::value ? cfd::Op::kFlux : cfd::Op::kGG;
     using W = cfd::Elt<decltype(w16)::value>;
     using O = cfd::Elt<decltype(o16)::value>;
-    auto info = [&](auto kernel, int threads, int dyn) {
+    out[4] = 0;
+    auto info = [&](auto kernel, int block, int dyn) {
       cudaFuncAttributes f;
       cudaError_t e = cudaFuncGetAttributes(&f, kernel);
       if (e != cudaSuccess) return static_cast<int>(e);
@@ -204,11 +300,18 @@ extern "C" int cfd_sweep_gather_info(int staged, int accumulate, int op,
           cfd::kStagedMaxSmem);
       if (e != cudaSuccess) return static_cast<int>(e);
       return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          out + 3, kernel, threads, dyn));
+          out + 3, kernel, block, dyn));
     };
-    if (staged) {
+    if (body == kStaged) {
       return info(sweep_gather_staged_kernel<kAcc, kOp, W, O>,
                   kStagedThreads, smem);
+    }
+    if (body == kCluster) {
+      const auto kernel = sweep_gather_cluster_kernel<kAcc, kOp, W, O>;
+      const int e = info(kernel, threads, smem);
+      if (e != 0) return e;
+      return static_cast<int>(
+          resident_clusters(kernel, threads, smem, out + 4));
     }
     return info(sweep_gather_kernel<kAcc, kOp, W, O>, cfd::kThreads, 0);
   });

@@ -135,7 +135,7 @@ def lib() -> ctypes.CDLL:
                                 i64, i64, i32, i32, vp, vp]
     sweep = [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i64, i32]
     # gather: var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids,
-    # slots, K, P, nb, bp, ext_cnt, staged (the body)
+    # slots, K, P, nb, bp, ext_cnt, the body (blocksweep.GATHER_BODY_CODES)
     gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32, vp,
               i32]
     # sendbufs, esize, dsts, nph, s_max, recv, stream
@@ -149,7 +149,8 @@ def lib() -> ctypes.CDLL:
             ("cfd_sweep_packed", [*sweep, i32, i32, i32, i32, i32, i32, vp,
                                   vp]),
             ("cfd_sweep_overlap", [*sweep, i32, i32, i32, i32, vp, *push]),
-            ("cfd_sweep_gather", [*gather, i32, i32, i32, i32, vp, vp]),
+            # K2 alone: the cluster body's threads
+            ("cfd_sweep_gather", [*gather, i32, i32, i32, i32, i32, vp, vp]),
             ("cfd_sweep_overlap_gather", [*gather, i32, i32, i32, vp,
                                           *push]),
             ("cfd_sweep_overlap_peer", [*sweep, i32, i32, i32, i32, vp,
@@ -161,12 +162,14 @@ def lib() -> ctypes.CDLL:
             ("cfd_push_phases", [vp, i64, i64, i64, vp, vp, vp, u64, u64,
                                  i32, vp]),
             # kernel facts (registers, local bytes, static shared bytes,
-            # blocks per SM) into an int[4]: K3-peer (gather, w_bf16,
-            # src_bf16d, out_bf16), K6 (none), K4 (delta, smem), K2
-            # (staged, accumulate, op, w_bf16, out_bf16, smem), K3's gather
-            # form (peer, staged, op, w_bf16, out_bf16, smem)
+            # blocks per SM; K2's cluster body also its resident clusters)
+            # into an int[5]: K3-peer (gather, w_bf16, src_bf16d,
+            # out_bf16), K6 (none), K4 (delta, smem), K2 (body, accumulate,
+            # op, w_bf16, out_bf16, smem, threads), K3's gather form (peer,
+            # staged, op, w_bf16, out_bf16, smem)
             ("cfd_overlap_peer_info", [i32, i32, i32, i32, vp]),
-            ("cfd_sweep_gather_info", [i32, i32, i32, i32, i32, i32, vp]),
+            ("cfd_sweep_gather_info", [i32, i32, i32, i32, i32, i32, i32,
+                                       vp]),
             ("cfd_overlap_gather_info", [i32, i32, i32, i32, i32, i32,
                                          vp]),
             ("cfd_push_phases_info", [vp]),
@@ -195,13 +198,17 @@ def kernel_info(name: str, *args: int) -> dict:
     """Registers and local bytes per thread, static shared bytes and
     resident blocks per SM of a kernel instance, as the CUDA runtime
     reports them: `name` one of "cfd_overlap_peer_info",
-    "cfd_push_phases_info", "cfd_pack_srcs_info", "cfd_sweep_gather_info",
+    "cfd_push_phases_info", "cfd_pack_srcs_info", "cfd_sweep_gather_info"
+    (which also gives `active_clusters`: the clusters of the cluster body
+    that can be resident at once, 0 for the other bodies),
     "cfd_overlap_gather_info", args as it takes them."""
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
     check_launch(getattr(lib(), name)(*args, ptr), name)
-    return dict(zip(("regs", "local_bytes", "static_smem", "blocks_per_sm"),
-                    out))
+    keys = ("regs", "local_bytes", "static_smem", "blocks_per_sm")
+    if name == "cfd_sweep_gather_info":
+        keys += ("active_clusters",)
+    return dict(zip(keys, out))
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -43,9 +43,9 @@ f32 operands, else "w16_" (bf16 weights), "d16_" (bf16 deltas) and "o16_"
 (bf16 output), in that order (`sweep_blocks.launches`,
 `sweep_blocks.flux_init_w16_d16_o16_launches`, `pack_srcs.d16_launches`);
 `sweep_blocks` on a bf16 state counts in `v16_w16_d16_o16_launches`; the
-gather wrappers count their direct body after the tag
-(`sweep_blocks_gather.direct_launches`, their staged body in the names
-without it: `gather_body`).
+gather wrappers count their direct and cluster bodies after the tag
+(`sweep_blocks_gather.direct_launches`, `.cluster_launches`; their staged
+body in the names without either: `gather_body`).
 `launch_counters()` lists them all, so a run can show which bodies its main
 path ran.
 
@@ -80,7 +80,14 @@ PACK_SMEM = 227 * 1024 - 2 * MAX_SLOTS * 4
 # the gather sweep's staged body: the most shared memory its table may take,
 # an H100 block's less the static slot table (csrc/sweep_gather.cu)
 GATHER_STAGE_MAX = 227 * 1024 - MAX_SLOTS * 4
-GATHER_BODIES = ("staged", "direct")
+# the most it may take for two such blocks to fit one SM (228 KB, less 1 KB
+# the runtime reserves per block)
+GATHER_STAGE_PAIR = 228 * 1024 // 2 - 1024 - MAX_SLOTS * 4
+GATHER_BODIES = ("staged", "cluster", "direct")
+# the bodies as the kernels take them (csrc/sweep_gather.cu::Body), and
+# the ones the fused kernel has
+GATHER_BODY_CODES = {"direct": 0, "staged": 1, "cluster": 2}
+FUSED_GATHER_BODIES = ("staged", "direct")
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = (F32, BF16)   # the stored types a reduced-precision operand takes
 
@@ -107,8 +114,13 @@ _FUSED_FORMS = ("", "flux_", "peer_", "peer_flux_")
 _PACKED_TAGS = tuple(_tag(w, d, o) for w in (0, 1) for d in (0, 1)
                      for o in (0, 1))
 _GATHER_TAGS = tuple(_tag(w, False, o) for w in (0, 1) for o in (0, 1))
-# the gather wrappers count the direct body apart: "<tag>direct_launches"
-_GATHER_BODY_TAGS = (*_GATHER_TAGS, *(t + "direct_" for t in _GATHER_TAGS))
+# the gather wrappers count the direct and cluster bodies apart:
+# "<tag>direct_launches", "<tag>cluster_launches"
+_BODY_TAGS = {"staged": "", "cluster": "cluster_", "direct": "direct_"}
+_FUSED_BODY_TAGS = tuple(t + _BODY_TAGS[b] for b in FUSED_GATHER_BODIES
+                         for t in _GATHER_TAGS)
+_GATHER_BODY_TAGS = tuple(t + _BODY_TAGS[b] for b in GATHER_BODIES
+                          for t in _GATHER_TAGS)
 
 
 def _count(fn, init, op: str, tag: str = "", peer: bool = False) -> None:
@@ -614,21 +626,44 @@ def staged_bytes(bp: int, ep: int) -> int:
     return NV * (bp + ep) * 4
 
 
+def cluster_bytes(bp: int, ep: int) -> int:
+    """Shared memory of each CUDA block of the cluster body: one of the
+    staged table's two planes (csrc/sweep_common.cuh)."""
+    return staged_bytes(bp, ep) // 2
+
+
 def gather_body(bp: int, ep: int, op: str = "gg",
                 fused: bool = False) -> str:
     """The gather sweep's body at block size bp and ext width EP (the live
-    ext count's maximum, rounded up to 128 by the plan), by one fixed rule:
-    "staged" (one CUDA block per listed entry stages its [own ‖ ext] table
-    in shared memory) where bp and EP are multiples of 4 (16-byte loads)
-    and the table fits one CUDA block's shared memory (GATHER_STAGE_MAX
-    bytes); else "direct" (the sources read from device memory, any bp).
-    The staged body won wherever it fits in K2, even at one CUDA block per
-    SM (csrc/sweep_gather.cu), and in the fused kernel's gg form (fused:
-    K3's gather form); the fused flux form keeps the direct body, which
-    the staged one did not beat (csrc/sweep_overlap.cu)."""
-    ok = bp % 4 == 0 and ep % 4 == 0 and not (fused and op == "flux")
-    return "staged" if ok and staged_bytes(bp, ep) <= GATHER_STAGE_MAX \
-        else "direct"
+    ext count's maximum, rounded up to 128 by the plan), by one fixed rule,
+    where bp and EP are multiples of 4 (16-byte loads): "staged" (one CUDA
+    block per listed entry stages its [own ‖ ext] table in shared memory)
+    where two such blocks fit one SM (GATHER_STAGE_PAIR bytes); else
+    "cluster" (two CUDA blocks per entry, each staging half the table and
+    reading the other half from its peer's shared memory) where half of it
+    fits one block (GATHER_STAGE_MAX); else "direct" (the sources read from
+    device memory, any bp).  Measured on an H100 (PERF.md section 6): at
+    bp 512 staged 0.100 ms against cluster 0.134; at the one-shard AUTO
+    plan (bp 4096, a 188 KB table, one staged block per SM) cluster 0.138
+    against staged 0.185.  The fused kernel (fused: K3's gather form) has
+    no cluster body: its gg form stages wherever the table fits one block;
+    its flux form keeps the direct body, which the staged one did not beat
+    (csrc/sweep_overlap.cu)."""
+    if bp % 4 or ep % 4 or (fused and op == "flux"):
+        return "direct"
+    if staged_bytes(bp, ep) <= (GATHER_STAGE_MAX if fused
+                                else GATHER_STAGE_PAIR):
+        return "staged"
+    if not fused and cluster_bytes(bp, ep) <= GATHER_STAGE_MAX:
+        return "cluster"
+    return "direct"
+
+
+def cluster_threads(bp: int, ep: int) -> int:
+    """Threads of each CUDA block of the cluster body, 512 to an SM: 512
+    where one block takes an SM (bp 8192 at 96³: 0.139 ms against 0.210 at
+    256) and 256 where two fit (bp 4096: 0.138 against 0.145 at 512)."""
+    return 256 if cluster_bytes(bp, ep) <= GATHER_STAGE_PAIR else 512
 
 
 def ext_counts(slot_idx: np.ndarray, bp: int) -> np.ndarray:
@@ -668,23 +703,27 @@ def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
 def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
                  dims, ext_cnt, op, fused=False):
     """The gather entry points' sweep operands, the live ext counts and the
-    body `gather_body` picks (1 staged, 0 direct); the staged body loads
-    var_T and exts 16 bytes at a time."""
+    body `gather_body` picks (its GATHER_BODY_CODES code); the staged and
+    cluster bodies load var_T and exts 16 bytes at a time."""
     P, nb, ep, bp, ndev, K = dims
-    staged = gather_body(bp, ep, op, fused) == "staged"
-    check(not staged or (var_T.data_ptr() % 16 == 0
-                         and exts.data_ptr() % 16 == 0),
-          "the staged gather sweep loads var_T and exts 16 bytes at a time: "
-          "both must be 16-byte aligned")
+    body = gather_body(bp, ep, op, fused)
+    check(body in (FUSED_GATHER_BODIES if fused else GATHER_BODIES),
+          "the fused gather kernel has no %s body", body)
+    check(body == "direct" or (var_T.data_ptr() % 16 == 0
+                               and exts.data_ptr() % 16 == 0),
+          "the %s gather sweep loads var_T and exts 16 bytes at a time: "
+          "both must be 16-byte aligned", body)
     return (var_T.data_ptr(), ndev, exts.data_ptr(), ep, slot_idx.data_ptr(),
             slot_w.data_ptr(), scale.data_ptr(), block_ids.data_ptr(),
             slots.data_ptr(), K, P, nb, bp,
-            None if ext_cnt is None else ext_cnt.data_ptr(), int(staged))
+            None if ext_cnt is None else ext_cnt.data_ptr(),
+            GATHER_BODY_CODES[body])
 
 
 def _body_tag(ptrs: tuple) -> str:
     """The count tag of the body _gather_ptrs picked."""
-    return "" if ptrs[-1] else "direct_"
+    body = {c: b for b, c in GATHER_BODY_CODES.items()}[ptrs[-1]]
+    return _BODY_TAGS[body]
 
 
 def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
@@ -704,8 +743,9 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     in `sweep_blocks`; slots (2, K) i32 from `slot_table(wks)` (only the
     widths are read); ext_cnt (P, nb) i32, each entry's live ext columns
     (`ext_counts`; every W-index below bp + its count), which the staged
-    body stages instead of all EP (None: all).  The kernel's body is
-    `gather_body(bp, EP)`'s.  Counterpart of
+    and cluster bodies stage instead of all EP (None: all).  The kernel's
+    body is `gather_body(bp, EP)`'s (the cluster body's CUDA blocks take
+    `cluster_threads(bp, EP)` threads).  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(..., packed=False, wks=...,
     init=..., op=..., out_dtype=...)`.  Kernel: csrc/sweep_gather.cu."""
     rows = _check_op(op)
@@ -718,7 +758,7 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     from cfd_proxy_tpu_torch.ops import _cuda
 
     dev = var_T.device
-    P, _, _, _, ndev, _ = dims
+    P, _, ep, bp, ndev, _ = dims
     # the kernel zeroes the columns of unlisted blocks itself
     out = (torch.empty((P, rows, ndev), dtype=odt, device=dev)
            if init is None else init)
@@ -728,7 +768,7 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_gather(
             *ptrs, int(init is not None), OPS.index(op), w16, o16,
-            out.data_ptr(), _stream(dev))
+            cluster_threads(bp, ep), out.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_gather")
     _count(sweep_blocks_gather, init, op,
            _tag(w16, False, o16) + _body_tag(ptrs))
@@ -736,7 +776,7 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
 
 
 # K2, K2-init, K2-flux, K2-flux-init, each with f32 or bf16 weights and out,
-# each in its staged and direct body
+# each in its staged, cluster and direct body
 _zero_counts(sweep_blocks_gather, _SWEEP_FORMS, _GATHER_BODY_TAGS)
 
 
@@ -996,4 +1036,4 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
 
 # K3-gather and K3-gather-flux with f32 or bf16 weights and out, loopback
 # and peer form, each in its staged and direct body
-_zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _GATHER_BODY_TAGS)
+_zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _FUSED_BODY_TAGS)

@@ -46,7 +46,10 @@ variation of K1's body that changes its arithmetic or its bytes:
 - `i8_sweep` — K5d, `i8_kernel` (:424, through `i8_fn` :446): K1's gg delta
   body on int8 deltas q with a per-(block, variable) step s =
   i8_scale[p, b, v, 0]: δ = f32(q)·s, avg = own + 0.5·δ; bf16 weights and
-  output.
+  output.  Its kernel gives each thread I8_LANES point columns (vector
+  copies through a shared-memory ring), which needs bp and every slot
+  width to be multiples of them (the kernel traps on a slot width that is
+  not) and the operands aligned (`check_i8_lanes`).
 - `flux_fact_twin` — K5h, `cflux_fact_kernel` (:691): the upwind flux
   factored, f32: udw, uow, a as K1's flux body; cu = 0.5·(udw + a), cg =
   0.5·(uow − a); acc += cu·own + cg·src.  Algebraically K1-flux.
@@ -79,6 +82,10 @@ from cfd_proxy_tpu_torch.utils.errors import check
 NV7 = 7     # nv7_sweep's variable rows
 I8 = torch.int8
 SCALE_LANES = 128   # lanes of one (block, variable) row of i8_scale
+# point columns per thread of the int8 rung's kernel (csrc/kbench_rungs.cu::
+# kI8Lanes), whose vector copies need every slot width and bp to be
+# multiples of it
+I8_LANES = 4
 # the rungs of csrc/kbench_rungs.cu; the kernel takes one as its index here
 RUNGS = ("fold", "fold_wsum", "acc3", "i8", "flux_fact", "stream_flux")
 
@@ -387,6 +394,24 @@ def i8_sweep_ref(var_T: torch.Tensor, srcs: torch.Tensor,
                             out_dtype=BF16)
 
 
+def check_i8_lanes(var_T: torch.Tensor, srcs: torch.Tensor,
+                   slot_w: torch.Tensor, scale: torch.Tensor) -> None:
+    """Raise unless the int8 rung's kernel can take I8_LANES point columns
+    per thread on these operands: bp a multiple of I8_LANES, and srcs
+    (I8_LANES bytes), slot_w (2·I8_LANES) and the f32 var_T and scale (16)
+    aligned to its vector accesses.  The slot widths stay on the card: the
+    kernel traps on one that is not a multiple of I8_LANES."""
+    bp = scale.shape[-1]
+    check(bp % I8_LANES == 0, "i8_sweep: the %d-lane loads need bp (%d) to "
+          "be a multiple of %d", I8_LANES, bp, I8_LANES)
+    for t, name in ((var_T, "var_T"), (scale, "scale"), (slot_w, "slot_w"),
+                    (srcs, "srcs")):
+        align = {1: I8_LANES, 2: 2 * I8_LANES, 4: 16}[t.element_size()]
+        check(t.data_ptr() % align == 0,
+              "i8_sweep: %s must be %d-byte aligned for the %d-lane loads",
+              name, align, I8_LANES)
+
+
 def i8_sweep(var_T: torch.Tensor, srcs: torch.Tensor, slot_w: torch.Tensor,
              scale: torch.Tensor, block_ids: torch.Tensor,
              slots: torch.Tensor,
@@ -396,7 +421,9 @@ def i8_sweep(var_T: torch.Tensor, srcs: torch.Tensor, slot_w: torch.Tensor,
     var_T f32; srcs (P, nb, NV, L) int8, the deltas in steps of i8_scale
     (P, nb, NV, 128) f32, of which lane 0 of each (block, variable) row is
     read; slot_w (P, nb, 3, L) bf16; the rest as in
-    `blocksweep.sweep_blocks`.  Kernel: csrc/kbench_rungs.cu."""
+    `blocksweep.sweep_blocks`.  Kernel: csrc/kbench_rungs.cu (I8_LANES point
+    columns per thread; `check_i8_lanes` raises on operands it cannot
+    take)."""
     dims = _check_twin(var_T, srcs, slot_w, scale, block_ids, slots, NV, I8,
                        BF16)
     check(i8_scale is not None, "i8_sweep: int8 sources need their i8_scale")
@@ -405,6 +432,7 @@ def i8_sweep(var_T: torch.Tensor, srcs: torch.Tensor, slot_w: torch.Tensor,
     args = (var_T, srcs, slot_w, scale, block_ids, slots)
     if bs._device_kind(var_T) == "cpu":
         return i8_sweep_ref(*args, i8_scale)
+    check_i8_lanes(var_T, srcs, slot_w, scale)
     return _rung(i8_sweep, "i8", args, dims, 3 * NV, BF16, i8_scale)
 
 

@@ -244,10 +244,9 @@ def read_parts(cfg: SolverConfig) -> list:
     except FileNotFoundError as e:
         raise SystemExit(
             f"mesh partition file not found: {e.filename} — expected "
-            f"<prefix>.<parts>p.<i>.nc; the port has no partition tool yet "
-            f"(ROADMAP queue 1 item 11b): write them with the reference's "
-            f"`python -m cfd_proxy_tpu.tools.partition --parts {cfg.parts} "
-            f"--out {cfg.mesh_prefix}` (plus your --nx/--ny/--nz/"
+            f"<prefix>.<parts>p.<i>.nc; write them with "
+            f"`python -m cfd_proxy_tpu_torch.tools.partition --parts "
+            f"{cfg.parts} --out {cfg.mesh_prefix}` (plus your --nx/--ny/--nz/"
             f"--ghost-layers/--seed — the tool's defaults are a 24^3 mesh)")
 
 

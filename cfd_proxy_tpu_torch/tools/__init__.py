@@ -1,3 +1,4 @@
-"""Measurement tools of the port: the kernel bench (`kbench`) and the
-model-level paired A/B harness (`mbench`), counterparts of
-`cfd_proxy_tpu/tools/kbench.py` and `mbench.py`."""
+"""Tools of the port: the kernel bench (`kbench`), the model-level paired
+A/B harness (`mbench`), the push bench (`icibench`) and the offline mesh
+partitioner (`partition`), counterparts of the same-named modules of
+`cfd_proxy_tpu/tools/`."""

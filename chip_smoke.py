@@ -20,10 +20,14 @@ faces, nvar 7, random state from a seed):
 - `solver_p8`: the same at 8 shards, with the var exchange's ghost columns
   checked against their owners;
 - `gather_auto_bp`: the gather kernel at the AUTO block size (4096), under
-  the body the rule (`blocksweep.gather_body`) picks there; both bodies
-  held against the plain version and timed in turns;
+  the body the rule (`blocksweep.gather_body`) picks there; all three
+  bodies held against the plain version and each other, and timed in
+  turns;
 - `gather_large_bp`: the gather kernel at bp 8192, where the staged table
-  does not fit a CUDA block's shared memory: the direct body;
+  does not fit a CUDA block's shared memory: the cluster body (two CUDA
+  blocks per entry, half the table each), then the direct body forced
+  through the same step, both counted, held against the plain version and
+  each other bit for bit, and timed in turns;
 - `solver_mode_timing`: the solver-mode step at P=1 and P=8, bulk, for
   gather/bp 512 and packed/AUTO at 1, 2 and 4 sweeps per step — the
   numbers `solver.solver_mode_defaults` is decided from;
@@ -56,17 +60,19 @@ faces, nvar 7, random state from a seed):
   three K1 instances only the bench launches (bf16 deltas alone, bf16
   weights alone, the bf16 state) against their plain versions, timed with
   their bounds; bso_acc3 and bso_fold against compact_bso bit for bit; the
-  bf16 variants' abs-sum fingerprints summed in f32 (the bench's own sum
-  is a bf16 number, eight bits wide); and the reference's verdict pairs
+  bench's abs-sum fingerprints (summed in f32) of compact_i8 and
+  compact_bso told apart; and the reference's verdict pairs
   (compact/cstream_c, compact_bso/cstream_bso, prod/stream, prod/wsum,
   prod/nv7, cflux/cstream_flux, cflux/cflux_fact, compact_bso over
   bso_fold, bso_wsum, bso_acc3, var16 and compact_i8) timed in turns.
 
 The gather paths print each plan's EP, its live-EP maximum and the body
-the rule picks; K2 and K3-gather count each body apart (the direct body's
-rows end in `_direct`: K2 at bp 8192, and K3's gather flux form, which
-keeps it), so the kernel table lists each under the body its path launched, with that instance's registers, local bytes, shared memory
-and resident blocks per SM.
+the rule picks; K2 and K3-gather count each body apart (the cluster body's
+row ends in `_cluster`: K2 at bp 8192; the direct body's in `_direct`: K2
+at bp 8192 forced, and K3's gather flux form, which keeps it), so the
+kernel table lists each under the body its path launched, with that
+instance's registers, local bytes, shared memory and resident blocks per
+SM (the cluster body also the clusters the card can hold at once).
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after, and checked against the f64 golden of its op
@@ -113,7 +119,7 @@ SOLVER_STEPS = 100   # timed solver-mode steps per configuration
 SOLVER_RUN = 4       # solver-mode steps of the counted runner
 GATHER_BP = 512      # the gather kernel's solver-mode block size
 LARGE_BP = 8192      # a block size whose gather table no block's shared
-                     # memory holds: the gather sweep's direct body
+                     # memory holds: the gather sweep's cluster body
 SWEEPS = (1, 2, 4)   # sweeps per solver-mode step
 K1_TOL = 1e-6    # sweep kernels vs plain: FMA contraction, relative to max|ref|
 GOLDEN_TOL = 1e-5   # every schedule vs f64 golden (the reference's gate)
@@ -183,9 +189,6 @@ KB_VERDICTS = (("compact", "cstream_c"), ("compact_bso", "cstream_bso"),
                ("compact_bso", "compact_i8"))
 # the variants whose output K1-w16-d16-o16's (compact_bso) equals bitwise
 KB_BITWISE = ("bso_acc3", "bso_fold")
-# the bf16 variants whose fingerprint is also summed in f32
-KB_BF16 = ("compact_bso", "var16", "compact_i8", "bso_fold", "bso_wsum",
-           "bso_acc3")
 KERNELS = {      # name: (route, source, the TPU kernel it replaces)
     "pack_srcs": ("cuda", "cfd_proxy_tpu_torch/csrc/pack_srcs.cu",
                   "cfd_proxy_tpu/ops/blocksweep.py:940"),
@@ -198,8 +201,13 @@ KERNELS = {      # name: (route, source, the TPU kernel it replaces)
                              "cfd_proxy_tpu/ops/blocksweep.py:687"),
     "sweep_blocks_gather": ("cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
                             "cfd_proxy_tpu/ops/blocksweep.py:549"),
-    # K2's direct body, which the gather_body rule picks where the staged
-    # table does not fit (bp 8192)
+    # K2's cluster body, which the gather_body rule picks where the staged
+    # table does not fit one CUDA block but half of it does (bp 8192), and
+    # its direct body, forced there (the rule keeps it for bp or EP not a
+    # multiple of 4)
+    "sweep_blocks_gather_cluster": ("cuda",
+                                    "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+                                    "cfd_proxy_tpu/ops/blocksweep.py:549"),
     "sweep_blocks_gather_direct": ("cuda",
                                    "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
                                    "cfd_proxy_tpu/ops/blocksweep.py:549"),
@@ -465,6 +473,43 @@ def gather_body_forced(bs, body: str):
         bs.gather_body = rule
 
 
+def gather_bodies_compared(path: str, bs, args, kw, bodies) -> tuple:
+    """K2 on `args` (and keywords kw) under each of `bodies`, forced:
+    against the plain version (within K1_TOL of max|plain|) and the first
+    body bit for bit, then timed in turns (the bodies in order, then in
+    reverse; CUDA-event means of 50 calls).  Returns ({body: {max_abs_err,
+    ms (the better turn)}}, {body: [ms of each turn]}); fails on a
+    difference."""
+    import torch
+
+    want = bs.sweep_blocks_gather_ref(*args)
+    scale = float(want.abs().max())
+    res, first = {}, None
+    for b in bodies:
+        with gather_body_forced(bs, b):
+            out = bs.sweep_blocks_gather(*args, **kw)
+            torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        if not err <= K1_TOL * scale:
+            fail(f"{path}: the {b} body differs from the plain version: "
+                 f"{err:.3e} > {K1_TOL} x {scale:.3e}")
+        if first is None:
+            first = out
+        elif not torch.equal(out, first):
+            fail(f"{path}: the {b} and {bodies[0]} bodies differ")
+        res[b] = {"max_abs_err": err}
+        del out
+    del want, first
+    ms = {b: [] for b in bodies}
+    for b in (*bodies, *reversed(bodies)):
+        with gather_body_forced(bs, b):
+            ms[b].append(cuda_ms(lambda: bs.sweep_blocks_gather(*args, **kw),
+                                 50))
+    for b in bodies:
+        res[b]["ms"] = min(ms[b])
+    return res, ms
+
+
 def gather_facts(bs, model, cls: str, fused: bool = False,
                  peer: bool = False) -> dict:
     """The gather plan of class cls (EP, the live-EP maximum, the body the
@@ -479,17 +524,36 @@ def gather_facts(bs, model, cls: str, fused: bool = False,
     pl = model.plans[cls]
     ep = int(pl["ext_idx"].shape[2])
     body = bs.gather_body(model.bp, ep, model.op, fused)
-    staged = int(body == "staged")
-    smem = bs.staged_bytes(model.bp, ep) if staged else 0
-    op = bs.OPS.index(model.op)
-    w16 = int(model.w_t == torch.bfloat16)
-    o16 = int(model.grad_t == torch.bfloat16)
-    facts = (_cuda.kernel_info("cfd_overlap_gather_info", int(peer), staged,
-                               op, w16, o16, smem) if fused else
-             _cuda.kernel_info("cfd_sweep_gather_info", staged, 0, op, w16,
-                               o16, smem))
     return {"ep": ep, "ep_live_max": int(pl["ext_cnt"].max()), "body": body,
-            "kernel": {**facts, "dynamic_smem": smem}}
+            "kernel": gather_kernel_facts(bs, body, model.bp, ep, model.op,
+                                          model.w_t, model.grad_t, fused,
+                                          peer)}
+
+
+def gather_kernel_facts(bs, body: str, bp: int, ep: int, op: str = "gg",
+                        w_t=None, o_t=None, fused: bool = False,
+                        peer: bool = False) -> dict:
+    """Registers, local bytes, shared memory and resident blocks per SM of
+    the gather instance of `body` (K2, or K3's loopback or peer form) at
+    these shapes and dtypes (None: f32); the cluster body's at
+    `blocksweep.cluster_threads` threads, with the clusters the card can
+    hold at once."""
+    import torch
+
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    smem = {"staged": bs.staged_bytes(bp, ep),
+            "cluster": bs.cluster_bytes(bp, ep)}.get(body, 0)
+    code = bs.GATHER_BODY_CODES[body]
+    args = (bs.OPS.index(op), int(w_t == torch.bfloat16),
+            int(o_t == torch.bfloat16), smem)
+    threads = bs.cluster_threads(bp, ep)
+    facts = (_cuda.kernel_info("cfd_overlap_gather_info", int(peer), code,
+                               *args) if fused else
+             _cuda.kernel_info("cfd_sweep_gather_info", code, 0, *args,
+                               threads))
+    return {**facts, "dynamic_smem": smem,
+            **({"threads": threads} if body == "cluster" else {})}
 
 
 def device_profile(model, state, schedule: str, n: int = 20) -> dict:
@@ -997,8 +1061,9 @@ def main() -> int:
         del state, v
 
     # ---- the gather kernel at the AUTO block size (4096 at one shard), the
-    # body the rule picks there counted; then both bodies against the plain
-    # version, timed in turns (the rule's evidence at one CUDA block per SM)
+    # body the rule picks there counted; then all three bodies against the
+    # plain version and each other, timed in turns (the rule's evidence at
+    # one CUDA block per SM)
     reset_counts()
     gm = GreenGaussTorch(parts, NVAR, kernel="gather", device=dev)
     state = gm.distribute_state(gvar, schedules=["bulk"])
@@ -1006,79 +1071,84 @@ def main() -> int:
     counts = read_counts()
     auto = gather_facts(bs, gm, "bulk")
     expect_counts("gather_auto_bp", counts, (
-        "sweep_blocks_gather" + "_direct" * (auto["body"] == "direct"),))
+        "sweep_blocks_gather" + ("_" + auto["body"]) * (
+            auto["body"] != "staged"),))
     if not rel_auto <= GOLDEN_TOL:
         fail(f"gather at bp {gm.bp}: bulk vs golden {rel_auto:.3e}")
     k2a = (state["var_T"], *gm._operands("bulk", state["tables"]))
     kw = gm._gather_kw("bulk")
-    want = bs.sweep_blocks_gather_ref(*k2a)
-    scale_a = float(want.abs().max())
-    bodies, outs = {}, {}
-    for b in bs.GATHER_BODIES:
-        with gather_body_forced(bs, b):
-            outs[b] = bs.sweep_blocks_gather(*k2a, **kw)
-            torch.cuda.synchronize()
-        err = float((outs[b] - want).abs().max())
-        if not err <= K1_TOL * scale_a:
-            fail(f"gather_auto_bp: the {b} body differs from the plain "
-                 f"version: {err:.3e} > {K1_TOL} x {scale_a:.3e}")
-        bodies[b] = {"max_abs_err": err}
-    staged_eq = bool(torch.equal(outs["staged"], outs["direct"]))
-    ms = {b: [] for b in bs.GATHER_BODIES}
-    for b in ("direct", "staged", "staged", "direct"):
-        with gather_body_forced(bs, b):
-            ms[b].append(cuda_ms(lambda: bs.sweep_blocks_gather(*k2a, **kw),
-                                 50))
-    for b in bs.GATHER_BODIES:
-        bodies[b]["ms"] = min(ms[b])
+    bodies, auto_ms = gather_bodies_compared("gather_auto_bp", bs, k2a, kw,
+                                             bs.GATHER_BODIES)
     emit("gather_auto_bp", parts=1, bp=gm.bp, ep=auto["ep"],
          ep_live_max=auto["ep_live_max"], body=auto["body"],
          staged_bytes=bs.staged_bytes(gm.bp, auto["ep"]),
+         cluster_bytes=bs.cluster_bytes(gm.bp, auto["ep"]),
          kernel=auto["kernel"], bulk_vs_golden_relmax=rel_auto,
          tol=GOLDEN_TOL, launches=counts, card=smi, bodies=bodies,
-         staged_equals_direct_bitwise=staged_eq, tol_rel=K1_TOL)
-    if not staged_eq:
-        fail("gather_auto_bp: the staged and direct bodies differ")
-    del gm, state, k2a, want, outs
+         turns_ms=auto_ms, bodies_equal_bitwise=True, tol_rel=K1_TOL)
+    del gm, state, k2a
 
     # ---- the gather kernel at bp 8192 (one shard), where the staged table
-    # would not fit one CUDA block's shared memory: the direct body, counted,
-    # then against its plain version and timed (its kernel-table row)
+    # passes one CUDA block's shared memory but half of it fits: the cluster
+    # body, counted, then the direct body forced through the same step,
+    # counted; both against the plain version and each other, timed in
+    # turns (their kernel-table rows)
     reset_counts()
     gm = GreenGaussTorch(parts, NVAR, kernel="gather", bp=LARGE_BP,
                          device=dev)
     state = gm.distribute_state(gvar, schedules=["bulk"])
-    rel_large = golden_relmax(gm, gm.step(state, "bulk"))
+    g_rule = gm.step(state, "bulk")
+    rel_large = golden_relmax(gm, g_rule)
     counts = read_counts()
     large = gather_facts(bs, gm, "bulk")
-    if large["body"] != "direct":
+    if large["body"] != "cluster":
         fail(f"gather_large_bp: the rule picks {large['body']} at bp "
-             f"{gm.bp}, EP {large['ep']}; the kernel table expects direct")
-    expect_counts("gather_large_bp", counts, ("sweep_blocks_gather_direct",))
+             f"{gm.bp}, EP {large['ep']}; the kernel table expects cluster")
+    expect_counts("gather_large_bp", counts, ("sweep_blocks_gather_cluster",))
     if not rel_large <= GOLDEN_TOL:
         fail(f"gather at bp {gm.bp}: bulk vs golden {rel_large:.3e}")
+    reset_counts()
+    with gather_body_forced(bs, "direct"):
+        g_direct = gm.step(state, "bulk")
+    direct_counts = read_counts()
+    expect_counts("gather_large_bp (direct, forced)", direct_counts,
+                  ("sweep_blocks_gather_direct",))
+    if not torch.equal(g_rule, g_direct):
+        fail("gather_large_bp: the cluster and direct steps differ")
+    del g_rule, g_direct
     k2l = (state["var_T"], *gm._operands("bulk", state["tables"]))
     kw = gm._gather_kw("bulk")
-    row = "sweep_blocks_gather_direct"
-    got = bs.sweep_blocks_gather(*k2l, **kw)
+    bodies, large_ms = gather_bodies_compared("gather_large_bp", bs, k2l, kw,
+                                              ("cluster", "direct"))
     want = bs.sweep_blocks_gather_ref(*k2l)
-    torch.cuda.synchronize()
-    errs[row] = float((got - want).abs().max())
-    scales = {row: float(want.abs().max())}
-    if not errs[row] <= K1_TOL * scales[row]:
-        fail(f"{row} differs from its plain version: {errs[row]:.3e} > "
-             f"{K1_TOL} x {scales[row]:.3e}")
-    work[row] = sweep_bound("gg", k2l, gather=True)
-    times[row] = {**paired_ms(lambda: bs.sweep_blocks_gather(*k2l, **kw),
-                              lambda: bs.sweep_blocks_gather_ref(*k2l)),
-                  **large}
+    scale_l = float(want.abs().max())
+    scales = {}         # max|plain| per kernel-table row, from here on
+    del want
+    facts = {b: gather_kernel_facts(bs, b, gm.bp, large["ep"])
+             for b in ("cluster", "direct")}
+    for b in ("cluster", "direct"):
+        row = "sweep_blocks_gather_" + b
+        errs[row] = bodies[b]["max_abs_err"]
+        scales[row] = scale_l
+        work[row] = sweep_bound("gg", k2l, gather=True)
+        with gather_body_forced(bs, b):
+            times[row] = {**paired_ms(
+                lambda: bs.sweep_blocks_gather(*k2l, **kw),
+                lambda: bs.sweep_blocks_gather_ref(*k2l)),
+                "ep": large["ep"], "ep_live_max": large["ep_live_max"],
+                "body": b, "kernel": facts[b]}
     emit("gather_large_bp", parts=1, bp=gm.bp, ep=large["ep"],
          ep_live_max=large["ep_live_max"], body=large["body"],
          staged_bytes=bs.staged_bytes(gm.bp, large["ep"]),
+         cluster_bytes=bs.cluster_bytes(gm.bp, large["ep"]),
          bulk_vs_golden_relmax=rel_large, tol=GOLDEN_TOL, launches=counts,
-         card=smi, max_abs_err=errs[row], max_abs_ref=scales[row],
-         tol_rel=K1_TOL, times=times[row])
-    del gm, state, k2l, got, want
+         direct_launches=direct_counts, card=smi, bodies=bodies,
+         max_abs_ref=scale_l, tol_rel=K1_TOL, turns_ms=large_ms,
+         cluster_threads=bs.cluster_threads(gm.bp, large["ep"]),
+         bodies_equal_bitwise=True,
+         times={b: times["sweep_blocks_gather_" + b]
+                for b in ("cluster", "direct")})
+    del gm, state, k2l
 
     # ---- K2, K2-init and K3-gather vs their plain versions: K2 at the P=1
     # bulk shapes, K2-init and K3-gather at the P=8 interior + push
@@ -1869,17 +1939,21 @@ def main() -> int:
         work[row] = sweep_bound(op, (v, *operands(t)), gather=False,
                                 out_bytes=out_b, extra=kb_extra.get(row, ""))
     # K5g and K5f's fold form add K1-w16-d16-o16's products in its order
-    kb_out = {n: table[n][0](*table[n][1:]) for n in KB_BF16}
+    kb_out = {n: table[n][0](*table[n][1:])
+              for n in (*KB_BITWISE, "compact_bso")}
     for n in KB_BITWISE:
         differ = int((kb_out[n] != kb_out["compact_bso"]).sum())
         if differ:
             fail(f"kbench: {n} differs from compact_bso at {differ} "
                  f"elements (expected bit for bit)")
-    # the bf16 variants' fingerprints summed in f32, against the f64 golden
-    # of the model paths' state (the bench's own sum is rounded to bf16)
-    gold_sum = float(np.abs(ref).sum())
-    fingerprints = {n: abs(float(o.float().abs().sum()) - gold_sum) / gold_sum
-                    for n, o in kb_out.items()}
+    # the bench's --check fingerprints (f32 sums): the int8 rung's output
+    # differs from K1-w16-d16-o16's, and so must its fingerprint
+    fingerprints = {ln.split()[1].rstrip(":"): float(ln.split()[4])
+                    for r in kb_runs.values() for ln in r["output"]
+                    if ln.startswith("check ")}
+    if fingerprints["compact_i8"] == fingerprints["compact_bso"]:
+        fail("kbench --check prints one fingerprint for compact_i8 and "
+             "compact_bso")
     # the bench loop's chained update v + 1e-30·g[:, :NV] on the f32 state
     # and on var16's bf16 state: the part of a paired ratio of the bench
     # that is not the kernel's
@@ -1902,7 +1976,7 @@ def main() -> int:
          kslots=b0.plan.kslots, wks=list(b0.wks["prefix"]),
          bench_seconds=t_bench, runs=kb_runs, verdicts=verdicts,
          bitwise_compact_bso=list(KB_BITWISE),
-         fingerprint_rel_f32_sum=fingerprints, chained_update_ms=update_ms,
+         check_fingerprints=fingerprints, chained_update_ms=update_ms,
          kernels=kernel_summary(list(kb_variant)))
     del benches, table
 

@@ -1,7 +1,7 @@
 """Kernel times of one checkout of the port at the smoke run's shapes, for
 comparing two commits' source pack, push path and gather sweep on one card.
 
-    python3 chip_turns.py --root DIR --label NAME
+    python3 chip_turns.py --root DIR --label NAME [--rows k4,kbench,...]
     python3 chip_turns.py --summary FILE
 
 The first form imports the port from DIR (a checkout, such as an unpacked
@@ -15,19 +15,30 @@ K2-w16-o16 on the bulk plan at one and eight shards, K2-flux at eight;
 K2-init, K2-init-w16-o16 and K2-flux-init on the eight-shard interior
 plan; K3-gather, K3-gather-w16-o16 and K3-gather-flux at the eight-shard
 interior + push shapes; the peer form is the K3-peer gather row above);
-and
-ptxas's registers and spill bytes of every K6, K3-peer and gather
-instance.  The mesh is the smoke run's (96³, seed 0, nvar 7).  Times are
+K2 on the one-shard bulk plan at bp 512, at the AUTO block size (4096)
+and at bp 8192 under the body the rule picks (in a tree with the cluster
+body also that body forced at each of its block sizes, 256 and 512
+threads, and the staged and cluster bodies forced on the edge plans
+EDGES: the one-shard plan at bp 512 and 2048 with its ext columns spread
+over a wider table, just under and just over GATHER_STAGE_PAIR, where the
+rule turns from staged to cluster); kbench's rows on its 96³ prefix
+tables (bp 4096): K5d (compact_i8), K1-w16-d16-o16 (compact_bso) and
+K5e-bf16 (cstream_bso); a hash of each gather and kbench output, which shows two
+trees' outputs equal bit for bit; and ptxas's registers and spill bytes of
+every K6, K3-peer, gather and kbench rung instance.  `--rows` times only
+the named groups of ROWS.  The mesh is the smoke run's (96³, seed 0, nvar 7).  Times are
 CUDA-event means of 50 calls (`chip_smoke.cuda_ms`), K6 back to back on the
 card (`chip_smoke.kernel_device_ms`), both from DIR's `chip_smoke.py`.  Run
 it on the two checkouts in turns (A, B, B, A), appending to one file; the
-second form prints each checkout's better time per kernel and the ratio of
-the second label over the first.  Needs a CUDA card.
+second form prints each checkout's better time per kernel, the ratio of
+the second label over the first and, per output hash, whether the two
+trees agree.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -40,12 +51,52 @@ FULL = {k: BF16 for k in ("src_dtype", "meta_dtype", "grad_dtype",
                           "halo_dtype")}
 K6_CELLS = ((4, 8.0), (4, 32.0))
 K6_SMALL = 0.125
-# K6, K3-peer, K2 and K3's gather instances (their mangled names)
-PTXAS_KERNELS = ("overlap_peer", "push_phases", "sweep_gather", "GatherSrc")
+# K6, K3-peer, K2 and K3's gather instances and kbench's rungs (their
+# mangled names)
+PTXAS_KERNELS = ("overlap_peer", "push_phases", "sweep_gather", "GatherSrc",
+                 "rung_kernel", "i8_kernel")
+AUTO_BP, LARGE_BP = 4096, 8192     # the AUTO block size at one shard; 2x
+KB_BP = 4096                       # kbench's block size
+KB_ROWS = ("compact_i8", "compact_bso", "cstream_bso")
+# the row groups: K4, K6, K3-peer, the gather sweep at bp 512, K2 at bp 512,
+# 4096 and 8192, kbench's rows
+ROWS = ("k4", "k6", "peer", "gather", "bodies", "kbench")
+# (bp, EP) of the edge plans: 3 584 table columns (114 688 B staged, under
+# GATHER_STAGE_PAIR's 115 456) and 3 712 (118 784 B, over it) at bp 512,
+# 3 712 at bp 2048
+EDGES = ((512, 3072), (512, 3200), (2048, 1664))
 GATHER_MODELS = (("", 1, {}), ("", 8, {}),
                  ("_w16_o16", 1, {"meta_dtype": BF16, "grad_dtype": BF16}),
                  ("_w16_o16", 8, {"meta_dtype": BF16, "grad_dtype": BF16}),
                  ("_flux", 8, {"op": "flux"}))
+
+
+def digest(t) -> str:
+    """A hash of a tensor's bytes: equal hashes, equal outputs bit for
+    bit."""
+    import torch
+
+    raw = t.detach().contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+
+def edge_plan(args: tuple, kw: dict, ep: int) -> tuple:
+    """K2's operands `args` (var_T, exts, slot_idx, ...) of a real plan,
+    its ext table widened to `ep` columns: every ext W-index j spread to
+    j·ep // EP (the own lanes and each lane's slot pattern kept), every
+    entry's ext count ep, the new columns drawn from a seeded normal.  The
+    staged and cluster bodies then stage bp + ep columns an entry."""
+    import torch
+
+    var_T, exts, sidx, *rest = args
+    P, nb, nv, ep0 = exts.shape
+    bp = rest[1].shape[-1]
+    ext = sidx >= bp
+    wide = torch.where(ext, bp + (sidx - bp) * ep // ep0, sidx)
+    gen = torch.Generator(exts.device).manual_seed(SEED)
+    exts = torch.randn((P, nb, nv, ep), generator=gen, device=exts.device)
+    cnt = torch.full_like(kw["ext_cnt"], ep)
+    return (var_T, exts, wide.to(sidx.dtype), *rest), {"ext_cnt": cnt}
 
 
 def ptxas_facts(log: str) -> dict:
@@ -64,8 +115,9 @@ def ptxas_facts(log: str) -> dict:
     return out
 
 
-def measure(root: str) -> dict:
-    """{kernel: ms} and the ptxas facts of the checkout at root."""
+def measure(root: str, rows=ROWS) -> dict:
+    """{kernel: ms}, output hashes and the ptxas facts of the checkout at
+    root, for the row groups `rows` (ROWS)."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -88,93 +140,165 @@ def measure(root: str) -> dict:
     gmesh = generate_mesh(NX, NX, NX, jitter=0.05, diag_frac=0.2, seed=SEED)
     gvar = make_state(gmesh.npoint, NVAR, seed=SEED + 1)
 
-    # K4, f32 and bf16d, as the model's table rebuild launches it
-    parts1 = partition_mesh(gmesh, 1)
-    for name, opts in (("pack_srcs", {}), ("pack_srcs_d16",
-                                           {"src_dtype": BF16})):
-        m1 = GreenGaussTorch(parts1, NVAR, device=dev, **opts)
-        var_T = m1.distribute_state(gvar, schedules=["bulk"])["var_T"]
-        before = bs.pack_srcs.launches + bs.pack_srcs.d16_launches
-        ms[name] = cs.cuda_ms(lambda: m1._build_tables(var_T, ["bulk"]), 50)
-        if bs.pack_srcs.launches + bs.pack_srcs.d16_launches == before:
-            raise SystemExit(f"chip_turns: {name} was not launched")
-        del m1, var_T
+    parts1, parts8 = partition_mesh(gmesh, 1), partition_mesh(gmesh, 8)
+    hashes, rule = {}, {}
+    if "k4" in rows:
+        # K4, f32 and bf16d, as the model's table rebuild launches it
+        for name, opts in (("pack_srcs", {}), ("pack_srcs_d16",
+                                               {"src_dtype": BF16})):
+            m1 = GreenGaussTorch(parts1, NVAR, device=dev, **opts)
+            var_T = m1.distribute_state(gvar, schedules=["bulk"])["var_T"]
+            before = bs.pack_srcs.launches + bs.pack_srcs.d16_launches
+            ms[name] = cs.cuda_ms(
+                lambda: m1._build_tables(var_T, ["bulk"]), 50)
+            if bs.pack_srcs.launches + bs.pack_srcs.d16_launches == before:
+                raise SystemExit(f"chip_turns: {name} was not launched")
+            del m1, var_T
 
-    # K6 at one rank (self-sends), 24 rows
-    def k6(nph, mb):
-        lanes = icibench.payload_lanes(mb, 24)
-        peer = icibench.make_transport(1, nph, 24, lanes, dev, None)
-        send = torch.randn((1, nph, 24, lanes), device=dev,
-                           generator=torch.Generator(dev).manual_seed(nph))
-        return peer, send
+    if "k6" in rows:
+        # K6 at one rank (self-sends), 24 rows
+        def k6(nph, mb):
+            lanes = icibench.payload_lanes(mb, 24)
+            peer = icibench.make_transport(1, nph, 24, lanes, dev, None)
+            send = torch.randn((1, nph, 24, lanes), device=dev,
+                               generator=torch.Generator(dev).manual_seed(nph))
+            return peer, send
 
-    for nph, mb in K6_CELLS:
-        peer, send = k6(nph, mb)
-        ms[f"push_phases_full_{nph}x{mb}MB"] = cs.kernel_device_ms(
-            lambda: push.push_phases(send, peer, "full"), 20)
+        for nph, mb in K6_CELLS:
+            peer, send = k6(nph, mb)
+            ms[f"push_phases_full_{nph}x{mb}MB"] = cs.kernel_device_ms(
+                lambda: push.push_phases(send, peer, "full"), 20)
+            peer.close()
+        peer, send = k6(1, K6_SMALL)
+        for m in push.MODES:
+            ms[f"push_phases_{m}_1x{K6_SMALL}MB"] = cs.kernel_device_ms(
+                lambda m=m: push.push_phases(send, peer, m), 100)
         peer.close()
-    peer, send = k6(1, K6_SMALL)
-    for m in push.MODES:
-        ms[f"push_phases_{m}_1x{K6_SMALL}MB"] = cs.kernel_device_ms(
-            lambda m=m: push.push_phases(send, peer, m), 100)
-    peer.close()
-    del peer, send
+        del peer, send
 
-    # K3's peer form at the 8-shard interior + push shapes
-    parts8 = partition_mesh(gmesh, 8)
-    for name, opts, wire in (
-            ("sweep_blocks_overlap_peer", {}, torch.float32),
-            ("sweep_blocks_overlap_gather_peer",
-             {"kernel": "gather", "bp": GATHER_BP}, torch.float32),
-            ("sweep_blocks_overlap_peer_w16_d16_o16", FULL, torch.bfloat16)):
-        m8 = GreenGaussTorch(parts8, NVAR, device=dev, **opts)
-        st = m8.distribute_state(gvar, schedules=["overlap", "bulk"])
-        iargs = (st["var_T"], *m8._operands("interior", st["tables"]))
-        gb = m8.step(st, "nocomm")
-        sendbufs = m8._pack(gb, m8.pack_scale, wire)
-        peer = Peer(m8.dsts.numpy(), m8.srcs.numpy(), rows=m8.rows,
-                    s_max=m8.s_max, dtype=wire, device=dev)
-        fused = (bs.sweep_blocks_overlap_gather if m8.kernel == "gather"
-                 else bs.sweep_blocks_overlap)
-        # the gather model's keyword operand, in a tree that has one
-        kw = (m8._gather_kw("interior") if hasattr(m8, "_gather_kw")
-              else {})
-        buf = gb.clone()
-        ms[name] = cs.cuda_ms(
-            lambda: fused(*iargs, buf, sendbufs, None, None, peer=peer,
-                          **kw), 50)
-        peer.close()
-        del m8, st, iargs, gb, sendbufs, peer, buf
-    # the gather sweep at bp 512, as the model calls it (its output's zero
-    # fill included where it has one); K3-gather in both forms
-    for tag, npart, opts in GATHER_MODELS:
-        m = GreenGaussTorch(parts1 if npart == 1 else parts8, NVAR,
-                            kernel="gather", bp=GATHER_BP, device=dev,
-                            **opts)
-        st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
-        var_T, tbs = st["var_T"], st["tables"]
-        ms[f"sweep_blocks_gather{tag}_P{npart}"] = cs.cuda_ms(
-            lambda: m._sweep("bulk", var_T, tbs), 50)
-        if npart == 1:
+    if "peer" in rows:
+        # K3's peer form at the 8-shard interior + push shapes
+        for name, opts, wire in (
+                ("sweep_blocks_overlap_peer", {}, torch.float32),
+                ("sweep_blocks_overlap_gather_peer",
+                 {"kernel": "gather", "bp": GATHER_BP}, torch.float32),
+                ("sweep_blocks_overlap_peer_w16_d16_o16", FULL,
+                 torch.bfloat16)):
+            m8 = GreenGaussTorch(parts8, NVAR, device=dev, **opts)
+            st = m8.distribute_state(gvar, schedules=["overlap", "bulk"])
+            iargs = (st["var_T"], *m8._operands("interior", st["tables"]))
+            gb = m8.step(st, "nocomm")
+            sendbufs = m8._pack(gb, m8.pack_scale, wire)
+            peer = Peer(m8.dsts.numpy(), m8.srcs.numpy(), rows=m8.rows,
+                        s_max=m8.s_max, dtype=wire, device=dev)
+            fused = (bs.sweep_blocks_overlap_gather if m8.kernel == "gather"
+                     else bs.sweep_blocks_overlap)
+            # the gather model's keyword operand, in a tree that has one
+            kw = (m8._gather_kw("interior") if hasattr(m8, "_gather_kw")
+                  else {})
+            buf = gb.clone()
+            ms[name] = cs.cuda_ms(
+                lambda: fused(*iargs, buf, sendbufs, None, None, peer=peer,
+                              **kw), 50)
+            peer.close()
+            del m8, st, iargs, gb, sendbufs, peer, buf
+    if "gather" in rows:
+        # the gather sweep at bp 512, as the model calls it (its output's zero
+        # fill included where it has one); K3-gather in both forms
+        for tag, npart, opts in GATHER_MODELS:
+            m = GreenGaussTorch(parts1 if npart == 1 else parts8, NVAR,
+                                kernel="gather", bp=GATHER_BP, device=dev,
+                                **opts)
+            st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
+            var_T, tbs = st["var_T"], st["tables"]
+            ms[f"sweep_blocks_gather{tag}_P{npart}"] = cs.cuda_ms(
+                lambda: m._sweep("bulk", var_T, tbs), 50)
+            hashes[f"sweep_blocks_gather{tag}_P{npart}"] = digest(
+                m._sweep("bulk", var_T, tbs))
+            if npart == 1:
+                del m, st, var_T, tbs
+                continue
+            gb = m.step(st, "nocomm")
+            buf = gb.clone()
+            ms[f"sweep_blocks_gather_init{tag}_P{npart}"] = cs.cuda_ms(
+                lambda: m._sweep("interior", var_T, tbs, init=buf), 50)
+            hashes[f"sweep_blocks_gather_init{tag}_P{npart}"] = digest(
+                m._sweep("interior", var_T, tbs, init=gb.clone()))
+            # the keyword operand of a tree whose model has one
+            kw = m._gather_kw("interior") if hasattr(m, "_gather_kw") else {}
+            iargs = (var_T, *m._operands("interior", tbs))
+            sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
+            fused = bs.sweep_blocks_overlap_gather
+            ms[f"sweep_blocks_overlap_gather{tag}_P{npart}"] = cs.cuda_ms(
+                lambda: fused(*iargs, buf, sendbufs, m.dsts, m.srcs, op=m.op,
+                              **kw), 50)
+            del m, st, var_T, tbs, gb, buf, iargs, sendbufs
+
+    if "bodies" in rows:
+        # K2 on the one-shard bulk plan at bp 512, the AUTO block size and
+        # bp 8192, under the rule's body, and (a tree that has it) the
+        # cluster body forced at each of its block sizes; then the staged
+        # and cluster bodies on the edge plans
+        bodies = getattr(bs, "GATHER_BODIES", ())
+        for bp in (GATHER_BP, AUTO_BP, LARGE_BP):
+            m = GreenGaussTorch(parts1, NVAR, kernel="gather", bp=bp,
+                                device=dev)
+            st = m.distribute_state(gvar, schedules=["bulk"])
+            var_T, tbs = st["var_T"], st["tables"]
+            ep = int(m.plans["bulk"]["ext_idx"].shape[2])
+            runs = {f"sweep_blocks_gather_bp{bp}": (bs.gather_body(bp, ep),
+                                                    None)}
+            if "cluster" in bodies:
+                runs.update({f"sweep_blocks_gather_bp{bp}_cluster{n}":
+                             ("cluster", n) for n in (256, 512)})
+            for key, (body, threads) in runs.items():
+                with cs.gather_body_forced(bs, body):
+                    rule_threads = getattr(bs, "cluster_threads", None)
+                    if threads is not None:
+                        bs.cluster_threads = lambda *_, n=threads: n
+                    ms[key] = cs.cuda_ms(lambda: m._sweep("bulk", var_T, tbs),
+                                         50)
+                    hashes[key] = digest(m._sweep("bulk", var_T, tbs))
+                    if threads is not None:
+                        bs.cluster_threads = rule_threads
+            rule[f"bp{bp}"] = {"ep": ep, "body": bs.gather_body(bp, ep)}
             del m, st, var_T, tbs
-            continue
-        gb = m.step(st, "nocomm")
-        buf = gb.clone()
-        ms[f"sweep_blocks_gather_init{tag}_P{npart}"] = cs.cuda_ms(
-            lambda: m._sweep("interior", var_T, tbs, init=buf), 50)
-        # the keyword operand of a tree whose model has one
-        kw = m._gather_kw("interior") if hasattr(m, "_gather_kw") else {}
-        iargs = (var_T, *m._operands("interior", tbs))
-        sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
-        fused = bs.sweep_blocks_overlap_gather
-        ms[f"sweep_blocks_overlap_gather{tag}_P{npart}"] = cs.cuda_ms(
-            lambda: fused(*iargs, buf, sendbufs, m.dsts, m.srcs, op=m.op,
-                          **kw), 50)
-        del m, st, var_T, tbs, gb, buf, iargs, sendbufs
+        for bp in dict.fromkeys(b for b, _ in EDGES) if "cluster" in bodies \
+                else ():
+            m = GreenGaussTorch(parts1, NVAR, kernel="gather", bp=bp,
+                                device=dev)
+            st = m.distribute_state(gvar, schedules=["bulk"])
+            real = (st["var_T"], *m._operands("bulk", st["tables"]))
+            for ep in (e for b, e in EDGES if b == bp):
+                args, kw = edge_plan(real, m._gather_kw("bulk"), ep)
+                key = f"sweep_blocks_gather_edge_bp{bp}_ep{ep}"
+                rule[key] = {"columns": bp + ep,
+                             "staged_bytes": bs.staged_bytes(bp, ep),
+                             "body": bs.gather_body(bp, ep)}
+                for body in ("staged", "cluster"):
+                    with cs.gather_body_forced(bs, body):
+                        ms[f"{key}_{body}"] = cs.cuda_ms(
+                            lambda: bs.sweep_blocks_gather(*args, **kw), 50)
+                        hashes[f"{key}_{body}"] = digest(
+                            bs.sweep_blocks_gather(*args, **kw))
+                del args, kw
+            del m, st, real
+
+    if "kbench" in rows:
+        # kbench's rows on its 96³ prefix tables
+        from cfd_proxy_tpu_torch.tools import kbench
+
+        benches = kbench.make_benches(gmesh, bp=KB_BP, device=dev)
+        table = kbench.variant_table(benches, list(KB_ROWS))
+        for name in KB_ROWS:
+            fn, v, t = table[name]
+            ms[name] = cs.cuda_ms(lambda: fn(v, t), 50)
+            hashes[name] = digest(fn(v, t))
+        del benches, table
     bad = [k for k, v in ms.items() if not np.isfinite(v)]
     if bad:
         raise SystemExit(f"chip_turns: no finite time for {bad}")
-    return {"ms": ms, "ptxas": facts}
+    return {"ms": ms, "hash": hashes, "gather_rule": rule, "ptxas": facts}
 
 
 def summary(path: str) -> dict:
@@ -183,15 +307,21 @@ def summary(path: str) -> dict:
     runs = [json.loads(ln) for ln in open(path) if ln.strip()]
     labels = list(dict.fromkeys(r["label"] for r in runs))
     best = {lb: {} for lb in labels}
+    hashes = {lb: {} for lb in labels}
     for r in runs:
+        got = best[r["label"]]
         for k, v in r["ms"].items():
-            got = best[r["label"]]
             got[k] = min(got.get(k, v), v)
+        for k, h in r.get("hash", {}).items():
+            hashes[r["label"]].setdefault(k, set()).add(h)
     out = {"labels": labels, "runs": len(runs), "ms": best}
     if len(labels) == 2:
         a, b = labels
         out[f"{b}_over_{a}"] = {k: best[b][k] / best[a][k]
                                 for k in best[a] if k in best[b]}
+        out["equal_bitwise"] = {k: hashes[a][k] == hashes[b][k]
+                                and len(hashes[a][k]) == 1
+                                for k in hashes[a] if k in hashes[b]}
     return out
 
 
@@ -200,6 +330,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", help="checkout whose port is timed")
     ap.add_argument("--label", default="", help="name of this run's tree")
     ap.add_argument("--summary", help="JSON lines of earlier runs")
+    ap.add_argument("--rows", default=",".join(ROWS),
+                    help="row groups to time, of " + ",".join(ROWS))
     a = ap.parse_args(argv)
     if a.summary:
         print(json.dumps(summary(a.summary)))
@@ -207,7 +339,7 @@ def main(argv=None) -> int:
     if not a.root:
         ap.error("--root or --summary")
     print(json.dumps({"label": a.label or a.root, "root": a.root,
-                      **measure(a.root)}), flush=True)
+                      **measure(a.root, a.rows.split(","))}), flush=True)
     return 0
 
 

@@ -1,7 +1,8 @@
 """Entry points of the port: the solver CLI on the CPU (static iteration
 and solver mode; the reference's mesh options, each option outside the
 port refused by name, the reference's message for a missing `--mesh`
-file), and chip_smoke.py's refusal to run (or report success) without a
+file), the port's partition tool against the reference's, and
+chip_smoke.py's refusal to run (or report success) without a
 CUDA card."""
 
 import json
@@ -10,6 +11,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -148,6 +150,66 @@ def test_solver_cli_missing_mesh_file_gives_reference_message(tmp_path):
     assert msg.startswith(f"mesh partition file not found: {prefix}.2p.0.nc"
                           " — expected <prefix>.<parts>p.<i>.nc")
     assert f"--parts 2 --out {prefix}" in msg and "--ghost-layers" in msg
+
+
+PORT_PARTITION = """
+import sys
+sys.modules["jax"] = None            # any import of jax now raises
+sys.modules["cfd_proxy_tpu"] = None  # and so does any of the JAX package
+sys.path.insert(0, {repo!r})
+from cfd_proxy_tpu_torch.tools import partition
+rc = partition.main({argv!r})
+assert not any(k == "jax" or k.startswith("jax.") or k == "cfd_proxy_tpu"
+               or k.startswith("cfd_proxy_tpu.")
+               for k, v in sys.modules.items() if v is not None)
+sys.exit(rc)
+"""
+
+
+def test_partition_tool_writes_the_reference_files(tmp_path):
+    """The port's partition tool (run with JAX and the JAX package
+    unimportable) and the reference's write the same file names for the
+    same options, and the files read back equal; the port's solver reads
+    them with --mesh (no golden: a read mesh has no global form)."""
+    from cfd_proxy_tpu.mesh.reader import read_partition as ref_read
+    from cfd_proxy_tpu.tools import partition as ref_tool
+    from cfd_proxy_tpu_torch.mesh.reader import read_partition
+
+    opts = ["--nx", "8", "--nz", "6", "--parts", "3", "--seed", "2"]
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    port.mkdir()
+    ref.mkdir()
+    res = subprocess.run(
+        [sys.executable, "-c", PORT_PARTITION.format(
+            repo=REPO, argv=[*opts, "--out", str(port / "m")])],
+        capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.count("wrote ") == 3
+    assert ref_tool.main([*opts, "--out", str(ref / "m")]) == 0
+    names = sorted(f.name for f in port.iterdir())
+    assert names == sorted(f.name for f in ref.iterdir()) == \
+        [f"m.3p.{i}.nc" for i in range(3)]
+    for name in names:
+        a, b = read_partition(str(port / name)), ref_read(str(ref / name))
+        for f in ("part_id", "npart", "nowned"):
+            assert getattr(a, f) == getattr(b, f), (name, f)
+        for f in ("coords", "global_ids", "faces", "normals", "volume"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+        assert len(a.comm) == len(b.comm) > 0
+        for x, y in zip(a.comm, b.comm):
+            assert (x.partner, x.round) == (y.partner, y.round)
+            assert np.array_equal(x.sendidx, y.sendidx)
+            assert np.array_equal(x.recvidx, y.recvidx)
+    res = subprocess.run(
+        [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--mesh",
+         str(port / "m"), "--parts", "3", "--device", "cpu", "--iters", "2",
+         "--schedule", "bulk", "--json"],
+        capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
+    assert res.returncode == 0, res.stderr
+    d = json.loads(res.stdout.strip().splitlines()[-1])
+    assert d["npart"] == 3 and "bulk" in d["schedules"]
+    assert d["nface"] == sum(read_partition(str(port / n)).nface
+                             for n in names) > 0
 
 
 def test_solver_cli_solver_mode_json():

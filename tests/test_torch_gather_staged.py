@@ -1,7 +1,9 @@
-"""The gather sweep's staged body: K2 and K3's gather form stage each
-listed entry's [own ‖ live ext] table in shared memory (csrc/
+"""The gather sweep's staged and cluster bodies: K2 and K3's gather form
+stage each listed entry's [own ‖ live ext] table in shared memory (csrc/
 sweep_common.cuh::sweep_entry_staged) where `gather_body` picks it (K3's
-flux form keeps the direct body).
+flux form keeps the direct body); K2 splits it over a cluster of two CUDA
+blocks, one float4 plane each (sweep_entry_cluster), where it passes two
+blocks an SM but half of it fits one.
 
 On the CPU:
 
@@ -15,15 +17,24 @@ On the CPU:
   init, in f32 and bf16 weights and outputs, and the JAX gather kernel
   (`sweep_blocks(..., packed=False, interpret=True)`) within 1e-6 of
   max|ref| (f32) or one bf16 ulp plus that (bf16 outputs);
-- the fixed body rule and the shared-memory fit at the 96³ benchmark
-  shapes, from the numbers alone, and the fused flux form's direct body.
+- so does a plain-torch form of the cluster algorithm (block r stages
+  plane r at the kernel's offsets and sweeps its warp-sized runs of
+  lanes, reading its own plane and its peer's), on the JAX plans and on
+  synthetic plans with pad entries and entries without ext columns at
+  bp 128 and at the 96³ one-shard plan's bp 8192; the two blocks' lanes
+  split every slot prefix in half;
+- the fixed body rule, the cluster's thread count and the shared-memory
+  fit at the 96³ benchmark shapes, from the numbers alone, and the fused
+  kernel's bodies.
 
-The `cuda`-marked tests hold every K2 instance and every K3-gather instance
-(loopback and peer) to its plain version under both bodies, with pad
-entries, zero-width slots, EP = 128 and the largest EP the rule stages; the
-staged body against the direct one and K3-gather-peer against the loopback
-K3-gather bit for bit; and the resident blocks per SM of the staged
-instances.  They import no JAX:
+The `cuda`-marked tests hold every K2 instance under all three bodies and
+every K3-gather instance (loopback and peer) under the staged and direct
+ones to its plain version, with pad entries, zero-width slots, EP = 128
+and the largest EP the rule stages; the bodies against each other and
+K3-gather-peer against the loopback K3-gather bit for bit; every K2
+instance on the cluster body at bp 8192, both thread counts, against the
+direct body bit for bit; and the resident blocks per SM of the staged and
+cluster instances.  They import no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_gather_staged.py -m cuda
@@ -127,6 +138,80 @@ def staged_sweep(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
 
     return bs._sweep_plain(var_T, scale, block_ids, slots, init, terms, op,
                            out_dtype=bs._out_dtype(init, out_dtype))
+
+
+# the cluster body's CUDA blocks and lane runs (csrc/sweep_common.cuh::
+# kClusterCtas, kClusterRun)
+CTAS, RUN = 2, 32
+
+
+def cluster_lanes(bp, rank, threads):
+    """The lanes CUDA block `rank` of a cluster sweeps, thread by thread in
+    the kernel's order: position j = t, t + threads, ... of thread t is
+    lane ((j // RUN)·CTAS + rank)·RUN + j % RUN, until one passes bp."""
+    out = []
+    for t in range(threads):
+        j = t
+        while (lane := ((j // RUN) * CTAS + rank) * RUN + j % RUN) < bp:
+            out.append(lane)
+            j += threads
+    return out
+
+
+def cluster_planes(var_T, exts, block_ids, ext_cnt, bp):
+    """What each CUDA block of the cluster stages for every listed entry:
+    plane r (P, nb, 4, bp + EP) holds rows 4r..4r+3 of var_T's own columns
+    and of the entry's first ext_cnt ext columns rounded up to whole
+    quads, read at the kernel's flat offsets ((p·NV + 4r)·ndev + base, and
+    (g·NV + 4r)·EP); the columns it does not stage are NaN."""
+    P, nb, _, ep = exts.shape
+    ndev = var_T.shape[2]
+    flat_v, flat_e = var_T.reshape(-1), exts.reshape(-1)
+    planes = torch.full((CTAS, P, nb, 4, bp + ep), float("nan"))
+    for r in range(CTAS):
+        for p in range(P):
+            for b in range(nb):
+                g = p * nb + b
+                base = int(block_ids[p, b]) * bp
+                quads = (min(max(int(ext_cnt[p, b]), 0), ep) + 3) // 4
+                for u in range(4):
+                    row = (p * NV + 4 * r + u) * ndev + base
+                    planes[r, p, b, u, :bp] = flat_v[row:row + bp]
+                    row = (g * NV + 4 * r + u) * ep
+                    planes[r, p, b, u, bp:bp + 4 * quads] = \
+                        flat_e[row:row + 4 * quads]
+    return planes
+
+
+def cluster_sweep(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
+                  ext_cnt, init=None, op="gg", out_dtype=None, threads=256):
+    """The cluster body's algorithm in plain torch: block r of each entry's
+    cluster stages plane r (`cluster_planes`) and sweeps the lanes
+    `cluster_lanes` gives it, resolving each W-index into its own plane
+    (local) and the other block's (peer): variables 0-3 from plane 0, 4-7
+    from plane 1, whichever block holds it.  Each block's sweep runs the
+    plain versions' arithmetic (`_sweep_plain`) on the table as it sees it;
+    a lane's result is taken from the block that owns it."""
+    P, nb, K, bp = slot_idx.shape
+    planes = cluster_planes(var_T, exts, block_ids, ext_cnt, bp)
+    outs = []
+    for rank in range(CTAS):
+        local, peer = planes[rank], planes[rank ^ 1]
+        lo, hi = (local, peer) if rank == 0 else (peer, local)
+        seen = torch.cat([lo, hi], dim=2)           # (P, nb, NV, bp + EP)
+
+        def terms(k, w, off, own, seen=seen):
+            idx = slot_idx[:, :, k, None, :w].long().expand(P, nb, NV, w)
+            return torch.gather(seen, 3, idx), slot_w[:, :, k, :, :w]
+
+        outs.append(bs._sweep_plain(
+            var_T, scale, block_ids, slots,
+            None if init is None else init.clone(), terms, op,
+            out_dtype=bs._out_dtype(init, out_dtype)))
+    owner = torch.zeros(bp, dtype=torch.long)
+    owner[cluster_lanes(bp, 1, threads)] = 1
+    lane_of_col = torch.arange(var_T.shape[2]) % bp
+    return torch.where(owner[lane_of_col] == 0, outs[0], outs[1])
 
 
 def _port_args(arrays, var_T, cls, w16):
@@ -307,33 +392,54 @@ def test_gather_wrappers_check_ext_counts():
 
 
 # (bp, EP, body): the 96³ plans at bp 512 (one shard EP 512, eight shards
-# EP 1024 and 1280), at the AUTO block size (4096, EP 1920) and at bp 8192,
-# the card tests' bp 128, and the rule's edges
+# EP 1024 and 1280), at the AUTO block size (4096, EP 1920: one staged
+# block per SM) and at bp 8192 (EP 2688 at one shard), the card tests' bp
+# 128, and the rule's edges: the largest table two blocks of an SM hold,
+# the largest half-table one block holds
+PAIR_MAX = bs.GATHER_STAGE_PAIR // 32           # columns of the largest
+HALF_MAX = 2 * (bs.GATHER_STAGE_MAX // 32)
 RULE_CASES = [
     (512, 512, "staged"), (512, 1024, "staged"), (512, 1280, "staged"),
-    (4096, 1920, "staged"), (8192, 2560, "direct"), (128, 128, "staged"),
-    (512, bs.GATHER_STAGE_MAX // 32 - 512, "staged"),
-    (512, bs.GATHER_STAGE_MAX // 32 - 508, "direct"),
+    (4096, 1920, "cluster"), (8192, 2560, "cluster"), (128, 128, "staged"),
+    (8192, 2688, "cluster"),
+    (512, PAIR_MAX - 512, "staged"), (512, PAIR_MAX - 508, "cluster"),
+    (512, HALF_MAX - 512, "cluster"), (512, HALF_MAX - 508, "direct"),
+    (8190, 2688, "direct"), (8192, 2686, "direct"),
     (128, 130, "direct"), (126, 128, "direct")]
 
 
 @pytest.mark.parametrize("bp,ep,body", RULE_CASES)
 def test_gather_body_rule(bp, ep, body):
-    """The fixed rule: staged where bp and EP allow 16-byte loads and the
-    table fits one CUDA block's shared memory, else direct."""
+    """The fixed rule, where bp and EP allow 16-byte loads: staged where
+    two staged blocks fit one SM's shared memory, else cluster where half
+    the table fits one block; else direct."""
     assert bs.staged_bytes(bp, ep) == NV * (bp + ep) * 4
+    assert bs.cluster_bytes(bp, ep) == NV * (bp + ep) * 2
     assert bs.gather_body(bp, ep) == body
-    fits = bs.staged_bytes(bp, ep) + STATIC_SMEM <= SM_SMEM
-    assert fits or body == "direct"
+    aligned = bp % 4 == 0 and ep % 4 == 0
+    pair = 2 * (bs.staged_bytes(bp, ep) + STATIC_SMEM + BLOCK_RESERVED) \
+        <= SM_TOTAL
+    half = bs.cluster_bytes(bp, ep) + STATIC_SMEM <= SM_SMEM
+    assert (body == "staged") == (pair and aligned)
+    assert (body == "cluster") == (half and aligned and not pair)
+    if body == "cluster":     # 512 threads an SM: one block of 512 or two
+        per_sm = SM_TOTAL // (bs.cluster_bytes(bp, ep) + STATIC_SMEM
+                              + BLOCK_RESERVED)
+        assert bs.cluster_threads(bp, ep) == 512 // min(per_sm, 2)
 
 
-@pytest.mark.parametrize("bp,ep", [(512, 1024), (128, 128), (8192, 2560)])
+@pytest.mark.parametrize("bp,ep", [(512, 1024), (128, 128), (8192, 2560),
+                                   (4096, 1920)])
 def test_fused_flux_keeps_the_direct_body(bp, ep):
-    """K3's gather form follows the rule in gg; its flux form keeps the
-    direct body, which the staged one did not beat; K2 follows the rule in
-    both ops."""
+    """K3's gather form has no cluster body: its gg form stages wherever
+    the table fits one CUDA block (K2 takes the cluster body past two
+    blocks an SM), else direct; its flux form keeps the direct body, which
+    the staged one did not beat; K2 follows the rule in both ops."""
     rule = bs.gather_body(bp, ep)
-    assert bs.gather_body(bp, ep, "gg", fused=True) == rule
+    fits = bs.staged_bytes(bp, ep) <= bs.GATHER_STAGE_MAX
+    assert bs.gather_body(bp, ep, "gg", fused=True) == \
+        ("staged" if fits else "direct")
+    assert rule in ("staged", "cluster") or not fits
     assert bs.gather_body(bp, ep, "flux") == rule
     assert bs.gather_body(bp, ep, "flux", fused=True) == "direct"
 
@@ -348,6 +454,81 @@ def test_staged_table_sizes_at_the_benchmark_plans():
     auto = bs.staged_bytes(4096, 1920)
     assert auto // 1024 == 188
     assert SM_TOTAL // (auto + STATIC_SMEM + BLOCK_RESERVED) == 1
+    # bp 8192 (EP 2688): 340 KB passes one block; each cluster half, 170
+    # KB, takes one block per SM
+    large = bs.cluster_bytes(8192, 2688)
+    assert bs.staged_bytes(8192, 2688) // 1024 == 340 and large // 1024 == 170
+    assert SM_TOTAL // (large + STATIC_SMEM + BLOCK_RESERVED) == 1
+
+
+@pytest.mark.parametrize("threads", [256, 512])
+@pytest.mark.parametrize("bp", [128, 512, 4096, 8192])
+def test_cluster_lanes_split_every_prefix(bp, threads):
+    """The two CUDA blocks of a cluster sweep every lane of the entry once
+    between them, half of every 64-lane-aligned prefix each (the slot
+    widths are multiples of 128), a warp's 32 threads on 32 consecutive
+    lanes at each step."""
+    lanes = [cluster_lanes(bp, r, threads) for r in range(CTAS)]
+    assert sorted(lanes[0] + lanes[1]) == list(range(bp))
+    for w in range(64, bp + 1, 64):
+        for r in range(CTAS):
+            assert sum(lane < w for lane in lanes[r]) == w // 2, (w, r)
+    # thread t's first lane: a warp (32 consecutive t) takes 32
+    # consecutive lanes, and so at every later step (j grows by threads)
+    for r in range(CTAS):
+        assert cluster_lanes(bp, r, threads)[0] == r * RUN
+        per_thread = len(lanes[r]) // threads or 1
+        warp0 = lanes[r][::per_thread][:32]
+        assert warp0 == list(range(r * RUN, r * RUN + len(warp0)))
+
+
+@pytest.mark.parametrize("w16,o16", [(False, False), (True, True)])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("P,bp", JAX_CASES)
+def test_cluster_form_equals_plain_bitwise(jax_gather, P, bp, op, w16, o16):
+    """Two blocks each staging one plane, each sweeping its lanes through
+    its own plane and its peer's == sweep_blocks_gather_ref bit for bit,
+    every class of the JAX model's plans, with and without init."""
+    jm, js, arrays, _ = jax_gather(P, bp, BF if w16 else "float32")
+    from cfd_proxy_tpu_torch.convert import state_from_jax
+
+    var_T = _t(state_from_jax(js))
+    odt = torch.bfloat16 if o16 else torch.float32
+    for c in CLASSES:
+        args, cnt = _port_args(arrays, var_T, c, w16)
+        for seeded in (False, True):
+            init = (_init(P, bs.out_rows(op), var_T.shape[2], odt)
+                    if seeded else None)
+
+            def run(fn, **kw):
+                return fn(*args, init=None if init is None else init.clone(),
+                          op=op, out_dtype=odt, **kw)
+
+            got = run(cluster_sweep, ext_cnt=cnt)
+            ref = run(bs.sweep_blocks_gather_ref)
+            assert got.dtype == odt and torch.equal(got, ref), (c, seeded)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("bp,ep", [(128, 128), (8192, 2688)])
+def test_cluster_form_synthetic_plans(bp, ep, op, init):
+    """The cluster form on synthetic plans with pad entries, a zero-width
+    slot and entries without ext columns (live count 0) or with all EP,
+    at bp 128 and at the 96³ one-shard plan's bp 8192 and EP 2688, both
+    thread counts: bit for bit the plain version."""
+    live = [[0, ep, 7, 7]] if bp > 128 else [[0, ep, 7, 7], [ep // 2, 0, ep,
+                                                             ep]]
+    args, cnt = _synthetic(ep, live, P=len(live), bp=bp, device="cpu")
+    P, ndev = args[0].shape[0], args[0].shape[2]
+    seed = _init(P, bs.out_rows(op), ndev, torch.float32) if init else None
+    ref = bs.sweep_blocks_gather_ref(
+        *args, init=None if seed is None else seed.clone(), op=op)
+    assert float(ref.abs().max()) > 0
+    for threads in (256, 512):
+        got = cluster_sweep(*args, cnt, init=None if seed is None
+                            else seed.clone(), op=op, threads=threads)
+        assert torch.equal(got, ref), threads
 
 
 # ------------------------------------------------------------ on the card
@@ -388,8 +569,7 @@ def card_gather(mesh, gvar):
 def _counter(op, init, w16, o16, body, peer=False):
     """The count attribute of a gather instance under `body`."""
     return ("peer_" * peer + "flux_" * (op == "flux") + "init_" * init
-            + bs._tag(w16, False, o16) + "direct_" * (body == "direct")
-            + "launches")
+            + bs._tag(w16, False, o16) + bs._BODY_TAGS[body] + "launches")
 
 
 @pytest.mark.cuda
@@ -422,7 +602,7 @@ def test_cuda_k2_instances_both_bodies(card_gather, body, op, init, w16,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("body", bs.GATHER_BODIES, indirect=True)
+@pytest.mark.parametrize("body", bs.FUSED_GATHER_BODIES, indirect=True)
 @pytest.mark.parametrize("w16,o16", PRECISIONS)
 @pytest.mark.parametrize("peer", [False, True])
 @pytest.mark.parametrize("op", ["gg", "flux"])
@@ -462,8 +642,9 @@ def test_cuda_k3_gather_instances_both_bodies(card_gather, body, op, peer,
 @pytest.mark.parametrize("op", ["gg", "flux"])
 def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
                                            init):
-    """The two bodies compute the same values in the same order: equal bit
-    for bit on the same plan (K2, and K3-gather's sweep)."""
+    """The bodies compute the same values in the same order: equal bit for
+    bit on the same plan (K2 under all three, K3-gather's sweep under the
+    staged and direct ones)."""
     m, state = card_gather(False, op)
     out = {}
     for name in bs.GATHER_BODIES:
@@ -475,6 +656,8 @@ def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
                     if init else None)
             out[name, cls] = bs.sweep_blocks_gather(
                 *args, init=seed, op=op, ext_cnt=m.plans[cls]["ext_cnt"])
+        if name not in bs.FUSED_GATHER_BODIES:
+            continue
         args = (state["var_T"], *m._operands("interior", state["tables"]))
         seed = _init(len(m.parts), m.rows, m.ndev, torch.float32).cuda()
         out[name, "fused"] = bs.sweep_blocks_overlap_gather(
@@ -483,11 +666,13 @@ def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
     torch.cuda.synchronize()
     for key in (*CLASSES, "fused"):
         assert torch.equal(out["staged", key], out["direct", key]), key
+    for key in CLASSES:
+        assert torch.equal(out["cluster", key], out["direct", key]), key
 
 
-def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9):
-    """Random gather operands on the card: entries (0, 2, 3, 3) per shard —
-    the last a pad entry — slots of widths (128, 0, 128, 64) (one of zero
+def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9, device="cuda"):
+    """Random gather operands on `device`: entries (0, 2, 3, 3) per shard —
+    the last a pad entry — slots of widths (bp, 0, bp, bp/2) (one of zero
     width), per-entry live ext counts `live` (P, 4), every W-index below
     bp + its entry's count, the last slot's lanes pads (W-index 0, zero
     weight)."""
@@ -503,13 +688,14 @@ def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9):
            "exts": rng.standard_normal((P, nb, NV, ep)),
            "slot_idx": sidx, "slot_w": sw,
            "scale": rng.standard_normal((P, nb, 1, bp)),
-           "block_ids": bids, "slots": bs.slot_table((128, 0, 128, 64))}
+           "block_ids": bids,
+           "slots": bs.slot_table((bp, 0, bp, bp // 2))}
     dev = {k: torch.from_numpy(np.ascontiguousarray(
-        v if v.dtype != np.float64 else v.astype(np.float32))).cuda()
+        v if v.dtype != np.float64 else v.astype(np.float32))).to(device)
         for k, v in ops.items()}
     args = tuple(dev[k] for k in ("var_T", "exts", "slot_idx", "slot_w",
                                   "scale", "block_ids", "slots"))
-    return args, torch.from_numpy(live).cuda()
+    return args, torch.from_numpy(live).to(device)
 
 
 @pytest.mark.cuda
@@ -518,7 +704,8 @@ def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9):
 def test_cuda_synthetic_pad_entries_and_widths(body, ep):
     """Pad entries, a zero-width slot, live counts from 0 to EP, at EP 128
     and at the largest EP the rule stages at bp 128; K2 with and without
-    init and K3-gather, each against its plain version."""
+    init and K3-gather (under the bodies it has), each against its plain
+    version."""
     _card()
     if ep == "largest":
         ep = bs.GATHER_STAGE_MAX // 32 - 128
@@ -531,6 +718,8 @@ def test_cuda_synthetic_pad_entries_and_widths(body, ep):
     init = _init(P, 3 * NV, ndev, torch.float32).cuda()
     got = bs.sweep_blocks_gather(*args, init=init.clone(), ext_cnt=cnt)
     _assert_close(got, bs.sweep_blocks_gather_ref(*args, init=init.clone()))
+    if body not in bs.FUSED_GATHER_BODIES:
+        return
     send = torch.randn((P, 2, 3 * NV, 8), device="cuda")
     dsts = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32)
     g, r = bs.sweep_blocks_overlap_gather(*args, init.clone(), send, dsts,
@@ -591,7 +780,7 @@ def test_cuda_staged_resident_blocks(ep):
         for op in (0, 1):
             for w16, o16 in PRECISIONS:
                 info = _cuda.kernel_info("cfd_sweep_gather_info", 1, acc, op,
-                                         int(w16), int(o16), smem)
+                                         int(w16), int(o16), smem, 0)
                 assert info["blocks_per_sm"] >= 2, (acc, op, w16, o16, info)
                 assert info["local_bytes"] <= 80, info
     for peer in (0, 1):
@@ -601,3 +790,71 @@ def test_cuda_staged_resident_blocks(ep):
                                          op, int(w16), int(o16), smem)
                 assert info["blocks_per_sm"] >= admit, (peer, op, w16, info)
                 assert info["local_bytes"] <= 80, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w16,o16", PRECISIONS)
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+def test_cuda_cluster_equals_direct_bitwise_at_bp_8192(monkeypatch, op, init,
+                                                       w16, o16):
+    """Every K2 instance on the cluster body, at both thread counts, on a
+    synthetic plan at the 96³ one-shard plan's bp 8192 and EP 2688 (where
+    the rule picks it; pad entry, zero-width slot, an entry without ext
+    columns): bit for bit the direct body, counted under the cluster tag,
+    and within the plain version's bounds."""
+    _card()
+    ep = 2688
+    assert bs.gather_body(8192, ep) == "cluster"
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    if w16:
+        args = (*args[:3], args[3].bfloat16(), *args[4:])
+    odt = torch.bfloat16 if o16 else torch.float32
+    seed = (_init(1, bs.out_rows(op), args[0].shape[2], odt).cuda() if init
+            else None)
+
+    def run(**kw):
+        return bs.sweep_blocks_gather(
+            *args, init=None if seed is None else seed.clone(), op=op,
+            out_dtype=odt, ext_cnt=cnt, **kw)
+
+    attr = _counter(op, init, w16, o16, "cluster")
+    before = getattr(bs.sweep_blocks_gather, attr)
+    got = {}
+    for threads in (256, 512):
+        monkeypatch.setattr(bs, "cluster_threads", lambda *_, n=threads: n)
+        got[threads] = run()
+    monkeypatch.setattr(bs, "gather_body", lambda *a, **kw: "direct")
+    direct = run()
+    ref = bs.sweep_blocks_gather_ref(
+        *args, init=None if seed is None else seed.clone(), op=op,
+        out_dtype=odt)
+    torch.cuda.synchronize()
+    assert getattr(bs.sweep_blocks_gather, attr) == before + 2
+    for threads, out in got.items():
+        assert torch.equal(out, direct), threads
+    _assert_close(direct, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bp,ep,per_sm", [(8192, 2688, 1), (4096, 1920, 2)])
+def test_cuda_cluster_residency(bp, ep, per_sm):
+    """At the one-shard plans' half-tables (170 KB at bp 8192, 94 KB at
+    4096) every cluster instance keeps one, or two, CUDA blocks per SM at
+    the rule's threads, with no spill, and the runtime can hold a cluster
+    (a launch raises otherwise)."""
+    _card()
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    smem = bs.cluster_bytes(bp, ep)
+    threads = bs.cluster_threads(bp, ep)
+    assert threads * per_sm == 512
+    for acc in (0, 1):
+        for op in (0, 1):
+            for w16, o16 in PRECISIONS:
+                info = _cuda.kernel_info(
+                    "cfd_sweep_gather_info", bs.GATHER_BODY_CODES["cluster"],
+                    acc, op, int(w16), int(o16), smem, threads)
+                assert info["blocks_per_sm"] == per_sm, info
+                assert info["active_clusters"] >= 1, info
+                assert info["local_bytes"] == 0, info

@@ -19,7 +19,10 @@ kernel name).  Then:
   6³ mesh makes every width 128 < bp, the partial-width branch that runs
   at bp 4096 on the card;
 - the port's `--check` fingerprints equal the JAX kbench's printed ones to
-  1e-6 relative, for the K1 variants and nv7;
+  1e-6 relative, for the K1 variants and nv7 with an f32 output; with a
+  bf16 output the port sums in f32 (the reference in bf16, an 8-bit
+  number), so its fingerprint is held to the f32 sum of the plain
+  version's output and the reference's to that sum rounded to bf16;
 - `--paired` reports the median ratio; no variant of the reference's table
   is refused (`REFUSED` is empty), unknown names are.
 
@@ -163,11 +166,30 @@ def _fingerprints(text: str) -> dict:
     return out
 
 
+def assert_fingerprints(got: dict, want: dict, bench) -> None:
+    """The port's --check fingerprints against the JAX kbench's: an f32
+    output's within 1e-6 relative of the JAX line; a bf16 output's, which
+    the port sums in f32 and the reference in bf16 (an 8-bit number),
+    within 1e-6 of the f32 abs-sum of the plain version's output (itself
+    held to the JAX kernel by the plain-version tests), and the JAX line
+    that f32 sum rounded to bf16: within half a bf16 ulp of it."""
+    table = kbench.variant_table(bench, list(got))
+    for n in got:
+        fn, v, t = table[n]
+        out = fn(v, t)
+        if out.dtype == torch.bfloat16:
+            f32 = float(out.float().abs().sum())
+            assert abs(got[n] - f32) <= TOL * f32, n
+            assert abs(want[n] - f32) <= (2.0 ** -8 + TOL) * f32, n
+        else:
+            assert abs(got[n] - want[n]) <= TOL * abs(want[n]), n
+
+
 @pytest.mark.parametrize("bp", sorted(CHECKED))
-def test_check_fingerprints_match_jax(capsys, monkeypatch, bp):
+def test_check_fingerprints_match_jax(capsys, monkeypatch, benches, bp):
     """The --check lines of both benches on the same variants: every one OK,
-    the port's fingerprints within 1e-6 relative of the JAX kbench's (the
-    JAX run's timing loop is stubbed out: its sampler returns at once)."""
+    the port's fingerprints as `assert_fingerprints` holds them (the JAX
+    run's timing loop is stubbed out: its sampler returns at once)."""
     from cfd_proxy_tpu.tools import kbench as jax_kbench
 
     names = ",".join(CHECKED[bp])
@@ -180,8 +202,7 @@ def test_check_fingerprints_match_jax(capsys, monkeypatch, bp):
     assert kbench.main(argv + ["--device", "cpu"]) == 0
     got = _fingerprints(capsys.readouterr().out)
     assert sorted(got) == sorted(want) == sorted(CHECKED[bp])
-    for n in got:
-        assert abs(got[n] - want[n]) <= TOL * abs(want[n]), n
+    assert_fingerprints(got, want, benches[bp])
 
 
 def test_twins_not_checked(capsys):

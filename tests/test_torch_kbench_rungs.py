@@ -15,8 +15,12 @@ is bp) and bp 256 on the 6³ mesh (every width partial):
   output: f32 within 1e-6 × max|ref| (cstream_flux bitwise: nothing to
   contract), bf16 within one bf16 ulp plus 1e-6 × max|ref|.
 
-Then: the `--check` fingerprints of the six checked rungs equal the JAX
-kbench's printed ones to 1e-6 relative (cstream_flux runs unchecked);
+Then: the `--check` fingerprints of the six checked rungs against the JAX
+kbench's printed ones (cstream_flux runs unchecked): the f32 cflux_fact's
+to 1e-6 relative, the bf16 rungs' (summed in f32 by the port, in bf16 by
+the reference) to the f32 sum of the plain output and the reference's to
+that sum rounded to bf16; compact_i8 and compact_bso print different
+fingerprints;
 bso_acc3's and bso_fold's plain outputs equal compact_bso's bit for bit;
 the wrappers refuse operands of an instance they do not have.
 """
@@ -25,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_kbench import (NX, TOL, _compact, _fingerprints, _torch,
-                               capture_jax_kernels)
+                               assert_fingerprints, capture_jax_kernels)
 
 from cfd_proxy_tpu.mesh.generator import generate_mesh
 from cfd_proxy_tpu_torch.ops import blocksweep as bs
@@ -102,10 +106,11 @@ def test_rung_plain_matches_jax_kernel(jax_kernels, benches, name, bp):
 
 
 @pytest.mark.parametrize("bp", BPS)
-def test_rung_fingerprints_match_jax(capsys, monkeypatch, bp):
+def test_rung_fingerprints_match_jax(capsys, monkeypatch, benches, bp):
     """The --check lines of both benches on the checked rungs: every one OK
-    within the reference's tolerance, the port's fingerprints within 1e-6
-    relative of the JAX kbench's; cstream_flux runs, unchecked."""
+    within the reference's tolerance, the port's fingerprints as
+    `assert_fingerprints` holds them (f32 sums: the bf16 rungs are told
+    apart); cstream_flux runs, unchecked."""
     from cfd_proxy_tpu.tools import kbench as jax_kbench
 
     argv = ["--nx", str(NX), "--bp", str(bp), "--iters", "1", "--variants",
@@ -118,9 +123,24 @@ def test_rung_fingerprints_match_jax(capsys, monkeypatch, bp):
     out = capsys.readouterr().out
     got = _fingerprints(out)
     assert sorted(got) == sorted(want) == sorted(CHECKED)
-    for n in got:
-        assert abs(got[n] - want[n]) <= TOL * abs(want[n]), n
+    assert_fingerprints(got, want, benches[bp])
     assert "cstream_flux" in out
+
+
+@pytest.mark.parametrize("bp", BPS)
+def test_check_tells_compact_i8_from_compact_bso(capsys, benches, bp):
+    """--check sums in f32, so the int8 rung and K1-w16-d16-o16 print
+    different fingerprints; each is its output's f32 abs-sum."""
+    assert kbench.main(["--nx", str(NX), "--bp", str(bp), "--iters", "1",
+                        "--variants", "compact_bso,compact_i8", "--check",
+                        "--device", "cpu"]) == 0
+    got = _fingerprints(capsys.readouterr().out)
+    assert sorted(got) == ["compact_bso", "compact_i8"]
+    assert got["compact_i8"] != got["compact_bso"]
+    for n, x in got.items():
+        fn, v, t = _variant(benches, bp, n)
+        want = float(fn(v, t).float().abs().sum())
+        assert abs(x - want) <= TOL * want, n
 
 
 @pytest.mark.parametrize("bp", BPS)
@@ -227,3 +247,146 @@ def test_var16_state_is_the_bf16_of_the_bench_state(benches):
     assert not torch.equal(t["srcs"], t_bso["srcs"])
     assert np.array_equal(t["slot_w"].float().numpy(),
                           t_bso["slot_w"].float().numpy())
+
+
+# ---------------------------- K5d's V-lane groups (csrc/kbench_rungs.cu)
+
+THREADS, STAGES = 128, 4   # the int8 rung's CUDA block and its ring's slots
+
+
+def i8_grouped(var_T, srcs, slot_w, scale, block_ids, slots, i8_scale,
+               lanes=twins.I8_LANES):
+    """i8_kernel's index arithmetic in plain torch (V = `lanes`).  CUDA block (entry
+    g, chunk c), thread t: S = V/2 threads share a group of V lanes, thread
+    t takes variables [h·NV/S, (h+1)·NV/S), h = t // G (G = 128/S groups a
+    block), of lanes l0..l0+V-1, l0 = V·(c·G + t % G); a group is live in
+    slot k when l0 < wks[k].  Its live slots' rows are copied into a ring
+    of STAGES slots, STAGES - 1 ahead of the one computed: slot i of its
+    sequence into stage i % STAGES, consumed from there before that stage
+    is refilled.  Each copy reads V elements at its flat offset (int8
+    deltas (g·NV + v)·L + off + l0, bf16 weights g·3·L + d·L + off + l0;
+    own (p·NV + v)·ndev + col and scale g·bp + l0 loaded directly), every
+    offset a multiple of V (the alignment the kernel needs); each lane's
+    arithmetic is the kernel's, in its order."""
+    P, nb, nv, L = srcs.shape
+    ndev, bp = var_T.shape[2], scale.shape[-1]
+    S = lanes // 2
+    G, ns = THREADS // S, nv // S
+    chunks = -(-bp // (G * lanes))
+    j = torch.arange(lanes)
+    fv, fq = var_T.reshape(-1), srcs.reshape(-1)
+    fw, fs = slot_w.reshape(-1), scale.reshape(-1)
+    widths, offs = slots.tolist()
+
+    def vec(flat, start):
+        assert bool((start % lanes == 0).all())        # aligned vector access
+        return flat[start[:, None] + j].float()        # (groups, V)
+
+    out = torch.zeros((P, 3 * nv, ndev), dtype=torch.bfloat16)
+    t = torch.arange(THREADS)
+    for p in range(P):
+        for b in range(nb):
+            g = p * nb + b
+            if b > 0 and block_ids[p, b] == block_ids[p, b - 1]:
+                continue                               # pad entry
+            for c in range(chunks):
+                l0 = lanes * (c * G + t % G)
+                live_t = l0 < bp
+                h, l0 = (t // G)[live_t], l0[live_t]
+                # threads with one live-slot sequence run the same ring
+                seqs = {}
+                for i, x in enumerate(l0.tolist()):
+                    key = tuple(k for k, w in enumerate(widths) if x < w)
+                    seqs.setdefault(key, []).append(i)
+                for seq, idx in seqs.items():
+                    idx = torch.tensor(idx)
+                    tl, th = l0[idx], h[idx]
+                    col = int(block_ids[p, b]) * bp + tl
+                    for u in range(ns):
+                        v = th * ns + u                # (threads,)
+                        own = vec(fv, (p * nv + v) * ndev + col)
+                        step = i8_scale[p, b, v, 0].float()[:, None]
+                        acc = torch.zeros((3, len(idx), lanes))
+                        ring = [None] * STAGES
+                        for i, k in enumerate(seq[:STAGES - 1]):
+                            ring[i % STAGES] = k
+                        for i, k in enumerate(seq):
+                            assert ring[i % STAGES] == k  # not overwritten
+                            off = offs[k]
+                            q = vec(fq, (g * nv + v) * L + off + tl)
+                            tv = own + 0.5 * (q * step)
+                            for d in range(3):
+                                w = vec(fw, g * 3 * L + d * L + off + tl)
+                                acc[d] += w * tv
+                            if i + STAGES - 1 < len(seq):  # refill, freed
+                                ring[(i - 1) % STAGES] = seq[i + STAGES - 1]
+                        sc = vec(fs, g * bp + tl)
+                        res = (acc * sc).to(torch.bfloat16)
+                        cols = (col[:, None] + j)
+                        for d in range(3):
+                            rows = d * nv + v
+                            out[p, rows[:, None], cols] = res[d]
+    return out
+
+
+def _live_width_ends(t, lanes):
+    """(entry, slot) pairs whose live width (their last lane with a nonzero
+    weight, + 1) ends inside a V-lane group of the padded prefix."""
+    ends = []
+    widths, offs = t["slots"].tolist()
+    w = t["slot_w"][0]                                  # (nb, 3, L)
+    for k, (wk, off) in enumerate(zip(widths, offs)):
+        nz = (w[:, :, off:off + wk] != 0).any(dim=1)   # (nb, wk)
+        for b in range(nz.shape[0]):
+            live = int(nz[b].nonzero().max()) + 1 if bool(nz[b].any()) else 0
+            if live % lanes and live < wk:
+                ends.append((b, k))
+    return ends
+
+
+@pytest.mark.parametrize("bp", BPS)
+def test_i8_lane_groups_equal_plain_bitwise(benches, bp):
+    """V point columns per thread, V/2 threads a group, live by the
+    group's first lane, copied at V-aligned offsets through the ring: the
+    plain version bit for bit, on the bench's tables at bp 128 and 256,
+    entries whose live width ends inside a V-lane group of the padded
+    prefix included (their pad lanes carry zero weights)."""
+    fn, v, t = _variant(benches, bp, "compact_i8")
+    assert _live_width_ends(t, twins.I8_LANES), "no live width ends mid-group"
+    ops = (v, t["srcs"], t["slot_w"], t["scale"], t["block_ids"], t["slots"])
+    want = twins.i8_sweep_ref(*ops, t["i8_scale"])
+    got = i8_grouped(*ops, t["i8_scale"])
+    assert float(want.float().abs().max()) > 0
+    assert torch.equal(got, want)
+    twins.check_i8_lanes(*ops[:4])                      # the tables pass
+    widths, offs = t["slots"].tolist()                  # the kernel's trap
+    assert not any(x % twins.I8_LANES for x in widths + offs)
+
+
+def _i8_ops(benches):
+    _, v, t = _variant(benches, 256, "compact_i8")
+    return {"var_T": v, "srcs": t["srcs"], "slot_w": t["slot_w"],
+            "scale": t["scale"]}
+
+
+def _shifted(x):
+    """x's values in a view one element past an aligned start."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("case", ["bp", "var_T", "scale", "slot_w", "srcs"])
+def test_i8_lane_checks_raise(benches, case):
+    """The int8 rung's wrapper raises before a launch on what its vector
+    accesses cannot take: bp not a multiple of I8_LANES, an operand not
+    aligned to them."""
+    o = _i8_ops(benches)
+    if case == "bp":
+        o["scale"] = torch.zeros((1, 2, 1, 254))
+    else:
+        o[case] = _shifted(o[case])
+    twins.check_i8_lanes(**_i8_ops(benches))
+    with pytest.raises(CheckError, match="i8_sweep"):
+        twins.check_i8_lanes(**o)

@@ -30,6 +30,8 @@ machine without it:
         tests/test_torch_kernels.py -m cuda
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -778,9 +780,10 @@ def test_cuda_flux_sweep_kernels_match_plain(cuda_flux_models, kernel, cls,
 
 def _body_tag(model, cls, op, fused=False):
     """The count tag of the body `gather_body` picks for a gather model's
-    class: "direct_" for the direct body, "" for the staged one."""
+    class: "direct_" for the direct body, "cluster_" for the cluster body,
+    "" for the staged one."""
     ep = model.plans[cls]["ext_idx"].shape[2]
-    return "direct_" * (bs.gather_body(model.bp, ep, op, fused) == "direct")
+    return bs._BODY_TAGS[bs.gather_body(model.bp, ep, op, fused)]
 
 
 @pytest.mark.cuda
@@ -1028,6 +1031,70 @@ def test_cuda_kbench_twins_match_plain(cuda_benches, bp, name, attr):
     _assert_close(got.cpu(), want, got.dtype == torch.bfloat16)
     if name in ("stream", "cstream_c", "cstream_flux"):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bp", [128, 256])
+def test_cuda_i8_mid_group_widths_match_plain(cuda_benches, bp):
+    """K5d (I8_LANES point columns per thread) within one bf16 ulp of its
+    plain version on tables with entries whose live width ends inside a
+    lane group of the padded prefix (their pad lanes carry zero weights),
+    one launch."""
+    from cfd_proxy_tpu_torch.ops import twins
+    from cfd_proxy_tpu_torch.tools import kbench
+
+    fn, v, t = kbench.variant_table(cuda_benches[bp],
+                                    ["compact_i8"])["compact_i8"]
+    w = t["slot_w"][0].cpu()
+    widths, offs = t["slots"].tolist()
+    mid = [(b, k) for k, (wk, off) in enumerate(zip(widths, offs))
+           for b in range(w.shape[0])
+           if (nz := (w[b, :, off:off + wk] != 0).any(dim=0)).any()
+           and (int(nz.nonzero().max()) + 1) % twins.I8_LANES]
+    assert mid, "no live width ends inside a lane group"
+    want = fn(v.cpu(), {k: x.cpu() for k, x in t.items()})    # plain version
+    before = twins.i8_sweep.launches
+    got = fn(v, t)
+    torch.cuda.synchronize()
+    assert twins.i8_sweep.launches == before + 1
+    _assert_close(got.cpu(), want, True)
+
+
+I8_BAD_WIDTH = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from cfd_proxy_tpu_torch.ops import twins
+d = dict(device="cuda")
+out = twins.i8_sweep(
+    torch.zeros((1, 8, 128), **d), torch.zeros((1, 1, 8, 256),
+    dtype=torch.int8, **d), torch.zeros((1, 1, 3, 256), dtype=torch.bfloat16,
+    **d), torch.ones((1, 1, 1, 128), **d), torch.zeros((1, 1),
+    dtype=torch.int32, **d), torch.tensor([[126, 130], [0, 126]],
+    dtype=torch.int32, **d), i8_scale=torch.ones((1, 1, 8, 128), **d))
+torch.cuda.synchronize()
+print("no trap")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_i8_bad_slot_width_traps():
+    """A slot width that is not a multiple of I8_LANES (so an offset that
+    is not either) stops K5d's kernel: the card reports the launch as
+    failed, and the process that made it cannot go on.  Hence a child
+    process, on the library the parent built."""
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    _cuda.build()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", I8_BAD_WIDTH, root],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "no trap" not in r.stdout, r.stdout
+    assert "CUDA" in r.stderr or "cuda" in r.stderr, r.stderr[-2000:]
 
 
 @pytest.mark.cuda
