@@ -12,7 +12,8 @@ upwind flux (`PSDFluxModel`), each in its packed (compact layout) and
 gather formulations under the bulk, early, overlap and nocomm schedules, at
 P shards held on one device with the halo exchange between them, and
 solver mode — state update, var halo exchange, per-step table rebuild
-(`models/gradients.py`).  Its kernels — the packed and the gather sweep
+(`models/gradients.py`); and the reference's XLA backend, the ELL sweep in
+plain torch, f32 or f64 (`models/gradients_ell.py`).  Its kernels — the packed and the gather sweep
 with and without `init` (`ops/blocksweep.py::sweep_blocks`,
 `sweep_blocks_gather`), the fused interior sweep + halo push in both
 formulations (`sweep_blocks_overlap`, `sweep_blocks_overlap_gather`), each
@@ -25,9 +26,11 @@ Layer map (mirrors `cfd_proxy_tpu`):
   native.py  loader of the native host library (`native/*.cc`)
   parallel/  host copies of topology + transposed device layout
   ops/       host block plans, goldens, kernel wrappers (+ `csrc/` sources)
-  models/    GreenGaussTorch, PSDFluxModel (nn.Module)
+  models/    GreenGaussTorch, PSDFluxModel, GreenGaussModel (nn.Module)
   convert.py carry a JAX model's plan arrays across
   solver.py  benchmark CLI (`python -m cfd_proxy_tpu_torch.solver`)
+  tools/     kbench, mbench, icibench, partition, golden, fixture,
+             solver_attrib, dryrun
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,9 @@ do not depend on the op) through `np.asarray` and returns the arrays
 (models/gradients.py PLAN_KEYS); `state_from_jax(state)` returns its
 distributed `var_T`.  Both packages then compute on identical plan data,
 so a comparison of their outputs tests the kernels and the step
-composition and nothing else.
+composition and nothing else.  `sweeps_from_jax(model)` does the same for
+the ELL backend: a `cfd_proxy_tpu.models.GreenGaussModel`'s tables and halo
+lists, which `models.gradients_ell.GreenGaussModel(..., arrays=)` loads.
 
 This module takes the JAX objects as it finds them and converts with numpy
 only: it imports no JAX.  bf16 weights (a model built with
@@ -19,13 +21,18 @@ and come out as a torch bf16 tensor, which `from_arrays` loads as it is.
 
 from __future__ import annotations
 
+from dataclasses import fields
+
 import numpy as np
 import torch
 
 from cfd_proxy_tpu_torch.models.gradients import CLASSES
 from cfd_proxy_tpu_torch.ops.plan import (BlockPlan, compact_slot_w,
                                           compact_src_cols, compact_widx)
+from cfd_proxy_tpu_torch.ops.sweep_ell import DeviceSweep
 from cfd_proxy_tpu_torch.utils.errors import check
+
+SWEEP_FIELDS = tuple(f.name for f in fields(DeviceSweep))
 
 
 def _class_arrays(model, cls: str) -> dict:
@@ -110,3 +117,19 @@ def state_from_jax(state: dict) -> np.ndarray:
     check(var_T.ndim == 3, "state_from_jax expects a stacked (P, NV, ndev) "
           "var_T, got %s", var_T.shape)
     return np.ascontiguousarray(var_T, np.float32)
+
+
+def sweeps_from_jax(model) -> dict:
+    """Tables and halo lists of a `cfd_proxy_tpu.models.GreenGaussModel`
+    (the ELL backend), as the host arrays `models.gradients_ell.
+    GreenGaussModel(..., arrays=)` loads (ARRAY_KEYS): every DeviceSweep
+    field stacked over the shards, send_idx / recv_idx (P, nph, S) and the
+    phases' pairs."""
+    ds, halo = model.dsweep, model.halo
+    return {
+        "npoint_pad": int(model.npoint_pad),
+        "sweep": {f: np.asarray(getattr(ds, f)) for f in SWEEP_FIELDS},
+        "send_idx": np.asarray(halo.send_idx),
+        "recv_idx": np.asarray(halo.recv_idx),
+        "perms": tuple(tuple(p) for p in halo.perms),
+    }

@@ -70,8 +70,10 @@ exchange's send buffers at pack time (the var exchange stays f32) and the
 unpack casts back into the output's dtype.  The state `var_T` is f32 in
 every mode.
 
-Options outside the slice raise `CheckError` naming the ROADMAP item that
-brings them.
+The fake exchange phases (`min_phases`, `fake_sends`, `fake_tail_frac`,
+benchmark-only) pad the schedule with self-send phases that move real
+payloads through pack, transport, the fused kernel's push and unpack, so
+one shard measures a P > 1-shaped exchange.
 """
 
 from __future__ import annotations
@@ -125,6 +127,7 @@ from cfd_proxy_tpu_torch.parallel.transport import (
     Dist,
     Loopback,
     Peer,
+    gather_shards,
     group_size,
     shard_range,
 )
@@ -192,15 +195,20 @@ def check_entry_phases(parts: list[MeshPartition], topo: HaloTopology,
 
 def host_plan_arrays(parts: list[MeshPartition], *, bp: int, kcompact: bool,
                      force_rdma: bool = False, kernel: str = "packed",
-                     slice_size: int | None = None) -> dict:
+                     slice_size: int | None = None, min_phases: int = 1,
+                     fake_sends: int = 0, fake_tail_frac: float = 0.0
+                     ) -> dict:
     """Layout, exchange tables and the three class plans of RELABELED
     shards as host arrays (PLAN_KEYS), built exactly as
     `GreenGaussPallas.__init__` builds them (gradients_pallas.py:349-542).
     Each class keeps only the tables its kernel reads (CLASS_KEYS): at the
-    benchmark size either set runs to hundreds of MB."""
+    benchmark size either set runs to hundreds of MB.  min_phases,
+    fake_sends, fake_tail_frac: the fake exchange phases
+    (`build_tlayout`)."""
     npoint_pad = max(p.npoint for p in parts) + 1
     topo = build_halo_topology(parts, npoint_pad, slice_size=slice_size)
-    lay = build_tlayout(parts, topo, bp=bp)
+    lay = build_tlayout(parts, topo, bp=bp, min_phases=min_phases,
+                        fake_sends=fake_sends, fake_tail_frac=fake_tail_frac)
     ones = np.ones(lay.ndev, dtype=np.float64)
     raw: dict[str, list] = {c: [] for c in CLASSES}
     pack_scale = np.zeros_like(lay.send_mask)
@@ -293,7 +301,9 @@ class GreenGaussTorch(nn.Module):
                  halo_dtype: str = "float32", grad_dtype: str = "float32",
                  arrays: dict | None = None, group=None,
                  transport: str | None = None,
-                 slice_size: int | None = None, share_device: bool = False):
+                 slice_size: int | None = None, share_device: bool = False,
+                 min_phases: int = 1, fake_sends: int = 0,
+                 fake_tail_frac: float = 0.0):
         """parts: the raw partitions (relabeled here, as the reference
         does), or — with `arrays` — partitions ALREADY relabeled by the
         model the arrays come from (see `from_arrays`).  kernel: "packed"
@@ -309,7 +319,14 @@ class GreenGaussTorch(nn.Module):
         default loopback at W = 1, else dist).  slice_size: devices per
         node, for the phase routing (ignored with `arrays`, which carry
         their own).  share_device: several ranks sit on this device (nccl
-        cannot run so, and says so here)."""
+        cannot run so, and says so here).  min_phases, fake_sends,
+        fake_tail_frac (benchmark-only; with `arrays`, the fake_sends they
+        were built with): pad the exchange schedule to min_phases phases,
+        and give each padded phase a real payload of fake_sends owned
+        columns sent to the shard itself (its last fake_tail_frac packed
+        from strided columns); the payload lands in the padded phase's
+        ghost region, which no face reads, so owned results are unchanged
+        (`build_tlayout`)."""
         super().__init__()
         self.group = group
         self.rank, self.world = group_size(group)
@@ -355,6 +372,16 @@ class GreenGaussTorch(nn.Module):
         self.rows = out_rows(op)
         self.nvar = int(nvar)
         self.device = torch.device(device)
+        check(min_phases >= 1 and fake_sends >= 0, "min_phases %d must be "
+              ">= 1 and fake_sends %d >= 0", min_phases, fake_sends)
+        # build_tlayout ignores the tail fraction without fake lanes: the
+        # pair is refused rather than run as if it did something
+        check(fake_tail_frac == 0.0 or fake_sends > 0, "fake_tail_frac %s "
+              "needs fake_sends > 0 (it carves the fake phases' lanes)",
+              fake_tail_frac)
+        # the schedules' ghost regions of fake phases differ by design
+        # (solver.verify_model compares owned columns when this is set)
+        self.fake_sends = int(fake_sends)
         if arrays is None:
             self.kcompact = True if kcompact is None else bool(kcompact)
             self.bp = auto_bp(parts, bp)
@@ -375,8 +402,12 @@ class GreenGaussTorch(nn.Module):
             arrays = host_plan_arrays(self.parts, bp=self.bp,
                                       kcompact=self.kcompact,
                                       force_rdma=force_rdma, kernel=kernel,
-                                      slice_size=slice_size)
-            check(len(arrays["perms"]) == max(pre_topo.nphases, 1),
+                                      slice_size=slice_size,
+                                      min_phases=min_phases,
+                                      fake_sends=fake_sends,
+                                      fake_tail_frac=fake_tail_frac)
+            check(len(arrays["perms"]) == max(pre_topo.nphases, 1,
+                                              min_phases),
                   "phase coloring changed across the relabel (%d -> %d "
                   "phases)", pre_topo.nphases, len(arrays["perms"]))
         else:
@@ -842,7 +873,7 @@ class GreenGaussTorch(nn.Module):
         grad = grad.detach()
         if grad.dtype == BF16:
             grad = grad.float()
-        arr = self._all_shards(grad).numpy()
+        arr = gather_shards(grad, self.group).numpy()
         N = sum(p.nowned for p in self.parts)
         if self.op == "flux":
             out = np.zeros((N, self.nvar), dtype=arr.dtype)
@@ -857,19 +888,6 @@ class GreenGaussTorch(nn.Module):
                 for d in range(3):
                     out[gids, v * 3 + d] = arr[i, d * NV + v, : p.nowned]
         return out
-
-
-    def _all_shards(self, x: torch.Tensor) -> torch.Tensor:
-        """(P_local, ...) on this rank → (P, ...) on the host, the same on
-        every rank: one all_gather over the group (on the device under
-        nccl, on the host under gloo, which gathers CPU tensors)."""
-        if self.world == 1:
-            return x.cpu()
-        if torch.distributed.get_backend(self.group) != "nccl":
-            x = x.cpu()
-        out = [torch.empty_like(x) for _ in range(self.world)]
-        torch.distributed.all_gather(out, x.contiguous(), group=self.group)
-        return torch.cat(out).cpu()
 
 
 class PSDFluxModel(GreenGaussTorch):

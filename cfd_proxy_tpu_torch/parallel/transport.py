@@ -62,6 +62,20 @@ def group_size(group) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+def gather_shards(x: torch.Tensor, group) -> torch.Tensor:
+    """(P_local, ...) on this rank → (P, ...) on the host, the same on every
+    rank: one all_gather over the group (on the device under nccl, on the
+    host under gloo, which gathers CPU tensors)."""
+    _, world = group_size(group)
+    if world == 1:
+        return x.cpu()
+    if dist.get_backend(group) != "nccl":
+        x = x.cpu()
+    out = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(out, x.contiguous(), group=group)
+    return torch.cat(out).cpu()
+
+
 def shard_range(nshards: int, rank: int, world: int) -> tuple[int, int]:
     """Rank r of W holds shards [r·P/W, (r+1)·P/W); W must divide P."""
     check(world >= 1 and nshards % world == 0,

@@ -23,10 +23,12 @@ import torch
 from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
 from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
+from cfd_proxy_tpu_torch.models.gradients_ell import DTYPES, GreenGaussModel
 from cfd_proxy_tpu_torch.ops import blocksweep as bs
 from cfd_proxy_tpu_torch.ops import push
 from cfd_proxy_tpu_torch.parallel import launch
-from cfd_proxy_tpu_torch.parallel.transport import Dist, Peer, shard_range
+from cfd_proxy_tpu_torch.parallel.transport import (Dist, Peer, gather_shards,
+                                                    shard_range)
 
 
 def join(device: str, backend: str | None, share_device: bool):
@@ -117,7 +119,7 @@ def model_outputs(case: ModelCase, parts=None, arrays=None,
                                  solver_mode=True,
                                  sweeps_per_step=case.sweeps_per_step)(
                 *model.iter_args(state))
-            solver = model._all_shards(v).numpy()
+            solver = gather_shards(v, model.group).numpy()
         step_ms = {}
         for s in case.schedules if case.timed_steps else ():
             step_ms[s] = _step_ms(model, state, s, case.timed_steps)
@@ -135,6 +137,25 @@ def model_outputs(case: ModelCase, parts=None, arrays=None,
                     k.split(".")[0] in ("jax", "cfd_proxy_tpu"))}
     finally:
         model.close()
+
+
+def ell_outputs(case: ModelCase, dtype: str = "float64",
+                exact: bool = True) -> dict:
+    """The ELL model's (models/gradients_ell.py, this rank's share) every
+    schedule, gathered: {"outputs": {schedule: global array}, "transport"};
+    the same on every rank."""
+    group, _, _, device = join(case.device, case.backend, case.share_device)
+    mesh, parts = _mesh_parts(case.nx, case.ny, case.nz, case.diag_frac,
+                              case.mesh_seed, case.parts)
+    model = GreenGaussModel(parts, case.nvar, dtype=DTYPES[dtype],
+                            device=device, group=group,
+                            share_device=case.share_device)
+    var = model.distribute_state(make_state(mesh.npoint, case.nvar,
+                                            seed=case.state_seed))
+    return {"outputs": {s: model.gather_global(model.step(var, s,
+                                                          exact=exact))
+                        for s in case.schedules},
+            "transport": model.transport_name}
 
 
 def _step_ms(model, state, schedule: str, n: int) -> float:
@@ -218,8 +239,8 @@ def overlap_ref_exchange(case: ModelCase) -> dict:
     g, r = bs.sweep_blocks_overlap_ref(
         state["var_T"], *model._operands("interior", state["tables"]), init,
         send, model.dsts, model.srcs, model.op, transport=model.transport)
-    return {"grad": model._all_shards(g).numpy(),
-            "recv": model._all_shards(r).numpy()}
+    return {"grad": gather_shards(g, model.group).numpy(),
+            "recv": gather_shards(r, model.group).numpy()}
 
 
 def push_ring(nph: int, rows: int, lanes: int, device: str = "cuda",

@@ -48,20 +48,28 @@ rebuild, `--sweeps-per-step` sweeps with their updates, var halo exchange)
 instead of the static-state iteration; without `--kernel` it takes the
 kernel and block size `solver_mode_defaults` decides.  The mesh options
 (`--ghost-layers`, `--diag-frac`, `--stretch`, `--hub-frac`,
-`--hub-extra`) are the reference's.  Every other option of the reference's
-parser is accepted so that it can be refused by name (`CheckError`, naming
-the ROADMAP item that brings it, `check_config`), never ignored:
-`--backend xla`, `--dtype float64`, `--profile`, the fake phases
-(`--min-phases`, `--fake-sends`, `--fake-tail-frac`), `--pack-force` and
-`--platform`.  `--backend pallas` names the kernel path, here the CUDA
-kernels.
+`--hub-extra`) are the reference's.  `--backend pallas` (the default)
+names the kernel path, here the CUDA kernels; `--backend xla` runs the ELL
+model (models/gradients_ell.py, plain torch, Green-Gauss only) in
+`--dtype float32` or `float64`, the f64 verification anchor: its
+`bulk_vs_golden_relmax` sits at ULP level.  The fake exchange phases
+(`--min-phases`, `--fake-sends`, `--fake-tail-frac`, the kernel model's)
+pad the schedule with self-send phases carrying real payloads, so a single
+shard moves P > 1-shaped exchanges; their ghost regions differ between
+schedules, so the schedules are compared on owned columns only.
+`--profile DIR` writes a `torch.profiler` trace (Chrome trace JSON) of the
+timed loops to DIR.  The reference's `--pack-force` and `--platform` are
+parsed and refused by name (`CheckError`, `check_config`): they work
+around XLA and the TPU (ROADMAP queue 2, not-ported list).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -74,10 +82,12 @@ from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
 from cfd_proxy_tpu_torch.mesh.reader import partition_path, read_partition
 from cfd_proxy_tpu_torch.models.gradients import (DTYPE_OPTIONS, KERNELS,
                                                   PRECISIONS, GreenGaussTorch)
+from cfd_proxy_tpu_torch.models.gradients_ell import DTYPES, GreenGaussModel
 from cfd_proxy_tpu_torch.ops.blocksweep import OPS
 from cfd_proxy_tpu_torch.ops.flux import compute_psd_flux, flux_residual_scale
 from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
                                             scale_gradients)
+from cfd_proxy_tpu_torch.ops.sweep_ell import reduce_bytes
 from cfd_proxy_tpu_torch.parallel import launch
 from cfd_proxy_tpu_torch.parallel.transport import DIST_BACKENDS, TRANSPORTS
 from cfd_proxy_tpu_torch.utils.errors import check
@@ -86,6 +96,7 @@ from cfd_proxy_tpu_torch.utils.timing import (IterationStats,
                                               two_point_sampler)
 
 SCHEDULES = ("bulk", "early", "overlap")     # what --schedule all times
+BACKENDS = ("pallas", "xla")
 # a comm cost (bulk - nocomm) under this share of the bulk median is
 # two-point timing noise: no overlap efficiency is reported (the reference's
 # gate, cfd_proxy_tpu/solver.py:371-375)
@@ -120,7 +131,7 @@ class SolverConfig:
     iters: int = 20
     warmup: int = 3
     schedule: str = "all"
-    backend: str = "pallas"     # the kernel path; "xla" is refused (item 10)
+    backend: str = "pallas"     # pallas: the kernels; xla: the ELL model
     force_rdma: bool = False
     slice_size: int | None = None
     model: str = "gg"
@@ -147,13 +158,13 @@ class SolverConfig:
     transport: str | None = None    # None: loopback at one rank, else dist
     dist_backend: str | None = None     # None: nccl on cuda, gloo on cpu
     share_device: bool = False
-    # the reference's options the port refuses by name (check_config)
     min_phases: int = 1
     fake_sends: int = 0
     fake_tail_frac: float = 0.0
+    profile_dir: str | None = None
+    # the reference's options the port refuses by name (check_config)
     pack_force: str | None = None
     platform: str | None = None
-    profile_dir: str | None = None
 
 
 def check_config(cfg: SolverConfig) -> None:
@@ -189,18 +200,30 @@ def check_config(cfg: SolverConfig) -> None:
     env = launch.world_from_env()
     check(env is None or env[1] == cfg.ranks, "--ranks %d, but the launcher "
           "started %s processes (WORLD_SIZE)", cfg.ranks, env and env[1])
-    check(cfg.backend == "pallas", "--backend %s: the port runs its "
-          "kernels (pallas); the XLA-backend analogue (ELL sweep, f64 exact "
-          "path) comes with ROADMAP queue 1 item 10", cfg.backend)
-    check(cfg.dtype == "float32", "--dtype %s: the kernels are float32; the "
-          "f64 path comes with ROADMAP queue 1 item 10", cfg.dtype)
-    check(cfg.profile_dir is None, "--profile %s: the torch.profiler trace "
-          "comes with ROADMAP queue 1 item 11b", cfg.profile_dir)
-    for opt, value, off in (("min-phases", cfg.min_phases, 1),
-                            ("fake-sends", cfg.fake_sends, 0),
-                            ("fake-tail-frac", cfg.fake_tail_frac, 0.0)):
-        check(value == off, "--%s %s: the fake exchange phases come with "
-              "ROADMAP queue 1 item 11b", opt, value)
+    check(cfg.backend in BACKENDS, "unknown --backend %s", cfg.backend)
+    check(cfg.dtype in DTYPES, "--dtype %s: float32 or float64", cfg.dtype)
+    # the reference's messages (cfd_proxy_tpu/solver.py:172, 188, 287)
+    check(cfg.dtype == "float32" or cfg.backend == "xla",
+          "pallas backend is float32; use --backend xla for f64")
+    check(cfg.backend == "pallas" or cfg.model == "gg",
+          "--model flux requires --backend pallas")
+    check(cfg.backend == "pallas" or not cfg.solver_mode,
+          "--solver-mode requires the pallas backend")
+    if cfg.backend == "xla":
+        # the kernel model's options: the ELL model stores one dtype and
+        # has no fused kernel
+        for name in DTYPE_OPTIONS:
+            check(getattr(cfg, name) == "float32", "--%s %s: the xla "
+                  "backend stores --dtype throughout (a pallas option)",
+                  name.replace("_", "-"), getattr(cfg, name))
+        for opt, value, off in (("force-rdma", cfg.force_rdma, False),
+                                ("min-phases", cfg.min_phases, 1),
+                                ("fake-sends", cfg.fake_sends, 0),
+                                ("fake-tail-frac", cfg.fake_tail_frac, 0.0)):
+            check(value == off, "--%s %s: a pallas option (the xla backend "
+                  "has no fused kernel and no device layout)", opt, value)
+        check(cfg.transport != "peer", "--transport peer: the xla backend "
+              "has no fused kernel to push from (use loopback or dist)")
     check(cfg.pack_force is None, "--pack-force %s: the pack lowerings it "
           "picks work around XLA and are not ported (ROADMAP queue 2, "
           "not-ported list)", cfg.pack_force)
@@ -266,6 +289,12 @@ def build_model(cfg: SolverConfig, parts: list | None = None, group=None,
                               hub_extra=cfg.hub_extra)
         parts = partition_mesh(gmesh, cfg.parts,
                                ghost_layers=cfg.ghost_layers)
+    if cfg.backend == "xla":
+        return GreenGaussModel(parts, cfg.nvar, dtype=DTYPES[cfg.dtype],
+                               device=device or cfg.device, group=group,
+                               transport=cfg.transport,
+                               slice_size=cfg.slice_size,
+                               share_device=cfg.share_device), gmesh
     model = GreenGaussTorch(parts, cfg.nvar, bp=cfg.bp, kcompact=cfg.kcompact,
                             force_rdma=cfg.force_rdma, kernel=cfg.kernel,
                             op=cfg.model, device=device or cfg.device,
@@ -275,7 +304,10 @@ def build_model(cfg: SolverConfig, parts: list | None = None, group=None,
                             meta_dtype=cfg.meta_dtype,
                             src_dtype=cfg.src_dtype,
                             halo_dtype=cfg.halo_dtype,
-                            grad_dtype=cfg.grad_dtype)
+                            grad_dtype=cfg.grad_dtype,
+                            min_phases=cfg.min_phases,
+                            fake_sends=cfg.fake_sends,
+                            fake_tail_frac=cfg.fake_tail_frac)
     return model, gmesh
 
 
@@ -362,20 +394,25 @@ def golden(op: str, gmesh, gvar: np.ndarray) -> np.ndarray:
         gmesh.volume, gmesh.npoint).reshape(gmesh.npoint, -1)
 
 
-def verify_model(model: GreenGaussTorch, state: dict, schedules, gmesh,
-                 gvar: np.ndarray) -> dict:
-    """Every schedule against bulk (max abs over all columns) and bulk
-    against the f64 golden of the model's op (when the global mesh is in
-    process), as the reference's verify_model reports them (bf16 outputs
-    compared in f32)."""
+def verify_model(model, state, schedules, gmesh, gvar: np.ndarray) -> dict:
+    """Every schedule against bulk (max abs over all columns, or over the
+    owned columns when fake phases fill ghost regions that differ between
+    schedules by design) and bulk against the f64 golden of the model's op
+    (when the global mesh is in process), as the reference's verify_model
+    reports them (bf16 outputs compared in f32)."""
     ref = model.step(state, "bulk")
+    ncmp = ref.shape[-1]
+    if getattr(model, "fake_sends", 0) > 0:
+        ncmp = model.ghost_start
     out = {}
     for s in schedules:
         if s != "bulk":
-            out[f"{s}_vs_bulk_maxabs"] = _max_over_ranks(model, (
-                model.step(state, s).float() - ref.float()).abs().max())
+            diff = model.step(state, s)[..., :ncmp].float() \
+                - ref[..., :ncmp].float()
+            out[f"{s}_vs_bulk_maxabs"] = _max_over_ranks(model,
+                                                         diff.abs().max())
     if gmesh is not None:
-        gg = golden(model.op, gmesh, gvar)
+        gg = golden(getattr(model, "op", "gg"), gmesh, gvar)
         got = model.gather_global(ref)
         denom = max(1.0, float(np.abs(gg).max()))
         out["bulk_vs_golden_relmax"] = float(np.abs(got - gg).max() / denom)
@@ -442,17 +479,19 @@ def _run_model(cfg: SolverConfig, model, gmesh):
     # with N sweeps per solver step, faces/s counts swept faces, so the
     # amortised rebuild shows as throughput (the reference's rule)
     sweeps = cfg.sweeps_per_step if cfg.solver_mode else 1
-    for s in schedules:
-        st = time_schedule(model, state, s, cfg.iters, cfg.warmup, **mode)
-        stats.append(st)
-        entries[s] = {**st.summary(),
-                      "faces_per_sec": nface * sweeps / st.median}
-    if len(schedules) > 1:
-        # compute-only floor: the bulk sweep without the exchange
-        st = time_schedule(model, state, "nocomm", cfg.iters, cfg.warmup,
-                           **mode)
-        stats.append(st)
-        overlap_efficiency(entries, st.median, len(model.parts))
+    with profiled(cfg.profile_dir, model):
+        for s in schedules:
+            st = time_schedule(model, state, s, cfg.iters, cfg.warmup,
+                               **mode)
+            stats.append(st)
+            entries[s] = {**st.summary(),
+                          "faces_per_sec": nface * sweeps / st.median}
+        if len(schedules) > 1:
+            # compute-only floor: the bulk sweep without the exchange
+            st = time_schedule(model, state, "nocomm", cfg.iters,
+                               cfg.warmup, **mode)
+            stats.append(st)
+            overlap_efficiency(entries, st.median, len(model.parts))
     results = {
         "device": device_name(model.device),
         "npart": len(model.parts),
@@ -460,17 +499,12 @@ def _run_model(cfg: SolverConfig, model, gmesh):
         "nface": nface,
         "nvar": cfg.nvar,
         "model": cfg.model,
-        "dtype": "float32",
+        "dtype": cfg.dtype,
         **{k: getattr(cfg, k) for k in DTYPE_OPTIONS},
-        "backend": "torch",
+        "backend": cfg.backend,
         "ranks": model.world,
         "transport": model.transport_name,
-        "kernel_phases": model.kernel_phases,
-        "collective_phases": model.coll_phases,
-        "kernel": cfg.kernel,
-        "bp": model.bp,
-        "wks": {c: list(w) for c, w in model.wks.items()},
-        "force_rdma": cfg.force_rdma,
+        **model_fields(cfg, model),
         "solver_mode": cfg.solver_mode,
         "sweeps_per_step": cfg.sweeps_per_step if cfg.solver_mode else None,
         "iters": cfg.iters,
@@ -478,10 +512,53 @@ def _run_model(cfg: SolverConfig, model, gmesh):
     }
     if len(schedules) > 1:
         results["nocomm_median_s"] = stats[-1].median
+    if cfg.profile_dir:
+        results["profile"] = trace_path(cfg.profile_dir, model.rank)
     if cfg.verify:
         results["verification"] = verify_model(model, state, schedules,
                                                gmesh, gvar)
     return results, stats
+
+
+def model_fields(cfg: SolverConfig, model) -> dict:
+    """The report's backend-specific keys: the kernel model's layout and
+    routing, or the ELL model's phases and table bytes."""
+    if cfg.backend == "xla":
+        return {"nphases": len(model.perms), "npoint_pad": model.npoint_pad,
+                "reduce_bytes": reduce_bytes(model.dsweep, 3 * cfg.nvar,
+                                             model.dtype)}
+    return {"kernel_phases": model.kernel_phases,
+            "collective_phases": model.coll_phases,
+            "kernel": cfg.kernel, "bp": model.bp,
+            "wks": {c: list(w) for c, w in model.wks.items()},
+            "force_rdma": cfg.force_rdma,
+            "nphases": model.nphases, "s_max": model.s_max,
+            "min_phases": cfg.min_phases, "fake_sends": cfg.fake_sends,
+            "fake_tail_frac": cfg.fake_tail_frac}
+
+
+def trace_path(profile_dir: str, rank: int) -> str:
+    return os.path.join(profile_dir, f"trace.rank{rank}.json")
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: str | None, model):
+    """A `torch.profiler` trace of the block (CPU ops, and CUDA kernels on a
+    card) written to profile_dir as Chrome trace JSON, one file per rank
+    (`trace_path`); nothing without a directory.  A failure to trace
+    raises."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if model.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(trace_path(profile_dir, model.rank))
 
 
 def _finite_or_none(obj):
@@ -557,17 +634,26 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--no-verify", action="store_true")
     ap.add_argument("--json", action="store_true", help="emit one JSON line")
+    ap.add_argument("--backend", default="pallas", choices=list(BACKENDS),
+                    help="pallas: the kernel path (here the CUDA kernels); "
+                         "xla: the ELL model in plain torch (gg only)")
+    ap.add_argument("--dtype", default="float32", choices=list(DTYPES),
+                    help="float64 needs --backend xla")
+    ap.add_argument("--profile", dest="profile_dir", default=None,
+                    help="write a torch.profiler trace of the timed loops "
+                         "to this directory (trace.rank<r>.json)")
+    ap.add_argument("--min-phases", type=int, default=1,
+                    help="pad the exchange schedule to this many self-send "
+                         "phases")
+    ap.add_argument("--fake-sends", type=int, default=0,
+                    help="benchmark-only: padded phases carry real "
+                         "shuffled-owned payloads of this many lanes "
+                         "(owned results unchanged)")
+    ap.add_argument("--fake-tail-frac", type=float, default=0.0,
+                    help="with --fake-sends: trailing fraction of the fake "
+                         "lanes packed from strided columns (at most 0.5)")
     # the reference's options outside the port: parsed, then refused by
     # name in check_config
-    ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"],
-                    help="pallas: the kernel path (here the CUDA kernels); "
-                         "xla is refused (ROADMAP item 10)")
-    ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "float64"])
-    ap.add_argument("--profile", dest="profile_dir", default=None)
-    ap.add_argument("--min-phases", type=int, default=1)
-    ap.add_argument("--fake-sends", type=int, default=0)
-    ap.add_argument("--fake-tail-frac", type=float, default=0.0)
     ap.add_argument("--pack-force", default=None,
                     choices=["gather", "nocombine", "combine"])
     ap.add_argument("--platform", default=None)
@@ -619,7 +705,8 @@ def main(argv=None) -> int:
               f"nvar={results['nvar']} dtype={results['dtype']} "
               + "".join(f"{k}={results[k]} " for k in DTYPE_OPTIONS
                         if results[k] != "float32")
-              + f"kernel={results['kernel']} bp={results['bp']}"
+              + (f"kernel={results['kernel']} bp={results['bp']}"
+                 if cfg.backend == "pallas" else "backend=xla")
               + (f" solver_mode sweeps_per_step={cfg.sweeps_per_step}"
                  if cfg.solver_mode else ""))
         print(format_stats_table(stats, ref="bulk"))

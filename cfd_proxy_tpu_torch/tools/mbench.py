@@ -50,7 +50,8 @@ from cfd_proxy_tpu_torch.utils.timing import two_point_sampler
 # schedule, iters, warmup — only changes how it is driven)
 _MODEL_FIELDS = (
     "model", "nvar", "bp", "kernel", "force_rdma", "meta_dtype",
-    "src_dtype", "kcompact", "halo_dtype", "grad_dtype",
+    "src_dtype", "kcompact", "halo_dtype", "grad_dtype", "backend",
+    "min_phases", "fake_sends", "fake_tail_frac",
 )
 
 # fields the per-side drive honors (schedule, mode, state seed).  Everything
@@ -59,7 +60,7 @@ _MODEL_FIELDS = (
 # would be silently ignored as a per-side override, recording a false ~1.00
 # "this lever does nothing" verdict; those are rejected up front.
 _DRIVE_FIELDS = ("schedule", "solver_mode", "sweeps_per_step", "seed",
-                 "backend", "verify")
+                 "verify")
 
 # the reference's model fields the port does not build, with the ROADMAP
 # item that brings each
@@ -67,12 +68,6 @@ REFUSED = {
     "overlap_debug": "its fused-kernel attribution rungs work around the "
                      "TPU and are not ported (ROADMAP queue 2, not-ported "
                      "list)",
-    "min_phases": "the fake exchange phases come with ROADMAP queue 1 "
-                  "item 11b",
-    "fake_sends": "the fake exchange phases come with ROADMAP queue 1 "
-                  "item 11b",
-    "fake_tail_frac": "the fake exchange phases come with ROADMAP queue 1 "
-                      "item 11b",
     "pack_force": "the pack lowerings it picks work around XLA and are not "
                   "ported (ROADMAP queue 2, not-ported list)",
     "slice_size": "multi-node phase routing comes with ROADMAP queue 1 "

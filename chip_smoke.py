@@ -65,6 +65,24 @@ faces, nvar 7, random state from a seed):
   (compact/cstream_c, compact_bso/cstream_bso, prod/stream, prod/wsum,
   prod/nv7, cflux/cstream_flux, cflux/cflux_fact, compact_bso over
   bso_fold, bso_wsum, bso_acc3, var16 and compact_i8) timed in turns.
+- `peer_p1`, `peer_p8`, `peer_w2`, `nccl_w1`, `icibench`: the multi-rank
+  transports and the push bench (see the phases' comments);
+- `ell_p1`, `ell_p8`: the ELL model (`--backend xla`, plain torch, no
+  kernel of the port) at one and 8 shards, f32 and f64: every schedule
+  against the golden (f32 1e-5, f64 1e-12) and bulk, the f64 exact path's
+  raw sums bit for bit the golden loop on each shard's plan faces and its
+  schedules bit for bit bulk; every schedule's step median and device
+  profile (idle share), the bytes its gathered slot table takes and the
+  peak memory, beside the kernel path's step;
+- `golden_tool`: `tools/golden.py` dump, then check with the golden, a
+  perturbed seed (exit 1), the kernel model and the ELL model in f64;
+- `fake_phases`: P=8 with `--min-phases 8 --fake-sends 4096`, packed (K3)
+  and gather/512 (K3-gather): owned columns against the golden and across
+  schedules, the overlap step in turns with the plain model's;
+- `profile`: the CLI's `--profile` trace, which must name K1's kernel;
+- `solver_attrib`: the five knockout bodies at one shard, packed/AUTO and
+  gather/512;
+- `dryrun`: `tools/dryrun.py` at 8 shards, every leg.
 
 The gather paths print each plan's EP, its live-EP maximum and the body
 the rule picks; K2 and K3-gather count each body apart (the cluster body's
@@ -338,6 +356,15 @@ FLUX_PACKED = ("pack_srcs", "sweep_blocks_flux", "sweep_blocks_flux_init",
                "sweep_blocks_overlap_flux")
 FLUX_GATHER = ("sweep_blocks_gather_flux", "sweep_blocks_gather_flux_init",
                "sweep_blocks_overlap_gather_flux_direct")
+# the ELL model (--backend xla) and the tools beside the solver
+ELL_STEPS = 30       # timed ELL steps per schedule (a step takes ms)
+ELL_PROFILE_STEPS = 10
+ELL_F64_TOL = 1e-12  # f64 vs the golden (ULP level expected) and schedules
+GT_NX = 24           # the golden tool's mesh (its --nx)
+FAKE = {"min_phases": 8, "fake_sends": 4096}   # 6 real phases at P=8
+PROF_NX = 48         # the --profile run's mesh
+ATTRIB_STEPS = 50    # solver_attrib's chained-loop length per mode
+DRYRUN_N = 8
 REDUCED_PACKED = ("pack_srcs_d16", "sweep_blocks_w16_d16_o16",
                   "sweep_blocks_init_w16_d16_o16",
                   "sweep_blocks_overlap_w16_d16_o16")
@@ -661,9 +688,16 @@ def main() -> int:
         from cfd_proxy_tpu_torch.parallel import launch, workers
         from cfd_proxy_tpu_torch.parallel.transport import (Dist, Loopback,
                                                             Peer)
+        from cfd_proxy_tpu_torch.models.gradients_ell import (DTYPES,
+                                                              GreenGaussModel)
+        from cfd_proxy_tpu_torch.ops.golden import compute_gradients_gg
+        from cfd_proxy_tpu_torch.ops.sweep_ell import reduce_bytes, sweep_bulk
         from cfd_proxy_tpu_torch.solver import (golden, solver_mode_defaults,
                                                 time_schedule)
-        from cfd_proxy_tpu_torch.tools import icibench, kbench
+        from cfd_proxy_tpu_torch.solver import main as solver_main
+        from cfd_proxy_tpu_torch.tools import (dryrun, icibench, kbench,
+                                               solver_attrib)
+        from cfd_proxy_tpu_torch.tools import golden as golden_tool
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               f"root of a checkout", file=sys.stderr)
@@ -696,7 +730,7 @@ def main() -> int:
             if k not in launches:
                 fail(f"{path} launched {k}, which has no kernel row")
             launches[k] += n
-            if path.startswith(("kbench", "icibench")):
+            if path.startswith(("kbench", "icibench", "solver_attrib")):
                 bench_launches[k] += n
         missing = [k for k in names if counts.get(k, 0) <= 0]
         if missing:
@@ -2359,6 +2393,242 @@ def main() -> int:
              "copy_ms": library[f"push_phases_{m}"],
              "device_ms": k6_device[f"push_phases_{m}"]}
              for m in push.MODES})
+
+    # ---- the ELL model (--backend xla, models/gradients_ell.py: plain
+    # torch, no kernel of the port) at 96^3, P=1 and P=8, f32 and f64:
+    # every schedule against the golden and bulk; f64 exact raw sums bit
+    # for bit the golden loop on each shard's plan faces; every schedule's
+    # step median and device profile beside the kernel path's
+    for npart, path in ((1, "ell_p1"), (P_MULTI, "ell_p8")):
+        t_path = time.perf_counter()
+        res = {}
+        for dname in ("float32", "float64"):
+            f64 = dname == "float64"
+            t0 = time.perf_counter()
+            em = GreenGaussModel(parts if npart == 1 else parts8, NVAR,
+                                 dtype=DTYPES[dname], device=dev)
+            t_model = time.perf_counter() - t0
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            var = em.distribute_state(gvar)
+            outs = {s: em.step(var, s) for s in ("bulk", "early", "overlap")}
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            if counts:
+                fail(f"{path}: the ELL model launched kernels {counts}")
+            rel = {s: golden_relmax(em, g) for s, g in outs.items()}
+            scale = float(outs["bulk"].abs().max())
+            cross = {s: float((outs[s] - outs["bulk"]).abs().max())
+                     for s in ("early", "overlap")}
+            gate, xtol = (ELL_F64_TOL, ELL_F64_TOL) if f64 else \
+                (GOLDEN_TOL, SCHED_TOL)
+            for s, r in rel.items():
+                if not r <= gate:
+                    fail(f"{path} {dname}: {s} vs golden {r:.3e} > {gate}")
+            for s, v in cross.items():
+                if not v <= xtol * scale:
+                    fail(f"{path} {dname}: {s} vs bulk {v:.3e} > {xtol} x "
+                         f"{scale:.3e}")
+            entry = {"model_seconds": t_model, "nphases": len(em.perms),
+                     "npoint_pad": em.npoint_pad,
+                     "reduce_bytes": reduce_bytes(em.dsweep, 3 * NVAR,
+                                                  em.dtype),
+                     "peak_alloc_bytes": peak, "vs_golden_relmax": rel,
+                     "cross": cross, "max_abs_bulk": scale,
+                     "tol": [gate, xtol]}
+            del outs
+            if f64:
+                t0 = time.perf_counter()
+                raw = sweep_bulk(var, em.dsweep, exact=True).cpu().numpy()
+                vh = var.cpu().numpy()
+                for i, plan in enumerate(em.plans):
+                    want = compute_gradients_gg(vh[i], plan.faces,
+                                                plan.normals)
+                    if not np.array_equal(raw[i],
+                                          want.reshape(len(vh[i]), -1)):
+                        fail(f"{path}: exact raw sums of shard {i} differ "
+                             f"from the golden loop on its plan faces")
+                del raw
+                ex = {s: em.step(var, s, exact=True)
+                      for s in ("bulk", "early", "overlap")}
+                if not all(torch.equal(g, ex["bulk"]) for g in ex.values()):
+                    fail(f"{path}: exact schedules differ from bulk")
+                entry["exact_vs_golden_relmax"] = golden_relmax(
+                    em, ex["bulk"])
+                del ex
+                entry.update(exact_raw_sums_bitwise_golden=True,
+                             exact_schedules_bitwise=True,
+                             exact_check_seconds=time.perf_counter() - t0)
+            ms = {s: time_schedule(em, var, s, ELL_STEPS, warmup=1,
+                                   repeats=3).median * 1e3
+                  for s in ("bulk", "early", "overlap", "nocomm")}
+            if not all(np.isfinite(v) for v in ms.values()):
+                fail(f"{path} {dname}: step timing below the noise floor")
+            prof = {s: device_profile(em, var, s, n=ELL_PROFILE_STEPS)
+                    for s in ms}
+            entry.update(step_ms=ms, faces_per_sec={
+                s: nface / (v * 1e-3) for s, v in ms.items()},
+                device_ms={s: p_["device_ms"] for s, p_ in prof.items()},
+                idle={s: (None if p_["device_ms"] is None
+                          else 1.0 - p_["device_ms"] / ms[s])
+                      for s, p_ in prof.items()},
+                top_ms={s: p_["top_ms"] for s, p_ in prof.items()})
+            res[dname] = entry
+            del em, var
+            torch.cuda.empty_cache()
+        emit(path, card=smi, parts=npart, steps=ELL_STEPS,
+             kernel_path_step_ms=step_ms[npart],
+             seconds=time.perf_counter() - t_path, **res)
+
+    # ---- the golden tool: dump, then check with the golden (bitwise), a
+    # perturbed seed (exit 1), the kernel model at P=4 overlap (1e-5) and
+    # the ELL model in f64 (1e-12), on the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nc = os.path.join(tmp, "golden.nc")
+        mesh_opt = ["--nx", str(GT_NX)]
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            rcs = {"dump": golden_tool.main(["dump", *mesh_opt, "--out", nc]),
+                   "golden": golden_tool.main(["check", *mesh_opt, "--ref",
+                                               nc]),
+                   "seed1": golden_tool.main(["check", *mesh_opt, "--ref", nc,
+                                              "--seed", "1"])}
+            for b in ("pallas", "xla"):
+                rcs[b] = golden_tool.main(["check", *mesh_opt, "--ref", nc,
+                                           "--backend", b, "--parts", "4",
+                                           "--schedule", "overlap"])
+        counts = read_counts()
+    lines = out.getvalue().splitlines()
+    want = {"dump": 0, "golden": 0, "seed1": 1, "pallas": 0, "xla": 0}
+    if rcs != want:
+        fail(f"golden_tool: exit codes {rcs}, expected {want}: {lines}")
+    expect_counts("golden_tool", counts, ("pack_srcs", "sweep_blocks_init",
+                                          "sweep_blocks_overlap"))
+    emit("golden_tool", nx=GT_NX, parts=4, exit_codes=rcs, output=lines,
+         launches=counts, seconds=time.perf_counter() - t0)
+
+    # ---- the fake exchange phases at P=8 (6 real phases, 2 padded ones
+    # carrying 4096 owned columns each to the shard itself): packed overlap
+    # (K3) and gather/512 overlap (K3-gather); owned columns against the
+    # golden and across schedules; the overlap step in turns with the same
+    # model without fake phases
+    fake = {}
+    for name, base, opts, k3 in (
+            ("packed", packed_models[P_MULTI], {}, "sweep_blocks_overlap"),
+            ("gather_bp512", gather_models[P_MULTI],
+             {"bp": GATHER_BP, "kernel": "gather"},
+             "sweep_blocks_overlap_gather")):
+        t0 = time.perf_counter()
+        fm = GreenGaussTorch(parts8, NVAR, device=dev, **opts, **FAKE)
+        t_model = time.perf_counter() - t0
+        reset_counts()
+        st = fm.distribute_state(gvar)
+        outs = {s: fm.step(st, s) for s in ("bulk", "early", "overlap")}
+        counts = read_counts()
+        expect_counts(f"fake_phases ({name})", counts, (k3,))
+        rel = {s: golden_relmax(fm, g) for s, g in outs.items()}
+        own = fm.ghost_start
+        scale = float(outs["bulk"][..., :own].abs().max())
+        cross = {s: float((outs[s][..., :own] - outs["bulk"][..., :own])
+                          .abs().max()) for s in ("early", "overlap")}
+        if not all(r <= GOLDEN_TOL for r in rel.values()):
+            fail(f"fake_phases ({name}): owned columns vs golden {rel}")
+        if not all(v <= SCHED_TOL * scale for v in cross.values()):
+            fail(f"fake_phases ({name}): owned columns across schedules "
+                 f"{cross}")
+        del outs
+        bst = base.distribute_state(gvar, schedules=["overlap"])
+        turns = {"plain": [], "fake": []}
+        for k in ("plain", "fake", "fake", "plain"):
+            m_, st_ = (fm, st) if k == "fake" else (base, bst)
+            turns[k].append(time_schedule(m_, st_, "overlap", TIMED_STEPS,
+                                          warmup=2, repeats=5).median * 1e3)
+        prof = {"plain": device_profile(base, bst, "overlap"),
+                "fake": device_profile(fm, st, "overlap")}
+        fake[name] = {"model_seconds": t_model, "bp": fm.bp,
+                      "nphases": [base.nphases, fm.nphases],
+                      "s_max": [base.s_max, fm.s_max],
+                      "ndev": [base.ndev, fm.ndev],
+                      "vs_golden_relmax": rel, "owned_cross": cross,
+                      "max_abs_bulk_owned": scale, "launches": counts,
+                      "overlap_step_ms": {k: min(v) for k, v in
+                                          turns.items()},
+                      "overlap_step_ms_turns": turns,
+                      "device_ms": {k: p_["device_ms"] for k, p_ in
+                                    prof.items()},
+                      "top_ms": {k: p_["top_ms"] for k, p_ in prof.items()}}
+        del fm, st, bst
+    emit("fake_phases", card=smi, parts=P_MULTI, **FAKE, steps=TIMED_STEPS,
+         **fake)
+
+    # ---- --profile: the CLI's torch.profiler trace names K1's kernel
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = solver_main(["--nx", str(PROF_NX), "--ny", str(PROF_NX),
+                              "--nz", str(PROF_NX), "--schedule", "bulk",
+                              "--iters", "20", "--warmup", "1", "--no-verify",
+                              "--profile", tmp, "--json"])
+        counts = read_counts()
+        rep_ = json.loads(out.getvalue().strip().splitlines()[-1])
+        with open(rep_["profile"]) as f:
+            trace = json.load(f)
+        trace_bytes = os.path.getsize(rep_["profile"])
+    kern = [e["name"] for e in trace["traceEvents"]
+            if e.get("cat") == "kernel"]
+    k1 = sum("sweep_packed_kernel" in n for n in kern)
+    if rc != 0 or not k1:
+        fail(f"profile: rc {rc}, {k1} K1 events among {len(kern)} kernels")
+    expect_counts("profile", counts, ("pack_srcs", "sweep_blocks"))
+    emit("profile", nx=PROF_NX, trace_bytes=trace_bytes,
+         kernel_events=len(kern), k1_events=k1,
+         kernels_named=sorted({n[:96] for n in kern}),
+         launches=counts, seconds=time.perf_counter() - t0)
+    del trace, kern
+
+    # ---- solver_attrib: the five knockout bodies at one shard, packed/AUTO
+    # and gather/512 (bench loops: counted apart from the model paths)
+    t0 = time.perf_counter()
+    attrib = {}
+    for name, m_, names in (("packed_auto", packed_models[1],
+                             ("pack_srcs", "sweep_blocks")),
+                            ("gather_bp512", gather_models[1],
+                             ("sweep_blocks_gather",))):
+        st = m_.distribute_state(gvar, schedules=["bulk"])
+        reset_counts()
+        got = solver_attrib.attribute(m_, st, solver_attrib.MODES,
+                                      ATTRIB_STEPS, 3)
+        counts = read_counts()
+        expect_counts(f"solver_attrib ({name})", counts, names)
+        if not all(got.values()):
+            fail(f"solver_attrib ({name}): a mode fell below the noise "
+                 f"floor: {got}")
+        attrib[name] = {"bp": m_.bp, "ms": {k: float(np.median(v))
+                                            for k, v in got.items()},
+                        "ms_all": got, "launches": counts}
+        del st
+    emit("solver_attrib", card=smi, parts=1, steps=ATTRIB_STEPS,
+         seconds=time.perf_counter() - t0, **attrib)
+
+    # ---- the dry run: every leg at 8 shards on the card
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = dryrun.main(["--n", str(DRYRUN_N)])
+    counts = read_counts()
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not rec["ok"] or not all(
+            v.startswith("ran") for v in rec["legs"].values()):
+        fail(f"dryrun: rc {rc}, {rec}")
+    expect_counts("dryrun", counts, ("pack_srcs", "sweep_blocks",
+                                     "sweep_blocks_overlap"))
+    emit("dryrun", record=rec, launches=counts,
+         seconds=time.perf_counter() - t0)
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name],

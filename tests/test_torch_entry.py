@@ -1,9 +1,10 @@
 """Entry points of the port: the solver CLI on the CPU (static iteration
-and solver mode; the reference's mesh options, each option outside the
-port refused by name, the reference's message for a missing `--mesh`
-file), the port's partition tool against the reference's, and
-chip_smoke.py's refusal to run (or report success) without a
-CUDA card."""
+and solver mode; the reference's mesh options; the xla backend in f32 and
+f64, `--profile`, the fake exchange phases, each with what it reports;
+the reference's refusals of option pairs, each option outside the port
+refused by name, the reference's message for a missing `--mesh` file),
+the port's partition tool against the reference's, and chip_smoke.py's
+refusal to run (or report success) without a CUDA card."""
 
 import json
 import os
@@ -68,16 +69,114 @@ def test_solver_cli_all_schedules_json(parts, extra):
             0.0 <= eff <= 1.0
 
 
-def test_solver_cli_refuses_unported_option():
-    """The XLA backend is an option still outside the port (the
-    reduced-precision options and the multi-node phase routing are in it:
-    tests/test_torch_precision.py, tests/test_torch_transport.py)."""
+def test_solver_cli_xla_f64_reports_golden_at_ulp():
+    """--backend xla --dtype float64 at 4 shards, every schedule: the ELL
+    model's golden error at ULP level, the schedules equal to roundoff."""
     res = subprocess.run(
-        [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--nx", "6",
-         "--ny", "6", "--nz", "6", "--device", "cpu", "--backend", "xla"],
+        [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", "--backend",
+         "xla", "--dtype", "float64", "--parts", "4", "--schedule", "all",
+         "--device", "cpu", "--nx", "10", "--ny", "9", "--nz", "8",
+         "--iters", "2", "--json"],
         capture_output=True, text=True, timeout=180, cwd=REPO, env=_env())
-    assert res.returncode != 0
-    assert "ROADMAP" in res.stderr
+    assert res.returncode == 0, res.stderr
+    d = json.loads(res.stdout.strip().splitlines()[-1])
+    assert (d["backend"], d["dtype"], d["npart"]) == ("xla", "float64", 4)
+    assert sorted(d["schedules"]) == ["bulk", "early", "overlap"]
+    v = d["verification"]
+    assert v["bulk_vs_golden_relmax"] <= 1e-15
+    assert v["early_vs_bulk_maxabs"] <= 1e-12
+    assert v["overlap_vs_bulk_maxabs"] <= 1e-12
+
+
+def _cli_json(capsys, *argv):
+    assert solver.main(["--nx", "8", "--ny", "8", "--nz", "7", "--device",
+                        "cpu", "--iters", "2", "--json", *argv]) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_solver_cli_xla_f32(capsys):
+    """--backend xla in f32 (the default dtype): the f32 gate, the ELL
+    model's keys in the report."""
+    d = _cli_json(capsys, "--backend", "xla", "--parts", "3")
+    assert (d["backend"], d["dtype"], d["transport"]) == \
+        ("xla", "float32", "loopback")
+    assert d["nphases"] >= 1 and d["reduce_bytes"] > 0
+    v = d["verification"]
+    assert v["bulk_vs_golden_relmax"] < 1e-5
+    assert v["early_vs_bulk_maxabs"] < 1e-5
+
+
+def test_solver_cli_xla_two_ranks(capsys):
+    """--backend xla --ranks 2 (gloo): the buffers travel by Dist and the
+    golden error is the one-process run's."""
+    one = _cli_json(capsys, "--backend", "xla", "--dtype", "float64",
+                    "--parts", "4", "--schedule", "early")
+    two = _cli_json(capsys, "--backend", "xla", "--dtype", "float64",
+                    "--parts", "4", "--schedule", "early", "--ranks", "2")
+    assert two["transport"] == "dist/gloo" and two["ranks"] == 2
+    assert two["verification"] == one["verification"]
+
+
+def test_solver_cli_profile_writes_a_trace(capsys, tmp_path):
+    """--profile DIR: a Chrome trace JSON of the timed loops, named in the
+    report, with the model's ops in it."""
+    d = _cli_json(capsys, "--schedule", "bulk", "--profile",
+                  str(tmp_path / "prof"))
+    path = d["profile"]
+    assert path == str(tmp_path / "prof" / "trace.rank0.json")
+    trace = json.load(open(path))
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
+
+
+def test_solver_cli_min_phases(capsys):
+    """--min-phases pads the schedule with self-send phases (one shard:
+    one natural phase); the results do not move."""
+    d = _cli_json(capsys, "--min-phases", "3")
+    assert (d["nphases"], d["min_phases"]) == (3, 3)
+    v = d["verification"]
+    assert v["bulk_vs_golden_relmax"] < 1e-5
+    assert v["early_vs_bulk_maxabs"] < 1e-5
+
+
+def test_solver_cli_fake_sends(capsys):
+    """--fake-sends: the padded phases carry real payloads; owned columns
+    agree across schedules and with the golden."""
+    d = _cli_json(capsys, "--parts", "4", "--min-phases", "8",
+                  "--fake-sends", "96")
+    assert (d["nphases"], d["fake_sends"]) == (8, 96)
+    v = d["verification"]
+    assert v["bulk_vs_golden_relmax"] < 1e-5
+    assert v["early_vs_bulk_maxabs"] < 1e-5
+    assert v["overlap_vs_bulk_maxabs"] < 1e-5
+
+
+def test_solver_cli_fake_tail_frac(capsys):
+    d = _cli_json(capsys, "--fake-sends", "256", "--fake-tail-frac", "0.5",
+                  "--schedule", "overlap")
+    assert d["fake_tail_frac"] == 0.5 and d["nphases"] == 1
+    assert d["verification"]["bulk_vs_golden_relmax"] < 1e-5
+
+
+@pytest.mark.parametrize("opt,match", [
+    (["--fake-tail-frac", "0.25"], "needs fake_sends"),
+    (["--dtype", "float64"],
+     "pallas backend is float32; use --backend xla for f64"),
+    (["--backend", "xla", "--model", "flux"],
+     "--model flux requires --backend pallas"),
+    (["--backend", "xla", "--solver-mode"],
+     "--solver-mode requires the pallas backend"),
+    (["--backend", "xla", "--src-dtype", "bfloat16"], "a pallas option"),
+    (["--backend", "xla", "--fake-sends", "64"], "a pallas option"),
+], ids=["tail-without-fake-sends", "f64-pallas", "flux-xla",
+        "solver-mode-xla", "bf16-xla", "fake-xla"])
+def test_solver_cli_refuses_option_pairs(opt, match):
+    """Pairs the reference refuses, with its messages, and the pairs that
+    would do nothing (a tail fraction without fake lanes; the kernel
+    model's options on the xla backend)."""
+    with pytest.raises(CheckError, match=match):
+        solver.main(["--nx", "6", "--ny", "6", "--nz", "6", "--device",
+                     "cpu", *opt])
 
 
 def test_solver_cli_ghost_layers_matches_reference(capsys):
@@ -123,13 +222,7 @@ def test_solver_cli_mesh_options_reach_the_generator(capsys):
     assert d["verification"]["bulk_vs_golden_relmax"] < 1e-5
 
 
-REFUSALS = [(["--backend", "xla"], "item 10"),
-            (["--dtype", "float64"], "item 10"),
-            (["--profile", "trace_dir"], "item 11b"),
-            (["--min-phases", "3"], "item 11b"),
-            (["--fake-sends", "256"], "item 11b"),
-            (["--fake-tail-frac", "0.5"], "item 11b"),
-            (["--pack-force", "gather"], "queue 2"),
+REFUSALS = [(["--pack-force", "gather"], "queue 2"),
             (["--platform", "cpu"], "queue 2")]
 
 

@@ -3,9 +3,10 @@
 The port imports nothing of the JAX package, so it carries copies of the
 JAX package's NumPy host modules: `mesh/` (model, netCDF3, reader,
 generator, partitioner), `utils/` (errors, timing, `round_up`),
-`ops/flux.py` (the flux golden) and `native.py` (the ctypes loader of the
-native host library, which builds that library itself instead of running
-`native/Makefile`).  These tests hold each copy to its original:
+`ops/flux.py` (the flux golden), `ops/prep.py` (the ELL sweep plans;
+its outputs are held in tests/test_torch_ell.py) and `native.py` (the
+ctypes loader of the native host library, which builds that library
+itself instead of running `native/Makefile`).  These tests hold each copy to its original:
 
 - the same code: the AST of every module with docstrings dropped and the
   port's package name in imports read as the original's (`native.py`:
@@ -42,7 +43,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["mesh/__init__.py", "mesh/model.py", "mesh/netcdf3.py",
           "mesh/reader.py", "mesh/generator.py", "mesh/partition.py",
           "utils/__init__.py", "utils/errors.py", "utils/timing.py",
-          "ops/flux.py"]
+          "ops/flux.py", "ops/prep.py"]
 
 
 def _tree(path):

@@ -70,10 +70,26 @@ def test_build_consumes_every_model_field():
 
 
 def test_drive_refusals_go_through_check_config(capsys):
-    """A side the port cannot drive (backend=xla) exits with the refusal."""
+    """A side the port cannot drive (solver mode on the xla backend) exits
+    with check_config's refusal."""
     with pytest.raises(SystemExit):
-        main([*SMALL, "--b", "backend=xla"])
-    assert "item 10" in capsys.readouterr().err
+        main([*SMALL, "--b", "backend=xla,solver_mode=1"])
+    assert "requires the pallas backend" in capsys.readouterr().err
+
+
+def test_mbench_pairs_the_backends(capsys):
+    """backend is a model field: an xla side builds the ELL model of its
+    own beside the kernel model."""
+    rc = main([*SMALL, "--b", "backend=xla", "--json"])
+    assert rc == 0
+    out = capsys.readouterr()
+    assert '"pairs": 2' in out.out and "share one model" not in out.err
+
+
+def test_mbench_pairs_the_fake_phases(capsys):
+    rc = main([*SMALL, "--b", "min_phases=4,fake_sends=64", "--json"])
+    assert rc == 0
+    assert '"pairs": 2' in capsys.readouterr().out
 
 
 def test_mbench_shared_model_schedule_ab(capsys):

@@ -131,7 +131,8 @@ def test_iterate_fn_chains_steps(mesh, gvar):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("profile_dir", "trace_dir"),
+    ("pack_force", "gather"),
+    ("platform", "cpu"),
 ])
 def test_options_outside_slice_raise(field, value):
     cfg = SolverConfig(device="cpu", **{field: value})
@@ -152,6 +153,13 @@ def test_options_outside_slice_raise(field, value):
     {"slice_size": 2},
     {"parts": 4, "ranks": 2},
     {"parts": 4, "ranks": 2, "transport": "dist", "dist_backend": "gloo"},
+    {"backend": "xla"},
+    {"backend": "xla", "dtype": "float64"},
+    {"backend": "xla", "parts": 4, "ranks": 2, "transport": "dist"},
+    {"profile_dir": "trace_dir"},
+    {"min_phases": 8},
+    {"min_phases": 8, "fake_sends": 512},
+    {"min_phases": 8, "fake_sends": 512, "fake_tail_frac": 0.5},
 ])
 def test_ported_options_accepted(fields):
     """The gather kernel, solver mode, the flux model and the
@@ -282,6 +290,32 @@ with contextlib.redirect_stdout(io.StringIO()):
     assert mbench.main(["--nx", "6", "--iters", "4", "--repeats", "1",
                         "--warmup", "0", "--null", "0", "--device", "cpu",
                         "--b", "schedule=early", "--json"]) in (0, 1)
+# the ELL model (f64 exact) and the tools beside the solver
+from cfd_proxy_tpu_torch.models.gradients_ell import GreenGaussModel
+from cfd_proxy_tpu_torch.tools import dryrun, fixture, solver_attrib
+from cfd_proxy_tpu_torch.tools import golden as golden_tool
+import tempfile
+ell = GreenGaussModel(partition_mesh(m, 2), 3, dtype=torch.float64,
+                      device="cpu")
+got = ell.gather_global(ell.step(ell.distribute_state(g), "early",
+                                 exact=True))
+ref = golden("gg", m, g)
+assert np.abs(got - ref).max() <= 1e-15 * max(1.0, np.abs(ref).max())
+sys.path.insert(0, {repo!r} + "/examples")
+import torch_pseudo_time_stepping
+with tempfile.TemporaryDirectory() as tmp, \
+        contextlib.redirect_stdout(io.StringIO()):
+    nc = tmp + "/g.nc"
+    assert golden_tool.main(["dump", "--nx", "5", "--out", nc]) == 0
+    assert golden_tool.main(["check", "--nx", "5", "--ref", nc, "--backend",
+                             "xla", "--device", "cpu"]) == 0
+    assert len(fixture.build(tmp + "/fix", dict(
+        fixture.RECIPE, nx=5, ny=5, nz=4, parts=[2]))) == 3
+    assert solver_attrib.main(["--nx", "5", "--device", "cpu", "--iters",
+                               "2", "--repeats", "1", "--mode", "noop",
+                               "all"]) in (0, 1)
+    assert dryrun.main(["--n", "4", "--device", "cpu"]) == 0
+    torch_pseudo_time_stepping.main(device="cpu", nparts=2)
 assert not any(k == "jax" or k.startswith("jax.") or k == "cfd_proxy_tpu"
                or k.startswith("cfd_proxy_tpu.")
                for k, v in sys.modules.items() if v is not None)
