@@ -30,7 +30,7 @@ Layer map (mirrors `cfd_proxy_tpu`):
   convert.py carry a JAX model's plan arrays across
   solver.py  benchmark CLI (`python -m cfd_proxy_tpu_torch.solver`)
   tools/     kbench, mbench, icibench, partition, golden, fixture,
-             solver_attrib, dryrun
+             solver_attrib, dryrun, scaling_model (+ scaling_inputs)
 """
 
 __version__ = "0.1.0"

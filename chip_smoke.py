@@ -82,7 +82,13 @@ faces, nvar 7, random state from a seed):
 - `profile`: the CLI's `--profile` trace, which must name K1's kernel;
 - `solver_attrib`: the five knockout bodies at one shard, packed/AUTO and
   gather/512;
-- `dryrun`: `tools/dryrun.py` at 8 shards, every leg.
+- `dryrun`: `tools/dryrun.py` at 8 shards, every leg;
+- `scaling_model`: the scaling model's inputs against the card: its f32
+  rate table beside the P=1 bulk step re-measured through the solver at
+  nx 24 and 50 and the 96³ rates of `timing` and `reduced_p1` (each
+  within 2x either way), its chain defaults beside the P=1 fake-phase
+  chain (6 phases × 2432 sends at 48³), and its predictions at 96³ for
+  P = 1, 2, 4, 8.
 
 The gather paths print each plan's EP, its live-EP maximum and the body
 the rule picks; K2 and K3-gather count each body apart (the cluster body's
@@ -347,7 +353,6 @@ PEER_W2_LIMIT_S = 420     # the two-process phase is killed past this
 ICI_PHASES = (1, 2, 4)                  # the push bench's grid: the
 ICI_MB = (0.125, 1.0, 8.0, 32.0)        # reference's defaults
 ICI_ROW = (4, 8.0)    # (phases, MB per phase) of K6's kernel-table rows
-SLEEP_CYCLES_PER_S = 2.0e9     # torch.cuda._sleep: about the SM clock
 PACKED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
           "sweep_blocks_overlap")
 GATHER = ("sweep_blocks_gather", "sweep_blocks_gather_init",
@@ -365,6 +370,11 @@ FAKE = {"min_phases": 8, "fake_sends": 4096}   # 6 real phases at P=8
 PROF_NX = 48         # the --profile run's mesh
 ATTRIB_STEPS = 50    # solver_attrib's chained-loop length per mode
 DRYRUN_N = 8
+SM_NX = (24, 50)     # rate-table sizes the smoke run re-measures
+SM_RATIO = 2.0       # a re-measured rate off the table by more: table wrong
+SM_CHAIN = (48, 2432, 1000)   # nx, fake sends, iters (6 phases)
+SM_CROSS_ABS = 1e-3  # schedules vs bulk, abs (f32 rounding ~1e-5 at 48³)
+SM_PARTS = (1, 2, 4, 8)
 REDUCED_PACKED = ("pack_srcs_d16", "sweep_blocks_w16_d16_o16",
                   "sweep_blocks_init_w16_d16_o16",
                   "sweep_blocks_overlap_w16_d16_o16")
@@ -618,37 +628,11 @@ def device_profile(model, state, schedule: str, n: int = 20) -> dict:
 
 def kernel_device_ms(fn, n: int) -> float:
     """Mean device milliseconds per call of n calls of fn that run back to
-    back on the card: a sleep kernel holds the stream while the host
-    enqueues all n, so no call waits for the host (a CUDA-event mean over
-    calls enqueued onto an idle stream measures the host's launch rate
-    when the kernel is shorter than a launch).  The sleep is lengthened
-    until it outlasts the enqueueing."""
-    import torch
+    back on the card (`utils.devtime.held_device_ms`: a sleep kernel holds
+    the stream while the host enqueues all n)."""
+    from cfd_proxy_tpu_torch.utils.devtime import held_device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    host_s = time.perf_counter() - t0       # an upper bound: may have waited
-    torch.cuda.synchronize()
-    cycles = int((2 * host_s + 2e-4) * SLEEP_CYCLES_PER_S)
-    for _ in range(6):
-        held = torch.cuda.Event()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        held.record()
-        e0.record()
-        for _ in range(n):
-            fn()
-        e1.record()
-        covered = not held.query()          # still asleep: all n were queued
-        torch.cuda.synchronize()
-        if covered:
-            return e0.elapsed_time(e1) / n
-        cycles *= 2
-    fail("kernel_device_ms: the host could not enqueue ahead of the card")
+    return held_device_ms(fn, n)
 
 
 def pack_facts(kw: dict) -> dict:
@@ -696,6 +680,7 @@ def main() -> int:
                                                 time_schedule)
         from cfd_proxy_tpu_torch.solver import main as solver_main
         from cfd_proxy_tpu_torch.tools import (dryrun, icibench, kbench,
+                                               scaling_inputs, scaling_model,
                                                solver_attrib)
         from cfd_proxy_tpu_torch.tools import golden as golden_tool
     except ImportError as e:
@@ -1563,6 +1548,7 @@ def main() -> int:
              f"({lo}, {hi}]")
     st_bf = time_schedule(rm, state, "bulk", TIMED_STEPS, warmup=2,
                           repeats=5)
+    reduced_bulk_s = st_bf.median   # the scaling model's reduced 96³ rate
     # K4's delta pack bitwise and K1 on bf16 deltas and weights (f32 out)
     # against their plain versions, at these shapes
     pl = rm.plans["bulk"]
@@ -2629,6 +2615,76 @@ def main() -> int:
                                      "sweep_blocks_overlap"))
     emit("dryrun", record=rec, launches=counts,
          seconds=time.perf_counter() - t0)
+
+    # ---- the scaling model (host NumPy) on the card's measured inputs:
+    # (a) its rate tables beside the P=1 bulk step re-measured through the
+    # solver at SM_NX and the 96³ rates of `timing` and `reduced_p1`; (b)
+    # its chain defaults beside the P=1 fake-phase chain; (c) its
+    # predictions at 96³
+    t0 = time.perf_counter()
+    measured = [("f32", NX, nface, f32_bulk_s * 1e3, "timing"),
+                ("reduced", NX, nface, reduced_bulk_s * 1e3, "reduced_p1")]
+    for nx in SM_NX:
+        reset_counts()
+        r_ = scaling_inputs.rate_point(nx, verify=True)
+        counts = read_counts()
+        expect_counts(f"scaling_model (nx {nx})", counts,
+                      ("pack_srcs", "sweep_blocks"))
+        rel = r_["verification"]["bulk_vs_golden_relmax"]
+        if not rel <= GOLDEN_TOL:
+            fail(f"scaling_model: nx {nx} bulk vs golden relmax {rel:.3e}")
+        measured.append(("f32", nx, r_["nface"], r_["step_ms"],
+                         scaling_inputs.command(r_["argv"])))
+    rates = []
+    for rate, nx, nf, ms, how in measured:
+        want = scaling_model.rate_ns_per_face(
+            nf, scaling_model.RATE_TABLES[rate])
+        got = ms * 1e6 / nf
+        rates.append({"rate": rate, "nx": nx, "nface": nf, "step_ms": ms,
+                      "ns_per_face": got, "table_ns_per_face": want,
+                      "ratio": got / want, "from": how})
+    nx, sends, iters = SM_CHAIN
+    reset_counts()
+    ch = scaling_inputs.chain_point(nx, scaling_inputs.CHAIN_PHASES, sends,
+                                    iters, verify=True)
+    counts = read_counts()
+    expect_counts("scaling_model (chain)", counts, PACKED)
+    ver = ch["verification"]
+    pack_us = scaling_model.PACK_NS_PER_COL * ch["cols"] * 1e-3
+    chain = {"command": scaling_inputs.command(ch["argv"]), "nx": nx,
+             "nphases": ch["nphases"], "s_max": ch["s_max"],
+             "cols": ch["cols"], "nocomm_us": ch["nocomm_median_s"] * 1e6,
+             "bulk_minus_nocomm_us": ch["bulk_us"],
+             "model_bulk_us": scaling_model.BULK_FIXED_US + pack_us,
+             "overlap_minus_nocomm_us": ch["overlap_us"],
+             "model_overlap_us": scaling_model.OVERLAP_FIXED_US + pack_us,
+             "verification": ver, "launches": counts}
+    cross = {k: v for k, v in ver.items() if k.endswith("_vs_bulk_maxabs")}
+    if not (ver["bulk_vs_golden_relmax"] <= GOLDEN_TOL
+            and all(v <= SM_CROSS_ABS for v in cross.values())):
+        fail(f"scaling_model: the fake-phase chain's outputs {ver}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = scaling_model.main(["--nx", str(NX), "--parts",
+                                 *map(str, SM_PARTS)])
+    lines = out.getvalue().strip().splitlines()
+    cols = ("shard_ns_per_face", "bulk_gfps", "overlap_gfps", "speedup",
+            "eff_hide", "eff_slvr")
+    pred = {int(ln.split()[0]): dict(zip(cols, ln.split()[1:]))
+            for ln in lines[2:]}
+    if (rc != 0 or not lines[0].startswith("# MODEL (not measurement)")
+            or sorted(pred) != list(SM_PARTS)
+            or not all(float(r["bulk_gfps"]) > 0
+                       and float(r["overlap_gfps"]) > 0
+                       for r in pred.values())):
+        fail(f"scaling_model: the model at {NX}³ printed {lines}")
+    emit("scaling_model", card=smi, rates=rates, ratio_limit=SM_RATIO,
+         chain=chain, model={"header": lines[0], "rows": pred},
+         seconds=time.perf_counter() - t0)
+    off = [r for r in rates if not 1 / SM_RATIO <= r["ratio"] <= SM_RATIO]
+    if off:
+        fail(f"scaling_model: measured rates off the table by more than "
+             f"{SM_RATIO}x: {off}")
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name],

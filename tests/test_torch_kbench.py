@@ -217,12 +217,48 @@ def test_twins_not_checked(capsys):
         assert re.search(rf"^{n}\s+(\S+ ms|below)", out, re.M), n
 
 
-def test_paired_reports_median_ratio(capsys):
-    rc = kbench.main(["--nx", str(NX), "--bp", "128", "--iters", "2",
-                      "--paired", "compact,cstream_c", "--repeats", "2",
-                      "--device", "cpu"])
-    assert rc == 0
-    assert "median ratio" in capsys.readouterr().out
+def _fixed_sampler(monkeypatch, times):
+    """kbench's sampler replaced by one that hands the n-th variant asked
+    for the n-th list of `times`, one per sample: the CPU's timings under
+    a loaded test run can all fall below the two-point noise floor."""
+    made = []
+
+    def sampler(fn, v0, tables, iters):
+        seq = iter(times[len(made)])
+        made.append(fn)
+        return lambda: next(seq)
+
+    monkeypatch.setattr(kbench, "sampler", sampler)
+    return made
+
+
+PAIRED = ["--nx", str(NX), "--bp", "128", "--iters", "2", "--paired",
+          "compact,cstream_c", "--repeats", "2", "--device", "cpu"]
+
+
+def test_paired_reports_median_ratio(capsys, monkeypatch):
+    """Turns a, b then b, a; the ratio of each pair, their median and IQR,
+    and each variant's median time."""
+    made = _fixed_sampler(monkeypatch, [[2e-3, 2.2e-3], [1e-3, 1e-3]])
+    assert kbench.main(PAIRED) == 0
+    out = capsys.readouterr().out
+    assert len(made) == 2
+    assert re.search(r"pair  0: compact +2\.000 ms +cstream_c +1\.000 ms +"
+                     r"ratio 2\.0000", out), out
+    assert re.search(r"pair  1: .* ratio 2\.2000", out), out
+    assert ("paired compact/cstream_c: median ratio 2.1000  IQR "
+            "[2.0500, 2.1500]  n=2") in out
+    assert "compact: median 2.100 ms  cstream_c: median 1.000 ms" in out
+
+
+def test_paired_all_samples_nonfinite(capsys, monkeypatch):
+    """No finite pair: no ratio, rc 1 and the noise-floor message."""
+    nan = float("nan")
+    _fixed_sampler(monkeypatch, [[nan, 1e-3], [1e-3, nan]])
+    assert kbench.main(PAIRED) == 1
+    out = capsys.readouterr().out
+    assert "paired: every sample below the dispatch-noise floor" in out
+    assert "median ratio" not in out
 
 
 def test_bp_alt_variants(capsys):

@@ -316,6 +316,15 @@ with tempfile.TemporaryDirectory() as tmp, \
                                "all"]) in (0, 1)
     assert dryrun.main(["--n", "4", "--device", "cpu"]) == 0
     torch_pseudo_time_stepping.main(device="cpu", nparts=2)
+# the scaling model (host NumPy) and the measurement of its inputs
+from cfd_proxy_tpu_torch.tools import scaling_inputs, scaling_model
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert scaling_model.main(["--nx", "8", "--parts", "1", "2", "4",
+                               "--slice-size", "2"]) == 0
+    assert scaling_inputs.main(["rates", "--nx", "5", "--rate", "f32",
+                                "--iters", "2", "--device", "cpu"]) == 0
+assert out.getvalue().startswith("# MODEL (not measurement)")
 assert not any(k == "jax" or k.startswith("jax.") or k == "cfd_proxy_tpu"
                or k.startswith("cfd_proxy_tpu.")
                for k, v in sys.modules.items() if v is not None)
