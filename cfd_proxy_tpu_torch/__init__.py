@@ -29,6 +29,8 @@ Layer map (mirrors `cfd_proxy_tpu`):
   models/    GreenGaussTorch, PSDFluxModel, GreenGaussModel (nn.Module)
   convert.py carry a JAX model's plan arrays across
   solver.py  benchmark CLI (`python -m cfd_proxy_tpu_torch.solver`)
+  bench.py   headline benchmark, the root bench.py's counterpart
+             (`python -m cfd_proxy_tpu_torch.bench`)
   tools/     kbench, mbench, icibench, partition, golden, fixture,
              solver_attrib, dryrun, scaling_model (+ scaling_inputs)
 """

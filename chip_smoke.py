@@ -85,10 +85,17 @@ faces, nvar 7, random state from a seed):
 - `dryrun`: `tools/dryrun.py` at 8 shards, every leg;
 - `scaling_model`: the scaling model's inputs against the card: its f32
   rate table beside the P=1 bulk step re-measured through the solver at
-  nx 24 and 50 and the 96³ rates of `timing` and `reduced_p1` (each
-  within 2x either way), its chain defaults beside the P=1 fake-phase
-  chain (6 phases × 2432 sends at 48³), and its predictions at 96³ for
-  P = 1, 2, 4, 8.
+  nx 24 and 50 and the 96³ rates of `timing` and `reduced_p1` (each within
+  2x either way where the table's step is off its launch floor; the steps
+  on the floor time the host, and are recorded), its chain defaults beside
+  the P=1 fake-phase chain (6 phases × 2432 sends at 48³), and its
+  predictions at 96³ for P = 1, 2, 4, 8;
+- `bench`: the benchmark entry point, `python -m cfd_proxy_tpu_torch.bench`,
+  in a process of its own at its defaults (96³, every schedule, every row,
+  the model block on): exit 0, its last line strict JSON with
+  `platform: "cuda"`, `value > 0` and every row present, none shed; the
+  kernels its FULL_JSON says it launched; its wall time and its P=1 bulk
+  step beside the `timing` phase's.
 
 The gather paths print each plan's EP, its live-EP maximum and the body
 the rule picks; K2 and K3-gather count each body apart (the cluster body's
@@ -372,9 +379,21 @@ ATTRIB_STEPS = 50    # solver_attrib's chained-loop length per mode
 DRYRUN_N = 8
 SM_NX = (24, 50)     # rate-table sizes the smoke run re-measures
 SM_RATIO = 2.0       # a re-measured rate off the table by more: table wrong
+SM_FLOOR_X = 2.0     # a table step under this x its fastest times the host
 SM_CHAIN = (48, 2432, 1000)   # nx, fake sends, iters (6 phases)
 SM_CROSS_ABS = 1e-3  # schedules vs bulk, abs (f32 rounding ~1e-5 at 48³)
 SM_PARTS = (1, 2, 4, 8)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BENCH_TIMEOUT_S = 600
+# the rows of the bench's compact line, each present and none shed
+BENCH_KEYS = ("sched_ms", "reduced", "small", "flux_gfps", "solver_ms",
+              "solver_ms_per_sweep", "mc_model", "node")
+# what its rows launch: set-up and the P=1 schedules (main run, small mesh),
+# reduced precision, flux, solver mode at gather/512
+BENCH_LAUNCHED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
+                  "sweep_blocks_overlap", "pack_srcs_d16",
+                  "sweep_blocks_w16_d16", "sweep_blocks_w16_d16_o16",
+                  "sweep_blocks_flux", "sweep_blocks_gather")
 REDUCED_PACKED = ("pack_srcs_d16", "sweep_blocks_w16_d16_o16",
                   "sweep_blocks_init_w16_d16_o16",
                   "sweep_blocks_overlap_w16_d16_o16")
@@ -658,7 +677,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible to torch; this run needs "
               "a GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     try:
         import numpy as np
 
@@ -2637,12 +2656,15 @@ def main() -> int:
                          scaling_inputs.command(r_["argv"])))
     rates = []
     for rate, nx, nf, ms, how in measured:
-        want = scaling_model.rate_ns_per_face(
-            nf, scaling_model.RATE_TABLES[rate])
+        table = scaling_model.RATE_TABLES[rate]
+        want = scaling_model.rate_ns_per_face(nf, table)
+        floor_ms = min(f * r for f, r in table) * 1e-6
         got = ms * 1e6 / nf
         rates.append({"rate": rate, "nx": nx, "nface": nf, "step_ms": ms,
                       "ns_per_face": got, "table_ns_per_face": want,
-                      "ratio": got / want, "from": how})
+                      "ratio": got / want, "from": how,
+                      "table_floor_ms": floor_ms,
+                      "host_bound": want * nf * 1e-6 < SM_FLOOR_X * floor_ms})
     nx, sends, iters = SM_CHAIN
     reset_counts()
     ch = scaling_inputs.chain_point(nx, scaling_inputs.CHAIN_PHASES, sends,
@@ -2681,10 +2703,45 @@ def main() -> int:
     emit("scaling_model", card=smi, rates=rates, ratio_limit=SM_RATIO,
          chain=chain, model={"header": lines[0], "rows": pred},
          seconds=time.perf_counter() - t0)
-    off = [r for r in rates if not 1 / SM_RATIO <= r["ratio"] <= SM_RATIO]
+    off = [r for r in rates if not r["host_bound"]
+           and not 1 / SM_RATIO <= r["ratio"] <= SM_RATIO]
     if off:
         fail(f"scaling_model: measured rates off the table by more than "
              f"{SM_RATIO}x: {off}")
+
+    # ---- the benchmark entry point, `python -m cfd_proxy_tpu_torch.bench`,
+    # in a process of its own at its defaults (96³, every schedule, every
+    # row, the model block); its kernels' launches come from its FULL_JSON
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    res = subprocess.run([sys.executable, "-m", "cfd_proxy_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    bench_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"bench: exit {res.returncode}: {res.stderr[-3000:]}")
+    try:
+        comp = json.loads(res.stdout.strip().splitlines()[-1])
+        full = json.loads(next(
+            ln for ln in res.stderr.splitlines()
+            if ln.startswith("FULL_JSON "))[len("FULL_JSON "):])
+    except (IndexError, StopIteration, ValueError) as e:
+        fail(f"bench: no compact line or FULL_JSON ({e}): "
+             f"{res.stdout[-2000:]}")
+    missing = [k for k in BENCH_KEYS if k not in comp]
+    if (not (comp.get("value") or 0) > 0 or comp.get("platform") != "cuda"
+            or missing or "dropped" in comp
+            or sorted(comp["solver_ms_per_sweep"]) != ["2", "4"]):
+        fail(f"bench: compact line {comp} (missing {missing})")
+    counts = full["kernel_launches"]
+    expect_counts("bench", counts, BENCH_LAUNCHED)
+    bench_bulk_ms = full["schedules"]["bulk"]["median_ms"]
+    emit("bench", card=smi, bench_card=full.get("card"), wall_s=bench_wall,
+         stage_s=full["stage_s"], bulk_ms=bench_bulk_ms,
+         timing_bulk_ms=f32_bulk_s * 1e3,
+         bulk_vs_timing=bench_bulk_ms / (f32_bulk_s * 1e3),
+         launches=counts, compact=comp)
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name],

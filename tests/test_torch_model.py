@@ -8,6 +8,7 @@ runs with JAX made unimportable.  The schedules at P shards are in
 tests/test_torch_schedules.py.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -338,3 +339,39 @@ def test_port_runs_with_jax_unimportable():
                          cwd=REPO)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+BENCH_JAX_BLOCKED = """
+import runpy, sys
+sys.modules["jax"] = None            # any import of jax now raises
+sys.modules["cfd_proxy_tpu"] = None  # and so does any of the JAX package
+sys.modules["bench"] = None          # and the root bench
+sys.path.insert(0, {repo!r})
+try:
+    runpy.run_module("cfd_proxy_tpu_torch.bench", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert not any(k == "jax" or k.startswith("jax.") or k == "cfd_proxy_tpu"
+               or k.startswith("cfd_proxy_tpu.") or k == "bench"
+               for k, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
+def test_bench_runs_with_jax_unimportable():
+    """`python -m cfd_proxy_tpu_torch.bench` on the CPU, the model block
+    forced, with JAX, the JAX package and the root bench unimportable."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_DEVICE="cpu", BENCH_NX="8", BENCH_ITERS="3",
+               BENCH_SCHEDULE="bulk", BENCH_CPU_DRAM_NX="16",
+               BENCH_MODEL_BLOCK="force", BENCH_NORTHSTAR_NX="10",
+               BENCH_CROSSING_NX="8")
+    res = subprocess.run(
+        [sys.executable, "-c", BENCH_JAX_BLOCKED.format(repo=REPO)],
+        capture_output=True, text=True, timeout=120, cwd=REPO, env=env)
+    assert res.returncode == 0, res.stderr
+    *_, line, ok = res.stdout.strip().splitlines()
+    assert ok == "ok"
+    d = json.loads(line)
+    assert d["platform"] == "cpu" and "mc_model" in d
