@@ -23,7 +23,10 @@ flux model; solver mode with its sweeps-per-step table; the multichip
 MODEL block (`tools/scaling_model.py` on the card's measured tables,
 NVLink and InfiniBand rates assumed); the 2-socket-node margins.  The rows
 after the main run run on the card only; `BENCH_MODEL_BLOCK=force` runs
-the model block (host NumPy) on the CPU too.
+the model block (host NumPy) on the CPU too.  Every row of FULL_JSON
+carries `dispatch`: "graph" where its timed loops replayed the step captured as
+CUDA graphs (every row on the card: one rank, loopback), "eager" on the
+CPU (models/compiled.py).
 
 Environment knobs (the root bench's names and defaults): BENCH_NX (96 on
 the card, 16 on the CPU), BENCH_ITERS (300), BENCH_SCHEDULE (all on the
@@ -288,7 +291,7 @@ def measure_cpu_golden(nx: int = 32) -> dict:
 def _bulk(res: dict) -> dict:
     e = res["schedules"]["bulk"]
     return {"faces_per_sec": e["faces_per_sec"],
-            "median_ms": e["median_s"] * 1e3}
+            "median_ms": e["median_s"] * 1e3, "dispatch": res["dispatch"]}
 
 
 def reduced_row(cfg: SolverConfig, f32_bulk: dict | None = None,
@@ -330,7 +333,8 @@ def small_row(cfg: SolverConfig, nx: int = 50, iters: int = 3000) -> dict:
     sch = {s: {"faces_per_sec": e["faces_per_sec"],
                "median_ms": e["median_s"] * 1e3}
            for s, e in res["schedules"].items()}
-    row = {"nx": nx, "nface": res["nface"], "schedules": sch}
+    row = {"nx": nx, "nface": res["nface"], "schedules": sch,
+           "dispatch": res["dispatch"]}
     if "overlap" in sch and "bulk" in sch:
         row["overlap_speedup_vs_bulk"] = (
             sch["overlap"]["faces_per_sec"] / sch["bulk"]["faces_per_sec"])
@@ -358,8 +362,9 @@ def solver_mode_row(cfg: SolverConfig, sweeps: list[int]) -> dict:
     iters = max(50, cfg.iters // 6)
     base = replace(cfg, schedule="bulk", force_rdma=False, solver_mode=True,
                    iters=iters)
-    e = run(replace(base, kernel="gather", bp=512))[0]["schedules"]["bulk"]
-    row = {"kernel": "gather", "bp": 512,
+    res = run(replace(base, kernel="gather", bp=512))[0]
+    e = res["schedules"]["bulk"]
+    row = {"kernel": "gather", "bp": 512, "dispatch": res["dispatch"],
            "ms_per_step": e["median_s"] * 1e3,
            "effective_faces_per_sec": e["faces_per_sec"],
            "note": "full per-time-step dataflow (sweep + update + var "
@@ -372,10 +377,11 @@ def solver_mode_row(cfg: SolverConfig, sweeps: list[int]) -> dict:
         tbl = {}
         for n_sw in sweeps:
             kern, bp_n = solver_mode_defaults(n_sw)
-            e_n = run(replace(base, kernel=kern, bp=bp_n,
-                              sweeps_per_step=n_sw))[0]["schedules"]["bulk"]
+            res_n = run(replace(base, kernel=kern, bp=bp_n,
+                                sweeps_per_step=n_sw))[0]
+            e_n = res_n["schedules"]["bulk"]
             tbl[str(n_sw)] = {
-                "kernel": kern, "bp": bp_n,
+                "kernel": kern, "bp": bp_n, "dispatch": res_n["dispatch"],
                 "ms_per_step": e_n["median_s"] * 1e3,
                 "ms_per_sweep": e_n["median_s"] * 1e3 / n_sw,
                 "effective_faces_per_sec": e_n["faces_per_sec"],
@@ -641,6 +647,8 @@ def main() -> int:
         "nface": results["nface"],
         "schedule": head,
         "median_ms": entry["median_s"] * 1e3,
+        "dispatch": results["dispatch"],
+        "dispatch_reason": results["dispatch_reason"],
         "cpu_golden_faces_per_sec": float(cpu_fps),
     })
     if schedule == "all":

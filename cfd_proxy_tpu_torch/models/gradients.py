@@ -22,9 +22,11 @@ P/W shards on its own device:
   `sweep_blocks_overlap` / `sweep_blocks_overlap_gather` for overlap);
 - `refresh_state(var_T)`: the solver-mode state update — var halo exchange
   and a rebuild of the tables;
-- `iterate_fn(s, n, solver_mode, sweeps_per_step)`: the chained n-step loop
-  the timing uses, or the solver's per-step dataflow (table rebuild, N
-  sweeps with their updates, var exchange);
+- `iterate_fn(s, n, solver_mode, sweeps_per_step, graph=None)`: the
+  chained n-step loop the timing uses, or the solver's per-step dataflow
+  (table rebuild, N sweeps with their updates, var exchange), on the step
+  bodies `chain_body` / `solver_body`; replayed as CUDA graphs where
+  `compiled.dispatch` says so (models/compiled.py), else eager;
 - `gather_global`: gg device rows d*NV+v → global (N, nvar*3) column
   v*3+d; flux rows v → global (N, nvar).
 
@@ -78,6 +80,8 @@ one shard measures a P > 1-shaped exchange.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 from torch import nn
@@ -88,6 +92,8 @@ from cfd_proxy_tpu_torch.mesh.partition import (
     relabel_owned,
     send_point_set,
 )
+from cfd_proxy_tpu_torch.models import compiled
+from cfd_proxy_tpu_torch.models.compiled import COUPLING
 from cfd_proxy_tpu_torch.ops.blocksweep import (
     BF16,
     F32,
@@ -328,6 +334,7 @@ class GreenGaussTorch(nn.Module):
         ghost region, which no face reads, so owned results are unchanged
         (`build_tlayout`)."""
         super().__init__()
+        self.graphs = collections.OrderedDict()   # captured steps (compiled)
         self.group = group
         self.rank, self.world = group_size(group)
         self.lo, self.hi = shard_range(len(parts), self.rank, self.world)
@@ -520,6 +527,12 @@ class GreenGaussTorch(nn.Module):
         # all phases in the kernel (no slice_size): today's single launch
         self.routed = bool(self.kernel_phases) and bool(self.coll_phases)
         self.coll = carrier(self.coll_phases) if self.routed else None
+        # the routed split's phase indices on the device (a list index
+        # would be copied from the host at every step, which a captured
+        # step cannot do)
+        self.coll_index, self.kernel_index = (
+            torch.tensor(ph, dtype=torch.int64, device=self.device)
+            for ph in (self.coll_phases, self.kernel_phases))
         # the fused kernel's push map: the in-kernel phases' columns
         self.kernel_map = (
             (self.dsts[:, self.kernel_phases].contiguous(),
@@ -541,8 +554,10 @@ class GreenGaussTorch(nn.Module):
             else self.transport.name)
 
     def close(self) -> None:
-        """Release the peer transport's mapped memory (collective over the
-        group; a no-op for the other transports)."""
+        """Free the captured step graphs and release the peer transport's
+        mapped memory (collective over the group; a no-op for the other
+        transports)."""
+        self.graphs.clear()
         if self.peer is not None:
             self.peer.close()
             self.peer = None
@@ -793,8 +808,8 @@ class GreenGaussTorch(nn.Module):
         bufs = self._pack(gb, self.pack_scale, self.halo_t)
         pending = None
         if self.routed:
-            pending = self.coll.start(bufs[:, self.coll_phases].contiguous())
-            bufs = bufs[:, self.kernel_phases].contiguous()
+            pending = self.coll.start(bufs.index_select(1, self.coll_index))
+            bufs = bufs.index_select(1, self.kernel_index)
         if self.peer is not None:       # it holds its own push map
             push = (None, None, self.op)
             how = {"peer": self.peer}
@@ -816,52 +831,79 @@ class GreenGaussTorch(nn.Module):
         self.check_schedule(schedule, state["tables"])
         return self(state["var_T"], state["tables"], schedule)
 
+    def chain_body(self, schedule: str, coupling: float = COUPLING):
+        """One step of the chained loop: body(v, tables, out=None) → v +
+        coupling · g[:, :NV] (the reference's chained update, with its
+        types: the product in the grad dtype, the sum f32), a new tensor
+        or, given, `out` (the sum written there); v is not written."""
+        def body(v, tables, out=None):
+            return torch.add(v, coupling * self(v, tables, schedule)[:, :NV],
+                             out=out)
+
+        return body
+
+    def solver_body(self, schedule: str, sweeps_per_step: int,
+                    coupling: float = COUPLING):
+        """One solver-mode step (`GreenGaussPallas._solver_iterate_fn`'s
+        body, gradients_pallas.py:1146-1170): body(v, out=None) rebuilds
+        ONLY the tables the schedule reads from v, runs sweeps_per_step
+        stages of sweep (with its gradient exchange) + update against them,
+        then the var exchange (in place on the step's own new tensor, or on
+        `out`, which the last update writes)."""
+        needed = SCHEDULE_CLASSES[schedule]
+
+        def body(v, out=None):
+            tb = self._build_tables(v, needed)
+            for i in range(sweeps_per_step):
+                v = torch.add(v, coupling * self(v, tb, schedule)[:, :NV],
+                              out=out if i == sweeps_per_step - 1 else None)
+            return self._var_exchange(v)
+
+        return body
+
     def iterate_fn(self, schedule: str, n: int, solver_mode: bool = False,
-                   sweeps_per_step: int = 1):
-        """Chained n-step runner over iter_args; returns the final var_T.
+                   sweeps_per_step: int = 1, *, graph: bool | None = None,
+                   coupling: float = COUPLING):
+        """Chained n-step runner over iter_args; returns the final var_T, a
+        new tensor (the caller's is not written).
 
         Without solver_mode each step's gradients feed the next step's
-        state (v + 1e-30·g[:, :NV], the reference's chained loop, with its
-        types: the product in the grad dtype, the sum f32) over the state's
-        fixed tables, so no step can be skipped.
+        state (`chain_body`) over the state's fixed tables, so no step can
+        be skipped.  solver_mode=True runs the per-time-step dataflow of a
+        real solver built on the proxy (`solver_body`): each step rebuilds
+        ONLY the tables the schedule reads from the carried var_T, runs
+        sweeps_per_step stages of sweep + update, then one var exchange; the
+        state's own tables are not read.  No step syncs the host.
 
-        solver_mode=True runs the per-time-step dataflow of a real solver
-        built on the proxy (`GreenGaussPallas._solver_iterate_fn`): each
-        step rebuilds ONLY the tables the schedule reads from the carried
-        var_T, runs sweeps_per_step stages of sweep (with its gradient
-        exchange) + update against those tables, then one var exchange.
-        The state's own tables are not read.  No step syncs the host."""
+        graph: None follows `compiled.dispatch` (on a CUDA device at one
+        rank with the loopback exchange the step is captured as CUDA graphs
+        once and replayed, n steps, bit for bit the eager loop; elsewhere
+        eager); False runs eager; True raises `CheckError` where the rule
+        says eager.  coupling: the update's factor, the reference's 1e-30
+        by default (which leaves an f32 state as it was); a check that must
+        see the gradients in the state takes a larger one."""
         check(sweeps_per_step >= 1, "sweeps_per_step must be >= 1, got %d",
               sweeps_per_step)
         check(sweeps_per_step == 1 or solver_mode,
               "sweeps_per_step only applies to solver_mode (static "
               "iteration never rebuilds tables)")
+        key = (schedule, solver_mode, sweeps_per_step, coupling)
         if solver_mode:
             check(schedule in SCHEDULE_CLASSES, "unknown schedule %r (the "
                   "port runs %s)", schedule, "/".join(SCHEDULES))
-            needed = SCHEDULE_CLASSES[schedule]
+            run_solver = compiled.runner(
+                self, self.solver_body(schedule, sweeps_per_step, coupling),
+                n, key, graph=graph)
+            # the state's tables are not read: the body rebuilds its own
+            return lambda var_T, tables: run_solver(var_T)
+        run = compiled.runner(self, self.chain_body(schedule, coupling), n,
+                              key, graph=graph)
 
-            def run_solver(var_T, tables):
-                del tables                  # rebuilt from var_T every step
-                v = var_T
-                for _ in range(n):
-                    tb = self._build_tables(v, needed)
-                    for _ in range(sweeps_per_step):
-                        v = v + 1e-30 * self(v, tb, schedule)[:, :NV]
-                    v = self._var_exchange(v)   # v is this step's own tensor
-                return v
-
-            return run_solver
-
-        def run(var_T, tables):
+        def checked(var_T, tables):
             self.check_schedule(schedule, tables)
-            v = var_T
-            for _ in range(n):
-                g = self(v, tables, schedule)
-                v = v + 1e-30 * g[:, :NV]
-            return v
+            return run(var_T, tables)
 
-        return run
+        return checked
 
     # ------------------------------------------------------------ gather
 

@@ -20,12 +20,16 @@ ranks the bits of one process.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 from torch import nn
 
 from cfd_proxy_tpu_torch.mesh.model import MeshPartition
 from cfd_proxy_tpu_torch.mesh.partition import send_point_set
+from cfd_proxy_tpu_torch.models import compiled
+from cfd_proxy_tpu_torch.models.compiled import COUPLING
 from cfd_proxy_tpu_torch.ops.prep import SweepPads, build_sweep_plan
 from cfd_proxy_tpu_torch.ops.sweep_ell import (DeviceSweep, check_no_tf32,
                                                device_sweep, set_volume)
@@ -62,6 +66,7 @@ class GreenGaussModel(nn.Module):
         and halo lists (ARRAY_KEYS, convert.sweeps_from_jax) in place of the
         plans built here from `parts`."""
         super().__init__()
+        self.graphs = collections.OrderedDict()   # captured steps (compiled)
         check(len(parts) >= 1, "need at least one partition")
         check(dtype in DTYPES.values(), "dtype must be float32 or float64, "
               "got %s", dtype)
@@ -110,6 +115,7 @@ class GreenGaussModel(nn.Module):
             halos = [HostHalo(arrays["send_idx"][i], arrays["recv_idx"][i],
                               tuple(arrays["perms"]))
                      for i in range(len(parts))]
+        self.transport_kind = transport
         self.perms = halos[0].perms
         self.halo = DeviceHalo.stack(
             halos, self.npoint_pad, self.lo, self.hi, self.device,
@@ -157,23 +163,26 @@ class GreenGaussModel(nn.Module):
         return (state,)
 
     def iterate_fn(self, schedule: str, n: int, solver_mode: bool = False,
-                   sweeps_per_step: int = 1, *, exact: bool = False):
+                   sweeps_per_step: int = 1, *, exact: bool = False,
+                   graph: bool | None = None, coupling: float = COUPLING):
         """Chained n-step runner over iter_args: each step's gradients feed
-        the next step's state (v + 1e-30·g[..., :nvar], the reference's
-        loop), so no step can be skipped.  Solver mode is the kernel
-        model's (the reference's too)."""
+        the next step's state (v + coupling·g[..., :nvar], the reference's
+        loop at its 1e-30), so no step can be skipped; a new tensor comes
+        back.  Solver mode is the kernel model's (the reference's too).
+        graph, coupling: as in `GreenGaussTorch.iterate_fn`
+        (models/compiled.py's rule: one CUDA graph of the step on a card at
+        one rank with the loopback exchange)."""
         check(not solver_mode and sweeps_per_step == 1,
               "--solver-mode requires the pallas backend")
         check(schedule in STEP_FNS, "unknown schedule %r", schedule)
         nvar = self.nvar
 
-        def run(var):
-            v = var
-            for _ in range(n):
-                v = v + 1e-30 * self(v, schedule, exact=exact)[..., :nvar]
-            return v
+        def body(v, out=None):
+            return torch.add(v, coupling * self(v, schedule, exact=exact)
+                             [..., :nvar], out=out)
 
-        return run
+        return compiled.runner(self, body, n, (schedule, exact, coupling),
+                               graph=graph)
 
     # ------------------------------------------------------------ gather
 
@@ -188,4 +197,6 @@ class GreenGaussModel(nn.Module):
         return out
 
     def close(self) -> None:
-        """Nothing mapped to release (the solver closes every model)."""
+        """Free the captured step graphs; nothing mapped to release (the
+        solver closes every model)."""
+        self.graphs.clear()

@@ -57,6 +57,12 @@ model (models/gradients_ell.py, plain torch, Green-Gauss only) in
 pad the schedule with self-send phases carrying real payloads, so a single
 shard moves P > 1-shaped exchanges; their ghost regions differ between
 schedules, so the schedules are compared on owned columns only.
+Dispatch.  On a card at one rank with the `loopback` exchange each timed
+loop replays the step, captured once as CUDA graphs (the
+reference's jit + `fori_loop`, models/compiled.py); `peer`, `dist` and the
+CPU run the same step eagerly.  The result's `dispatch` ("graph" or
+"eager") and `dispatch_reason` say which, and the summary line prints
+`dispatch=`.
 `--profile DIR` writes a `torch.profiler` trace (Chrome trace JSON) of the
 timed loops to DIR.  The reference's `--pack-force` and `--platform` are
 parsed and refused by name (`CheckError`, `check_config`): they work
@@ -80,6 +86,7 @@ import torch
 from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
 from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
 from cfd_proxy_tpu_torch.mesh.reader import partition_path, read_partition
+from cfd_proxy_tpu_torch.models import compiled
 from cfd_proxy_tpu_torch.models.gradients import (DTYPE_OPTIONS, KERNELS,
                                                   PRECISIONS, GreenGaussTorch)
 from cfd_proxy_tpu_torch.models.gradients_ell import DTYPES, GreenGaussModel
@@ -318,16 +325,19 @@ def _sync(device: torch.device) -> None:
 
 def time_schedule(model: GreenGaussTorch, state: dict, schedule: str,
                   iters: int, warmup: int, repeats: int = 3,
-                  solver_mode: bool = False,
-                  sweeps_per_step: int = 1) -> IterationStats:
+                  solver_mode: bool = False, sweeps_per_step: int = 1,
+                  graph: bool | None = None) -> IterationStats:
     """Two-point timing: chained loops of n0 and n0+iters steps, each ended
     by a device synchronise; their difference over iters is the per-step
-    time with the fixed per-run cost cancelled.  solver_mode times the
-    solver's per-step dataflow (GreenGaussTorch.iterate_fn)."""
+    time with the fixed per-run cost (under graph dispatch the copy of the
+    state in and out) cancelled.  solver_mode times the solver's per-step
+    dataflow (GreenGaussTorch.iterate_fn); graph: the runners' dispatch
+    (None: the model's rule; the two runners share one captured graph)."""
     n0 = max(1, iters // 10)
-    small = model.iterate_fn(schedule, n0, solver_mode, sweeps_per_step)
+    small = model.iterate_fn(schedule, n0, solver_mode, sweeps_per_step,
+                             graph=graph)
     big = model.iterate_fn(schedule, n0 + iters, solver_mode,
-                           sweeps_per_step)
+                           sweeps_per_step, graph=graph)
     args = model.iter_args(state)
     dev = model.device
 
@@ -504,6 +514,10 @@ def _run_model(cfg: SolverConfig, model, gmesh):
         "backend": cfg.backend,
         "ranks": model.world,
         "transport": model.transport_name,
+        # how the timed chained loops ran: CUDA graphs replayed, or
+        # eager, with the rule's reason (models/compiled.py)
+        **dict(zip(("dispatch", "dispatch_reason"),
+                   compiled.dispatch(model))),
         **model_fields(cfg, model),
         "solver_mode": cfg.solver_mode,
         "sweeps_per_step": cfg.sweeps_per_step if cfg.solver_mode else None,
@@ -702,6 +716,7 @@ def main(argv=None) -> int:
               f"model={results['model']} "
               + (f"ranks={results['ranks']} " if results["ranks"] > 1 else "")
               + f"transport={results['transport']} "
+              f"dispatch={results['dispatch']} "
               f"nvar={results['nvar']} dtype={results['dtype']} "
               + "".join(f"{k}={results[k]} " for k in DTYPE_OPTIONS
                         if results[k] != "float32")
@@ -718,6 +733,8 @@ def main(argv=None) -> int:
             else:
                 extra = ""
             print(f"{s:<10} {e['faces_per_sec'] / 1e6:9.2f} Mfaces/s{extra}")
+        print(f"dispatch {results['dispatch']}: "
+              f"{results['dispatch_reason']}")
         for k, v in results.get("verification", {}).items():
             print(f"verify {k} = {v:.3e}")
     return 0

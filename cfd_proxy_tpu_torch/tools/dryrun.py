@@ -14,7 +14,9 @@ on one device (the card unless `--device cpu`):
 - `reduced_precision`: the four bf16 options under overlap, within
   (0, 2e-2] relative of the f32 bulk result;
 - `solver_mode`: one solver-mode step of the kernel model (at most 16
-  shards);
+  shards), through `iterate_fn` under the dispatch rule
+  (`models/compiled.py`: on the card the step is also captured as a CUDA
+  graph, so a capture that fails shows here);
 - `multi_slice`: `slice_size` max(2, N/2) (at least 4 shards), overlap
   against the pallas bulk result in global numbering within 1e-4.
 

@@ -11,6 +11,9 @@ solver's chained-loop two-point method (`GreenGaussTorch.iterate_fn`,
 `utils.timing.two_point_sampler`, each loop ended by a device
 synchronise), interleaving samples in alternating order (A,B then B,A,
 ...) so slow drift and any run-second bias cancel in the per-pair ratio.
+The runners take the model's dispatch rule (`models/compiled.py`): on the
+card each side's chained loop replays its step's CUDA graphs, as
+in the solver and the bench.
 
 Usage (override strings are comma-separated SolverConfig field=value):
 

@@ -30,7 +30,11 @@ time's own slope over the columns drowns in the host's noise (it is
 printed beside); Loopback's device copy stands in for the wire the model
 charges apart, and only its launch stays in the bases.
 
-Every line names the device the solver ran on; `--device cpu` runs the
+The solver's timed loops take its dispatch rule (`models/compiled.py`):
+on the card each replays the step's CUDA graphs, so the rates and
+the chain are those of graph dispatch (the host's launches out of the
+step), as the bench's rows are.  Every line names the device the solver
+ran on; `--device cpu` runs the
 kernels' plain versions (the mechanics, not a card's numbers).
 """
 

@@ -45,33 +45,36 @@ CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 # MEASURED single-card sweep rates vs shard size (ns/face): the P=1 `bulk`
 # step median over nface — compact packed kernel, AUTO bp, the chained
-# update included — on CARD, each row from one run of `scaling_inputs
-# rates` (A: `--nx 24 32 50 96 160 224 288`; B: `--nx 96 352 --rate f32`,
-# which read 0.0740 at nx=96) with its nx, step ms and peak device memory.
-# Up to ~100 k faces the step sits on its host launch floor (0.054-0.068
-# ms: K1, a zero fill, the update's mul and add, each launched from
-# Python), so ns/face falls as 1/size; from 2.8 M faces on the sweep
-# covers the launches and the rate is the kernel's plateau.
+# update included, the chained loop the step's CUDA graphs replayed
+# (models/compiled.py) — on CARD, each row from one run of `scaling_inputs
+# rates --nx 24 32 50 96 160 224 288` (C), with its nx, step ms and peak
+# device memory; the nx=352 row from an earlier run with the step launched
+# op by op (B: `--nx 96 352 --rate f32`), where the host's launches are
+# well under 1 % of a 9.4 ms step.  Up to ~100 k faces the step sits on
+# the card's own floor (0.011-0.012 ms: the graph's K1, zero fill and the
+# update's mul and add, back to back), so ns/face falls as 1/size; from
+# 2.8 M faces on the sweep covers them and the rate is the kernel's
+# plateau.
 RATE_TABLES = {
     "f32": [
-        (42_179, 1.5815),       # nx=24, 0.06671 ms, H100 700 W, A
-        (101_177, 0.6704),      # nx=32, 0.06783 ms, H100 700 W, A
-        (390_934, 0.1391),      # nx=50, 0.05436 ms, H100 700 W, A
-        (2_798_223, 0.0731),    # nx=96, 0.20447 ms, H100 700 W, A; 0.66 GB
-        (13_014_957, 0.0688),   # nx=160, 0.89587 ms, H100 700 W, A
-        (35_785_859, 0.0678),   # nx=224, 2.42798 ms, H100 700 W, A
-        (76_138_925, 0.0675),   # nx=288, 5.14293 ms, H100 700 W, A; 17.5 GB
+        (42_179, 0.2527),       # nx=24, 0.01066 ms, H100 700 W, C
+        (101_177, 0.1213),      # nx=32, 0.01227 ms, H100 700 W, C
+        (390_934, 0.0913),      # nx=50, 0.03568 ms, H100 700 W, C
+        (2_798_223, 0.0723),    # nx=96, 0.20225 ms, H100 700 W, C; 0.63 GB
+        (13_014_957, 0.0687),   # nx=160, 0.89435 ms, H100 700 W, C
+        (35_785_859, 0.0678),   # nx=224, 2.42635 ms, H100 700 W, C
+        (76_138_925, 0.0675),   # nx=288, 5.13904 ms, H100 700 W, C; 16.8 GB
         (139_118_258, 0.0674),  # nx=352, 9.37279 ms, H100 700 W, B; 32.0 GB
     ],
     # reduced precision = --src-dtype/--meta-dtype bfloat16
     "reduced": [
-        (42_179, 1.6859),       # nx=24, 0.07111 ms, H100 700 W, A
-        (101_177, 0.7133),      # nx=32, 0.07217 ms, H100 700 W, A
-        (390_934, 0.1420),      # nx=50, 0.05550 ms, H100 700 W, A
-        (2_798_223, 0.0614),    # nx=96, 0.17172 ms, H100 700 W, A
-        (13_014_957, 0.0570),   # nx=160, 0.74230 ms, H100 700 W, A
-        (35_785_859, 0.0560),   # nx=224, 2.00378 ms, H100 700 W, A
-        (76_138_925, 0.0557),   # nx=288, 4.24036 ms, H100 700 W, A; 13.2 GB
+        (42_179, 0.2609),       # nx=24, 0.01100 ms, H100 700 W, C
+        (101_177, 0.1198),      # nx=32, 0.01212 ms, H100 700 W, C
+        (390_934, 0.0715),      # nx=50, 0.02796 ms, H100 700 W, C
+        (2_798_223, 0.0607),    # nx=96, 0.16993 ms, H100 700 W, C
+        (13_014_957, 0.0568),   # nx=160, 0.73949 ms, H100 700 W, C
+        (35_785_859, 0.0560),   # nx=224, 2.00320 ms, H100 700 W, C
+        (76_138_925, 0.0556),   # nx=288, 4.23579 ms, H100 700 W, C; 12.4 GB
     ],
 }
 
@@ -241,19 +244,19 @@ def model_partitioning(mesh, P, ns_per_face, ici_gbps, rows,
 
 
 # the exchange chain's defaults, MEASURED on CARD by `scaling_inputs chain`
-# (P=1, 48³, 6 fake phases × 1024 / 2432 / 4096 sends, 24 rows f32): the
-# bases are the step-time medians of bulk - nocomm and overlap - nocomm
-# less the pack term; the pack term is the slope of the pack and unpack's
-# device time over the gathered columns (the launch-bound step's own slope
-# is lost in the host's noise)
-# (`scaling_inputs chain --repeats 5`: 15 points, H100 700 W)
-BULK_FIXED_US = 123.080     # 15 points from 68 to 205 us
-PACK_NS_PER_COL = 0.32205   # device 21.9 / 24.6 / 27.8 us at 6k / 15k / 25k
-OVERLAP_FIXED_US = 185.093  # 15 points from 116 to 278 us
+# (P=1, 48³, 6 fake phases × 1024 / 2432 / 4096 sends, 24 rows f32, the
+# chained loop the step's CUDA graphs replayed): the bases are the step-time
+# medians of bulk - nocomm and overlap - nocomm less the pack term; the
+# pack term is the slope of the pack and unpack's device time over the
+# gathered columns (the step's own slope, 0.341 ns/col, agrees)
+# (`scaling_inputs chain`: 9 points, H100 700 W)
+BULK_FIXED_US = 23.666      # 9 points from 24.2 to 33.5 us
+PACK_NS_PER_COL = 0.30868   # device 21.4 / 24.3 / 27.1 us at 6k / 15k / 25k
+OVERLAP_FIXED_US = 30.009   # 9 points from 30.4 to 38.3 us
 CHAIN_NOTE = ("the P=1 fake-phase chain's bulk - nocomm and overlap - "
-              "nocomm less the pack's device slope: the launches of pack, "
-              "Loopback's copy and unpack (overlap: zero fill, boundary "
-              "sweep, K3's push), not a wire")
+              "nocomm less the pack's device slope: the device work of "
+              "pack, Loopback's copy and unpack (overlap: zero fill, "
+              "boundary sweep, K3's push) in one graph, not a wire")
 
 
 def main(argv=None) -> int:

@@ -17,7 +17,10 @@ device synchronise), one shard, the bulk schedule:
 
 Each body keeps the reference's data dependences: the knocked-out parts
 still feed the next step (a 1e-60 multiple of the tables' sum, a 1e-30
-multiple of the gradients), so no part can be skipped.
+multiple of the gradients), so no part can be skipped.  Each runs as the
+solver-mode runner does (`models/compiled.py`): on the card the body
+captured as CUDA graphs and replayed, eagerly on the CPU.  The times below were taken
+eagerly, before the graph dispatch (PERF.md §6 has both).
 
 On an NVIDIA H100 80GB HBM3 at a 700 W limit (96³, 2.8 M faces, one shard;
 chip_smoke.py's `solver_attrib` phase), ms per step, noop / extsonly /
@@ -44,6 +47,7 @@ import torch
 
 from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
 from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
+from cfd_proxy_tpu_torch.models import compiled
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.ops.blocksweep import gather_exts
 from cfd_proxy_tpu_torch.ops.plan import NV
@@ -55,31 +59,34 @@ MODES = ("noop", "extsonly", "tablesonly", "sweeponly", "all")
 
 def knockout_fn(model: GreenGaussTorch, state: dict, mode: str):
     """run(n, v0): n chained steps of mode's body from the state v0, each
-    ending in the var halo exchange, as the solver-mode step does."""
+    ending in the var halo exchange, as the solver-mode step does; through
+    `compiled.runner` under the model's dispatch rule, so on the card every
+    mode's body is captured as CUDA graphs and replayed, as the solver-mode
+    runner is (the same body, and so the same work knocked out, in either
+    form)."""
     check(mode in MODES, "unknown mode %r (one of %s)", mode, "/".join(MODES))
     ext_idx = model.plans["bulk"]["ext_idx"]
-    fixed = state["tables"]
 
-    def body(v):
+    def body(v, fixed, out=None):
         if mode == "all":
             tb = model._build_tables(v, ("bulk",))
-            v2 = v + 1e-30 * model(v, tb, "bulk")[:, :NV]
+            v2 = torch.add(v, 1e-30 * model(v, tb, "bulk")[:, :NV], out=out)
         elif mode == "sweeponly":
-            v2 = v + 1e-30 * model(v, fixed, "bulk")[:, :NV]
+            v2 = torch.add(v, 1e-30 * model(v, fixed, "bulk")[:, :NV],
+                           out=out)
         elif mode == "tablesonly":
             tb = model._build_tables(v, ("bulk",))["bulk"]
-            v2 = v + tb.float().sum() * 1e-60
+            v2 = torch.add(v, tb.float().sum() * 1e-60, out=out)
         elif mode == "extsonly":
-            v2 = v + gather_exts(v, ext_idx).sum() * 1e-60
+            v2 = torch.add(v, gather_exts(v, ext_idx).sum() * 1e-60,
+                           out=out)
         else:
-            v2 = v * (1.0 + 1e-30)
+            v2 = torch.mul(v, 1.0 + 1e-30, out=out)
         return model._var_exchange(v2)
 
     def run(n, v0):
-        v = v0
-        for _ in range(n):
-            v = body(v)
-        return v
+        return compiled.runner(model, body, n, ("attrib", mode))(
+            v0, state["tables"])
 
     return run
 

@@ -49,6 +49,23 @@ faces, nvar 7, random state from a seed):
   solver-mode runner;
 - `reduced_flux`: the flux model at one shard with bf16 sources, weights
   and stores, bulk, timed;
+- `graph`: the chained step as CUDA graphs (models/compiled.py, the
+  dispatch every loop above took) against the same step eager, at P=1
+  bulk, P=1 `all` with force_rdma, P=8 every schedule, gather/512 solver
+  mode (P=1 one sweep, P=8 two), the full bf16 stack (P=1 overlap, P=8
+  early) and flux P=1 `all`: the dispatch "graph"; 20 chained steps
+  under graph and eager bit for bit, at a coupling (0.1 over the first
+  step's max |g|) that makes the state carry every step's gradients; one replayed step's gradients bit
+  for bit the eager step's and within the golden bound; the kernels a
+  replay launches, read from the captured graphs (`compiled.kernel_nodes`),
+  the port's among them equal to the launches an eager step counts and to
+  the counts the runner adds (CUPTI's view of an eager step and of the
+  replays recorded beside them); the capture's seconds and peak memory;
+  the step in turns
+  (eager, graph, graph, eager) with each turn's device ms and idle share,
+  failing where the graph step is over 1.03x the eager or P=1 overlap's
+  idle share under graph is not below its eager one; the P=1 and P=8
+  overlap steps profiled both ways, their device ms within 5 %;
 - `kbench`: the kernel bench (`tools/kbench.py`) at its defaults (96³, bp
   4096), driven through `kbench.main` with `--check` three times: the
   full-width variants (K1 as prod, flat, bf16src, w16, bf16sw; the twins
@@ -87,7 +104,7 @@ faces, nvar 7, random state from a seed):
   rate table beside the P=1 bulk step re-measured through the solver at
   nx 24 and 50 and the 96³ rates of `timing` and `reduced_p1` (each within
   2x either way where the table's step is off its launch floor; the steps
-  on the floor time the host, and are recorded), its chain defaults beside
+  on the floor, `on_launch_floor`, are recorded), its chain defaults beside
   the P=1 fake-phase chain (6 phases × 2432 sends at 48³), and its
   predictions at 96³ for P = 1, 2, 4, 8;
 - `bench`: the benchmark entry point, `python -m cfd_proxy_tpu_torch.bench`,
@@ -121,8 +138,10 @@ for a bf16 operand — counting only the columns and table lanes of the
 block entries the call computes) over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (the H100 SXM's published peaks).
 
-Phases print one JSON line each on stdout; any failure raises and exits
-non-zero.  The last lines are the kernel table (JSON), the card's name and
+Phases print one JSON line each on stdout, each with `dispatch`: how the
+phase's chained loops ran (runner calls under "graph" and "eager", the
+eager ones' reasons: the peer transport, gloo; "none" without a loop);
+any failure raises and exits non-zero.  The last lines are the kernel table (JSON), the card's name and
 power limit as nvidia-smi reports them, and
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -133,10 +152,12 @@ printing anything on stdout.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -148,6 +169,15 @@ P_MULTI = 8      # shards of the multi-shard path (the reference's mpirun -n 8)
 TIMED_STEPS = 200
 SOLVER_STEPS = 100   # timed solver-mode steps per configuration
 SOLVER_RUN = 4       # solver-mode steps of the counted runner
+GRAPH_STEPS = 20     # chained steps held graph against eager, bit for bit
+GRAPH_ITERS = 100    # timed steps per turn of the graph phase
+GRAPH_SLOWER = 1.03  # the graph step may not pass the eager one by more
+GRAPH_MOVE = 0.1     # the bitwise runs' coupling: GRAPH_MOVE / max|g| (the
+                     # reference's 1e-30 leaves an f32 state as it was)
+GRAPH_CHECK_N = 2    # replays whose kernels CUPTI counts, per configuration
+PROFILE_BAND = (0.95, 1.05)  # profiled device ms, graph over eager
+PORT_KERNEL = re.compile(r"\b(?:sweep|pack)_\w*kernel\b")  # csrc's symbols
+SCHEDULES_ALL = ("bulk", "early", "overlap", "nocomm")
 GATHER_BP = 512      # the gather kernel's solver-mode block size
 LARGE_BP = 8192      # a block size whose gather table no block's shared
                      # memory holds: the gather sweep's cluster body
@@ -379,7 +409,7 @@ ATTRIB_STEPS = 50    # solver_attrib's chained-loop length per mode
 DRYRUN_N = 8
 SM_NX = (24, 50)     # rate-table sizes the smoke run re-measures
 SM_RATIO = 2.0       # a re-measured rate off the table by more: table wrong
-SM_FLOOR_X = 2.0     # a table step under this x its fastest times the host
+SM_FLOOR_X = 2.0     # a table step under this x its fastest: the launch floor
 SM_CHAIN = (48, 2432, 1000)   # nx, fake sends, iters (6 phases)
 SM_CROSS_ABS = 1e-3  # schedules vs bulk, abs (f32 rounding ~1e-5 at 48³)
 SM_PARTS = (1, 2, 4, 8)
@@ -406,9 +436,14 @@ T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    """One phase's JSON line, with the seconds since the script started."""
+    """One phase's JSON line, with the seconds since the script started and
+    `dispatch`: how the phase's chained runners ran since the last line
+    (`compiled.take_calls`: calls per "graph" / "eager", the eager ones'
+    reasons), "none" where it ran none."""
+    compiled = sys.modules.get("cfd_proxy_tpu_torch.models.compiled")
+    calls = compiled.take_calls() if compiled is not None else {}
     print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0,
-                      **kw}), flush=True)
+                      "dispatch": calls or "none", **kw}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -612,17 +647,21 @@ def gather_kernel_facts(bs, body: str, bp: int, ep: int, op: str = "gg",
             **({"threads": threads} if body == "cluster" else {})}
 
 
-def device_profile(model, state, schedule: str, n: int = 20) -> dict:
+def device_profile(model, state, schedule: str, n: int = 20,
+                   graph: bool | None = None) -> dict:
     """Device time per step of n chained steps under torch.profiler: the
     CUDA kernels' and copies' device time summed (one stream, so nothing
     overlaps) over n, beside the profiled wall time per step, with the
     largest parts.  `device_ms` is None when the profiler saw no device
-    activity."""
+    activity.  graph: the runner's dispatch (`iterate_fn`; None: the
+    model's rule, on the card the step's CUDA graphs replayed n times,
+    whose copy of the state in and out adds two state copies to the n
+    steps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run = model.iterate_fn(schedule, n)
+    run = model.iterate_fn(schedule, n, graph=graph)
     args = model.iter_args(state)
     run(*args)
     torch.cuda.synchronize()
@@ -683,6 +722,7 @@ def main() -> int:
 
         from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
         from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
+        from cfd_proxy_tpu_torch.models import compiled
         from cfd_proxy_tpu_torch.models.gradients import (GreenGaussTorch,
                                                           PSDFluxModel)
         from cfd_proxy_tpu_torch.ops import _cuda
@@ -1394,6 +1434,7 @@ def main() -> int:
                          "max_abs_bulk": scale,
                          "cross_tol": SCHED_TOL * scale, "launches": counts},
          kernels=kernel_summary(["sweep_blocks_flux"]))
+    graph_models = {"flux_p1": fm}      # timed again by the graph phase
     del outs, state, fm
 
     # ---- flux, 8 shards: every schedule under the packed kernel, then
@@ -1682,6 +1723,7 @@ def main() -> int:
     if not all(np.isfinite(v) for v in p1_all_ms.values()):
         fail(f"reduced_p1_all: step timing below the noise floor: "
              f"{p1_all_ms}")
+    graph_models["full_p1"] = fm16
     del outs, state, fm16
 
     # ---- reduced precision, 8 shards: the full stack under the packed
@@ -1899,6 +1941,236 @@ def main() -> int:
          kernels=kernel_summary(["sweep_blocks_flux_w16_d16_o16"]))
     del state, fm, k1f
 
+    # ---- graph: the chained step as CUDA graphs (models/compiled.py)
+    # against the same step eager, per configuration: the dispatch the rule
+    # gives; GRAPH_STEPS chained steps at a coupling that moves the state
+    # by up to GRAPH_MOVE a step (so it carries every step's gradients)
+    # bit for bit; the
+    # kernels a replay launches against the launches an eager step counts
+    # and the counts the runner adds; one replayed step's gradients bit for
+    # bit the eager step's and within the model's golden bound; the
+    # capture's seconds and both runs' peak memory; then the step timed in turns (eager, graph, graph, eager),
+    # each turn with its device ms (`kernel_device_ms`) and idle share; the
+    # P=1 and P=8 overlap steps also profiled both ways (`device_profile`)
+    from cfd_proxy_tpu_torch.models.gradients import SCHEDULE_CLASSES
+    from cfd_proxy_tpu_torch.ops.plan import NV
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph_models.update({"p1": packed_models[1], "p8": packed_models[P_MULTI],
+                         "gather_p1": gather_models[1],
+                         "gather_p8": gather_models[P_MULTI],
+                         "full_p8": full_stack_p8})
+    # each model's golden and bound (its own phase's): f32 within
+    # GOLDEN_TOL, the full bf16 stack within BAND_FULL's
+    graph_gold = {"flux_p1": (flux_ref, GOLDEN_TOL),
+                  "full_p1": (None, BAND_FULL[1]),
+                  "full_p8": (None, BAND_FULL[1])}
+    graph_cfgs = (          # name: (model, schedule, solver mode sweeps)
+        [("p1_bulk", "p1", "bulk", 0)]         # also P=1 all's bulk
+        + [(f"p1_all_{s}", "p1", s, 0) for s in SCHEDULES_ALL[1:]]
+        + [(f"p8_{s}", "p8", s, 0) for s in SCHEDULES_ALL]
+        + [("gather512_p1_solver_n1", "gather_p1", "bulk", 1),
+           ("gather512_p8_solver_n2", "gather_p8", "bulk", 2),
+           ("full_p1_overlap", "full_p1", "overlap", 0),
+           ("full_p8_early", "full_p8", "early", 0)]
+        + [(f"flux_p1_all_{s}", "flux_p1", s, 0) for s in SCHEDULES_ALL])
+    profiled = ("p1_all_overlap", "p8_overlap")
+
+    def replayed_grad(m, args, s, solver, coupling):
+        """(one replayed step's gradients, one eager step's): a chained
+        body that also copies its step's gradients (its tables rebuilt
+        from v in solver mode) into a static buffer, run through
+        `compiled.runner` one step at a time; the graph's first call runs
+        step 1 eagerly and captures, its second replays graph 0 once."""
+        needed = SCHEDULE_CLASSES[s]
+        g = torch.empty(m.nlocal, m.rows, m.ndev, dtype=m.grad_t, device=dev)
+
+        def probe(v, tables, out=None):
+            gv = m(v, m._build_tables(v, needed) if solver else tables, s)
+            g.copy_(gv)
+            return torch.add(v, coupling * gv[:, :NV], out=out)
+
+        def run(graph):
+            return compiled.runner(m, probe, 1, ("probe", s, solver, id(g)),
+                                   graph=graph)
+
+        run(False)(*args)
+        eager = g.clone()
+        graph = run(None)
+        graph(*args)
+        g.zero_()
+        graph(*args)
+        torch.cuda.synchronize()
+        return g.clone(), eager
+
+    def kernels_seen(run, args):
+        """{kernel: launches} CUPTI saw in one call of run(*args) (copies
+        and fills left out: the graph runner copies the state in and out)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(*args)
+            torch.cuda.synchronize()
+        return collections.Counter({
+            e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))})
+
+    graph_res, graph_slower, states = {}, [], {}
+    t_phase = time.perf_counter()
+    for name, mk, s, sweeps in graph_cfgs:
+        m = graph_models[mk]
+        kind_, why = compiled.dispatch(m)
+        if kind_ != "graph":
+            fail(f"graph {name}: dispatch {kind_} ({why})")
+        if mk not in states:
+            states[mk] = m.distribute_state(gvar)
+        st_ = states[mk]
+        args_ = m.iter_args(st_)
+        solver = sweeps > 0
+        sw = max(1, sweeps)
+        m.graphs.clear()                # capture afresh: seconds, memory
+        # the coupling: one step moves the state by at most GRAPH_MOVE
+        g0 = m.step(st_, s)[:, :NV].float()
+        coupling = GRAPH_MOVE / float(g0.abs().max())
+        del g0
+        res_ = {}
+        for mode in (False, None):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out_ = m.iterate_fn(s, GRAPH_STEPS, solver, sw, graph=mode,
+                                coupling=coupling)(*args_)
+            torch.cuda.synchronize()
+            res_["graph" if mode is None else "eager"] = (
+                out_, (torch.cuda.max_memory_allocated() - base) / 1e9)
+        (g_out, g_peak), (e_out, e_peak) = res_["graph"], res_["eager"]
+        moved = float((e_out - args_[0]).abs().max())
+        if not torch.isfinite(e_out).all() or not moved > 1e-3:
+            fail(f"graph {name}: the eager state after {GRAPH_STEPS} steps "
+                 f"is not finite or did not move ({moved})")
+        if not torch.equal(g_out, e_out):
+            fail(f"graph {name}: {GRAPH_STEPS} chained steps under graph "
+                 f"differ from eager (max abs "
+                 f"{float((g_out - e_out).abs().max()):.3e})")
+        capture_s = next(reversed(m.graphs.values())).seconds
+        del res_, g_out, e_out
+        # the launches: the kernel nodes of the captured graphs (what a
+        # replay launches, `compiled.kernel_nodes`): the port's among them
+        # against the launches one eager step counts and the counts the
+        # runner adds for GRAPH_CHECK_N replays; CUPTI's view (one eager
+        # step, the replays) recorded beside them
+        entry = next(reversed(m.graphs.values()))
+        nodes = [collections.Counter(compiled.kernel_nodes(g))
+                 for g in entry.graphs]
+        ours = sum(n_ for k_, n_ in nodes[0].items()
+                   if PORT_KERNEL.search(k_))
+        del entry
+        reset_counts()
+        seen_e = kernels_seen(m.iterate_fn(s, 1, solver, sw, graph=False,
+                                           coupling=coupling), args_)
+        eager_counts = read_counts()
+        reset_counts()
+        seen_g = kernels_seen(m.iterate_fn(s, GRAPH_CHECK_N, solver, sw,
+                                           coupling=coupling), args_)
+        added = read_counts()
+        if nodes[0] != nodes[1]:
+            fail(f"graph {name}: the two captured graphs launch different "
+                 f"kernels: {nodes}")
+        if ours == 0 or ours != sum(eager_counts.values()) or added != {
+                k_: n_ * GRAPH_CHECK_N for k_, n_ in eager_counts.items()}:
+            fail(f"graph {name}: a replay launches {ours} of the port's "
+                 f"kernels; an eager step counted {eager_counts}, the "
+                 f"runner {added} for {GRAPH_CHECK_N} replays")
+        cupti_ = {"eager_step_as_graph": seen_e == nodes[0],
+                  "replays_as_graph": seen_g == {
+                      k_: n_ * GRAPH_CHECK_N for k_, n_ in nodes[0].items()},
+                  "replay_kernels": sum(seen_g.values()),
+                  "eager_step_kernels": sum(seen_e.values())}
+        # one replayed step's gradients: the eager step's, and the golden's
+        g_rep, g_eag = replayed_grad(m, args_, s, solver, coupling)
+        if not torch.equal(g_rep, g_eag):
+            fail(f"graph {name}: a replayed step's gradients differ from "
+                 f"the eager step's")
+        gold_, tol_ = graph_gold.get(mk, (None, GOLDEN_TOL))
+        rel_ = golden_relmax(m, g_rep, gold=gold_)
+        if not rel_ <= tol_:
+            fail(f"graph {name}: a replayed step vs the golden relmax "
+                 f"{rel_:.3e} > {tol_}")
+        del g_rep, g_eag
+        m.graphs.clear()
+        # device ms per step, the stream held while the host enqueues: the
+        # two captured graphs replayed in turn (5 pairs), or 10 eager steps
+        # (few enough launches for the stream's queue)
+        m.iterate_fn(s, 2, solver, sw)(*args_)  # capture at the default
+        entry = next(reversed(m.graphs.values()))
+        one = m.iterate_fn(s, 1, solver, sw, graph=False)
+        device = {
+            None: lambda: kernel_device_ms(
+                lambda: [g.replay() for g in entry.graphs], 5) / 2,
+            False: lambda: kernel_device_ms(lambda: one(*args_), 10)}
+        turns = {"eager": [], "graph": []}
+        for mode in (False, None, None, False):
+            key_ = "graph" if mode is None else "eager"
+            step = time_schedule(m, st_, s, GRAPH_ITERS, warmup=1,
+                                 repeats=3, solver_mode=solver,
+                                 sweeps_per_step=sw, graph=mode).median * 1e3
+            dev_ms = device[mode]()
+            turns[key_].append({"step_ms": step, "device_ms": dev_ms,
+                                "idle": 1.0 - dev_ms / step})
+        best = {k: min(t["step_ms"] for t in v) for k, v in turns.items()}
+        row = {"dispatch": kind_, "schedule": s, "parts": len(m.parts),
+               "kernel": m.kernel, "op": m.op,
+               "solver_sweeps": sweeps or None,
+               "equal_bitwise": True, "coupling": coupling,
+               "moved": moved, "replayed_grad_equal": True,
+               "replayed_grad_vs_golden": rel_, "golden_tol": tol_,
+               "replay_kernels": {"all": sum(nodes[0].values()),
+                                  "port": ours},
+               "launches_added": added, "cupti": cupti_,
+               "capture_s": capture_s, "peak_gb": {"graph": g_peak,
+                                                   "eager": e_peak},
+               "turns": turns, "step_ms": best,
+               "graph_over_eager": best["graph"] / best["eager"],
+               # the better turn's step against the least device time
+               "idle": {k: 1.0 - min(t["device_ms"] for t in v) / best[k]
+                        for k, v in turns.items()}}
+        if not all(np.isfinite(v) for v in best.values()):
+            fail(f"graph {name}: step timing below the noise floor {best}")
+        if best["graph"] > GRAPH_SLOWER * best["eager"]:
+            graph_slower.append(name)
+        if name in profiled:
+            prof_ = {k: device_profile(m, st_, s, graph=mode)
+                     for k, mode in (("eager", False), ("graph", None))}
+            row["profile"] = prof_
+            if None in (prof_["graph"]["device_ms"],
+                        prof_["eager"]["device_ms"]):
+                fail(f"graph {name}: the profiler saw no device time "
+                     f"{ {k: p_['device_ms'] for k, p_ in prof_.items()} }")
+            ratio_ = prof_["graph"]["device_ms"] / prof_["eager"]["device_ms"]
+            row["profile_graph_over_eager"] = ratio_
+            if not PROFILE_BAND[0] <= ratio_ <= PROFILE_BAND[1]:
+                fail(f"graph {name}: profiled device ms under graph "
+                     f"{ratio_:.4f}x eager, outside {PROFILE_BAND}")
+        graph_res[name] = row
+        del entry, one, device
+    for m in graph_models.values():
+        m.graphs.clear()
+    del graph_models, states
+    ov = graph_res["p1_all_overlap"]["idle"]
+    emit("graph", card=smi, steps=GRAPH_STEPS, iters=GRAPH_ITERS,
+         configs=graph_res, slower_than_eager=graph_slower,
+         slower_limit=GRAPH_SLOWER, profile_band=PROFILE_BAND,
+         p1_overlap_idle_below_eager=ov["graph"] < ov["eager"],
+         phase_s=time.perf_counter() - t_phase)
+    if graph_slower:
+        fail(f"graph: the graph step is slower than eager by more than "
+             f"{GRAPH_SLOWER}x in {graph_slower}")
+    if not ov["graph"] < ov["eager"]:
+        fail(f"graph: P=1 overlap idles {ov['graph']:.4f} under graph, not "
+             f"below its eager {ov['eager']:.4f}")
+
     # ---- kbench: its three drives through kbench.main, each counted and
     # --check'ed against the golden (its own mesh: NX³, seed 0 — gmesh)
     kb_runs = {}
@@ -2054,12 +2326,14 @@ def main() -> int:
 
     def overlap_turns(pmod, pstate, lmod, lstate):
         """The overlap step through both transports in turns (loopback,
-        peer, peer, loopback), the better median of each."""
+        peer, peer, loopback), the better median of each; both eager (the
+        peer transport's dispatch), so the turns compare transports."""
         ms = {"loopback": [], "peer": []}
         for name in ("loopback", "peer", "peer", "loopback"):
             m, st_ = (pmod, pstate) if name == "peer" else (lmod, lstate)
             ms[name].append(time_schedule(m, st_, "overlap", TIMED_STEPS,
-                                          warmup=2, repeats=5).median * 1e3)
+                                          warmup=2, repeats=5,
+                                          graph=False).median * 1e3)
         return {k: min(v) for k, v in ms.items()}
 
     pm1, pstate, lstate, info = peer_phase(
@@ -2086,7 +2360,7 @@ def main() -> int:
     del st_all
     info["overlap_step_ms"] = overlap_turns(pm8, pstate, lm8, lstate)
     prof = {"peer": device_profile(pm8, pstate, "overlap"),
-            "loopback": device_profile(lm8, lstate, "overlap")}
+            "loopback": device_profile(lm8, lstate, "overlap", graph=False)}
     info["profile"] = prof
     info["idle"] = {k: (None if p_["device_ms"] is None else
                         1.0 - p_["device_ms"] / info["overlap_step_ms"][k])
@@ -2664,7 +2938,8 @@ def main() -> int:
                       "ns_per_face": got, "table_ns_per_face": want,
                       "ratio": got / want, "from": how,
                       "table_floor_ms": floor_ms,
-                      "host_bound": want * nf * 1e-6 < SM_FLOOR_X * floor_ms})
+                      "on_launch_floor":
+                          want * nf * 1e-6 < SM_FLOOR_X * floor_ms})
     nx, sends, iters = SM_CHAIN
     reset_counts()
     ch = scaling_inputs.chain_point(nx, scaling_inputs.CHAIN_PHASES, sends,
@@ -2703,7 +2978,7 @@ def main() -> int:
     emit("scaling_model", card=smi, rates=rates, ratio_limit=SM_RATIO,
          chain=chain, model={"header": lines[0], "rows": pred},
          seconds=time.perf_counter() - t0)
-    off = [r for r in rates if not r["host_bound"]
+    off = [r for r in rates if not r["on_launch_floor"]
            and not 1 / SM_RATIO <= r["ratio"] <= SM_RATIO]
     if off:
         fail(f"scaling_model: measured rates off the table by more than "
@@ -2737,11 +3012,22 @@ def main() -> int:
     counts = full["kernel_launches"]
     expect_counts("bench", counts, BENCH_LAUNCHED)
     bench_bulk_ms = full["schedules"]["bulk"]["median_ms"]
+    # every row's dispatch (FULL_JSON): on the card at one rank, the graph
+    rp, sm_ = full["reduced_precision"], full["solver_mode"]
+    row_dispatch = {
+        "main": full["dispatch"], "reduced": rp["dispatch"],
+        "with_bf16_grads": rp["with_bf16_grads"]["dispatch"],
+        "small_mesh": full["small_mesh"]["dispatch"],
+        "flux": full["flux"]["dispatch"], "solver_mode": sm_["dispatch"],
+        **{f"solver_mode_N{n}": e["dispatch"]
+           for n, e in sm_["sweeps_per_step"].items()}}
+    if set(row_dispatch.values()) != {"graph"}:
+        fail(f"bench: rows not under graph dispatch: {row_dispatch}")
     emit("bench", card=smi, bench_card=full.get("card"), wall_s=bench_wall,
          stage_s=full["stage_s"], bulk_ms=bench_bulk_ms,
          timing_bulk_ms=f32_bulk_s * 1e3,
          bulk_vs_timing=bench_bulk_ms / (f32_bulk_s * 1e3),
-         launches=counts, compact=comp)
+         launches=counts, row_dispatch=row_dispatch, compact=comp)
 
     rows = [{"name": name, "route": route, "source": src, "replaces": line,
              "launches": launches[name],
