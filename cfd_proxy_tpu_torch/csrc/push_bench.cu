@@ -43,17 +43,15 @@ push_phases_kernel(cfd::PeerPush p) {
 }  // namespace
 
 // sendbufs (P, nph) buffers of `bytes` bytes each (a multiple of 16, bases
-// 16-byte aligned); table, flags, recv, epochs and mode as in
-// cfd_sweep_overlap_peer.  Launches on `stream`; returns the launch's
-// cudaError_t (0 = success).
+// 16-byte aligned); table, flags, recv and mode as in
+// cfd_sweep_overlap_peer (the launch epochs are words of `flags`).
+// Launches on `stream`; returns the launch's cudaError_t (0 = success).
 extern "C" int cfd_push_phases(const void* sendbufs, int64_t P, int64_t nph,
                                int64_t bytes, const void* table, void* flags,
-                               void* recv, uint64_t epoch_ready,
-                               uint64_t epoch_arrive, int mode,
-                               cudaStream_t stream) {
+                               void* recv, int mode, cudaStream_t stream) {
   cfd::PeerPush p;
   if (!cfd::make_peer_push(&p, sendbufs, recv, table, flags, P, nph, bytes,
-                           epoch_ready, epoch_arrive, mode)) {
+                           mode)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   push_phases_kernel<<<static_cast<unsigned>(1 + p.blocks),

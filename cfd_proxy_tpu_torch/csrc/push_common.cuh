@@ -22,6 +22,9 @@
 //     arrive (P_local, nph) u64             arrive[q, k]: push blocks that
 //                                           finished storing into recv[q, k]
 //     done   u64                            this launch's exit tickets
+//     epochs u64[2]                         this rank's launches so far with
+//                                           the barrier (epochs[0]) and with
+//                                           the copy (epochs[1])
 //
 // `table` holds, per local (p, k): the address of recv[dsts[p, k], k], of
 // that buffer's arrive word, and of ready[srcs[p, k], k] (the word the
@@ -29,34 +32,48 @@
 // with inverse srcs[:, k] (checked on the host), so each word has exactly one
 // writer rank per launch and each buffer exactly one sender.
 //
-// Protocol of one launch, epochs e_r (launches with the barrier so far, this
-// one included) and e_a (launches with the copy):
+// The epochs live in device memory, not in the launch's arguments: a launch
+// reads them and its last block advances them, so a launch captured in a
+// CUDA graph and replayed any number of times meets the flags of its own
+// replay, and eager launches and replays share one count.  Capture launches
+// nothing, so it moves no word.  In a graph a launch is a kernel node, and
+// the nodes after it (the next step's launch among them) start after it
+// ends, as on a stream.  Protocol of one launch, with e_r and e_a
+// the stored epochs (launches before this one):
 //
 //   1. the SIGNAL block (CUDA block 0) adds 1 to ready[srcs[p, k], k] for
 //      every local (p, k): "my recv[p, k] is free" — everything that read it
-//      was enqueued before this launch on the same stream;
-//   2. a PUSH block of (p, k) waits until ready[p, k] >= e_r, copies its
-//      share of sendbufs[p, k] to the destination, meets at a block
-//      barrier, and its thread 0 fences once at system scope and adds 1 to
-//      the destination's arrive word;
+//      came before this launch in stream (or graph) order;
+//   2. a PUSH block of (p, k) reads e_r, waits until ready[p, k] >= e_r + 1,
+//      copies its share of sendbufs[p, k] to the destination, meets at a
+//      block barrier, and its thread 0 fences once at system scope and adds
+//      1 to the destination's arrive word;
 //   3. the signal block and every push block draw an exit ticket as their
-//      last act; the one that draws the LAST ticket waits until every local
-//      arrive[p, k] >= e_a * chunks, so when the launch has ended every
-//      push into this rank has landed.  (The reference waits at its last
-//      grid step; CUDA has no last block, and a ticket needs no second
-//      launch.  The last block resets the ticket word for the next launch.
-//      The blocks of a fused launch that sweep take no ticket: the wait
-//      concerns the pushes alone, and a ticket per sweep block slowed the
-//      fused kernel and added 40 B of spills on an H100.)
+//      last act.  The one that draws the LAST ticket resets the ticket word
+//      and advances the epochs by the launch's mode bits (kPushBarrier:
+//      epochs[0], kPushCopy: epochs[1]; every block that reads them has
+//      drawn its ticket, so none reads a half-advanced word, and the next
+//      launch on the stream starts after this one ends).  With kPushCopy it
+//      then waits until every local arrive[p, k] >= (e_a + 1) * chunks, so
+//      when the launch has ended every push into this rank has landed.
+//      Every mode draws the tickets, `empty` and `nodma` included (they
+//      advance nothing).  (The reference waits at its last grid step; CUDA
+//      has no last block, and a ticket needs no second launch.  The blocks
+//      of a fused launch that sweep take no ticket: the wait concerns the
+//      pushes alone, and a ticket per sweep block slowed the fused kernel
+//      and added 40 B of spills on an H100.)
 //
-// The counters only grow (never reset), so no step races a reset.  Signals
-// are red.release.sys, waits ld.acquire.sys: the block's ordinary stores,
-// ordered before the signalling thread by the block barrier and made
-// visible by its one __threadfence_system (as a grid barrier orders a
-// block's stores), are visible to whoever has seen the signal, in this
-// process or another.  A wait polls kSpinPolls times before it sleeps, and
-// then sleeps at most kSleepMaxNs between polls, so a block oversleeps a
-// signal by well under 1 us.
+// The counters only grow (never reset), so no step races a reset.  Each
+// rank's epochs advance in lock step with every other rank's because every
+// rank launches the same modes in the same order (a rule of the callers):
+// the n-th barrier launch of one rank waits for the n-th signals of the
+// others.  Signals are red.release.sys, waits ld.acquire.sys: the block's
+// ordinary stores, ordered before the signalling thread by the block
+// barrier and made visible by its one __threadfence_system (as a grid
+// barrier orders a block's stores), are visible to whoever has seen the
+// signal, in this process or another.  A wait polls kSpinPolls times before
+// it sleeps, and then sleeps at most kSleepMaxNs between polls, so a block
+// oversleeps a signal by well under 1 us.
 //
 // The copy.  Push blocks stride over their buffer with four 16-byte loads
 // in flight per thread (copy_share), at most kPeerPushBlocks blocks: about
@@ -119,8 +136,7 @@ struct PeerPush {
   int64_t seg;              // 16-byte pieces per (shard, phase) buffer
   int64_t chunks;           // push blocks per (shard, phase)
   int64_t blocks;           // push blocks in all: npk*chunks
-  uint64_t epoch_ready;
-  uint64_t epoch_arrive;
+  uint64_t* epochs;         // this rank's [barrier, copy] launches so far
   int mode;
 };
 
@@ -210,7 +226,7 @@ __device__ __forceinline__ void peer_push_block(const PeerPush& p,
     return;
   }
   if (p.mode & kPushBarrier) {
-    if (threadIdx.x == 0) spin_until(p.flags + pk, p.epoch_ready);
+    if (threadIdx.x == 0) spin_until(p.flags + pk, p.epochs[0] + 1);
     __syncthreads();
   }
   copy_share(src, reinterpret_cast<uint4*>(p.table[3 * pk]), p.seg, c,
@@ -231,19 +247,22 @@ __device__ __forceinline__ void peer_finish_block(const PeerPush& p) {
     return;
   }
   *done = 0;
+  if (p.mode & kPushBarrier) p.epochs[0] += 1;
   if (!(p.mode & kPushCopy)) return;
-  const uint64_t target = p.epoch_arrive * static_cast<uint64_t>(p.chunks);
+  const uint64_t arrive = p.epochs[1] + 1;
+  p.epochs[1] = arrive;
+  const uint64_t target = arrive * static_cast<uint64_t>(p.chunks);
   for (int64_t pk = 0; pk < p.npk; ++pk) {
     spin_until(p.flags + p.npk + pk, target);
   }
 }
 
-// Fill a PeerPush for buffers of `bytes` bytes per (shard, phase); false if
-// the shape cannot be pushed in 16-byte pieces.
+// Fill a PeerPush for buffers of `bytes` bytes per (shard, phase) (the
+// epochs are the two words after `done`); false if the shape cannot be
+// pushed in 16-byte pieces.
 inline bool make_peer_push(PeerPush* p, const void* sendbufs, void* recv,
                            const void* table, void* flags, int64_t P,
-                           int64_t nph, int64_t bytes, uint64_t epoch_ready,
-                           uint64_t epoch_arrive, int mode) {
+                           int64_t nph, int64_t bytes, int mode) {
   if (P < 0 || nph < 0 || bytes < 0 || bytes % kPushPiece != 0) return false;
   p->sendbufs = static_cast<const uint4*>(sendbufs);
   p->recv = static_cast<uint4*>(recv);
@@ -254,8 +273,7 @@ inline bool make_peer_push(PeerPush* p, const void* sendbufs, void* recv,
   p->seg = bytes / kPushPiece;
   p->chunks = peer_chunks(p->seg, p->npk);
   p->blocks = p->npk * p->chunks;
-  p->epoch_ready = epoch_ready;
-  p->epoch_arrive = epoch_arrive;
+  p->epochs = p->flags + 2 * p->npk + 1;
   p->mode = mode;
   return true;
 }

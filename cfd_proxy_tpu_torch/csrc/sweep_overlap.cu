@@ -239,8 +239,6 @@ struct PeerOperands {
   void* recv;
   int64_t nph;
   int64_t s_max;
-  uint64_t epoch_ready;
-  uint64_t epoch_arrive;
   int mode;
 };
 
@@ -256,7 +254,7 @@ int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
   if ((o.esize != 2 && o.esize != 4) ||
       !cfd::make_peer_push(&p, o.sendbufs, o.recv, o.table, o.flags, P,
                            o.nph, cfd::op_rows(kOp) * o.s_max * o.esize,
-                           o.epoch_ready, o.epoch_arrive, o.mode)) {
+                           o.mode)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t grid = 1 + p.blocks + sweep_blocks;
@@ -354,20 +352,19 @@ extern "C" int cfd_sweep_overlap_gather(
 // cfd_sweep_overlap / cfd_sweep_overlap_gather.  sendbufs (P, nph, rows,
 // s_max) of esize-byte elements; table (P*nph, 3) u64 on the device, flags
 // and recv this rank's exchange memory (push_common.cuh; built by
-// parallel/transport.py::Peer); epoch_ready / epoch_arrive: launches so far
-// with the barrier / with the copy, this one included; mode: the
-// kPushBarrier | kPushCopy bit set.
+// parallel/transport.py::Peer; the launch epochs are words of `flags`,
+// read and advanced by the kernel); mode: the kPushBarrier | kPushCopy bit
+// set.
 extern "C" int cfd_sweep_overlap_peer(
     const float* var_T, int64_t ndev, const void* srcs, const void* slot_w,
     const float* scale, const int32_t* block_ids, const int32_t* slots, int K,
     int64_t P, int64_t nb, int64_t L, int bp, int op, int w_bf16,
     int src_bf16d, int out_bf16, void* out, const void* sendbufs, int esize,
     const void* table, void* flags, void* recv, int64_t nph, int64_t s_max,
-    uint64_t epoch_ready, uint64_t epoch_arrive, int mode,
-    cudaStream_t stream) {
+    int mode, cudaStream_t stream) {
   if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
   const PeerOperands o{sendbufs, esize, table, flags, recv, nph, s_max,
-                       epoch_ready, epoch_arrive, mode};
+                       mode};
   const bool f[] = {op == 1, w_bf16 != 0, src_bf16d != 0, out_bf16 != 0};
   return cfd::with_flags(f, [&](auto flux, auto w16, auto d16, auto o16) {
     constexpr cfd::Op kOp =
@@ -390,13 +387,12 @@ extern "C" int cfd_sweep_overlap_gather_peer(
     int64_t nb, int bp, const int32_t* ext_cnt, int staged, int op,
     int w_bf16, int out_bf16, void* out,
     const void* sendbufs, int esize, const void* table, void* flags,
-    void* recv, int64_t nph, int64_t s_max, uint64_t epoch_ready,
-    uint64_t epoch_arrive, int mode, cudaStream_t stream) {
+    void* recv, int64_t nph, int64_t s_max, int mode, cudaStream_t stream) {
   if (ep <= 0 || !cfd::op_ok(op)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PeerOperands o{sendbufs, esize, table, flags, recv, nph, s_max,
-                       epoch_ready, epoch_arrive, mode};
+                       mode};
   const bool f[] = {op == 1, w_bf16 != 0, out_bf16 != 0};
   return cfd::with_flags(f, [&](auto flux, auto w16, auto o16) {
     constexpr cfd::Op kOp =

@@ -23,11 +23,18 @@ once.  Here the models' `iterate_fn` runners take one of two forms:
   new array.
 - **eager**: the same body, step by step from Python.
 
-`dispatch(model)` decides, by one rule: graph where the model runs on a
-CUDA device, in one process, with the `loopback` exchange; eager with a
-stated reason everywhere else (`EAGER_REASONS`).  There is no fallback: a
-capture that fails where the rule says graph raises, and asking for a graph
-where the rule says eager raises `CheckError`.
+`dispatch(model, schedule, solver_mode)` decides per chained body, by one
+rule: graph on a CUDA device wherever every exchange of that body runs in
+a kernel or on the device.  That is every body at one rank, with
+`loopback` or `peer` (whose launch epochs are device words the kernels
+advance, csrc/push_common.cuh, so a replay meets its own flags), and at
+several ranks through `peer` the bodies whose only exchange is the
+in-kernel push: the static `overlap` chain with no phase routed to the
+collective carrier, `nocomm`, and the push bench's chain ("push",
+tools/icibench.py).  Eager, with a stated reason (`EAGER_REASONS`), on the
+CPU and wherever an exchange goes through `torch.distributed`.  There is
+no fallback: a capture that fails where the rule says graph raises, and
+asking for a graph where the rule says eager raises `CheckError`.
 
 Each model keeps its graphs in `model.graphs`, an OrderedDict keyed on
 the body's key (schedule, solver mode, sweeps, coupling), the state's
@@ -63,21 +70,24 @@ import typing
 
 import torch
 
-from cfd_proxy_tpu_torch.ops.blocksweep import launch_counters
+from cfd_proxy_tpu_torch.ops import blocksweep, push
 from cfd_proxy_tpu_torch.utils.errors import check
 
 GRAPH, EAGER = "graph", "eager"
-GRAPH_REASON = ("cuda, one rank, loopback exchange: the chained step is "
-                "captured once and replayed as CUDA graphs")
+GRAPH_REASON = ("cuda, every exchange of the step in a kernel or on the "
+                "device: the chained step is captured once and replayed as "
+                "CUDA graphs")
 EAGER_REASONS = {
     "cpu": "cpu: no CUDA graphs on the CPU; the plain versions run op by op",
-    "peer": "peer: its launch epochs are host counters baked into each "
-            "launch's arguments; a replayed graph would repeat one epoch "
-            "and wait on the flags forever",
-    "dist": "dist: the exchange goes through torch.distributed (gloo "
-            "staging synchronises the host; several ranks need several "
-            "GPUs)",
+    "dist": "dist: an exchange of the step goes through torch.distributed "
+            "(--transport dist; at several ranks the bulk and early "
+            "exchanges, solver mode's var exchange and the phases "
+            "slice_size routes to the collective carrier): gloo staging "
+            "synchronises the host, and several ranks need several GPUs",
 }
+# the chained bodies whose only exchange, at several ranks through peer,
+# can be the in-kernel push ("push": the push bench's chain)
+IN_KERNEL = ("overlap", "nocomm", "push")
 CACHE_SIZE = 8          # graphs a model keeps (least recently used go)
 COUPLING = 1e-30        # the reference's chained update: v + 1e-30 · g
 
@@ -86,24 +96,45 @@ COUPLING = 1e-30        # the reference's chained update: v + 1e-30 · g
 _CALLS: collections.Counter = collections.Counter()
 
 
-def dispatch(model) -> tuple[str, str]:
-    """(GRAPH or EAGER, the reason) for a model's chained runners: graph
-    on a CUDA device at one rank with the loopback exchange, else eager."""
+def dispatch(model, schedule: str | None = None,
+             solver_mode: bool = False) -> tuple[str, str]:
+    """(GRAPH or EAGER, the reason) for a model's chained runner of
+    `schedule` (None: a body of unknown exchanges), solver mode or not:
+    graph on a CUDA device at one rank with `loopback` or `peer`, and at
+    several ranks through `peer` for a static body of IN_KERNEL whose push
+    carries every phase (overlap: the model holds its `Peer` and routes no
+    phase); else eager."""
     if torch.device(model.device).type != "cuda":
         return EAGER, EAGER_REASONS["cpu"]
     kind = getattr(model, "transport_kind", "loopback")
-    if kind == "peer":
-        return EAGER, EAGER_REASONS["peer"]
-    if kind != "loopback" or model.world != 1:
+    if kind not in ("loopback", "peer"):
         return EAGER, EAGER_REASONS["dist"]
+    if model.world == 1:
+        return GRAPH, GRAPH_REASON
+    in_kernel = not solver_mode and schedule in IN_KERNEL and not (
+        schedule == "overlap" and (getattr(model, "peer", None) is None
+                                   or getattr(model, "routed", False)))
+    return (GRAPH, GRAPH_REASON) if in_kernel else \
+        (EAGER, EAGER_REASONS["dist"])
+
+
+def dispatch_all(model, schedules, solver_mode: bool = False
+                 ) -> tuple[str, str]:
+    """GRAPH where every listed schedule's runner replays graphs, else the
+    first eager one's (EAGER, reason): what a run's timed loops took."""
+    for s in schedules:
+        kind, why = dispatch(model, s, solver_mode)
+        if kind == EAGER:
+            return kind, why
     return GRAPH, GRAPH_REASON
 
 
-def use_graph(model, graph: bool | None) -> bool:
+def use_graph(model, graph: bool | None, schedule: str | None = None,
+              solver_mode: bool = False) -> bool:
     """Whether a runner replays a graph: graph None follows `dispatch`,
     False runs eager, True demands the graph and raises where the rule
     says eager."""
-    kind, why = dispatch(model)
+    kind, why = dispatch(model, schedule, solver_mode)
     if graph is None:
         return kind == GRAPH
     check(not graph or kind == GRAPH, "graph=True: this model's chained "
@@ -127,6 +158,12 @@ def take_calls() -> dict:
 
 
 # ------------------------------------------------------------ counters
+
+def launch_counters() -> dict:
+    """The port's launch counters a chained body can raise: the sweep
+    kernels' and K6's (the push bench's chain)."""
+    return {**blocksweep.launch_counters(), **push.launch_counters()}
+
 
 def _counts() -> dict:
     return {k: getattr(fn, a) for k, (fn, a) in launch_counters().items()}
@@ -313,11 +350,13 @@ def capture(body, var_T: torch.Tensor, rest: tuple) -> Entry:
 
 # -------------------------------------------------------------- runners
 
-def runner(model, body, n: int, key, *, graph: bool | None = None):
+def runner(model, body, n: int, key, *, graph: bool | None = None,
+           schedule: str | None = None, solver_mode: bool = False):
     """The chained n-step runner of `body(v, *rest, out=None) -> v'` (v is
     not written; v' is a new tensor, or `out` when given, which the step's
     last operation writes as it would a new tensor): run(var_T, *rest) →
-    the state after n steps, a new tensor.  graph: as in `use_graph`.  key:
+    the state after n steps, a new tensor.  graph: as in `use_graph`, for
+    the body's schedule and solver mode (the dispatch rule's inputs).  key:
     what tells this body from the model's others.
 
     Under graph the captured steps live in `model.graphs` (an OrderedDict,
@@ -328,8 +367,9 @@ def runner(model, body, n: int, key, *, graph: bool | None = None):
     i takes buffer i to buffer 1 − i: the steps alternate the two, so no
     step copies the state."""
     check(n >= 0, "n must be >= 0, got %d", n)
-    if not use_graph(model, graph):
-        why = dispatch(model)[1] if graph is None else "graph=False"
+    if not use_graph(model, graph, schedule, solver_mode):
+        why = (dispatch(model, schedule, solver_mode)[1] if graph is None
+               else "graph=False")
 
         def run_eager(var_T, *rest):
             _CALLS[(EAGER, why)] += 1

@@ -875,13 +875,16 @@ class GreenGaussTorch(nn.Module):
         sweeps_per_step stages of sweep + update, then one var exchange; the
         state's own tables are not read.  No step syncs the host.
 
-        graph: None follows `compiled.dispatch` (on a CUDA device at one
-        rank with the loopback exchange the step is captured as CUDA graphs
-        once and replayed, n steps, bit for bit the eager loop; elsewhere
-        eager); False runs eager; True raises `CheckError` where the rule
-        says eager.  coupling: the update's factor, the reference's 1e-30
-        by default (which leaves an f32 state as it was); a check that must
-        see the gradients in the state takes a larger one."""
+        graph: None follows `compiled.dispatch` (on a CUDA device, where
+        every exchange of the body runs in a kernel or on the device, the
+        step is captured as CUDA graphs once and replayed, n steps, bit for
+        bit the eager loop: at one rank every body, at several ranks
+        through `peer` the static overlap chain with no routed phase;
+        elsewhere eager); False runs eager; True raises `CheckError` where
+        the rule says eager.  coupling: the update's factor, the
+        reference's 1e-30 by default (which leaves an f32 state as it was);
+        a check that must see the gradients in the state takes a larger
+        one."""
         check(sweeps_per_step >= 1, "sweeps_per_step must be >= 1, got %d",
               sweeps_per_step)
         check(sweeps_per_step == 1 or solver_mode,
@@ -893,11 +896,11 @@ class GreenGaussTorch(nn.Module):
                   "port runs %s)", schedule, "/".join(SCHEDULES))
             run_solver = compiled.runner(
                 self, self.solver_body(schedule, sweeps_per_step, coupling),
-                n, key, graph=graph)
+                n, key, graph=graph, schedule=schedule, solver_mode=True)
             # the state's tables are not read: the body rebuilds its own
             return lambda var_T, tables: run_solver(var_T)
         run = compiled.runner(self, self.chain_body(schedule, coupling), n,
-                              key, graph=graph)
+                              key, graph=graph, schedule=schedule)
 
         def checked(var_T, tables):
             self.check_schedule(schedule, tables)

@@ -171,7 +171,7 @@ class GreenGaussModel(nn.Module):
         back.  Solver mode is the kernel model's (the reference's too).
         graph, coupling: as in `GreenGaussTorch.iterate_fn`
         (models/compiled.py's rule: one CUDA graph of the step on a card at
-        one rank with the loopback exchange)."""
+        one rank; the ELL model's exchange at several ranks is `dist`)."""
         check(not solver_mode and sweeps_per_step == 1,
               "--solver-mode requires the pallas backend")
         check(schedule in STEP_FNS, "unknown schedule %r", schedule)
@@ -182,7 +182,7 @@ class GreenGaussModel(nn.Module):
                              [..., :nvar], out=out)
 
         return compiled.runner(self, body, n, (schedule, exact, coupling),
-                               graph=graph)
+                               graph=graph, schedule=schedule)
 
     # ------------------------------------------------------------ gather
 

@@ -127,7 +127,6 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     L = ctypes.CDLL(build()["path"])
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    u64 = ctypes.c_uint64
     # pack: var_T, ndev, widx, ext_idx, ep, block_ids, slots, K, bp, P, nb,
     # L, delta, rows, out, stream
     L.cfd_pack_srcs.restype = ctypes.c_int
@@ -141,8 +140,8 @@ def lib() -> ctypes.CDLL:
     # sendbufs, esize, dsts, nph, s_max, recv, stream
     push = [vp, i32, vp, i64, i64, vp, vp]
     # the peer form's: sendbufs, esize, table, flags, recv, nph, s_max,
-    # epoch_ready, epoch_arrive, mode, stream
-    peer = [vp, i32, vp, vp, vp, i64, i64, u64, u64, i32, vp]
+    # mode, stream (the launch epochs are device words after `flags`)
+    peer = [vp, i32, vp, vp, vp, i64, i64, i32, vp]
     # (accumulate,) op (0 gg, 1 flux), then the dtype flags: w_bf16,
     # (packed: src_bf16d,) out_bf16, (K1 alone: var_bf16,) and out
     for name, args in (
@@ -157,10 +156,8 @@ def lib() -> ctypes.CDLL:
                                         *peer]),
             ("cfd_sweep_overlap_gather_peer", [*gather, i32, i32, i32, vp,
                                                *peer]),
-            # K6: sendbufs, P, nph, bytes, table, flags, recv, epoch_ready,
-            # epoch_arrive, mode, stream
-            ("cfd_push_phases", [vp, i64, i64, i64, vp, vp, vp, u64, u64,
-                                 i32, vp]),
+            # K6: sendbufs, P, nph, bytes, table, flags, recv, mode, stream
+            ("cfd_push_phases", [vp, i64, i64, i64, vp, vp, vp, i32, vp]),
             # kernel facts (registers, local bytes, static shared bytes,
             # blocks per SM; K2's cluster body also its resident clusters)
             # into an int[5]: K3-peer (gather, w_bf16, src_bf16d,

@@ -867,6 +867,12 @@ def _push_table(dsts: bytes, src_devs: bytes, shape: tuple,
     return torch.from_numpy(d.copy()).to(device)
 
 
+# the peer push's launch modes: csrc/push_common.cuh's bit set (1 the
+# readiness barrier, 2 the copy, 4 phase 0 copied locally without the copy)
+PUSH_MODES = {"full": 1 | 2, "nobar": 2, "nodma": 0, "baronly": 1 | 4,
+              "empty": 4}
+
+
 def _check_peer(peer, sendbufs, P, dev, rows, debug) -> str:
     """Validate the peer form's push operands; returns the launch mode."""
     check(dev.type == "cuda", "the peer form pushes to mapped device "
@@ -881,12 +887,12 @@ def _check_peer(peer, sendbufs, P, dev, rows, debug) -> str:
 
 
 def _peer_args(peer, sendbufs, mode: str) -> tuple:
-    """The peer form's push arguments (ops/_cuda.py), advancing the
-    transport's launch epochs."""
-    ready, arrive, bits = peer.epochs(mode)
+    """The peer form's push arguments (ops/_cuda.py); the launch epochs are
+    device words of the transport's exchange block, which the kernel reads
+    and advances, so nothing here changes from one launch to the next."""
     return (sendbufs.data_ptr(), sendbufs.element_size(),
             peer.table.data_ptr(), peer.flags, peer.recv.data_ptr(),
-            sendbufs.shape[1], sendbufs.shape[3], ready, arrive, bits)
+            sendbufs.shape[1], sendbufs.shape[3], PUSH_MODES[mode])
 
 
 def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from cfd_proxy_tpu_torch.ops.blocksweep import PUSH_MODES
 from cfd_proxy_tpu_torch.utils.errors import check
 
 MODES = ("full", "nobar", "baronly", "empty")
@@ -69,13 +70,12 @@ def push_phases(sendbufs: torch.Tensor, peer, mode: str = "full"
           "tensors takes a Peer transport, got %r", peer)
     peer.check_sendbufs(sendbufs)
     P, nph = sendbufs.shape[:2]
-    ready, arrive, bits = peer.epochs(mode)
     dev = sendbufs.device
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_push_phases(
             sendbufs.data_ptr(), P, nph, peer.seg_bytes,
-            peer.table.data_ptr(), peer.flags, peer.recv.data_ptr(), ready,
-            arrive, bits, torch.cuda.current_stream(dev).cuda_stream)
+            peer.table.data_ptr(), peer.flags, peer.recv.data_ptr(),
+            PUSH_MODES[mode], torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check_launch(rc, "push_phases")
     attr = mode + "_launches"
     setattr(push_phases, attr, getattr(push_phases, attr) + 1)

@@ -25,7 +25,8 @@ Three transports:
   (CPU tensors), "dist/gloo-staged" (CUDA tensors under a gloo group: staged
   through pinned host buffers).
 - `Peer`: no transfer of its own.  It owns the rank's persistent exchange
-  memory (receive buffers and flag words, one `cudaMalloc` block), publishes
+  memory (receive buffers, flag words and the two launch epoch words the
+  kernels advance, one `cudaMalloc` block), publishes
   it to the other ranks through CUDA IPC, maps theirs, and hands the fused
   kernel K3 and the push bench's K6 a device table of peer addresses; the
   kernels do the pushes (csrc/push_common.cuh).  CUDA only.
@@ -51,8 +52,6 @@ from cfd_proxy_tpu_torch.utils.errors import check
 
 TRANSPORTS = ("loopback", "dist", "peer")
 DIST_BACKENDS = ("nccl", "gloo")
-PUSH_MODES = {      # csrc/push_common.cuh's bit set
-    "full": 1 | 2, "nobar": 2, "nodma": 0, "baronly": 1 | 4, "empty": 4}
 
 
 def group_size(group) -> tuple[int, int]:
@@ -228,12 +227,13 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 def peer_layout(nlocal: int, nph: int, seg_bytes: int) -> dict:
     """Byte offsets inside one rank's exchange block (push_common.cuh):
     recv (nlocal, nph, seg_bytes), then u64 words ready (nlocal, nph),
-    arrive (nlocal, nph) and done."""
+    arrive (nlocal, nph), done and the two launch epochs (the rank's
+    launches so far with the barrier, and with the copy)."""
     npk = nlocal * nph
     flags = -(-npk * seg_bytes // 256) * 256
     return {"recv": 0, "flags": flags, "ready": flags,
             "arrive": flags + 8 * npk, "done": flags + 16 * npk,
-            "bytes": flags + 16 * npk + 8}
+            "epochs": flags + 16 * npk + 8, "bytes": flags + 16 * npk + 24}
 
 
 def peer_table(dsts: np.ndarray, srcs: np.ndarray, lo: int, hi: int,
@@ -284,8 +284,11 @@ class Peer:
     inverse, over ALL shards; shape (rows, s_max) and dtype of one (shard,
     phase) buffer.  `recv` is the rank's (P_local, nph, rows, s_max)
     receive tensor, `table` the device address table and `flags` the flag
-    words' address, as the kernels take them.  `epochs(mode)` advances and
-    returns the launch counters a kernel launch needs.  The ranks must all
+    words' address, as the kernels take them.  `epoch_words` views the two
+    launch epoch words (int64 on the device: the launches so far with the
+    barrier, and with the copy), which the kernels read and advance, so a
+    launch holds no host counter and replays as part of a CUDA graph; every
+    rank must launch the same modes in the same order.  The ranks must all
     sit on one node: CUDA IPC maps memory between processes of one host.
     `close()` (collective) unmaps and frees."""
 
@@ -351,22 +354,13 @@ class Peer:
         self.recv = block[:n * self.nph * self.seg_bytes].view(dtype).view(
             self.shape)
         self.flags = self._base + lay["flags"]
+        self.epoch_words = block[lay["epochs"]:lay["bytes"]].view(
+            torch.int64)
         self.table = torch.from_numpy(
             peer_table(dsts, srcs, self.lo, self.hi, bases, self.seg_bytes)
             .view(np.int64)).to(self.device)
-        self._ready = self._arrive = 0
         if self.world > 1:
             dist.barrier(group=group)   # every rank mapped before any push
-
-    def epochs(self, mode: str) -> tuple[int, int, int]:
-        """(epoch_ready, epoch_arrive, mode bits) of the next launch: the
-        launches so far with the barrier and with the copy, that one
-        included.  Every rank must launch the same modes in the same
-        order."""
-        bits = PUSH_MODES[mode]
-        self._ready += bits & 1
-        self._arrive += (bits >> 1) & 1
-        return self._ready, self._arrive, bits
 
     def check_sendbufs(self, sendbufs: torch.Tensor) -> None:
         check(tuple(sendbufs.shape) == self.shape
@@ -391,7 +385,7 @@ class Peer:
         self._unmap()
         if self.world > 1:
             dist.barrier(group=self.group)
-        self.recv = self.table = self._block = None
+        self.recv = self.table = self._block = self.epoch_words = None
         self._lib.cfd_ipc_free(self._dev, self._base)
         self._base = None
         _open_peers.discard(self)

@@ -22,6 +22,7 @@ import torch
 
 from cfd_proxy_tpu_torch.mesh.generator import generate_mesh, make_state
 from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
+from cfd_proxy_tpu_torch.models import compiled
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.models.gradients_ell import DTYPES, GreenGaussModel
 from cfd_proxy_tpu_torch.ops import blocksweep as bs
@@ -135,6 +136,50 @@ def model_outputs(case: ModelCase, parts=None, arrays=None,
                 "foreign_modules": sorted(
                     k for k, v in sys.modules.items() if v is not None and
                     k.split(".")[0] in ("jax", "cfd_proxy_tpu"))}
+    finally:
+        model.close()
+
+
+def overlap_chain(case: ModelCase, steps: int, coupling: float) -> dict:
+    """The case's model (this rank's share) runs `steps` chained overlap
+    steps at `coupling` under its dispatch rule (graph on the card through
+    `peer`, at any rank count) and eagerly: {"dispatch": the rule's kind,
+    "graph_equals_eager": this rank's two final states bit for bit,
+    "moved": how far the state moved, "digest": the sha256 of the final
+    state over all shards (the same on every rank), "replay_kernels": the
+    kernels one replay launches (`compiled.kernel_nodes`, graph only),
+    "launches": this rank's kernel launches}."""
+    group, rank, world, device = join(case.device, case.backend,
+                                      case.share_device)
+    mesh, parts = _mesh_parts(case.nx, case.ny, case.nz, case.diag_frac,
+                              case.mesh_seed, case.parts)
+    gvar = make_state(mesh.npoint, case.nvar, seed=case.state_seed)
+    counters = bs.launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    model = GreenGaussTorch(parts, case.nvar, device=device, group=group,
+                            share_device=case.share_device, **case.model)
+    try:
+        state = model.distribute_state(gvar, schedules=["overlap"])
+        args = model.iter_args(state)
+        kind, _ = compiled.dispatch(model, "overlap")
+        graph = model.iterate_fn("overlap", steps, coupling=coupling)(*args)
+        eager = model.iterate_fn("overlap", steps, graph=False,
+                                 coupling=coupling)(*args)
+        nodes = []
+        if kind == compiled.GRAPH:
+            entry = next(reversed(model.graphs.values()))
+            nodes = compiled.kernel_nodes(entry.graphs[0])
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        return {"dispatch": kind, "rank": rank, "world": world,
+                "graph_equals_eager": bool(torch.equal(graph, eager)),
+                "moved": float((eager - args[0]).abs().max()),
+                "digest": digest(gather_shards(graph, model.group).numpy()),
+                "replay_kernels": len(nodes),
+                "launches": {k: getattr(fn, attr)
+                             for k, (fn, attr) in counters.items()
+                             if getattr(fn, attr)}}
     finally:
         model.close()
 

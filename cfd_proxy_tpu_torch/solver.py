@@ -57,12 +57,15 @@ model (models/gradients_ell.py, plain torch, Green-Gauss only) in
 pad the schedule with self-send phases carrying real payloads, so a single
 shard moves P > 1-shaped exchanges; their ghost regions differ between
 schedules, so the schedules are compared on owned columns only.
-Dispatch.  On a card at one rank with the `loopback` exchange each timed
-loop replays the step, captured once as CUDA graphs (the
-reference's jit + `fori_loop`, models/compiled.py); `peer`, `dist` and the
-CPU run the same step eagerly.  The result's `dispatch` ("graph" or
-"eager") and `dispatch_reason` say which, and the summary line prints
-`dispatch=`.
+Dispatch.  On a card each timed loop whose exchanges all run in a kernel
+or on the device replays the step, captured once as CUDA graphs (the
+reference's jit + `fori_loop`, models/compiled.py): every loop at one rank
+(`loopback` or `peer`), and at several ranks through `peer` the overlap
+loop with no routed phase and the nocomm floor; loops with an exchange
+through `torch.distributed`, and the CPU, run the same step eagerly.  Each
+schedule's entry carries its `dispatch`; the result's `dispatch` ("graph"
+where every timed loop replayed graphs, else "eager") and
+`dispatch_reason` sum them up, and the summary line prints `dispatch=`.
 `--profile DIR` writes a `torch.profiler` trace (Chrome trace JSON) of the
 timed loops to DIR.  The reference's `--pack-force` and `--platform` are
 parsed and refused by name (`CheckError`, `check_config`): they work
@@ -495,7 +498,9 @@ def _run_model(cfg: SolverConfig, model, gmesh):
                                **mode)
             stats.append(st)
             entries[s] = {**st.summary(),
-                          "faces_per_sec": nface * sweeps / st.median}
+                          "faces_per_sec": nface * sweeps / st.median,
+                          "dispatch": compiled.dispatch(
+                              model, s, cfg.solver_mode)[0]}
         if len(schedules) > 1:
             # compute-only floor: the bulk sweep without the exchange
             st = time_schedule(model, state, "nocomm", cfg.iters,
@@ -516,8 +521,9 @@ def _run_model(cfg: SolverConfig, model, gmesh):
         "transport": model.transport_name,
         # how the timed chained loops ran: CUDA graphs replayed, or
         # eager, with the rule's reason (models/compiled.py)
-        **dict(zip(("dispatch", "dispatch_reason"),
-                   compiled.dispatch(model))),
+        **dict(zip(("dispatch", "dispatch_reason"), compiled.dispatch_all(
+            model, [*schedules, *["nocomm"] * (len(schedules) > 1)],
+            cfg.solver_mode))),
         **model_fields(cfg, model),
         "solver_mode": cfg.solver_mode,
         "sweeps_per_step": cfg.sweeps_per_step if cfg.solver_mode else None,

@@ -9,7 +9,10 @@ flags and the final wait.  The loop is the reference's chained one (each
 iteration's state depends on what the push received), timed with the
 two-point sampler, every loop ended by a device synchronise; five samples,
 the median reported, as GB/s of payload and of memory traffic (read +
-write).
+write).  On the card the loop replays one chained step captured as CUDA
+graphs (`models/compiled.py`, the body "push": it holds no collective, so
+at any rank count), as the reference jits its `fori_loop`; each row ends
+with the dispatch its loop took.
 
     python -m cfd_proxy_tpu_torch.tools.icibench --phases 1 2 4 \\
         --mb 0.125 1 8 32
@@ -39,10 +42,13 @@ phase through the loopback or dist transport) and measures nothing real.
 from __future__ import annotations
 
 import argparse
+import collections
+import types
 
 import numpy as np
 import torch
 
+from cfd_proxy_tpu_torch.models import compiled
 from cfd_proxy_tpu_torch.ops.push import MODES, push_phases
 from cfd_proxy_tpu_torch.parallel import launch
 from cfd_proxy_tpu_torch.parallel.transport import (DIST_BACKENDS, Dist,
@@ -82,23 +88,50 @@ def make_transport(world: int, nph: int, rows: int, lanes: int, device,
     return Dist(perms, world, group, device)
 
 
-def chained_runner(send: torch.Tensor, transport, mode: str):
-    """run(n): n chained pushes, v ← v + 1e-30·recv, then a device
-    synchronise (the reference's loop, icibench.py:146-152)."""
-    def run(n: int) -> None:
-        v = send
-        for _ in range(n):
-            v = v + 1e-30 * push_phases(v, transport, mode)
+def chain_host(transport, device) -> types.SimpleNamespace:
+    """What `compiled.runner` reads of a model, for the push chain: the
+    device, the transport's kind and rank count, and a graph cache (free it
+    with `.graphs.clear()` before the transport closes)."""
+    kind = {"peer": "peer", "loopback": "loopback"}.get(
+        getattr(transport, "name", ""), "dist")
+    return types.SimpleNamespace(
+        device=torch.device(device), transport_kind=kind,
+        world=getattr(transport, "world", 1),
+        graphs=collections.OrderedDict())
+
+
+def chained_runner(send: torch.Tensor, transport, mode: str, host=None,
+                   graph: bool | None = None,
+                   coupling: float = compiled.COUPLING):
+    """run(n) → v: n chained pushes, v ← v + coupling·recv (the reference's
+    1e-30 by default, which leaves an f32 state as it was: a check that
+    must see the pushes takes a larger one), then a device synchronise
+    (the reference's loop, icibench.py:146-152), through `compiled.runner`
+    for the body "push" on `host` (`chain_host`): on the card the step
+    captured as CUDA graphs and replayed, on the CPU eager.  run.dispatch:
+    the (kind, reason) its loops take; graph: as in `compiled.use_graph`."""
+    host = host or chain_host(transport, send.device)
+
+    def body(v, out=None):
+        return torch.add(v, coupling * push_phases(v, transport, mode),
+                         out=out)
+
+    def run(n: int) -> torch.Tensor:
+        v = compiled.runner(host, body, n, ("push", mode, coupling),
+                            graph=graph, schedule="push")(send)
         if v.device.type == "cuda":
             torch.cuda.synchronize(v.device)
+        return v
 
+    run.dispatch = ((compiled.EAGER, "graph=False") if graph is False else
+                    compiled.dispatch(host, "push"))
     return run
 
 
 def bench_rank(args: argparse.Namespace) -> list:
     """One rank's bench: [(phases, MB per phase, seconds per iteration or
-    None)] per (phases, payload); a multi-rank run joins its group first
-    and reports the slowest rank's samples."""
+    None, dispatch)] per (phases, payload); a multi-rank run joins its
+    group first and reports the slowest rank's samples."""
     group, world, device = None, 1, args.device
     if args.ranks > 1:
         group, _, world, device = launch.join_rank(
@@ -114,7 +147,8 @@ def bench_rank(args: argparse.Namespace) -> list:
                                        group)
             send = torch.ones((1, nph, args.rows, lanes),
                               dtype=torch.float32, device=device)
-            run = chained_runner(send, transport, args.mode)
+            host = chain_host(transport, device)
+            run = chained_runner(send, transport, args.mode, host)
             run(n0)
             run(n0 + args.iters)                    # warm both lengths
             small, big = (lambda: run(n0)), (lambda: run(n0 + args.iters))
@@ -126,7 +160,9 @@ def bench_rank(args: argparse.Namespace) -> list:
             vals = [v for v in (sample() for _ in range(SAMPLES))
                     if v is not None]
             rows_out.append((nph, args.rows * lanes * 4 / 1e6,
-                             float(np.median(vals)) if vals else None))
+                             float(np.median(vals)) if vals else None,
+                             run.dispatch[0]))
+            host.graphs.clear()         # before the memory they read goes
             if hasattr(transport, "close"):
                 transport.close()
     return rows_out
@@ -196,14 +232,15 @@ def main(argv=None) -> int:
     print(f"{'phases':>6} {'MB/phase':>9} {'ms/iter':>9} {'GB/s payload':>13} "
           f"{'GB/s HBM r+w':>13}")
     best_gbps = 0.0
-    for nph, mb, t in table:
+    for nph, mb, t, how in table:
         if t is None:
-            print(f"{nph:>6} {mb:>9.3f}   below dispatch-noise floor")
+            print(f"{nph:>6} {mb:>9.3f}   below dispatch-noise floor  "
+                  f"dispatch={how}")
             continue
         gbps = nph * mb * 1e6 / t / 1e9
         best_gbps = max(best_gbps, gbps)
         print(f"{nph:>6} {mb:>9.3f} {t * 1e3:>9.3f} {gbps:>13.1f} "
-              f"{2 * gbps:>13.1f}")
+              f"{2 * gbps:>13.1f}  dispatch={how}")
     if best_gbps and args.link_gbps is not None:
         sug = min(best_gbps, args.link_gbps)
         print(f"# peak payload rate {best_gbps:.1f} GB/s; suggested "

@@ -30,7 +30,8 @@ are the CPU's).  Output: the median per-pair ratio A/B with its IQR (ratio
 > 1 means B is faster), each side's median step time and faces/s, and a
 null calibration (consecutive side-A samples, whose ratio should center on
 1).  Model fields of the reference the port does not build are refused by
-name (`REFUSED`), never ignored.
+name (`REFUSED`), never ignored, and so is the reference's `--platform` (a
+`CheckError` naming `--device`).
 """
 
 from __future__ import annotations
@@ -52,9 +53,9 @@ from cfd_proxy_tpu_torch.utils.timing import two_point_sampler
 # SolverConfig fields that change the constructed model (everything else —
 # schedule, iters, warmup — only changes how it is driven)
 _MODEL_FIELDS = (
-    "model", "nvar", "bp", "kernel", "force_rdma", "meta_dtype",
-    "src_dtype", "kcompact", "halo_dtype", "grad_dtype", "backend",
-    "min_phases", "fake_sends", "fake_tail_frac",
+    "model", "nvar", "bp", "kernel", "force_rdma", "slice_size",
+    "meta_dtype", "src_dtype", "kcompact", "halo_dtype", "grad_dtype",
+    "backend", "min_phases", "fake_sends", "fake_tail_frac",
 )
 
 # fields the per-side drive honors (schedule, mode, state seed).  Everything
@@ -73,8 +74,6 @@ REFUSED = {
                      "list)",
     "pack_force": "the pack lowerings it picks work around XLA and are not "
                   "ported (ROADMAP queue 2, not-ported list)",
-    "slice_size": "multi-node phase routing comes with ROADMAP queue 1 "
-                  "item 12",
 }
 
 
@@ -183,7 +182,13 @@ def main(argv=None) -> int:
                     help="emit one JSON line instead of the table")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the kernels; cpu: their plain versions")
+    ap.add_argument("--platform", default=None,
+                    help="the reference's JAX platform switch: refused "
+                         "(use --device)")
     args = ap.parse_args(argv)
+    check(args.platform is None, "--platform %s: a JAX platform switch, not "
+          "ported (ROADMAP queue 2, not-ported list); use --device cpu|cuda",
+          args.platform)
 
     base = SolverConfig(
         nx=args.nx, ny=args.ny or max(args.nx // 4, 8),

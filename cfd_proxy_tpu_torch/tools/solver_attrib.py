@@ -17,7 +17,9 @@ device synchronise), one shard, the bulk schedule:
 
 Each body keeps the reference's data dependences: the knocked-out parts
 still feed the next step (a 1e-60 multiple of the tables' sum, a 1e-30
-multiple of the gradients), so no part can be skipped.  Each runs as the
+multiple of the gradients; `knockout_fn(..., coupling=c)` takes c and
+c·1e-30 instead, where a check must see them in the state), so no part can
+be skipped.  Each runs as the
 solver-mode runner does (`models/compiled.py`): on the card the body
 captured as CUDA graphs and replayed, eagerly on the CPU.  The times below were taken
 eagerly, before the graph dispatch (PERF.md §6 has both).
@@ -57,44 +59,57 @@ from cfd_proxy_tpu_torch.utils.timing import two_point_sampler
 MODES = ("noop", "extsonly", "tablesonly", "sweeponly", "all")
 
 
-def knockout_fn(model: GreenGaussTorch, state: dict, mode: str):
-    """run(n, v0): n chained steps of mode's body from the state v0, each
-    ending in the var halo exchange, as the solver-mode step does; through
-    `compiled.runner` under the model's dispatch rule, so on the card every
-    mode's body is captured as CUDA graphs and replayed, as the solver-mode
-    runner is (the same body, and so the same work knocked out, in either
-    form)."""
+def knockout_fn(model: GreenGaussTorch, state: dict, mode: str,
+                coupling: float = 1e-30, sink: torch.Tensor | None = None):
+    """run(n, v0, graph=None): n chained steps of mode's body from the state
+    v0, each ending in the var halo exchange, as the solver-mode step does;
+    through `compiled.runner` under the model's dispatch rule, so on the
+    card every mode's body is captured as CUDA graphs and replayed, as the
+    solver-mode runner is (the same body, and so the same work knocked out,
+    in either form; graph: as in `compiled.use_graph`).  coupling: the
+    gradients' factor (the tables' is coupling·1e-30).  sink: a buffer each
+    step copies what it computes into (the gradients of all and sweeponly,
+    the rebuilt table of tablesonly), for a check of one replayed step."""
     check(mode in MODES, "unknown mode %r (one of %s)", mode, "/".join(MODES))
     ext_idx = model.plans["bulk"]["ext_idx"]
+    c_tab = coupling * 1e-30
+
+    def keep(x):
+        if sink is not None:
+            sink.copy_(x)
+        return x
 
     def body(v, fixed, out=None):
         if mode == "all":
             tb = model._build_tables(v, ("bulk",))
-            v2 = torch.add(v, 1e-30 * model(v, tb, "bulk")[:, :NV], out=out)
+            v2 = torch.add(v, coupling * keep(model(v, tb, "bulk"))[:, :NV],
+                           out=out)
         elif mode == "sweeponly":
-            v2 = torch.add(v, 1e-30 * model(v, fixed, "bulk")[:, :NV],
+            v2 = torch.add(v, coupling * keep(model(v, fixed, "bulk"))[:, :NV],
                            out=out)
         elif mode == "tablesonly":
-            tb = model._build_tables(v, ("bulk",))["bulk"]
-            v2 = torch.add(v, tb.float().sum() * 1e-60, out=out)
+            tb = keep(model._build_tables(v, ("bulk",))["bulk"])
+            v2 = torch.add(v, tb.float().sum() * c_tab, out=out)
         elif mode == "extsonly":
-            v2 = torch.add(v, gather_exts(v, ext_idx).sum() * 1e-60,
+            v2 = torch.add(v, keep(gather_exts(v, ext_idx)).sum() * c_tab,
                            out=out)
         else:
             v2 = torch.mul(v, 1.0 + 1e-30, out=out)
         return model._var_exchange(v2)
 
-    def run(n, v0):
-        return compiled.runner(model, body, n, ("attrib", mode))(
+    key = ("attrib", mode, coupling, None if sink is None else id(sink))
+
+    def run(n, v0, graph=None):
+        return compiled.runner(model, body, n, key, graph=graph)(
             v0, state["tables"])
 
     return run
 
 
 def attribute(model: GreenGaussTorch, state: dict, modes, iters: int,
-              repeats: int) -> dict:
+              repeats: int, graph: bool | None = None) -> dict:
     """{mode: the ms per step of each sample that cleared the noise
-    floor}."""
+    floor}; graph: the runners' dispatch, as in `knockout_fn`."""
     n0 = max(1, iters // 10)
     v0 = state["var_T"]
     out = {}
@@ -102,7 +117,7 @@ def attribute(model: GreenGaussTorch, state: dict, modes, iters: int,
         run = knockout_fn(model, state, mode)
 
         def timed(n, run=run):
-            run(n, v0)
+            run(n, v0, graph)
             if model.device.type == "cuda":
                 torch.cuda.synchronize(model.device)
 

@@ -53,19 +53,36 @@ faces, nvar 7, random state from a seed):
   dispatch every loop above took) against the same step eager, at P=1
   bulk, P=1 `all` with force_rdma, P=8 every schedule, gather/512 solver
   mode (P=1 one sweep, P=8 two), the full bf16 stack (P=1 overlap, P=8
-  early) and flux P=1 `all`: the dispatch "graph"; 20 chained steps
+  early), flux P=1 `all`, the overlap step through the peer transport
+  (P=1 `all` with force_rdma; P=8 packed f32, gather/512 and the full bf16
+  stack: the launch epochs are device words, so the step replays; its
+  20 steps also equal its loopback twin's graph bit for bit), the ELL
+  model (P=1, f32 and f64, bulk and overlap; no kernel of the port, so its
+  census is of its torch ops, recorded) and one `solver_attrib` knockout
+  per kernel it knocks out (packed tablesonly: K4; packed sweeponly: K1;
+  gather/512 sweeponly: K2): the dispatch "graph"; 20 chained steps
   under graph and eager bit for bit, at a coupling (0.1 over the first
-  step's max |g|) that makes the state carry every step's gradients; one replayed step's gradients bit
-  for bit the eager step's and within the golden bound; the kernels a
+  step's max |g|) that makes the state carry every step's gradients; one
+  replayed step's output (its gradients; the knockout tablesonly: its
+  rebuilt table) bit for bit the eager step's and its gradients within
+  the golden bound (f64 ELL 1e-12); the kernels a
   replay launches, read from the captured graphs (`compiled.kernel_nodes`),
   the port's among them equal to the launches an eager step counts and to
   the counts the runner adds (CUPTI's view of an eager step and of the
   replays recorded beside them); the capture's seconds and peak memory;
   the step in turns
   (eager, graph, graph, eager) with each turn's device ms and idle share,
-  failing where the graph step is over 1.03x the eager or P=1 overlap's
-  idle share under graph is not below its eager one; the P=1 and P=8
-  overlap steps profiled both ways, their device ms within 5 %;
+  failing where the graph step is over 1.03x the eager (each turn's step
+  at least its held device time: the host's clock read an eager step 7 %
+  under it once) or where, in P=1
+  overlap (f32 `all`, full bf16 stack, flux), the idle share under graph
+  is above 1 % or above an eager share that is above 1 %; the P=1 and P=8
+  overlap steps profiled both ways in turns (eager, graph, graph, eager,
+  twice; a window's step device ms from each kernel's mean over the
+  records it kept, as CUPTI drops some, times the most launches a step
+  any window shows), failing unless each side has a window that holds
+  every kernel and the median window's device ms per side are within
+  5 % (each side's launches a step recorded);
 - `kbench`: the kernel bench (`tools/kbench.py`) at its defaults (96³, bp
   4096), driven through `kbench.main` with `--check` three times: the
   full-width variants (K1 as prod, flat, bf16src, w16, bf16sw; the twins
@@ -83,7 +100,12 @@ faces, nvar 7, random state from a seed):
   prod/nv7, cflux/cstream_flux, cflux/cflux_fact, compact_bso over
   bso_fold, bso_wsum, bso_acc3, var16 and compact_i8) timed in turns.
 - `peer_p1`, `peer_p8`, `peer_w2`, `nccl_w1`, `icibench`: the multi-rank
-  transports and the push bench (see the phases' comments);
+  transports and the push bench (see the phases' comments): the overlap
+  step through both transports timed in turns under their dispatch
+  (graph), K3-peer at most 1.05x its loopback form, the two-process
+  overlap chain under graph in both processes (bitwise to eager per rank
+  and to the one-process chain), the push bench's rows replayed as graphs
+  and K6's chain timed under graph and eager;
 - `ell_p1`, `ell_p8`: the ELL model (`--backend xla`, plain torch, no
   kernel of the port) at one and 8 shards, f32 and f64: every schedule
   against the golden (f32 1e-5, f64 1e-12) and bulk, the f64 exact path's
@@ -140,7 +162,7 @@ over 67 TFLOP/s (the H100 SXM's published peaks).
 
 Phases print one JSON line each on stdout, each with `dispatch`: how the
 phase's chained loops ran (runner calls under "graph" and "eager", the
-eager ones' reasons: the peer transport, gloo; "none" without a loop);
+eager ones' reasons: torch.distributed, gloo; "none" without a loop);
 any failure raises and exits non-zero.  The last lines are the kernel table (JSON), the card's name and
 power limit as nvidia-smi reports them, and
 
@@ -176,6 +198,9 @@ GRAPH_MOVE = 0.1     # the bitwise runs' coupling: GRAPH_MOVE / max|g| (the
                      # reference's 1e-30 leaves an f32 state as it was)
 GRAPH_CHECK_N = 2    # replays whose kernels CUPTI counts, per configuration
 PROFILE_BAND = (0.95, 1.05)  # profiled device ms, graph over eager
+PROFILE_TURNS = 2    # rounds of profiled windows (eager, graph, graph, eager)
+IDLE_FLOOR = 0.01    # an idle share at or under it leaves the host no share
+IDLE_CFGS = ("p1_all_overlap", "full_p1_overlap", "flux_p1_all_overlap")
 PORT_KERNEL = re.compile(r"\b(?:sweep|pack)_\w*kernel\b")  # csrc's symbols
 SCHEDULES_ALL = ("bulk", "early", "overlap", "nocomm")
 GATHER_BP = 512      # the gather kernel's solver-mode block size
@@ -383,6 +408,7 @@ KERNELS.update({
 })
 PEER_STEPS = 5        # timed steps of a two-process run (time-sliced)
 PEER_MIN_BLOCKS = 6   # K3's resident blocks per SM (sweep_overlap.cu kMinBlocks)
+PEER_OVER_LOOPBACK = 1.05  # K3-peer's time over its loopback form's, at most
 # the same of K3's staged gather instances (kStagedMinBlocks), which the
 # 48 KB table of the P=8 interior plan admits
 STAGED_MIN_BLOCKS = 4
@@ -390,6 +416,7 @@ PEER_W2_LIMIT_S = 420     # the two-process phase is killed past this
 ICI_PHASES = (1, 2, 4)                  # the push bench's grid: the
 ICI_MB = (0.125, 1.0, 8.0, 32.0)        # reference's defaults
 ICI_ROW = (4, 8.0)    # (phases, MB per phase) of K6's kernel-table rows
+ICI_CHAIN_ITERS = 100  # chained pushes per two-point sample of the chain
 PACKED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
           "sweep_blocks_overlap")
 GATHER = ("sweep_blocks_gather", "sweep_blocks_gather_init",
@@ -401,6 +428,7 @@ FLUX_GATHER = ("sweep_blocks_gather_flux", "sweep_blocks_gather_flux_init",
 # the ELL model (--backend xla) and the tools beside the solver
 ELL_STEPS = 30       # timed ELL steps per schedule (a step takes ms)
 ELL_PROFILE_STEPS = 10
+ELL_GRAPH_ITERS = 20  # timed ELL steps per turn of the graph phase
 ELL_F64_TOL = 1e-12  # f64 vs the golden (ULP level expected) and schedules
 GT_NX = 24           # the golden tool's mesh (its --nx)
 FAKE = {"min_phases": 8, "fake_sends": 4096}   # 6 real phases at P=8
@@ -648,15 +676,20 @@ def gather_kernel_facts(bs, body: str, bp: int, ep: int, op: str = "gg",
 
 
 def device_profile(model, state, schedule: str, n: int = 20,
-                   graph: bool | None = None) -> dict:
-    """Device time per step of n chained steps under torch.profiler: the
-    CUDA kernels' and copies' device time summed (one stream, so nothing
-    overlaps) over n, beside the profiled wall time per step, with the
-    largest parts.  `device_ms` is None when the profiler saw no device
-    activity.  graph: the runner's dispatch (`iterate_fn`; None: the
-    model's rule, on the card the step's CUDA graphs replayed n times,
-    whose copy of the state in and out adds two state copies to the n
-    steps)."""
+                   graph: bool | None = None, detail: bool = False) -> dict:
+    """Device time of one step of n chained steps under torch.profiler
+    (`step_device_ms` over the window's `kernels`, name: [records, device
+    us], and `launches`, name: its records over n, rounded), beside the
+    profiled wall time per step, the largest parts, and the records the
+    window holds and lacks (`records`, `dropped`).  Late in a long process
+    CUPTI drops records, a few a window or half of one; a sum over the
+    window divided by n then read low (by one K3 launch in 20, 5 %), the
+    per-name means do not.  A run's own copies (the graph runner's copy of
+    the state in and out) round to no launch a step.  `device_ms` is None
+    when the profiler saw no device activity.  graph: the runner's
+    dispatch (`iterate_fn`; None: the model's rule, on the card the step's
+    CUDA graphs replayed n times).  detail: also return `kernels` and
+    `launches`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -671,17 +704,39 @@ def device_profile(model, state, schedule: str, n: int = 20,
         run(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    parts = {}
+    kernels = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
-            parts[e.key[:96]] = parts.get(e.key[:96], 0.0) + us / 1e3 / n
+            k = kernels.setdefault(e.key[:96], [0, 0.0])
+            k[0] += e.count
+            k[1] += us
+    launches = {k: round(r / n) for k, (r, _) in kernels.items()
+                if round(r / n) > 0}
+    parts = {k: kernels[k][1] / kernels[k][0] / 1e3 * c
+             for k, c in launches.items()}
     top = dict(sorted(parts.items(), key=lambda kv: -kv[1])[:8])
-    device = sum(parts.values())
-    return {"device_ms": device if device > 0 else None,
-            "wall_ms": wall * 1e3 / n, "steps": n, "top_ms": top}
+    device = step_device_ms(kernels, launches)
+    return {"device_ms": device if device else None,
+            "wall_ms": wall * 1e3 / n, "steps": n,
+            "records": sum(r for r, _ in kernels.values()),
+            "dropped": sum(max(0, c * n - kernels[k][0])
+                           for k, c in launches.items()),
+            "top_ms": top,
+            **({"kernels": kernels, "launches": launches} if detail else {})}
+
+
+def step_device_ms(kernels: dict, launches: dict) -> float | None:
+    """Device ms of a step that launches `launches` (name: launches a
+    step), each launch at its name's mean over a profiled window's
+    records (`kernels`, name: [records, device us]); None where the
+    window holds no record of a name."""
+    if any(k not in kernels for k in launches):
+        return None
+    return sum(kernels[k][1] / kernels[k][0] / 1e3 * c
+               for k, c in launches.items())
 
 
 def kernel_device_ms(fn, n: int) -> float:
@@ -738,6 +793,7 @@ def main() -> int:
         from cfd_proxy_tpu_torch.solver import (golden, solver_mode_defaults,
                                                 time_schedule)
         from cfd_proxy_tpu_torch.solver import main as solver_main
+        from cfd_proxy_tpu_torch.utils.timing import two_point_sampler
         from cfd_proxy_tpu_torch.tools import (dryrun, icibench, kbench,
                                                scaling_inputs, scaling_model,
                                                solver_attrib)
@@ -1951,7 +2007,15 @@ def main() -> int:
     # bit the eager step's and within the model's golden bound; the
     # capture's seconds and both runs' peak memory; then the step timed in turns (eager, graph, graph, eager),
     # each turn with its device ms (`kernel_device_ms`) and idle share; the
-    # P=1 and P=8 overlap steps also profiled both ways (`device_profile`)
+    # P=1 and P=8 overlap steps also profiled both ways (`device_profile`).
+    # The configurations: the kernel models' chained and solver-mode steps,
+    # the overlap step through the peer transport (its launch epochs are
+    # device words, so it replays; its 20 steps also equal its loopback
+    # twin's graph bit for bit), the ELL model (no kernel of the port: its
+    # census is of its torch ops, recorded) and one solver_attrib knockout
+    # per kernel it knocks out (K4, K1, K2)
+    from types import SimpleNamespace
+
     from cfd_proxy_tpu_torch.models.gradients import SCHEDULE_CLASSES
     from cfd_proxy_tpu_torch.ops.plan import NV
     from torch.autograd import DeviceType
@@ -1961,11 +2025,32 @@ def main() -> int:
                          "gather_p1": gather_models[1],
                          "gather_p8": gather_models[P_MULTI],
                          "full_p8": full_stack_p8})
+    peer_twin = {"peer_p1": "p1", "peer_p8": "p8",
+                 "peer_gather_p8": "gather_p8", "peer_full_p8": "full_p8"}
+    # (built once: the peer phases below drive them again)
+    t_phase = time.perf_counter()
+    peer_models, peer_build_s = {}, {}
+    for mk, (pp, opts) in {
+            "peer_p1": (parts, {"force_rdma": True}),
+            "peer_p8": (parts8, {}),
+            "peer_gather_p8": (parts8, {"bp": GATHER_BP, "kernel": "gather"}),
+            "peer_full_p8": (parts8, FULL)}.items():
+        t0 = time.perf_counter()
+        peer_models[mk] = GreenGaussTorch(pp, NVAR, device=dev,
+                                          transport="peer", **opts)
+        peer_build_s[mk] = time.perf_counter() - t0
+    graph_models.update(peer_models)
+    for dname in ("float32", "float64"):
+        graph_models["ell_" + dname] = GreenGaussModel(
+            parts, NVAR, dtype=DTYPES[dname], device=dev)
     # each model's golden and bound (its own phase's): f32 within
-    # GOLDEN_TOL, the full bf16 stack within BAND_FULL's
+    # GOLDEN_TOL, the full bf16 stack within BAND_FULL's, ELL f64 within
+    # ELL_F64_TOL
     graph_gold = {"flux_p1": (flux_ref, GOLDEN_TOL),
                   "full_p1": (None, BAND_FULL[1]),
-                  "full_p8": (None, BAND_FULL[1])}
+                  "full_p8": (None, BAND_FULL[1]),
+                  "peer_full_p8": (None, BAND_FULL[1]),
+                  "ell_float64": (None, ELL_F64_TOL)}
     graph_cfgs = (          # name: (model, schedule, solver mode sweeps)
         [("p1_bulk", "p1", "bulk", 0)]         # also P=1 all's bulk
         + [(f"p1_all_{s}", "p1", s, 0) for s in SCHEDULES_ALL[1:]]
@@ -1974,43 +2059,153 @@ def main() -> int:
            ("gather512_p8_solver_n2", "gather_p8", "bulk", 2),
            ("full_p1_overlap", "full_p1", "overlap", 0),
            ("full_p8_early", "full_p8", "early", 0)]
-        + [(f"flux_p1_all_{s}", "flux_p1", s, 0) for s in SCHEDULES_ALL])
+        + [(f"flux_p1_all_{s}", "flux_p1", s, 0) for s in SCHEDULES_ALL]
+        + [("peer_p1_all_overlap", "peer_p1", "overlap", 0),
+           ("peer_p8_overlap", "peer_p8", "overlap", 0),
+           ("peer_gather512_p8_overlap", "peer_gather_p8", "overlap", 0),
+           ("peer_full_p8_overlap", "peer_full_p8", "overlap", 0)]
+        + [(f"ell_p1_{d}_{s}", "ell_" + d, s, 0)
+           for d in ("float32", "float64") for s in ("bulk", "overlap")]
+        # the knockout mode in the schedule's place
+        + [("attrib_packed_tablesonly", "p1", "tablesonly", 0),
+           ("attrib_packed_sweeponly", "p1", "sweeponly", 0),
+           ("attrib_gather512_sweeponly", "gather_p1", "sweeponly", 0)])
     profiled = ("p1_all_overlap", "p8_overlap")
 
-    def replayed_grad(m, args, s, solver, coupling):
-        """(one replayed step's gradients, one eager step's): a chained
-        body that also copies its step's gradients (its tables rebuilt
-        from v in solver mode) into a static buffer, run through
-        `compiled.runner` one step at a time; the graph's first call runs
-        step 1 eagerly and captures, its second replays graph 0 once."""
-        needed = SCHEDULE_CLASSES[s]
-        g = torch.empty(m.nlocal, m.rows, m.ndev, dtype=m.grad_t, device=dev)
-
-        def probe(v, tables, out=None):
-            gv = m(v, m._build_tables(v, needed) if solver else tables, s)
-            g.copy_(gv)
-            return torch.add(v, coupling * gv[:, :NV], out=out)
-
+    def replayed(m, body_of, buf, args, key, **rule):
+        """(one replayed step's `buf`, one eager step's): the chained body
+        `body_of(buf)`, which also copies what its step computes into buf,
+        run through `compiled.runner` one step at a time; the graph's first
+        call runs step 1 eagerly and captures, its second replays graph 0
+        once."""
         def run(graph):
-            return compiled.runner(m, probe, 1, ("probe", s, solver, id(g)),
-                                   graph=graph)
+            return compiled.runner(m, body_of(buf), 1, (key, id(buf)),
+                                   graph=graph, **rule)
 
         run(False)(*args)
-        eager = g.clone()
+        eager = buf.clone()
         graph = run(None)
         graph(*args)
-        g.zero_()
+        buf.zero_()
         graph(*args)
         torch.cuda.synchronize()
-        return g.clone(), eager
+        return buf.clone(), eager
 
-    def kernels_seen(run, args):
-        """{kernel: launches} CUPTI saw in one call of run(*args) (copies
-        and fills left out: the graph runner copies the state in and out)."""
+    def kernel_case(m, mk, s, sweeps):
+        """The kernel model's chained (or solver-mode) step."""
+        solver = sweeps > 0
+        sw = max(1, sweeps)
+        st_ = states[mk]
+        args_ = m.iter_args(st_)
+        needed = SCHEDULE_CLASSES[s]
+        gold_, tol_ = graph_gold.get(mk, (None, GOLDEN_TOL))
+
+        def probe(c):
+            def body_of(g):
+                def body(v, tables, out=None):
+                    gv = m(v, m._build_tables(v, needed) if solver
+                           else tables, s)
+                    g.copy_(gv)
+                    return torch.add(v, c * gv[:, :NV], out=out)
+                return body
+            g = torch.empty(m.nlocal, m.rows, m.ndev, dtype=m.grad_t,
+                            device=dev)
+            return replayed(m, body_of, g, args_, ("probe", s, solver, c),
+                            schedule=s, solver_mode=solver)
+
+        return SimpleNamespace(
+            dispatch=compiled.dispatch(m, s, solver), start=args_[0],
+            movement=lambda: m.step(st_, s)[:, :NV].float(),
+            run=lambda n, graph, c: m.iterate_fn(
+                s, n, solver, sw, graph=graph, coupling=c)(*args_),
+            probe=probe, tol=tol_,
+            golden=lambda g: golden_relmax(m, g, gold=gold_),
+            time=lambda graph: time_schedule(
+                m, st_, s, GRAPH_ITERS, warmup=1, repeats=3,
+                solver_mode=solver, sweeps_per_step=sw,
+                graph=graph).median * 1e3,
+            eager_device_n=10, port_kernels=True, solver_sweeps=sweeps or None)
+
+    def ell_case(m, mk, s):
+        """The ELL model's chained step (plain torch: no kernel of the
+        port)."""
+        var = states[mk]
+        nvar = m.nvar
+
+        def probe(c):
+            def body_of(g):
+                def body(v, out=None):
+                    gv = m(v, s)
+                    g.copy_(gv)
+                    return torch.add(v, c * gv[..., :nvar], out=out)
+                return body
+            return replayed(m, body_of, torch.empty_like(m.step(var, s)),
+                            (var,), ("probe", s, c), schedule=s)
+
+        return SimpleNamespace(
+            dispatch=compiled.dispatch(m, s), start=var,
+            movement=lambda: m.step(var, s)[..., :nvar].float(),
+            run=lambda n, graph, c: m.iterate_fn(
+                s, n, graph=graph, coupling=c)(var),
+            probe=probe, tol=graph_gold.get(mk, (None, GOLDEN_TOL))[1],
+            golden=lambda g: golden_relmax(m, g),
+            time=lambda graph: time_schedule(
+                m, var, s, ELL_GRAPH_ITERS, warmup=1, repeats=3,
+                graph=graph).median * 1e3,
+            eager_device_n=4, port_kernels=False, solver_sweeps=None)
+
+    def attrib_case(m, mk, mode):
+        """A solver_attrib knockout body (`knockout_fn`) at one shard: its
+        step's gradients (sweeponly) or rebuilt table (tablesonly) feed the
+        state at the coupling.  tablesonly adds its table's sum to every
+        column, and the sum of a table of standard normals nearly cancels
+        (a coupling that moves the state by it would grow each step's sum
+        a thousandfold): it starts from the state plus 1, whose table sum
+        is about the table's size, so a step grows it by about GRAPH_MOVE."""
+        if "attrib_" + mk not in states:
+            states["attrib_" + mk] = m.distribute_state(gvar,
+                                                        schedules=["bulk"])
+        st_ = states["attrib_" + mk]
+        sweeps = mode == "sweeponly"
+        v0 = st_["var_T"] if sweeps else st_["var_T"] + 1.0
+
+        def movement():
+            if sweeps:
+                return m.step(st_, "bulk")[:, :NV].float()
+            return (m._build_tables(v0, ("bulk",))["bulk"].float().sum()
+                    * 1e-30).reshape(1)
+
+        def probe(c):
+            like = (m.step(st_, "bulk") if sweeps
+                    else st_["tables"]["bulk"])
+            sink = torch.empty_like(like)
+            ko = solver_attrib.knockout_fn(m, st_, mode, c, sink)
+            ko(1, v0, False)
+            eager = sink.clone()
+            ko(1, v0, None)             # step 1 eagerly, then the capture
+            sink.zero_()
+            ko(1, v0, None)             # one replay of graph 0
+            torch.cuda.synchronize()
+            return sink.clone(), eager
+
+        return SimpleNamespace(
+            dispatch=compiled.dispatch(m), start=v0, movement=movement,
+            run=lambda n, graph, c: solver_attrib.knockout_fn(
+                m, st_, mode, c)(n, v0, graph),
+            probe=probe, tol=GOLDEN_TOL,
+            golden=(lambda g: golden_relmax(m, g)) if sweeps else None,
+            time=lambda graph: float(np.median(solver_attrib.attribute(
+                m, st_, [mode], GRAPH_ITERS, 3, graph=graph)[mode] or
+                [float("nan")])),
+            eager_device_n=10, port_kernels=True, solver_sweeps=None)
+
+    def kernels_seen(run):
+        """{kernel: launches} CUPTI saw in one call of run() (copies and
+        fills left out: the graph runner copies the state in and out)."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run(*args)
+            run()
             torch.cuda.synchronize()
         return collections.Counter({
             e.key: e.count for e in prof.key_averages()
@@ -2018,35 +2213,36 @@ def main() -> int:
             and not e.key.startswith(("Memcpy", "Memset"))})
 
     graph_res, graph_slower, states = {}, [], {}
-    t_phase = time.perf_counter()
     for name, mk, s, sweeps in graph_cfgs:
+        t_cfg = time.perf_counter()
         m = graph_models[mk]
-        kind_, why = compiled.dispatch(m)
+        if mk.startswith("ell_"):
+            if mk not in states:
+                states[mk] = m.distribute_state(gvar)
+            case = ell_case(m, mk, s)
+        elif name.startswith("attrib_"):
+            case = attrib_case(m, mk, s)
+        else:
+            if mk not in states:
+                states[mk] = m.distribute_state(gvar)
+            case = kernel_case(m, mk, s, sweeps)
+        kind_, why = case.dispatch
         if kind_ != "graph":
             fail(f"graph {name}: dispatch {kind_} ({why})")
-        if mk not in states:
-            states[mk] = m.distribute_state(gvar)
-        st_ = states[mk]
-        args_ = m.iter_args(st_)
-        solver = sweeps > 0
-        sw = max(1, sweeps)
         m.graphs.clear()                # capture afresh: seconds, memory
         # the coupling: one step moves the state by at most GRAPH_MOVE
-        g0 = m.step(st_, s)[:, :NV].float()
-        coupling = GRAPH_MOVE / float(g0.abs().max())
-        del g0
+        coupling = GRAPH_MOVE / float(case.movement().abs().max())
         res_ = {}
         for mode in (False, None):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            out_ = m.iterate_fn(s, GRAPH_STEPS, solver, sw, graph=mode,
-                                coupling=coupling)(*args_)
+            out_ = case.run(GRAPH_STEPS, mode, coupling)
             torch.cuda.synchronize()
             res_["graph" if mode is None else "eager"] = (
                 out_, (torch.cuda.max_memory_allocated() - base) / 1e9)
         (g_out, g_peak), (e_out, e_peak) = res_["graph"], res_["eager"]
-        moved = float((e_out - args_[0]).abs().max())
+        moved = float((e_out - case.start).abs().max())
         if not torch.isfinite(e_out).all() or not moved > 1e-3:
             fail(f"graph {name}: the eager state after {GRAPH_STEPS} steps "
                  f"is not finite or did not move ({moved})")
@@ -2055,6 +2251,21 @@ def main() -> int:
                  f"differ from eager (max abs "
                  f"{float((g_out - e_out).abs().max()):.3e})")
         capture_s = next(reversed(m.graphs.values())).seconds
+        twin = None
+        if mk in peer_twin:
+            # the peer form equals its loopback form bit for bit (the
+            # peer phases hold it per launch), so its graph equals the
+            # loopback model's graph bit for bit
+            tw = graph_models[peer_twin[mk]]
+            t_out = tw.iterate_fn(s, GRAPH_STEPS, coupling=coupling)(
+                *tw.iter_args(states[peer_twin[mk]]))
+            torch.cuda.synchronize()
+            if not torch.equal(g_out, t_out):
+                fail(f"graph {name}: {GRAPH_STEPS} steps under graph differ "
+                     f"from the loopback twin's graph ({peer_twin[mk]})")
+            twin = {"model": peer_twin[mk], "equal_bitwise": True}
+            tw.graphs.clear()
+            del t_out
         del res_, g_out, e_out
         # the launches: the kernel nodes of the captured graphs (what a
         # replay launches, `compiled.kernel_nodes`): the port's among them
@@ -2068,17 +2279,16 @@ def main() -> int:
                    if PORT_KERNEL.search(k_))
         del entry
         reset_counts()
-        seen_e = kernels_seen(m.iterate_fn(s, 1, solver, sw, graph=False,
-                                           coupling=coupling), args_)
+        seen_e = kernels_seen(lambda: case.run(1, False, coupling))
         eager_counts = read_counts()
         reset_counts()
-        seen_g = kernels_seen(m.iterate_fn(s, GRAPH_CHECK_N, solver, sw,
-                                           coupling=coupling), args_)
+        seen_g = kernels_seen(lambda: case.run(GRAPH_CHECK_N, None, coupling))
         added = read_counts()
         if nodes[0] != nodes[1]:
             fail(f"graph {name}: the two captured graphs launch different "
                  f"kernels: {nodes}")
-        if ours == 0 or ours != sum(eager_counts.values()) or added != {
+        if (case.port_kernels and ours == 0) or ours != sum(
+                eager_counts.values()) or added != {
                 k_: n_ * GRAPH_CHECK_N for k_, n_ in eager_counts.items()}:
             fail(f"graph {name}: a replay launches {ours} of the port's "
                  f"kernels; an eager step counted {eager_counts}, the "
@@ -2088,88 +2298,130 @@ def main() -> int:
                       k_: n_ * GRAPH_CHECK_N for k_, n_ in nodes[0].items()},
                   "replay_kernels": sum(seen_g.values()),
                   "eager_step_kernels": sum(seen_e.values())}
-        # one replayed step's gradients: the eager step's, and the golden's
-        g_rep, g_eag = replayed_grad(m, args_, s, solver, coupling)
+        # one replayed step's output: the eager step's, and the golden's
+        g_rep, g_eag = case.probe(coupling)
         if not torch.equal(g_rep, g_eag):
-            fail(f"graph {name}: a replayed step's gradients differ from "
+            fail(f"graph {name}: a replayed step's output differs from "
                  f"the eager step's")
-        gold_, tol_ = graph_gold.get(mk, (None, GOLDEN_TOL))
-        rel_ = golden_relmax(m, g_rep, gold=gold_)
-        if not rel_ <= tol_:
+        rel_ = None if case.golden is None else case.golden(g_rep)
+        if rel_ is not None and not rel_ <= case.tol:
             fail(f"graph {name}: a replayed step vs the golden relmax "
-                 f"{rel_:.3e} > {tol_}")
+                 f"{rel_:.3e} > {case.tol}")
         del g_rep, g_eag
         m.graphs.clear()
         # device ms per step, the stream held while the host enqueues: the
-        # two captured graphs replayed in turn (5 pairs), or 10 eager steps
-        # (few enough launches for the stream's queue)
-        m.iterate_fn(s, 2, solver, sw)(*args_)  # capture at the default
+        # two captured graphs replayed in turn (5 pairs), or a few eager
+        # steps (few enough launches for the stream's queue)
+        case.run(2, None, compiled.COUPLING)   # capture at the default
         entry = next(reversed(m.graphs.values()))
-        one = m.iterate_fn(s, 1, solver, sw, graph=False)
         device = {
             None: lambda: kernel_device_ms(
                 lambda: [g.replay() for g in entry.graphs], 5) / 2,
-            False: lambda: kernel_device_ms(lambda: one(*args_), 10)}
+            False: lambda: kernel_device_ms(
+                lambda: case.run(1, False, compiled.COUPLING),
+                case.eager_device_n)}
         turns = {"eager": [], "graph": []}
         for mode in (False, None, None, False):
             key_ = "graph" if mode is None else "eager"
-            step = time_schedule(m, st_, s, GRAPH_ITERS, warmup=1,
-                                 repeats=3, solver_mode=solver,
-                                 sweeps_per_step=sw, graph=mode).median * 1e3
+            step = case.time(mode)
             dev_ms = device[mode]()
             turns[key_].append({"step_ms": step, "device_ms": dev_ms,
                                 "idle": 1.0 - dev_ms / step})
         best = {k: min(t["step_ms"] for t in v) for k, v in turns.items()}
-        row = {"dispatch": kind_, "schedule": s, "parts": len(m.parts),
-               "kernel": m.kernel, "op": m.op,
-               "solver_sweeps": sweeps or None,
+        # the gated steps: a step takes at least its held device time, so a
+        # turn the host's clock read below it counts at its device time
+        floored = {k: min(max(t["step_ms"], t["device_ms"]) for t in v)
+                   for k, v in turns.items()}
+        row = {"dispatch": kind_, "schedule": s,
+               "parts": len(m.parts), "kernel": getattr(m, "kernel", "ell"),
+               "op": getattr(m, "op", "gg"),
+               "transport": m.transport_name,
+               "solver_sweeps": case.solver_sweeps,
                "equal_bitwise": True, "coupling": coupling,
-               "moved": moved, "replayed_grad_equal": True,
-               "replayed_grad_vs_golden": rel_, "golden_tol": tol_,
+               "moved": moved, "replayed_out_equal": True,
+               "replayed_grad_vs_golden": rel_, "golden_tol": (
+                   None if rel_ is None else case.tol),
                "replay_kernels": {"all": sum(nodes[0].values()),
                                   "port": ours},
                "launches_added": added, "cupti": cupti_,
                "capture_s": capture_s, "peak_gb": {"graph": g_peak,
                                                    "eager": e_peak},
                "turns": turns, "step_ms": best,
-               "graph_over_eager": best["graph"] / best["eager"],
+               "graph_over_eager": floored["graph"] / floored["eager"],
                # the better turn's step against the least device time
                "idle": {k: 1.0 - min(t["device_ms"] for t in v) / best[k]
                         for k, v in turns.items()}}
+        if twin is not None:
+            row["loopback_twin_graph"] = twin
         if not all(np.isfinite(v) for v in best.values()):
             fail(f"graph {name}: step timing below the noise floor {best}")
-        if best["graph"] > GRAPH_SLOWER * best["eager"]:
+        if floored["graph"] > GRAPH_SLOWER * floored["eager"]:
             graph_slower.append(name)
         if name in profiled:
-            prof_ = {k: device_profile(m, st_, s, graph=mode)
-                     for k, mode in (("eager", False), ("graph", None))}
-            row["profile"] = prof_
-            if None in (prof_["graph"]["device_ms"],
-                        prof_["eager"]["device_ms"]):
-                fail(f"graph {name}: the profiler saw no device time "
-                     f"{ {k: p_['device_ms'] for k, p_ in prof_.items()} }")
-            ratio_ = prof_["graph"]["device_ms"] / prof_["eager"]["device_ms"]
+            # windows in turns (eager, graph, graph, eager, twice), each
+            # window's step device ms at one set of launches a step: per
+            # name the most any window of either side shows (CUPTI drops
+            # records, a few a window or half of one, and a name it lost
+            # in every window of a side leaves that side no window); per
+            # side the median window, graph over eager within
+            # PROFILE_BAND.  The launches per side are recorded
+            st_ = states[mk]
+            modes = {"eager": False, "graph": None}
+            wins = {k: [] for k in modes}
+            for k in ("eager", "graph", "graph", "eager") * PROFILE_TURNS:
+                wins[k].append(device_profile(m, st_, s, graph=modes[k],
+                                              detail=True))
+            most = {k: collections.Counter() for k in wins}
+            for k, v in wins.items():
+                for w in v:
+                    most[k] |= collections.Counter(w["launches"])
+            a_step = most["eager"] | most["graph"]
+            seen = {k: [(step_device_ms(w["kernels"], a_step),
+                         w["records"], w["dropped"]) for w in v]
+                    for k, v in wins.items()}
+            ms_ = {k: sorted(w[0] for w in v if w[0] is not None)
+                   for k, v in seen.items()}
+            if not all(ms_.values()):
+                fail(f"graph {name}: no profiled window of a side holds "
+                     f"every kernel a step launches ({dict(a_step)}; "
+                     f"windows: ms, records, dropped {seen})")
+            med = {k: v[len(v) // 2] for k, v in ms_.items()}
+            row["profile"] = {k: {"device_ms": med[k], "windows": seen[k],
+                                  "launches_equal": most[k] == a_step,
+                                  "top_ms": wins[k][0]["top_ms"]}
+                              for k in wins}
+            ratio_ = med["graph"] / med["eager"]
             row["profile_graph_over_eager"] = ratio_
             if not PROFILE_BAND[0] <= ratio_ <= PROFILE_BAND[1]:
                 fail(f"graph {name}: profiled device ms under graph "
-                     f"{ratio_:.4f}x eager, outside {PROFILE_BAND}")
+                     f"{ratio_:.4f}x eager, outside {PROFILE_BAND} "
+                     f"(windows: ms, records, dropped {seen})")
+        row["seconds"] = time.perf_counter() - t_cfg
         graph_res[name] = row
-        del entry, one, device
+        del entry, device, case
     for m in graph_models.values():
         m.graphs.clear()
     del graph_models, states
-    ov = graph_res["p1_all_overlap"]["idle"]
+    torch.cuda.empty_cache()
+    idles = {c: graph_res[c]["idle"] for c in IDLE_CFGS}
+    # under graph the host keeps no share of the step: the graph's idle
+    # at the floor, and below eager's where eager's is above it
+    idle_bad = [c for c, v in idles.items()
+                if not (v["graph"] <= IDLE_FLOOR and (
+                    v["graph"] < v["eager"] or v["eager"] <= IDLE_FLOOR))]
     emit("graph", card=smi, steps=GRAPH_STEPS, iters=GRAPH_ITERS,
-         configs=graph_res, slower_than_eager=graph_slower,
+         ell_iters=ELL_GRAPH_ITERS, peer_model_seconds=peer_build_s,
+         configs=graph_res,
+         slower_than_eager=graph_slower,
          slower_limit=GRAPH_SLOWER, profile_band=PROFILE_BAND,
-         p1_overlap_idle_below_eager=ov["graph"] < ov["eager"],
+         idle_floor=IDLE_FLOOR, idle=idles, idle_not_removed=idle_bad,
          phase_s=time.perf_counter() - t_phase)
     if graph_slower:
         fail(f"graph: the graph step is slower than eager by more than "
              f"{GRAPH_SLOWER}x in {graph_slower}")
-    if not ov["graph"] < ov["eager"]:
-        fail(f"graph: P=1 overlap idles {ov['graph']:.4f} under graph, not "
-             f"below its eager {ov['eager']:.4f}")
+    if idle_bad:
+        fail(f"graph: the host keeps a share of the step under graph in "
+             f"{ {c: idles[c] for c in idle_bad} } (floor {IDLE_FLOOR})")
 
     # ---- kbench: its three drives through kbench.main, each counted and
     # --check'ed against the golden (its own mesh: NX³, seed 0 — gmesh)
@@ -2296,10 +2548,10 @@ def main() -> int:
     # table, readiness barrier, arrival flags, last-ticket wait) inside one
     # launch, at P=1 (force_rdma self-sends) and P=8, held bitwise against
     # the loopback overlap step of the same plans
-    def peer_phase(path, loop_model, build, names, band=(None, GOLDEN_TOL)):
-        t0 = time.perf_counter()
-        pmod = build()
-        t_model = time.perf_counter() - t0
+    def peer_phase(path, loop_model, key, names, band=(None, GOLDEN_TOL)):
+        """The graph phase's peer model `key` (built there, its build
+        seconds recorded) against `loop_model`."""
+        pmod, t_model = peer_models[key], peer_build_s[key]
         reset_counts()
         state = pmod.distribute_state(gvar, schedules=["overlap"])
         g = pmod.step(state, "overlap")
@@ -2326,20 +2578,23 @@ def main() -> int:
 
     def overlap_turns(pmod, pstate, lmod, lstate):
         """The overlap step through both transports in turns (loopback,
-        peer, peer, loopback), the better median of each; both eager (the
-        peer transport's dispatch), so the turns compare transports."""
+        peer, peer, loopback), the better median of each, each under its
+        dispatch (graph on the card for both since the peer transport's
+        launch epochs are device words), so the turns compare transports;
+        with the dispatch each took."""
         ms = {"loopback": [], "peer": []}
         for name in ("loopback", "peer", "peer", "loopback"):
             m, st_ = (pmod, pstate) if name == "peer" else (lmod, lstate)
             ms[name].append(time_schedule(m, st_, "overlap", TIMED_STEPS,
-                                          warmup=2, repeats=5,
-                                          graph=False).median * 1e3)
-        return {k: min(v) for k, v in ms.items()}
+                                          warmup=2, repeats=5).median * 1e3)
+        how = {k: compiled.dispatch(m, "overlap")[0]
+               for k, m in (("loopback", lmod), ("peer", pmod))}
+        if how != {"loopback": "graph", "peer": "graph"}:
+            fail(f"overlap turns: dispatch {how}, expected graph for both")
+        return {**{k: min(v) for k, v in ms.items()}, "dispatch": how}
 
     pm1, pstate, lstate, info = peer_phase(
-        "peer_p1", packed_models[1],
-        lambda: GreenGaussTorch(parts, NVAR, force_rdma=True, device=dev,
-                                transport="peer"),
+        "peer_p1", packed_models[1], "peer_p1",
         ("sweep_blocks_overlap_peer",))
     info["overlap_step_ms"] = overlap_turns(pm1, pstate, packed_models[1],
                                             lstate)
@@ -2349,8 +2604,7 @@ def main() -> int:
     del pm1, pstate, lstate
 
     pm8, pstate, lstate, info = peer_phase(
-        "peer_p8", packed_models[P_MULTI],
-        lambda: GreenGaussTorch(parts8, NVAR, device=dev, transport="peer"),
+        "peer_p8", packed_models[P_MULTI], "peer_p8",
         ("sweep_blocks_overlap_peer",))
     # the f32 results a two-process run must reproduce bit for bit
     lm8 = packed_models[P_MULTI]
@@ -2358,9 +2612,17 @@ def main() -> int:
     want_digest = {s: workers.digest(lm8.gather_global(lm8.step(st_all, s)))
                    for s in ("bulk", "early", "overlap")}
     del st_all
+    # and the overlap chain it must reproduce under graph: GRAPH_STEPS
+    # steps at a coupling that moves the state, the final state's digest
+    w2_coupling = GRAPH_MOVE / float(
+        lm8.step(lstate, "overlap")[:, :NV].float().abs().max())
+    want_chain = workers.digest(lm8.iterate_fn(
+        "overlap", GRAPH_STEPS, coupling=w2_coupling)(
+        *lm8.iter_args(lstate)).cpu().numpy())
+    lm8.graphs.clear()
     info["overlap_step_ms"] = overlap_turns(pm8, pstate, lm8, lstate)
     prof = {"peer": device_profile(pm8, pstate, "overlap"),
-            "loopback": device_profile(lm8, lstate, "overlap", graph=False)}
+            "loopback": device_profile(lm8, lstate, "overlap")}
     info["profile"] = prof
     info["idle"] = {k: (None if p_["device_ms"] is None else
                         1.0 - p_["device_ms"] / info["overlap_step_ms"][k])
@@ -2426,6 +2688,9 @@ def main() -> int:
                               kp, 20),
                           "loopback_kernel_device_ms": kernel_device_ms(
                               kl, 20)}
+        if peer_rows[row]["peer_over_loopback"] > PEER_OVER_LOOPBACK:
+            fail(f"{row}: {peer_rows[row]['peer_over_loopback']:.4f}x its "
+                 f"loopback form, above {PEER_OVER_LOOPBACK}")
         # the instance's registers, local bytes, shared memory and resident
         # blocks per SM (the gather row: the body the rule picks)
         least = PEER_MIN_BLOCKS
@@ -2445,15 +2710,14 @@ def main() -> int:
         peer.close()
         del state, iargs, gb, sendbufs, buf, peer, kp, kl
     # the gather and bf16 peer forms through the model too, counted
-    for row, lmod, opts in (
+    for row, lmod, key in (
             ("sweep_blocks_overlap_gather_peer", gather_models[P_MULTI],
-             {"bp": GATHER_BP, "kernel": "gather"}),
-            ("sweep_blocks_overlap_peer_w16_d16_o16", full_stack_p8, FULL)):
+             "peer_gather_p8"),
+            ("sweep_blocks_overlap_peer_w16_d16_o16", full_stack_p8,
+             "peer_full_p8")):
         m_, _, _, sub = peer_phase(
-            "peer_p8", lmod,
-            lambda: GreenGaussTorch(parts8, NVAR, device=dev,
-                                    transport="peer", **opts),
-            (row,), band=(BAND_FULL if opts is FULL else (None, GOLDEN_TOL)))
+            "peer_p8", lmod, key, (row,),
+            band=(BAND_FULL if key == "peer_full_p8" else (None, GOLDEN_TOL)))
         m_.close()
         info[row] = sub
         del m_
@@ -2461,7 +2725,7 @@ def main() -> int:
          kernels=kernel_summary(list(peer_rows)), beside_loopback=peer_rows,
          **info)
     pm8.close()
-    del pm8, pstate, lstate, full_stack_p8
+    del pm8, pstate, lstate, full_stack_p8, peer_models
 
     # ---- two processes on the one GPU (time-sliced: a check, no timing):
     # 96^3, P=8, W=2, every schedule through peer (mapped memory, K3's peer
@@ -2503,8 +2767,13 @@ def main() -> int:
                 "dist": w2case(transport="dist"),
                 "slice4": w2case(transport="peer", slice_size=4)}
         t0 = time.perf_counter()
+        # the peer job's overlap chain under graph in both processes (the
+        # device launch epochs advance in lock step across them), held
+        # against eager per rank and against the one-process chain
         res = launch.spawn(2, workers.batch,
-                           ([("model_outputs", (c,)) for c in jobs.values()],),
+                           ([("model_outputs", (c,)) for c in jobs.values()]
+                            + [("overlap_chain", (jobs["peer"], GRAPH_STEPS,
+                                                  w2_coupling))],),
                            timeout_s=PEER_W2_LIMIT_S)
         w2 = {"seconds": time.perf_counter() - t0, "compute_mode": mode,
               "note": "two processes on one GPU, time-sliced: step_ms is "
@@ -2531,6 +2800,20 @@ def main() -> int:
                 fail(f"peer_w2 ({name}): no launch of K3's peer form")
         if w2["dist"]["launches"].get("sweep_blocks_overlap_peer"):
             fail("peer_w2 (dist): launched the peer form")
+        chain = [r[len(jobs)] for r in res]
+        for c in chain:
+            if not (c["dispatch"] == "graph" and c["graph_equals_eager"]
+                    and c["digest"] == want_chain and c["moved"] > 1e-3
+                    and c["replay_kernels"] > 0
+                    and c["launches"].get("sweep_blocks_overlap_peer")):
+                fail(f"peer_w2 (peer chain): rank {c['rank']}: {c}")
+        w2["peer_chain"] = {"steps": GRAPH_STEPS, "coupling": w2_coupling,
+                            "dispatch": "graph",
+                            "graph_equals_eager_per_rank": True,
+                            "equals_one_process_bitwise": True,
+                            "moved": [c["moved"] for c in chain],
+                            "replay_kernels": chain[0]["replay_kernels"],
+                            "launches": [c["launches"] for c in chain]}
         if (w2["slice4"]["kernel_phases"] != routed_info["kernel_phases"]
                 or not w2["slice4"]["collective_phases"]):
             fail(f"peer_w2 (slice4): phases {w2['slice4']}")
@@ -2584,6 +2867,9 @@ def main() -> int:
                  if ln.strip() and ln.split()[0].isdigit()]
         if rc != 0 or len(rows_) != len(ICI_PHASES) * len(ICI_MB):
             fail(f"icibench --mode {m}: rc {rc}, output {lines}")
+        if not all(r[-1] == "dispatch=graph" for r in rows_):
+            fail(f"icibench --mode {m}: a row's chain did not replay as a "
+                 f"graph: {lines}")
         if any("suggested" in ln for ln in lines):
             fail("icibench printed a link suggestion without --link-gbps")
         ici[m] = {"seconds": time.perf_counter() - t0, "output": lines}
@@ -2624,10 +2910,40 @@ def main() -> int:
                          "copy_share": b["bound_ms"] / cd})
             peer.close()
             del peer, send, dst, got
+    def chain_ms(send, peer, m, graph):
+        """ms per iteration of the push bench's chain
+        (`icibench.chained_runner`), under graph (None) or eager (False):
+        two-point samples of ICI_CHAIN_ITERS, the median of five."""
+        host = icibench.chain_host(peer, dev)
+        run = icibench.chained_runner(send, peer, m, host, graph=graph)
+        n0 = ICI_CHAIN_ITERS // 10
+        run(n0)
+        run(n0 + ICI_CHAIN_ITERS)
+        sample = two_point_sampler(lambda: run(n0),
+                                   lambda: run(n0 + ICI_CHAIN_ITERS),
+                                   ICI_CHAIN_ITERS)
+        vals = [v for v in (sample() for _ in range(5)) if v is not None]
+        host.graphs.clear()
+        return float(np.median(vals)) * 1e3 if vals else None
+
+    def chain_graph_equals_eager(send, peer, m):
+        """GRAPH_STEPS chained pushes at a coupling that moves the state,
+        under graph and eager: bit for bit equal."""
+        out = {}
+        for graph in (None, False):
+            host = icibench.chain_host(peer, dev)
+            out[graph] = icibench.chained_runner(
+                send, peer, m, host, graph=graph, coupling=0.25)(GRAPH_STEPS)
+            host.graphs.clear()
+        return (torch.equal(out[None], out[False])
+                and not torch.equal(out[None], send))
+
     # the fixed cost per mode: every mode at the smallest payload, back to
     # back on the card (kernel_device_ms: launches this short, enqueued onto
-    # an idle stream, would measure the host's launch rate)
-    fixed = {}
+    # an idle stream, would measure the host's launch rate), and the push
+    # bench's chain per iteration under graph and eager (the fixed cost
+    # per launch under replay)
+    fixed, fixed_chain = {}, {}
     for nph in (1, 4):
         peer, send, _ = k6_setup(nph, ICI_MB[0])
         order = (*push.MODES, *reversed(push.MODES))
@@ -2636,12 +2952,16 @@ def main() -> int:
             ms.setdefault(m, []).append(kernel_device_ms(
                 lambda m=m: push.push_phases(send, peer, m), 100))
         fixed[f"{nph}x{ICI_MB[0]}MB"] = {m: min(v) for m, v in ms.items()}
+        fixed_chain[f"{nph}x{ICI_MB[0]}MB"] = {
+            m: {"graph_ms": chain_ms(send, peer, m, None),
+                "eager_ms": chain_ms(send, peer, m, False)}
+            for m in push.MODES}
         peer.close()
         del peer, send
     k6_facts = _cuda.kernel_info("cfd_push_phases_info")
     # the kernel-table rows: each mode at ICI_ROW
     nph, mb = ICI_ROW
-    k6_device = {}
+    k6_device, k6_chain = {}, {}
     peer, send, plain_t = k6_setup(nph, mb)
     dst = torch.empty_like(send)
     for m in push.MODES:
@@ -2663,14 +2983,23 @@ def main() -> int:
         k6_device[row] = kernel_device_ms(
             lambda m=m: push.push_phases(send, peer, m), 20)
         times[row]["kernel"] = k6_facts
+        if not chain_graph_equals_eager(send, peer, m):
+            fail(f"{row}: the push bench's chain under graph differs from "
+                 f"eager (or did not move)")
+        k6_chain[row] = {"graph_ms": chain_ms(send, peer, m, None),
+                         "eager_ms": chain_ms(send, peer, m, False),
+                         "graph_equals_eager": True}
     peer.close()
     del peer, send, dst
     emit("icibench", card=smi, ranks=1, runs=ici, launches=counts,
-         grid_full=grid, fixed_cost_ms=fixed, kernel=k6_facts,
+         rows_dispatch="graph", grid_full=grid, fixed_cost_ms=fixed,
+         fixed_cost_chain_ms=fixed_chain, chain_iters=ICI_CHAIN_ITERS,
+         kernel=k6_facts,
          kernels={f"push_phases_{m}": {
              **times[f"push_phases_{m}"], **work[f"push_phases_{m}"],
              "copy_ms": library[f"push_phases_{m}"],
-             "device_ms": k6_device[f"push_phases_{m}"]}
+             "device_ms": k6_device[f"push_phases_{m}"],
+             "chain_ms": k6_chain[f"push_phases_{m}"]}
              for m in push.MODES})
 
     # ---- the ELL model (--backend xla, models/gradients_ell.py: plain

@@ -3,7 +3,10 @@
 On the CPU (no CUDA graphs here):
 
 - the dispatch rule and its reasons over CPU/CUDA × loopback/peer/dist ×
-  ranks, and `graph=True` on a CPU model raising `CheckError`;
+  ranks × schedule × solver mode (at several ranks through peer, graph only
+  for the static bodies whose exchange is the in-kernel push, and not when
+  slice_size routes a phase to the collective carrier), and `graph=True`
+  where the rule says eager raising `CheckError`;
 - the factored step and solver bodies (`chain_body`, `solver_body`), run
   eagerly through `iterate_fn` at a coupling (C) that makes the state carry
   each step's gradients (the reference's 1e-30 leaves an f32 state as it
@@ -105,28 +108,89 @@ def models(mesh):
 
 # --------------------------------------------------------- the rule
 
-def _fake(device="cuda", transport="loopback", world=1):
-    return types.SimpleNamespace(device=torch.device(device),
-                                 transport_kind=transport, world=world)
+def _fake(device="cuda", transport="loopback", world=1, peer=True,
+          routed=False):
+    """What the rule reads of a model; `peer`: it holds its Peer (the
+    overlap push has phases to carry), `routed`: slice_size sent phases to
+    the collective carrier."""
+    return types.SimpleNamespace(
+        device=torch.device(device), transport_kind=transport, world=world,
+        peer=object() if peer and transport == "peer" else None,
+        routed=routed)
 
 
-@pytest.mark.parametrize("device,transport,world,kind,reason", [
-    ("cuda", "loopback", 1, "graph", "cuda, one rank, loopback"),
-    ("cuda", "peer", 1, "eager", "peer"),
-    ("cuda", "peer", 2, "eager", "peer"),
-    ("cuda", "dist", 1, "eager", "dist"),
-    ("cuda", "dist", 2, "eager", "dist"),
-    ("cuda", "dist", 4, "eager", "dist"),
-    ("cpu", "loopback", 1, "eager", "cpu"),
-    ("cpu", "dist", 2, "eager", "cpu"),
-    ("cpu", "peer", 2, "eager", "cpu"),
-])
-def test_dispatch_rule(device, transport, world, kind, reason):
-    got, why = compiled.dispatch(_fake(device, transport, world))
-    assert got == kind
-    assert why.startswith(reason)
-    if kind == "eager":
-        assert why in compiled.EAGER_REASONS.values()
+BODIES = (*SCHEDULES, "push", None)      # None: a body of unknown exchanges
+GRAPH_AT_ONE_RANK = [
+    ("cuda", t, 1, s, solver, {}, "graph")
+    for t in ("loopback", "peer") for s in BODIES for solver in (False, True)
+    if not (solver and s in ("push", None))]
+RULE_CASES = GRAPH_AT_ONE_RANK + [
+    # several ranks through peer: the static in-kernel bodies replay
+    ("cuda", "peer", 2, "overlap", False, {}, "graph"),
+    ("cuda", "peer", 4, "overlap", False, {}, "graph"),
+    ("cuda", "peer", 2, "nocomm", False, {}, "graph"),
+    ("cuda", "peer", 2, "push", False, {}, "graph"),
+    ("cuda", "peer", 4, "push", False, {}, "graph"),
+    # ... the rest go through torch.distributed
+    ("cuda", "peer", 2, "bulk", False, {}, "dist"),
+    ("cuda", "peer", 2, "early", False, {}, "dist"),
+    ("cuda", "peer", 4, "early", False, {}, "dist"),
+    ("cuda", "peer", 2, None, False, {}, "dist"),
+    ("cuda", "peer", 2, "overlap", True, {}, "dist"),   # the var exchange
+    ("cuda", "peer", 2, "nocomm", True, {}, "dist"),
+    ("cuda", "peer", 2, "overlap", False, {"routed": True}, "dist"),
+    ("cuda", "peer", 2, "overlap", False, {"peer": False}, "dist"),
+    ("cuda", "dist", 1, "bulk", False, {}, "dist"),
+    ("cuda", "dist", 1, "overlap", False, {}, "dist"),
+    ("cuda", "dist", 2, "overlap", False, {}, "dist"),
+    ("cuda", "dist", 2, "nocomm", False, {}, "dist"),
+    ("cuda", "dist", 4, "push", False, {}, "dist"),
+    ("cpu", "loopback", 1, "bulk", False, {}, "cpu"),
+    ("cpu", "loopback", 1, "overlap", True, {}, "cpu"),
+    ("cpu", "dist", 2, "overlap", False, {}, "cpu"),
+    ("cpu", "peer", 2, "overlap", False, {}, "cpu"),
+    ("cpu", "loopback", 1, "push", False, {}, "cpu"),
+]
+
+
+@pytest.mark.parametrize("device,transport,world,schedule,solver,extra,want",
+                         RULE_CASES)
+def test_dispatch_rule(device, transport, world, schedule, solver, extra,
+                       want):
+    model = _fake(device, transport, world, **extra)
+    got, why = compiled.dispatch(model, schedule, solver)
+    assert got == ("graph" if want == "graph" else "eager")
+    if want == "graph":
+        assert why == compiled.GRAPH_REASON
+        assert compiled.use_graph(model, None, schedule, solver)
+    else:
+        assert why == compiled.EAGER_REASONS[want]
+        assert not compiled.use_graph(model, None, schedule, solver)
+        with pytest.raises(CheckError, match="graph=True.*" + want):
+            compiled.use_graph(model, True, schedule, solver)
+    assert not compiled.use_graph(model, False, schedule, solver)
+
+
+def test_no_peer_reason_left():
+    """The peer transport's launch epochs are device words: no eager
+    reason names it, and the dist reason names what goes through
+    torch.distributed."""
+    assert set(compiled.EAGER_REASONS) == {"cpu", "dist"}
+    why = compiled.EAGER_REASONS["dist"]
+    for what in ("--transport dist", "bulk and early", "var exchange",
+                 "slice_size"):
+        assert what in why
+
+
+def test_dispatch_all_sums_up_a_run():
+    w2 = _fake(transport="peer", world=2)
+    assert compiled.dispatch_all(w2, ["overlap", "nocomm"])[0] == "graph"
+    assert compiled.dispatch_all(w2, ["bulk", "overlap"]) == (
+        "eager", compiled.EAGER_REASONS["dist"])
+    assert compiled.dispatch_all(w2, ["overlap"], solver_mode=True)[0] == \
+        "eager"
+    assert compiled.dispatch_all(_fake(transport="peer"),
+                                 SCHEDULES, True)[0] == "graph"
 
 
 def test_graph_true_raises_where_the_rule_says_eager(models, gvar):
@@ -139,11 +203,15 @@ def test_graph_true_raises_where_the_rule_says_eager(models, gvar):
     ell = GreenGaussModel(tm.parts, NVAR, device="cpu")
     with pytest.raises(CheckError, match="graph=True.*cpu"):
         ell.iterate_fn("bulk", 2, graph=True)
-    for fake in (_fake(transport="peer"), _fake(transport="dist", world=2)):
-        with pytest.raises(CheckError, match="graph=True"):
-            compiled.use_graph(fake, True)
-        assert not compiled.use_graph(fake, None)
+    for fake, s in ((_fake(transport="dist", world=2), "overlap"),
+                    (_fake(transport="peer", world=2), "bulk"),
+                    (_fake(transport="peer", world=2, routed=True),
+                     "overlap")):
+        with pytest.raises(CheckError, match="graph=True.*dist"):
+            compiled.use_graph(fake, True, s)
+        assert not compiled.use_graph(fake, None, s)
     assert compiled.use_graph(_fake(), None)
+    assert compiled.use_graph(_fake(transport="peer"), None, "early", True)
     assert not compiled.use_graph(_fake(), False)
 
 
@@ -307,7 +375,8 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(compiled, "_side_stream",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(compiled, "dispatch",
-                        lambda model: (compiled.GRAPH, compiled.GRAPH_REASON))
+                        lambda model, schedule=None, solver_mode=False:
+                        (compiled.GRAPH, compiled.GRAPH_REASON))
     return graphs
 
 

@@ -7,17 +7,24 @@ prints the reference's columns; what it pushes is held bitwise (a copy has
 no tolerance) against the semantics of the reference's kernel run in
 interpret mode (`cfd_proxy_tpu/tools/icibench.py`, whose interpret branch
 is `recv = send`).  No suggestion line appears without `--link-gbps`: the
-port assumes no link rate.
+port assumes no link rate.  The chained loop goes through
+`compiled.runner` for the body "push": the rule says graph wherever the
+transport is a `Peer` on a card, at any rank count, and eager on the CPU;
+each row names the dispatch, and the loop under a stand-in for the graph
+primitive equals the eager loop bit for bit.
 """
 
+import collections
 import contextlib
 import io
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from cfd_proxy_tpu.tools import icibench as ref_icibench
+from cfd_proxy_tpu_torch.models import compiled
 from cfd_proxy_tpu_torch.ops import push
 from cfd_proxy_tpu_torch.parallel import launch, workers
 from cfd_proxy_tpu_torch.parallel.transport import Loopback
@@ -153,3 +160,79 @@ def test_unknown_mode_is_refused():
     send = torch.zeros((1, 1, 24, 128))
     with pytest.raises(CheckError, match="unknown push mode"):
         push.push_phases(send, Loopback(np.zeros((1, 1)), "cpu"), "plain")
+
+
+@pytest.mark.parametrize("device,name,world,want", [
+    ("cuda", "peer", 1, "graph"),
+    ("cuda", "peer", 2, "graph"),
+    ("cuda", "peer", 4, "graph"),
+    ("cpu", "loopback", 1, "cpu"),
+    ("cpu", "dist/gloo", 2, "cpu"),
+    ("cuda", "dist/nccl", 2, "dist"),
+])
+def test_chain_dispatch_follows_the_rule(device, name, world, want):
+    """The push chain holds no collective: graph through a Peer at any rank
+    count, eager on the CPU (and through Dist)."""
+    t = types.SimpleNamespace(name=name, world=world)
+    host = icibench.chain_host(t, device)
+    assert host.world == world and not host.graphs
+    run = icibench.chained_runner(torch.zeros(1), t, "full", host)
+    kind, why = run.dispatch
+    assert (kind, why) == compiled.dispatch(host, "push")
+    if want == "graph":
+        assert kind == "graph" and why == compiled.GRAPH_REASON
+    else:
+        assert kind == "eager" and why == compiled.EAGER_REASONS[want]
+
+
+def test_rows_carry_the_dispatch():
+    rc, lines = run_main(icibench.main, [
+        "--device", "cpu", "--phases", "1", "2", "--mb", "0.125", "--iters",
+        "3"])
+    assert rc == 0
+    rows = [ln for ln in lines if ln.split()[0] in ("1", "2")]
+    assert len(rows) == 2
+    assert all(ln.endswith("dispatch=eager") for ln in rows)
+
+
+@pytest.mark.parametrize("mode", push.MODES)
+def test_chain_under_a_graph_stand_in_equals_eager(monkeypatch, mode):
+    """The chained loop through the graph runner's bookkeeping (the graph
+    primitive replaced by a stand-in that records the step's Python and
+    replays it): the state after n steps equals the reference's eager loop
+    v ← v + c·push(v) bit for bit, at a coupling c that moves the state (at
+    the reference's 1e-30 an f32 state never moves), and one capture serves
+    every n."""
+    class Replay:
+        def __init__(self, step):
+            self.step = step
+
+        def replay(self):
+            self.step()
+
+        def pool(self):
+            return None
+
+    def record(step, pool=None):
+        step()
+        return Replay(step)
+
+    monkeypatch.setattr(compiled, "_record", record)
+    monkeypatch.setattr(compiled, "_side_stream",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(compiled, "dispatch",
+                        lambda model, schedule=None, solver_mode=False:
+                        (compiled.GRAPH, compiled.GRAPH_REASON))
+    send = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 2, 24, 128)).astype(np.float32))
+    t = Loopback(np.zeros((1, 2), np.int64), "cpu")
+    host = icibench.chain_host(t, "cpu")
+    run = icibench.chained_runner(send, t, mode, host, coupling=0.3)
+    for n in (1, 4, 7):
+        v = send
+        for _ in range(n):
+            v = v + 0.3 * push.push_phases(v, t, mode)
+        got = run(n)
+        assert torch.equal(got, v) and not torch.equal(got, send)
+    assert len(host.graphs) == 1
+    assert isinstance(host.graphs, collections.OrderedDict)

@@ -1160,7 +1160,8 @@ def test_cuda_overlap_peer_kernels_match_plain(cuda_model, cuda_gather_model,
     one launch, one rank) against its plain version in every form K3 has:
     packed and gather, gg and flux, f32 and bf16 push.  The sweep within
     the sweep bound, the pushed buffers bitwise, over three launches on one
-    transport (the epochs advance; recv is overwritten each time)."""
+    transport (the device epoch words advance; recv is overwritten each
+    time)."""
     if op == "flux":
         model, state = cuda_flux_models[kernel]
     else:
@@ -1247,6 +1248,170 @@ def test_cuda_push_phases_matches_plain(mode, nph):
             assert torch.equal(got, want)
             send = send + 1.0
         assert getattr(push.push_phases, mode + "_launches") == before + 2
+    finally:
+        peer.close()
+
+
+def _graph_of(step):
+    """step() captured in a torch.cuda.CUDAGraph after one warm-up call on
+    a side stream (which launches: it counts as one launch)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return graph
+
+
+def _epochs(peer):
+    """The transport's launch epoch words: (barrier, copy) launches."""
+    torch.cuda.synchronize()
+    return tuple(int(x) for x in peer.epoch_words.cpu())
+
+
+N_REPLAYS = 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["packed", "gather"])
+def test_cuda_overlap_peer_replays_as_graph(cuda_model, cuda_gather_model,
+                                            kernel):
+    """K3's peer form captured in a CUDA graph and replayed N times equals
+    N eager launches bit for bit: a chain whose launch i + 1 sweeps onto
+    launch i's output and pushes a buffer made from launch i's recv.  The
+    epochs are device words the launches advance (capture moves none), so
+    eager launches after the replays, and a replay after them, still meet
+    their flags."""
+    model, state = cuda_gather_model if kernel == "gather" else cuda_model
+    args = (state["var_T"], *model._operands("interior", state["tables"]))
+    fused = (bs.sweep_blocks_overlap_gather if kernel == "gather"
+             else bs.sweep_blocks_overlap)
+    kw = model._gather_kw("interior")
+    gen = torch.Generator("cuda").manual_seed(24)
+    P = len(model.parts)
+    init0 = torch.randn((P, model.rows, model.ndev), device="cuda",
+                        generator=gen)
+    send0 = torch.randn((P, model.nphases, model.rows, model.s_max),
+                        device="cuda", generator=gen)
+    peer = _peer_for(model)
+    g_, s_ = init0.clone(), send0.clone()
+
+    def step(g=g_, s=s_):
+        _, r = fused(*args, g, s, None, None, peer=peer, **kw)
+        s.mul_(0.5).add_(r)
+
+    try:
+        graph = _graph_of(step)
+        assert _epochs(peer) == (1, 1)          # the warm-up alone
+        g_.copy_(init0)
+        s_.copy_(send0)
+        for _ in range(N_REPLAYS):
+            graph.replay()
+        g_e, s_e = init0.clone(), send0.clone()
+        for _ in range(N_REPLAYS):
+            step(g_e, s_e)
+        torch.cuda.synchronize()
+        assert torch.equal(g_, g_e) and torch.equal(s_, s_e)
+        assert not torch.equal(g_, init0)
+        assert _epochs(peer) == (1 + 2 * N_REPLAYS,) * 2
+        # eager after the replays, then a replay after eager: one count
+        step(g_e, s_e)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_, g_e) and torch.equal(s_, s_e)
+        assert _epochs(peer) == (3 + 2 * N_REPLAYS,) * 2
+    finally:
+        peer.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "nobar", "baronly", "empty"])
+def test_cuda_push_phases_replays_as_graph(mode):
+    """K6 captured and replayed N times equals N eager launches bit for bit
+    (the chain v <- v + c·push(v) of the push bench), and an eager launch
+    after the replays still meets the flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from cfd_proxy_tpu_torch.ops import push
+    from cfd_proxy_tpu_torch.tools.icibench import make_transport
+
+    nph, rows, lanes = 3, 24, 128 * 37
+    peer = make_transport(1, nph, rows, lanes, "cuda", None)
+    v0 = torch.randn((1, nph, rows, lanes), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(25))
+    v_ = v0.clone()
+
+    def step(v=v_):
+        v.add_(0.25 * push.push_phases(v, peer, mode))
+
+    bar, copy = (PUSH_BITS[mode] & 1, PUSH_BITS[mode] >> 1 & 1)
+    try:
+        graph = _graph_of(step)
+        v_.copy_(v0)
+        for _ in range(N_REPLAYS):
+            graph.replay()
+        v_e = v0.clone()
+        for _ in range(N_REPLAYS):
+            step(v_e)
+        torch.cuda.synchronize()
+        assert torch.equal(v_, v_e) and not torch.equal(v_, v0)
+        n = 1 + 2 * N_REPLAYS
+        assert _epochs(peer) == (n * bar, n * copy)
+        step(v_e)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(v_, v_e)
+        assert _epochs(peer) == ((n + 2) * bar, (n + 2) * copy)
+    finally:
+        peer.close()
+
+
+PUSH_BITS = {"full": 3, "nobar": 2, "nodma": 0, "baronly": 5, "empty": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,mode", [
+    ("k3", "full"), ("k3", "nobar"), ("k3", "nodma"), ("k6", "full"),
+    ("k6", "nobar"), ("k6", "baronly"), ("k6", "empty")])
+def test_cuda_epoch_words_count_launches_per_mode(cuda_model, kernel, mode):
+    """The epoch words read back after launches in one mode: the barrier
+    word counts the launches with kPushBarrier, the copy word those with
+    kPushCopy (csrc/push_common.cuh), every launch advancing them once; a
+    later full launch still meets its flags (recv bitwise)."""
+    from cfd_proxy_tpu_torch.ops import push
+    from cfd_proxy_tpu_torch.ops.blocksweep import PUSH_MODES
+
+    assert PUSH_MODES == PUSH_BITS
+    model, state = cuda_model
+    args = (state["var_T"], *model._operands("interior", state["tables"]))
+    P = len(model.parts)
+    gen = torch.Generator("cuda").manual_seed(26)
+    init = torch.randn((P, 24, model.ndev), device="cuda", generator=gen)
+    send = torch.randn((P, model.nphases, 24, model.s_max), device="cuda",
+                       generator=gen)
+    peer = _peer_for(model)
+
+    def launch(m):
+        if kernel == "k3":
+            return bs.sweep_blocks_overlap(
+                *args, init.clone(), send, None, None, peer=peer,
+                debug=None if m == "full" else m)[1]
+        return push.push_phases(send, peer, m)
+
+    bar, copy = PUSH_BITS[mode] & 1, PUSH_BITS[mode] >> 1 & 1
+    try:
+        assert _epochs(peer) == (0, 0)
+        for n in range(1, 4):
+            launch(mode)
+            assert _epochs(peer) == (n * bar, n * copy)
+        got = launch("full").clone()
+        assert _epochs(peer) == (3 * bar + 1, 3 * copy + 1)
+        want = bs.sweep_blocks_overlap_ref(
+            *args, init.clone(), send, model.dsts, model.srcs)[1]
+        assert torch.equal(got, want)
     finally:
         peer.close()
 

@@ -107,3 +107,47 @@ def test_mbench_two_models(capsys):
     rc = main([*SMALL, "--b", "grad_dtype=bfloat16", "--json"])
     assert rc == 0
     assert '"pairs": 2' in capsys.readouterr().out
+
+
+def test_parse_overrides_takes_slice_size():
+    """slice_size is a model field, as in the reference's mbench: the
+    routing it selects is built by solver.build_model."""
+    assert "slice_size" in _MODEL_FIELDS and "slice_size" not in REFUSED
+    assert parse_overrides(SolverConfig(), "slice_size=1").slice_size == 1
+    assert parse_overrides(SolverConfig(), "slice_size=None").slice_size \
+        is None
+
+
+def test_mbench_slice_size_ab_builds_each_side(monkeypatch, capsys):
+    """An A/B of slice_size=1 against None at four parts runs, each side's
+    model built with its own slice_size: side A (one shard a slice) routes
+    every phase to the collective carrier, side B keeps them all in the
+    kernel."""
+    from cfd_proxy_tpu_torch.tools import mbench
+
+    built = []
+
+    def build(cfg, parts):
+        model, gmesh = solver.build_model(cfg, parts)
+        built.append((cfg.slice_size, model))
+        return model, gmesh
+
+    monkeypatch.setattr(mbench, "build_model", build)
+    argv = [*SMALL, "--a", "slice_size=1", "--b", "slice_size=None",
+            "--json"]
+    argv[argv.index("--parts") + 1] = "4"
+    assert main(argv) == 0
+    assert '"pairs": 2' in capsys.readouterr().out
+    (sa, ma), (sb, mb) = built
+    assert (sa, sb) == (1, None) and ma is not mb
+    every = list(range(ma.nphases))
+    assert every and ma.coll_phases == every and not ma.kernel_phases
+    assert mb.kernel_phases == every and not mb.coll_phases
+
+
+def test_platform_is_refused_by_name():
+    """The reference's --platform is parsed and refused with a CheckError
+    naming --device, as the solver does; not argparse's 'unrecognized
+    arguments'."""
+    with pytest.raises(CheckError, match="--platform cpu.*--device"):
+        main(["--platform", "cpu", *SMALL])

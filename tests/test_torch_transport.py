@@ -103,6 +103,7 @@ JOBS = {
             solver_steps=2, sweeps_per_step=2, model={"bp": 128}),)),
         "slice4-8": ("model_outputs", (case(8, slice_size=4),)),
         "ref-4": ("overlap_ref_exchange", (case(4),)),
+        "chain-4": ("overlap_chain", (case(4), 5, 0.1)),
     },
     3: {
         **{f"dist-3-{dt}": ("dist_exchange", (3, layout(3)[0], BUF, dt, 103,
@@ -270,7 +271,8 @@ def test_peer_table_addresses():
     srcs = np.array([[(p - 1) % P] * nph for p in range(P)], np.int32)
     lay = peer_layout(2, nph, seg)
     assert lay["flags"] % 256 == 0 and lay["flags"] >= 2 * nph * seg
-    assert lay["bytes"] == lay["flags"] + 8 * (2 * 2 * nph + 1)
+    # ready, arrive (2·nph words each), done and the two launch epochs
+    assert lay["bytes"] == lay["flags"] + 8 * (2 * 2 * nph + 3)
     bases = {0: 1 << 40, 1: 1 << 41}
     t = peer_table(dsts, srcs, 2, 4, bases, seg).reshape(2, nph, 3)
     for k in range(nph):
@@ -282,6 +284,63 @@ def test_peer_table_addresses():
         # shard 3 -> shard 0: rank 0's local shard 0
         assert t[1, k, 0] == bases[0] + k * seg
         assert t[1, k, 2] == bases[1] + lay["ready"] + 8 * k
+
+
+@pytest.mark.parametrize("nlocal,nph,seg", [(1, 1, 16), (1, 6, 9728),
+                                             (2, 2, 4096), (4, 6, 4864),
+                                             (8, 6, 116736), (3, 5, 48)])
+def test_peer_layout_epoch_words(nlocal, nph, seg):
+    """One rank's exchange block: recv at 0 (16-byte pieces, unchanged by
+    the epochs), the flag words from a 256-byte boundary past it, then
+    ready, arrive, done and the two launch epochs (barrier, copy) the
+    kernels read and advance (csrc/push_common.cuh: PeerPush::epochs is
+    flags + 2·npk + 1 words), the block's last 16 bytes."""
+    npk = nlocal * nph
+    lay = peer_layout(nlocal, nph, seg)
+    assert lay["recv"] == 0 and lay["recv"] % 16 == 0
+    assert lay["flags"] % 256 == 0
+    assert npk * seg <= lay["flags"] < npk * seg + 256
+    assert lay["ready"] == lay["flags"]
+    assert lay["arrive"] == lay["ready"] + 8 * npk
+    assert lay["done"] == lay["arrive"] + 8 * npk
+    assert lay["epochs"] == lay["done"] + 8
+    assert lay["epochs"] == lay["flags"] + 8 * (2 * npk + 1)
+    assert lay["epochs"] % 8 == 0
+    assert lay["bytes"] == lay["epochs"] + 16
+    # the epoch words view as the two int64 the transport reads back
+    block = torch.zeros(lay["bytes"], dtype=torch.uint8)
+    words = block[lay["epochs"]:lay["bytes"]].view(torch.int64)
+    words[1] = 3
+    assert words.shape == (2,) and block[lay["epochs"] + 8] == 3
+
+
+def test_peer_keeps_no_host_epoch():
+    """The launch epochs are device words: no host counter and no epoch
+    argument crosses into the kernels."""
+    import inspect
+
+    from cfd_proxy_tpu_torch.ops import _cuda, blocksweep, push
+
+    assert not hasattr(Peer, "_ready") and "epochs(" not in \
+        inspect.getsource(Peer) and "self.epochs" not in \
+        inspect.getsource(Peer)
+    for mod in (blocksweep, push, _cuda):
+        assert "epoch_ready" not in inspect.getsource(mod)
+        assert "epoch_arrive" not in inspect.getsource(mod)
+
+
+def test_overlap_chain_worker_equals_one_process(ranks):
+    """`workers.overlap_chain`, which the card's two-process check runs
+    through the peer transport under graph: on the CPU (eager, the CPU
+    reason) the chained overlap state at a coupling that moves it, over two
+    gloo ranks, equals the one-process state bit for bit on every rank."""
+    one = workers.overlap_chain(case(4), 5, 0.1)
+    assert one["dispatch"] == "eager" and one["world"] == 1
+    assert one["graph_equals_eager"] and one["moved"] > 1e-3
+    for r in ranks(2, "chain-4"):
+        assert r["world"] == 2 and r["dispatch"] == "eager"
+        assert r["graph_equals_eager"] and r["digest"] == one["digest"]
+        assert r["replay_kernels"] == 0 and r["launches"] == {}
 
 
 # ------------------------------------------------- the slice against JAX
