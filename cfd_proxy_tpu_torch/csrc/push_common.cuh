@@ -98,8 +98,11 @@
 // than push blocks only delays the sweep blocks: every wait of a push block
 // is for a block 0 that is resident before it (the lowest index of its
 // grid, here or on the other rank), so the spinning blocks always drain.
-// Across ranks the same holds per launch as long as every rank launches (a
-// rank that never does is a bug: the wait below traps).
+// The cluster form of K3's gather sweep (sweep_overlap.cu, two-block
+// clusters, one or two blocks per SM) re-argues this for cluster
+// scheduling beside its kernel.  Across ranks the same holds per launch
+// as long as every rank launches (a rank that never does is a bug: the
+// wait below traps).
 //
 // Every wait is bounded: past kSpinLimitNs on the global timer it traps, so
 // a protocol bug is a launch error, not a hung card.
@@ -213,14 +216,18 @@ __device__ __forceinline__ void peer_signal_block(const PeerPush& p) {
   }
 }
 
-// Step 2: push block `blk` in [0, p.blocks).
+// Step 2: push block `blk` in [0, p.blocks).  Its first kPushThreads
+// threads copy; kWide (the cluster form of K3, whose blocks are wider):
+// the rest only meet both block barriers.
+template <bool kWide = false>
 __device__ __forceinline__ void peer_push_block(const PeerPush& p,
                                                 int64_t blk) {
   const int64_t pk = blk / p.chunks;
   const int64_t c = blk % p.chunks;
   const uint4* src = p.sendbufs + pk * p.seg;
+  const bool copies = !kWide || threadIdx.x < kPushThreads;
   if (!(p.mode & kPushCopy)) {
-    if ((p.mode & kPushLocal0) && pk % p.nph == 0) {
+    if ((p.mode & kPushLocal0) && pk % p.nph == 0 && copies) {
       copy_share(src, p.recv + pk * p.seg, p.seg, c, p.chunks);
     }
     return;
@@ -229,8 +236,10 @@ __device__ __forceinline__ void peer_push_block(const PeerPush& p,
     if (threadIdx.x == 0) spin_until(p.flags + pk, p.epochs[0] + 1);
     __syncthreads();
   }
-  copy_share(src, reinterpret_cast<uint4*>(p.table[3 * pk]), p.seg, c,
-             p.chunks);
+  if (copies) {
+    copy_share(src, reinterpret_cast<uint4*>(p.table[3 * pk]), p.seg, c,
+               p.chunks);
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence_system();

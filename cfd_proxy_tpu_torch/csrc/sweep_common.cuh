@@ -595,6 +595,99 @@ __device__ __forceinline__ void sweep_entry_cluster(
   cluster.sync();                 // the other CTA's reads of this plane
 }
 
+// The gather bodies as the entry points take them
+// (ops/blocksweep.py::GATHER_BODY_CODES).
+enum Body { kDirect = 0, kStaged = 1, kCluster = 2 };
+
+// The cluster body's CUDA blocks: a multiple of 32 threads, at most this
+// many (the launches take blocksweep.cluster_threads), one or two blocks
+// per SM.
+constexpr int kClusterMaxThreads = 512;
+
+inline bool cluster_threads_ok(int threads) {
+  return threads >= 32 && threads <= kClusterMaxThreads && threads % 32 == 0;
+}
+
+// The launch configuration of `clusters` clusters of kClusterCtas CUDA
+// blocks (cfg.attrs points at *attr).
+inline cudaLaunchConfig_t cluster_config(int64_t clusters, int threads,
+                                         int64_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kClusterCtas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kClusterCtas));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `kernel` that can be resident at once on this card at
+// `threads` threads and `smem` dynamic bytes a block, into *n.
+template <class Kernel>
+cudaError_t resident_clusters(Kernel kernel, int threads, int64_t smem,
+                              int* n) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, threads, smem, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(
+      n, reinterpret_cast<const void*>(kernel), &cfg);
+}
+
+// The residency a cluster launch of one instance last checked.
+struct Residency {
+  int64_t smem = -1;
+  int threads = 0;
+};
+
+// cudaSuccess where at least one cluster of `kernel` can be resident at
+// `threads` and `smem` (asked of the runtime once per distinct pair: *r is
+// the launching instance's), cudaErrorInvalidConfiguration where none can:
+// such a launch would fail, and nothing falls back to another body.
+template <class Kernel>
+cudaError_t cluster_fits(Kernel kernel, int threads, int64_t smem,
+                         Residency* r) {
+  if (smem == r->smem && threads == r->threads) return cudaSuccess;
+  int n = 0;
+  const cudaError_t e = resident_clusters(kernel, threads, smem, &n);
+  if (e != cudaSuccess) return e;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  r->smem = smem;
+  r->threads = threads;
+  return cudaSuccess;
+}
+
+// One cluster launch of `kernel`: `region` leading blocks (K3's push
+// region, padded to whole clusters; 0 for K2), then a cluster per entry,
+// after its checks: the shared memory of one plane a block (its limit
+// raised once per instance, *raised) and at least one resident cluster
+// (*resident).  `args` follow the kernel's signature.  Returns the
+// cudaError_t.
+template <class Kernel, class... Args>
+int launch_cluster(Kernel kernel, bool* raised, Residency* resident,
+                   int bp, int64_t ep, int64_t region, int64_t entries,
+                   int threads, cudaStream_t stream, Args... args) {
+  int64_t smem = 0;
+  const int64_t grid = region + kClusterCtas * entries;
+  if (!cluster_threads_ok(threads) || region % kClusterCtas != 0 ||
+      grid > 0x7fffffffLL ||
+      !staged_launch_ok(kernel, raised, bp, ep, &smem, kClusterCtas)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cluster_fits(kernel, threads, smem, resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(grid / kClusterCtas, threads, smem, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The zero-filled forms of the gather sweep write the columns of the
 // blocks a shard's list leaves out as zeros themselves, so the wrapper
 // hands an uninitialised output.  A list is strictly ascending, then pad

@@ -89,13 +89,6 @@ constexpr int kStagedThreads = 256;
 constexpr int kStagedMinBlocks = 4;
 constexpr int kStagedInitMinBlocks = 2;
 
-// The cluster body's CUDA blocks: at most this many threads (the launch
-// takes blocksweep.cluster_threads), one or two blocks per SM.
-constexpr int kClusterMaxThreads = 512;
-
-// The bodies as the entry points take them (blocksweep.GATHER_BODY_CODES).
-enum Body { kDirect = 0, kStaged = 1, kCluster = 2 };
-
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
 __global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
 sweep_gather_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s) {
@@ -123,7 +116,7 @@ sweep_gather_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
 }
 
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
-__global__ void __launch_bounds__(kClusterMaxThreads, 1)
+__global__ void __launch_bounds__(cfd::kClusterMaxThreads, 1)
 sweep_gather_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
                             const int32_t* ext_cnt) {
   const int64_t g = blockIdx.x / cfd::kClusterCtas;   // one entry a cluster
@@ -134,36 +127,6 @@ sweep_gather_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
         cfd::kClusterCtas * blockDim.x);
   }
   cfd::sweep_entry_cluster<kAccumulate, kOp>(a, s, ext_cnt, g);
-}
-
-// The launch configuration of `clusters` clusters of the cluster body
-// (cfg.attrs points at *attr).
-inline cudaLaunchConfig_t cluster_config(int64_t clusters, int threads,
-                                         int64_t smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cfd::kClusterCtas;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cfd::kClusterCtas));
-  cfg.blockDim = dim3(static_cast<unsigned>(threads));
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Clusters of the cluster body that can be resident at once on this card
-// at `threads` threads and `smem` dynamic bytes a block, into *n.
-template <class Kernel>
-cudaError_t resident_clusters(Kernel kernel, int threads, int64_t smem,
-                              int* n) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(1, threads, smem, 0, &attr);
-  return cudaOccupancyMaxActiveClusters(
-      n, reinterpret_cast<const void*>(kernel), &cfg);
 }
 
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
@@ -183,39 +146,19 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
                             chunks, static_cast<O*>(out)};
   const cfd::GatherSrc<W> s{exts, slot_idx, static_cast<const W*>(slot_w),
                             ep};
-  if (body == kDirect) {
+  if (body == cfd::kDirect) {
     sweep_gather_kernel<kAccumulate, kOp, W, O>
         <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
     return static_cast<int>(cudaGetLastError());
   }
-  if (body == kCluster) {
-    const auto kernel = sweep_gather_cluster_kernel<kAccumulate, kOp, W, O>;
+  if (body == cfd::kCluster) {
     static bool raised = false;
-    static int64_t resident_smem = -1;   // the residency last checked
-    static int resident_threads = 0;
-    int64_t smem = 0;
-    if (threads < 32 || threads > kClusterMaxThreads || threads % 32 != 0 ||
-        P * nb * cfd::kClusterCtas > 0x7fffffffLL ||
-        !cfd::staged_launch_ok(kernel, &raised, bp, ep, &smem,
-                               cfd::kClusterCtas)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (smem != resident_smem || threads != resident_threads) {
-      int n = 0;
-      const cudaError_t e = resident_clusters(kernel, threads, smem, &n);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-      resident_smem = smem;
-      resident_threads = threads;
-    }
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(P * nb, threads, smem, stream, &attr);
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, s, ext_cnt);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaGetLastError());
+    static cfd::Residency resident;
+    return cfd::launch_cluster(
+        sweep_gather_cluster_kernel<kAccumulate, kOp, W, O>, &raised,
+        &resident, bp, ep, 0, P * nb, threads, stream, a, s, ext_cnt);
   }
-  if (body != kStaged) return static_cast<int>(cudaErrorInvalidValue);
+  if (body != cfd::kStaged) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = sweep_gather_staged_kernel<kAccumulate, kOp, W, O>;
   static bool raised = false;
   int64_t smem = 0;
@@ -233,11 +176,11 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
 // on the current device; K <= 64; every slot_idx in [0, bp + ep) (checked
 // where the plan is loaded); op as in cfd::op_ok; `out` has cfd::op_rows
 // rows.  `slots` holds the per-slot widths (its offset row is not read: the
-// gather tables are rectangular).  body (enum Body): kStaged (bp and ep
+// gather tables are rectangular).  body (enum cfd::Body): kStaged (bp and ep
 // multiples of 4, var_T and exts 16-byte aligned, cfd::staged_bytes(bp, ep)
 // within a block's shared memory) and kCluster (the same, with
 // cfd::cluster_bytes(bp, ep) within it, `threads` a multiple of 32 up to
-// kClusterMaxThreads) read ext_cnt (P, nb) i32, each entry's live ext
+// cfd::kClusterMaxThreads) read ext_cnt (P, nb) i32, each entry's live ext
 // columns, every live slot_idx below bp + ext_cnt (null: ep for every
 // entry); kDirect reads neither ext_cnt nor `threads`.  accumulate != 0:
 // `out` holds init on entry.  w_bf16 / out_bf16 != 0: slot_w / out (and
@@ -302,16 +245,16 @@ extern "C" int cfd_sweep_gather_info(int body, int accumulate, int op,
       return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           out + 3, kernel, block, dyn));
     };
-    if (body == kStaged) {
+    if (body == cfd::kStaged) {
       return info(sweep_gather_staged_kernel<kAcc, kOp, W, O>,
                   kStagedThreads, smem);
     }
-    if (body == kCluster) {
+    if (body == cfd::kCluster) {
       const auto kernel = sweep_gather_cluster_kernel<kAcc, kOp, W, O>;
       const int e = info(kernel, threads, smem);
       if (e != 0) return e;
       return static_cast<int>(
-          resident_clusters(kernel, threads, smem, out + 4));
+          cfd::resident_clusters(kernel, threads, smem, out + 4));
     }
     return info(sweep_gather_kernel<kAcc, kOp, W, O>, cfd::kThreads, 0);
   });

@@ -19,13 +19,17 @@
 // hands out low indices first, so the copies start first, as the
 // reference's do); the rest run the interior sweep (sweep_common.cuh): in
 // the gather forms, the body ops/blocksweep.py::gather_body picks for the
-// fused kernel: staged, one sweep block per listed entry with its table in
-// the launch's dynamic shared memory (which the push blocks are given too
-// and leave unused), or direct.  The flux form keeps the direct body: the
-// staged one took 1.0035x the direct one's time in turns at the eight-shard
-// 96^3 interior plan on an H100, where its four 128-thread blocks per SM
-// leave the flux body (8 accumulators, little work per load) short of the
-// direct body's six.  The
+// fused kernel, by K2's rule: staged where two staged tables fit one SM,
+// one sweep block per listed entry with its table in the launch's dynamic
+// shared memory (which the push blocks are given too and leave unused);
+// past that the cluster body where half the table fits one block, a
+// cluster of two CUDA blocks per entry (sweep_overlap_cluster_kernel: the
+// push region padded to whole clusters); else direct.  The flux form keeps
+// the direct body where the rule says staged: the staged one took 1.0035x
+// the direct one's time in turns at the eight-shard 96^3 interior plan at
+// bp 512 on an H100, where its four 128-thread blocks per SM leave the
+// flux body (8 accumulators, little work per load) short of the direct
+// body's six.  The
 // push is a copy of bytes, so one body serves f32 and bf16 buffers: each
 // (shard, phase) buffer is rows*s_max*esize bytes, moved in 16-byte pieces.
 //
@@ -64,7 +68,12 @@
 // rows is the op's output row count (3*NV gg, NV flux).  The staged gather
 // form runs four 128-thread blocks per SM at the eight-shard tables, half
 // the warps K2's 256-thread blocks keep, so it gains less than K2 (PERF.md
-// section 6).
+// section 6).  The cluster form runs K2's cluster body at its threads
+// (blocksweep.cluster_threads: 256 at the one-shard plan at AUTO's bp 4096,
+// two blocks an SM; 512 at bp 8192 and at the two-shard plan at bp 4096,
+// one), its push blocks at the same.  On an H100 it took about 0.16 ms at
+// the one-shard 96^3 interior plan at bp 4096 (the one-block staged body
+// 0.33) and at bp 8192 (direct 0.32), 56 % of its bound.
 
 #include "push_common.cuh"
 #include "sweep_common.cuh"
@@ -136,10 +145,38 @@ sweep_overlap_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
   cfd::sweep_entry_staged<true, kOp>(a, s, ext_cnt, blockIdx.x - p.blocks);
 }
 
-// The staged form of a gather launch: the live ext counts and the body.
-struct Staging {
+// The cluster gather body's CUDA blocks (sweep_common.cuh::
+// sweep_entry_cluster), and the push blocks that share its launch.  Every
+// CUDA block of a cluster launch belongs to a cluster of kClusterCtas, so
+// the push region is padded to an even number of blocks (`region`, the
+// pad block returns at once): blocks region + 2g and region + 2g + 1 are
+// entry g's cluster, whose block rank is blockIdx.x % 2.  The push blocks
+// run at the cluster's threads and carry its dynamic shared memory, which
+// they leave unused; their first kThreads threads copy a chunk as the
+// one-block forms' push blocks do, and the rest return.  Fewer, wider
+// chunks (all of a block's threads copying) timed within 1.2 % of this
+// on an H100, neither ahead (PERF.md section 6).  ptxas is asked for one
+// resident block per SM (up to 128 registers at 512 threads).
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kClusterMaxThreads, 1)
+sweep_overlap_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                             const int32_t* ext_cnt, PushArgs p,
+                             int64_t region) {
+  const int64_t blk = blockIdx.x;
+  if (blk < region) {
+    if (blk < p.blocks && threadIdx.x < cfd::kThreads) push_chunk(p, blk);
+    return;
+  }
+  cfd::sweep_entry_cluster<true, kOp>(a, s, ext_cnt,
+                                      (blk - region) / cfd::kClusterCtas);
+}
+
+// A gather launch's body (cfd::Body), the live ext counts the staged and
+// cluster bodies read, and the cluster body's threads.
+struct GatherLaunch {
   const int32_t* ext_cnt;   // (P, nb) live ext columns, or null
-  bool on;                  // the staged body, else the direct one
+  int body;
+  int threads;              // the cluster body's CUDA block, >= kThreads
 };
 
 // The gather fetch policy, and its weight type.
@@ -151,14 +188,22 @@ struct IsGather<cfd::GatherSrc<WT>> : std::true_type {
 };
 
 // Checks the push shape, sizes the grid and launches one instance: the
-// staged gather body when `st.on` (Src a GatherSrc), else sweep_chunk.
+// staged or cluster gather body as `st.body` says (Src a GatherSrc), else
+// sweep_chunk.
 template <cfd::Op kOp, class Src, class O>
 int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                    const void* sendbufs, int esize, const int32_t* dsts,
                    int64_t nph, int64_t s_max, void* recv,
-                   cudaStream_t stream, Staging st = {nullptr, false}) {
+                   cudaStream_t stream,
+                   GatherLaunch st = {nullptr, cfd::kDirect, 0}) {
+  const bool cluster = st.body == cfd::kCluster;
+  if (cluster && st.threads < cfd::kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t sweep_blocks =
-      st.on ? P * a.nb : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+      st.body == cfd::kStaged ? P * a.nb
+      : cluster               ? cfd::kClusterCtas * P * a.nb
+                              : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
   const int64_t row_bytes = s_max * esize;
   if ((esize != 2 && esize != 4) || row_bytes % kPushBytes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -166,7 +211,8 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
   const int64_t seg = cfd::op_rows(kOp) * row_bytes / kPushBytes;
   const int64_t push_chunks = (seg + kPushChunk - 1) / kPushChunk;
   const int64_t push_blocks = P * nph * push_chunks;
-  const int64_t grid = push_blocks + sweep_blocks;
+  const int64_t region = push_blocks + (cluster ? push_blocks % 2 : 0);
+  const int64_t grid = region + sweep_blocks;
   if (grid == 0) return 0;
   if (!cfd::sweep_args_ok(a.K, a.bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -174,9 +220,17 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
   const PushArgs p{static_cast<const uint4*>(sendbufs), dsts, nph, seg,
                    push_chunks, push_blocks, static_cast<uint4*>(recv)};
   if constexpr (IsGather<Src>::value) {
-    if (st.on) {
-      const auto kernel =
-          sweep_overlap_staged_kernel<kOp, typename IsGather<Src>::W, O>;
+    using W = typename IsGather<Src>::W;
+    if (cluster) {
+      static bool raised = false;
+      static cfd::Residency resident;
+      return cfd::launch_cluster(
+          sweep_overlap_cluster_kernel<kOp, W, O>, &raised, &resident, a.bp,
+          s.ep, region, P * a.nb, st.threads, stream, a, s, st.ext_cnt, p,
+          region);
+    }
+    if (st.body == cfd::kStaged) {
+      const auto kernel = sweep_overlap_staged_kernel<kOp, W, O>;
       static bool raised = false;
       int64_t smem = 0;
       if (!cfd::staged_launch_ok(kernel, &raised, a.bp, s.ep, &smem)) {
@@ -230,6 +284,48 @@ sweep_overlap_peer_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
   cfd::peer_finish_block(p);
 }
 
+// The peer form with the cluster gather body: block 0 signals, blocks
+// [1, 1 + p.blocks) push as above, at the cluster's threads (their first
+// kPushThreads copy, every thread meets the push's block barriers), the pad
+// block (where 1 + p.blocks is odd) returns at once and draws no exit
+// ticket, so the ticket count stays 1 + p.blocks; clusters follow as in
+// sweep_overlap_cluster_kernel.
+//
+// Why no launch can deadlock, under cluster scheduling (push_common.cuh
+// argues the one-block forms).  The hardware hands out clusters, like
+// blocks, in index order; a cluster needs two SMs of one GPC with room for
+// its blocks at once.  Blocks 0 and 1 form the first cluster, resident
+// before any other, on an idle card (the previous launch on the stream
+// has ended), and block 0 waits for nothing before its ticket.  A push
+// block waits only for readiness signals, each sent by block 0 of a grid
+// (this one, or another rank's, which is resident first in its own grid),
+// so every spinning push block is released; the pad block and the sweep
+// clusters wait for nothing outside their own cluster (cluster.sync pairs
+// two co-scheduled blocks), so fewer free SMs, or none paired in one GPC
+// while push blocks spin, only delay them.  The one block that may wait
+// across ranks after its ticket (the last-ticket block, for arrivals) holds
+// one SM, as in the one-block forms.  The launch refuses to start where no
+// cluster can be resident (cfd::cluster_fits).
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kClusterMaxThreads, 1)
+sweep_overlap_peer_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                                  const int32_t* ext_cnt, cfd::PeerPush p,
+                                  int64_t region) {
+  const int64_t blk = blockIdx.x;
+  if (blk >= region) {
+    cfd::sweep_entry_cluster<true, kOp>(a, s, ext_cnt,
+                                        (blk - region) / cfd::kClusterCtas);
+    return;
+  }
+  if (blk > p.blocks) return;                // the pad block: no ticket
+  if (blk == 0) {
+    cfd::peer_signal_block(p);
+  } else {
+    cfd::peer_push_block<true>(p, blk - 1);
+  }
+  cfd::peer_finish_block(p);
+}
+
 // The peer push operands of an entry point, as one argument.
 struct PeerOperands {
   const void* sendbufs;
@@ -245,11 +341,17 @@ struct PeerOperands {
 template <cfd::Op kOp, class Src, class O>
 int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                         const PeerOperands& o, cudaStream_t stream,
-                        Staging st = {nullptr, false}) {
+                        GatherLaunch st = {nullptr, cfd::kDirect, 0}) {
   static_assert(cfd::kPushThreads == cfd::kThreads,
                 "push and sweep blocks share one launch");
+  const bool cluster = st.body == cfd::kCluster;
+  if (cluster && st.threads < cfd::kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t sweep_blocks =
-      st.on ? P * a.nb : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+      st.body == cfd::kStaged ? P * a.nb
+      : cluster               ? cfd::kClusterCtas * P * a.nb
+                              : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
   cfd::PeerPush p;
   if ((o.esize != 2 && o.esize != 4) ||
       !cfd::make_peer_push(&p, o.sendbufs, o.recv, o.table, o.flags, P,
@@ -257,14 +359,25 @@ int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                            o.mode)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t grid = 1 + p.blocks + sweep_blocks;
+  // the push region: the signal block and the push blocks, padded to whole
+  // clusters in the cluster form
+  const int64_t region = 1 + p.blocks + (cluster ? (1 + p.blocks) % 2 : 0);
+  const int64_t grid = region + sweep_blocks;
   if (!cfd::sweep_args_ok(a.K, a.bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if constexpr (IsGather<Src>::value) {
-    if (st.on) {
-      const auto kernel =
-          sweep_overlap_peer_staged_kernel<kOp, typename IsGather<Src>::W, O>;
+    using W = typename IsGather<Src>::W;
+    if (cluster) {
+      static bool raised = false;
+      static cfd::Residency resident;
+      return cfd::launch_cluster(
+          sweep_overlap_peer_cluster_kernel<kOp, W, O>, &raised, &resident,
+          a.bp, s.ep, region, P * a.nb, st.threads, stream, a, s,
+          st.ext_cnt, p, region);
+    }
+    if (st.body == cfd::kStaged) {
+      const auto kernel = sweep_overlap_peer_staged_kernel<kOp, W, O>;
       static bool raised = false;
       int64_t smem = 0;
       if (!cfd::staged_launch_ok(kernel, &raised, a.bp, s.ep, &smem)) {
@@ -319,18 +432,22 @@ extern "C" int cfd_sweep_overlap(const float* var_T, int64_t ndev,
   });
 }
 
-// The gather form: sweep operands (ext_cnt and the body flag `staged`
-// included), op and dtype flags as in cfd_sweep_gather, push operands as in
-// cfd_sweep_overlap.
+// The gather form: sweep operands (ext_cnt and the body included), op and
+// dtype flags as in cfd_sweep_gather, the cluster body's `threads` (as
+// cfd_sweep_gather's, at least 128; read by the cluster body alone), push
+// operands as in cfd_sweep_overlap.  Returns
+// cudaErrorInvalidConfiguration where no cluster of the cluster body can
+// be resident.
 extern "C" int cfd_sweep_overlap_gather(
     const float* var_T, int64_t ndev, const float* exts, int64_t ep,
     const int32_t* slot_idx, const void* slot_w, const float* scale,
     const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
-    int64_t nb, int bp, const int32_t* ext_cnt, int staged, int op,
-    int w_bf16, int out_bf16, void* out,
+    int64_t nb, int bp, const int32_t* ext_cnt, int body, int op,
+    int w_bf16, int out_bf16, int threads, void* out,
     const void* sendbufs, int esize, const int32_t* dsts, int64_t nph,
     int64_t s_max, void* recv, cudaStream_t stream) {
-  if (ep <= 0 || !cfd::op_ok(op)) {
+  if (ep <= 0 || !cfd::op_ok(op) || body < cfd::kDirect ||
+      body > cfd::kCluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool flags[] = {op == 1, w_bf16 != 0, out_bf16 != 0};
@@ -343,8 +460,9 @@ extern "C" int cfd_sweep_overlap_gather(
                               bp, 0, static_cast<O*>(out)};
     const cfd::GatherSrc<W> s{exts, slot_idx, static_cast<const W*>(slot_w),
                               ep};
-    return launch_overlap<kOp>(a, P, s, sendbufs, esize, dsts, nph, s_max,
-                               recv, stream, Staging{ext_cnt, staged != 0});
+    return launch_overlap<kOp>(
+        a, P, s, sendbufs, esize, dsts, nph, s_max, recv, stream,
+        GatherLaunch{ext_cnt, body, threads});
   });
 }
 
@@ -384,11 +502,12 @@ extern "C" int cfd_sweep_overlap_gather_peer(
     const float* var_T, int64_t ndev, const float* exts, int64_t ep,
     const int32_t* slot_idx, const void* slot_w, const float* scale,
     const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
-    int64_t nb, int bp, const int32_t* ext_cnt, int staged, int op,
-    int w_bf16, int out_bf16, void* out,
+    int64_t nb, int bp, const int32_t* ext_cnt, int body, int op,
+    int w_bf16, int out_bf16, int threads, void* out,
     const void* sendbufs, int esize, const void* table, void* flags,
     void* recv, int64_t nph, int64_t s_max, int mode, cudaStream_t stream) {
-  if (ep <= 0 || !cfd::op_ok(op)) {
+  if (ep <= 0 || !cfd::op_ok(op) || body < cfd::kDirect ||
+      body > cfd::kCluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PeerOperands o{sendbufs, esize, table, flags, recv, nph, s_max,
@@ -403,8 +522,9 @@ extern "C" int cfd_sweep_overlap_gather_peer(
                               bp, 0, static_cast<O*>(out)};
     const cfd::GatherSrc<W> s{exts, slot_idx, static_cast<const W*>(slot_w),
                               ep};
-    return launch_overlap_peer<kOp>(a, P, s, o, stream,
-                                    Staging{ext_cnt, staged != 0});
+    return launch_overlap_peer<kOp>(
+        a, P, s, o, stream,
+        GatherLaunch{ext_cnt, body, threads});
   });
 }
 
@@ -444,12 +564,19 @@ extern "C" int cfd_overlap_peer_info(int gather, int w_bf16, int src_bf16d,
 }
 
 // The same facts of a gather instance of the fused kernel, loopback or
-// peer form, direct or staged body (at `smem` bytes of dynamic shared
-// memory), op and dtype flags as in cfd_sweep_overlap_gather.
-extern "C" int cfd_overlap_gather_info(int peer, int staged, int op,
+// peer form, direct, staged or cluster body (cfd::Body; at `smem` bytes of
+// dynamic shared memory, and the cluster body at `threads` threads a
+// block), op and dtype flags as in cfd_sweep_overlap_gather; the cluster
+// body also the clusters that can be resident at once into out[4] (else
+// 0).
+extern "C" int cfd_overlap_gather_info(int peer, int body, int op,
                                        int w_bf16, int out_bf16, int smem,
-                                       int* out) {
-  auto info = [out, smem](auto kernel) {
+                                       int threads, int* out) {
+  if (!cfd::op_ok(op) || body < cfd::kDirect || body > cfd::kCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[4] = 0;
+  auto info = [out, smem](auto kernel, int block) {
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -461,27 +588,39 @@ extern "C" int cfd_overlap_gather_info(int peer, int staged, int op,
         cfd::kStagedMaxSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out + 3, kernel, cfd::kThreads, smem));
+        out + 3, kernel, block, smem));
   };
-  if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool f[] = {peer != 0, staged != 0, op == 1, w_bf16 != 0,
-                    out_bf16 != 0};
-  return cfd::with_flags(f, [&](auto pr, auto st, auto flux, auto w16,
-                                auto o16) {
+  auto cluster = [&](auto kernel) {
+    const int e = info(kernel, threads);
+    if (e != 0) return e;
+    return static_cast<int>(
+        cfd::resident_clusters(kernel, threads, smem, out + 4));
+  };
+  const bool f[] = {peer != 0, op == 1, w_bf16 != 0, out_bf16 != 0};
+  return cfd::with_flags(f, [&](auto pr, auto flux, auto w16, auto o16) {
     using W = cfd::Elt<decltype(w16)::value>;
     using O = cfd::Elt<decltype(o16)::value>;
     constexpr cfd::Op kOp =
         decltype(flux)::value ? cfd::Op::kFlux : cfd::Op::kGG;
     if constexpr (decltype(pr)::value) {
-      if constexpr (decltype(st)::value) {
-        return info(sweep_overlap_peer_staged_kernel<kOp, W, O>);
-      } else {
-        return info(sweep_overlap_peer_kernel<kOp, cfd::GatherSrc<W>, O>);
+      if (body == cfd::kCluster) {
+        return cluster(sweep_overlap_peer_cluster_kernel<kOp, W, O>);
       }
-    } else if constexpr (decltype(st)::value) {
-      return info(sweep_overlap_staged_kernel<kOp, W, O>);
+      if (body == cfd::kStaged) {
+        return info(sweep_overlap_peer_staged_kernel<kOp, W, O>,
+                    cfd::kThreads);
+      }
+      return info(sweep_overlap_peer_kernel<kOp, cfd::GatherSrc<W>, O>,
+                  cfd::kThreads);
     } else {
-      return info(sweep_overlap_kernel<kOp, cfd::GatherSrc<W>, O>);
+      if (body == cfd::kCluster) {
+        return cluster(sweep_overlap_cluster_kernel<kOp, W, O>);
+      }
+      if (body == cfd::kStaged) {
+        return info(sweep_overlap_staged_kernel<kOp, W, O>, cfd::kThreads);
+      }
+      return info(sweep_overlap_kernel<kOp, cfd::GatherSrc<W>, O>,
+                  cfd::kThreads);
     }
   });
 }

@@ -148,27 +148,27 @@ def lib() -> ctypes.CDLL:
             ("cfd_sweep_packed", [*sweep, i32, i32, i32, i32, i32, i32, vp,
                                   vp]),
             ("cfd_sweep_overlap", [*sweep, i32, i32, i32, i32, vp, *push]),
-            # K2 alone: the cluster body's threads
+            # the gather forms: the cluster body's threads
             ("cfd_sweep_gather", [*gather, i32, i32, i32, i32, i32, vp, vp]),
-            ("cfd_sweep_overlap_gather", [*gather, i32, i32, i32, vp,
+            ("cfd_sweep_overlap_gather", [*gather, i32, i32, i32, i32, vp,
                                           *push]),
             ("cfd_sweep_overlap_peer", [*sweep, i32, i32, i32, i32, vp,
                                         *peer]),
-            ("cfd_sweep_overlap_gather_peer", [*gather, i32, i32, i32, vp,
-                                               *peer]),
+            ("cfd_sweep_overlap_gather_peer", [*gather, i32, i32, i32, i32,
+                                               vp, *peer]),
             # K6: sendbufs, P, nph, bytes, table, flags, recv, mode, stream
             ("cfd_push_phases", [vp, i64, i64, i64, vp, vp, vp, i32, vp]),
             # kernel facts (registers, local bytes, static shared bytes,
-            # blocks per SM; K2's cluster body also its resident clusters)
-            # into an int[5]: K3-peer (gather, w_bf16, src_bf16d,
+            # blocks per SM; the cluster bodies also their resident
+            # clusters) into an int[5]: K3-peer (gather, w_bf16, src_bf16d,
             # out_bf16), K6 (none), K4 (delta, smem), K2 (body, accumulate,
             # op, w_bf16, out_bf16, smem, threads), K3's gather form (peer,
-            # staged, op, w_bf16, out_bf16, smem)
+            # body, op, w_bf16, out_bf16, smem, threads)
             ("cfd_overlap_peer_info", [i32, i32, i32, i32, vp]),
             ("cfd_sweep_gather_info", [i32, i32, i32, i32, i32, i32, i32,
                                        vp]),
             ("cfd_overlap_gather_info", [i32, i32, i32, i32, i32, i32,
-                                         vp]),
+                                         i32, vp]),
             ("cfd_push_phases_info", [vp]),
             ("cfd_pack_srcs_info", [i32, i32, vp]),
             # mapped exchange memory (csrc/ipc.cu): device first
@@ -196,14 +196,14 @@ def kernel_info(name: str, *args: int) -> dict:
     resident blocks per SM of a kernel instance, as the CUDA runtime
     reports them: `name` one of "cfd_overlap_peer_info",
     "cfd_push_phases_info", "cfd_pack_srcs_info", "cfd_sweep_gather_info"
-    (which also gives `active_clusters`: the clusters of the cluster body
-    that can be resident at once, 0 for the other bodies),
-    "cfd_overlap_gather_info", args as it takes them."""
+    or "cfd_overlap_gather_info" (the last two also give `active_clusters`:
+    the clusters of the cluster body that can be resident at once, 0 for
+    the other bodies), args as it takes them."""
     out = (ctypes.c_int * 5)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
     check_launch(getattr(lib(), name)(*args, ptr), name)
     keys = ("regs", "local_bytes", "static_smem", "blocks_per_sm")
-    if name == "cfd_sweep_gather_info":
+    if name in ("cfd_sweep_gather_info", "cfd_overlap_gather_info"):
         keys += ("active_clusters",)
     return dict(zip(keys, out))
 

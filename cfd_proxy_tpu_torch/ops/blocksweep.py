@@ -84,10 +84,9 @@ GATHER_STAGE_MAX = 227 * 1024 - MAX_SLOTS * 4
 # the runtime reserves per block)
 GATHER_STAGE_PAIR = 228 * 1024 // 2 - 1024 - MAX_SLOTS * 4
 GATHER_BODIES = ("staged", "cluster", "direct")
-# the bodies as the kernels take them (csrc/sweep_gather.cu::Body), and
-# the ones the fused kernel has
+# the bodies as the kernels take them (csrc/sweep_common.cuh::Body); the
+# fused kernel has all three
 GATHER_BODY_CODES = {"direct": 0, "staged": 1, "cluster": 2}
-FUSED_GATHER_BODIES = ("staged", "direct")
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = (F32, BF16)   # the stored types a reduced-precision operand takes
 
@@ -117,8 +116,6 @@ _GATHER_TAGS = tuple(_tag(w, False, o) for w in (0, 1) for o in (0, 1))
 # the gather wrappers count the direct and cluster bodies apart:
 # "<tag>direct_launches", "<tag>cluster_launches"
 _BODY_TAGS = {"staged": "", "cluster": "cluster_", "direct": "direct_"}
-_FUSED_BODY_TAGS = tuple(t + _BODY_TAGS[b] for b in FUSED_GATHER_BODIES
-                         for t in _GATHER_TAGS)
 _GATHER_BODY_TAGS = tuple(t + _BODY_TAGS[b] for b in GATHER_BODIES
                           for t in _GATHER_TAGS)
 
@@ -645,16 +642,18 @@ def gather_body(bp: int, ep: int, op: str = "gg",
     device memory, any bp).  Measured on an H100 (PERF.md section 6): at
     bp 512 staged 0.100 ms against cluster 0.134; at the one-shard AUTO
     plan (bp 4096, a 188 KB table, one staged block per SM) cluster 0.138
-    against staged 0.185.  The fused kernel (fused: K3's gather form) has
-    no cluster body: its gg form stages wherever the table fits one block;
-    its flux form keeps the direct body, which the staged one did not beat
-    (csrc/sweep_overlap.cu)."""
-    if bp % 4 or ep % 4 or (fused and op == "flux"):
+    against staged 0.185.  The fused kernel (fused: K3's gather form)
+    follows the same rule, its push blocks sharing the cluster launch: at
+    the one-shard interior plans cluster 0.16 ms against its one-block
+    staged body's 0.33 (bp 4096) and direct 0.32 (bp 8192), flux 0.13
+    against direct 0.23 and 0.29; its flux form keeps the
+    direct body where the rule says staged, which did not beat it at bp
+    512 (csrc/sweep_overlap.cu)."""
+    if bp % 4 or ep % 4:
         return "direct"
-    if staged_bytes(bp, ep) <= (GATHER_STAGE_MAX if fused
-                                else GATHER_STAGE_PAIR):
-        return "staged"
-    if not fused and cluster_bytes(bp, ep) <= GATHER_STAGE_MAX:
+    if staged_bytes(bp, ep) <= GATHER_STAGE_PAIR:
+        return "direct" if fused and op == "flux" else "staged"
+    if cluster_bytes(bp, ep) <= GATHER_STAGE_MAX:
         return "cluster"
     return "direct"
 
@@ -707,8 +706,6 @@ def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
     cluster bodies load var_T and exts 16 bytes at a time."""
     P, nb, ep, bp, ndev, K = dims
     body = gather_body(bp, ep, op, fused)
-    check(body in (FUSED_GATHER_BODIES if fused else GATHER_BODIES),
-          "the fused gather kernel has no %s body", body)
     check(body == "direct" or (var_T.data_ptr() % 16 == 0
                                and exts.data_ptr() % 16 == 0),
           "the %s gather sweep loads var_T and exts 16 bytes at a time: "
@@ -990,9 +987,10 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
                                 ext_cnt: torch.Tensor | None = None):
     """Fused interior sweep (gather formulation) + halo push → (grad,
     recv): the sweep operands (and `ext_cnt`) as in `sweep_blocks_gather`,
-    the body `gather_body(bp, EP, op, fused=True)`'s, the push (and `peer`,
-    `debug`) as in
-    `sweep_blocks_overlap`.  Counterpart of
+    the body `gather_body(bp, EP, op, fused=True)`'s (the cluster body's
+    CUDA blocks, push blocks included, take `cluster_threads(bp, EP)`
+    threads, of which 128 copy in a push block), the push (and `peer`,
+    `debug`) as in `sweep_blocks_overlap`.  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks_overlap(..., packed=False)`.
     Kernel: csrc/sweep_overlap.cu (its gather instances)."""
     check(init is not None, "sweep_blocks_overlap_gather accumulates onto "
@@ -1001,6 +999,7 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
                          slots, init, rows, ext_cnt)
     dev = var_T.device
+    threads = cluster_threads(dims[3], dims[2])
     if peer is not None:
         mode = _check_peer(peer, sendbufs, dims[0], dev, rows, debug)
         from cfd_proxy_tpu_torch.ops import _cuda
@@ -1010,7 +1009,7 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
                             slots, dims, ext_cnt, op, fused=True)
         with torch.cuda.device(dev):
             rc = _cuda.lib().cfd_sweep_overlap_gather_peer(
-                *ptrs, OPS.index(op), w16, o16, init.data_ptr(),
+                *ptrs, OPS.index(op), w16, o16, threads, init.data_ptr(),
                 *_peer_args(peer, sendbufs, mode), _stream(dev))
         _cuda.check_launch(rc, "sweep_blocks_overlap_gather (peer)")
         _count(sweep_blocks_overlap_gather, None, op,
@@ -1031,7 +1030,7 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
                         slots, dims, ext_cnt, op, fused=True)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_overlap_gather(
-            *ptrs, OPS.index(op), w16, o16, init.data_ptr(),
+            *ptrs, OPS.index(op), w16, o16, threads, init.data_ptr(),
             sendbufs.data_ptr(), sendbufs.element_size(), dmap.data_ptr(),
             nph, s_max, recv.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_overlap_gather")
@@ -1041,5 +1040,5 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
 
 
 # K3-gather and K3-gather-flux with f32 or bf16 weights and out, loopback
-# and peer form, each in its staged and direct body
-_zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _FUSED_BODY_TAGS)
+# and peer form, each in its staged, cluster and direct body
+_zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _GATHER_BODY_TAGS)

@@ -31,6 +31,16 @@ faces, nvar 7, random state from a seed):
 - `solver_mode_timing`: the solver-mode step at P=1 and P=8, bulk, for
   gather/bp 512 and packed/AUTO at 1, 2 and 4 sweeps per step — the
   numbers `solver.solver_mode_defaults` is decided from;
+- `k3_gather_large_bp`: K3's gather form on the cluster body (two CUDA
+  blocks per entry, the push region padded to whole clusters), through the
+  gather model's bulk, early and overlap steps at P=1 `all` with
+  force_rdma at the AUTO bp (4096) and at bp 8192, at P=2 AUTO, through
+  the peer transport at P=2 AUTO (bit for bit the loopback step), and at
+  P=1 bp 8192 under flux and under bf16 weights, stores and halo: each
+  against its golden and across schedules, its overlap step forced onto
+  the kernel's other bodies bit for bit, the fused call under each body
+  against the plain version and timed in turns, the peer call against its
+  loopback form in turns (at most PEER_OVER_LOOPBACK of its time);
 - `flux_p1`: the PSD upwind flux model (`PSDFluxModel`, bench.py's
   secondary row: packed, AUTO bp, bulk) at one shard, timed, then every
   schedule with the fused overlap kernel forced;
@@ -52,7 +62,8 @@ faces, nvar 7, random state from a seed):
 - `graph`: the chained step as CUDA graphs (models/compiled.py, the
   dispatch every loop above took) against the same step eager, at P=1
   bulk, P=1 `all` with force_rdma, P=8 every schedule, gather/512 solver
-  mode (P=1 one sweep, P=8 two), the full bf16 stack (P=1 overlap, P=8
+  mode (P=1 one sweep, P=8 two), gather P=2 AUTO overlap (K3-gather's
+  cluster launch), the full bf16 stack (P=1 overlap, P=8
   early), flux P=1 `all`, the overlap step through the peer transport
   (P=1 `all` with force_rdma; P=8 packed f32, gather/512 and the full bf16
   stack: the launch epochs are device words, so the step replays; its
@@ -138,8 +149,9 @@ faces, nvar 7, random state from a seed):
 
 The gather paths print each plan's EP, its live-EP maximum and the body
 the rule picks; K2 and K3-gather count each body apart (the cluster body's
-row ends in `_cluster`: K2 at bp 8192; the direct body's in `_direct`: K2
-at bp 8192 forced, and K3's gather flux form, which keeps it), so the
+row ends in `_cluster`: K2 and K3-gather at bp 8192, K3-gather's peer form
+at P=2 AUTO; the direct body's in `_direct`: K2 and K3-gather at bp 8192
+forced, and K3's gather flux form at bp 512, which keeps it), so the
 kernel table lists each under the body its path launched, with that
 instance's registers, local bytes, shared memory and resident blocks per
 SM (the cluster body also the clusters the card can hold at once).
@@ -406,6 +418,51 @@ KERNELS.update({
                             "cfd_proxy_tpu/tools/icibench.py:75")
        for m in ("full", "nobar", "baronly", "empty")},
 })
+# K3's gather form on the cluster body (blocksweep.gather_body: where two
+# staged tables do not fit one SM but half of one fits a CUDA block; the
+# push blocks share the cluster launch), its direct body forced there, and
+# the K2 cluster instances the P=2 paths of that phase launch besides
+# K2-cluster (the early schedule's init sweeps, flux, bf16 weights and out)
+KERNELS.update({
+    **{"sweep_blocks_overlap_gather" + tag: (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:747")
+       for tag in ("_cluster", "_direct", "_flux_cluster",
+                   "_w16_o16_cluster")},
+    "sweep_blocks_overlap_gather_peer_cluster": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:783"),
+    "sweep_blocks_gather_init_cluster": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:549"),
+    **{"sweep_blocks_gather" + tag: (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:420")
+       for tag in ("_flux_cluster", "_flux_init_cluster")},
+    **{"sweep_blocks_gather" + tag: (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:414")
+       for tag in ("_w16_o16_cluster", "_init_w16_o16_cluster")},
+})
+# that phase's configurations of the gather model: name: (shards, model
+# options); each runs bulk, early and overlap.  At one shard (force_rdma)
+# the interior plan's EP is about the bulk plan's (1920 at AUTO's bp 4096,
+# 2688 at bp 8192), K2's cluster shapes in `gather_*_bp`; at two shards it is
+# 5760 at bp 4096 (the half table, 154 KB, still fits a block) and 10496 at
+# bp 8192, where the half table (292 KB) does not and the rule keeps the
+# direct body (so no configuration here)
+K3_CLUSTER_CFGS = {
+    "p1_all_auto": (1, {"force_rdma": True}),
+    "p1_all_large": (1, {"force_rdma": True, "bp": LARGE_BP}),
+    "p2_auto": (2, {}),
+    "p2_auto_peer": (2, {"transport": "peer"}),
+    "p1_all_large_flux": (1, {"force_rdma": True, "bp": LARGE_BP,
+                              "op": "flux"}),
+    "p1_all_large_w16_o16": (1, {"force_rdma": True, "bp": LARGE_BP,
+                                 "meta_dtype": "bfloat16",
+                                 "grad_dtype": "bfloat16",
+                                 "halo_dtype": "bfloat16"}),
+}
 PEER_STEPS = 5        # timed steps of a two-process run (time-sliced)
 PEER_MIN_BLOCKS = 6   # K3's resident blocks per SM (sweep_overlap.cu kMinBlocks)
 PEER_OVER_LOOPBACK = 1.05  # K3-peer's time over its loopback form's, at most
@@ -629,6 +686,62 @@ def gather_bodies_compared(path: str, bs, args, kw, bodies) -> tuple:
     return res, ms
 
 
+def fused_bodies_compared(path: str, bs, model, args, init, sendbufs,
+                          bodies) -> tuple:
+    """K3's gather form as `model`'s overlap step calls it (its op, live
+    ext counts and push: its loopback map, or its peer transport) on the
+    interior operands `args`, onto `init` with `sendbufs`, under each of
+    `bodies`, forced: grad against the plain version (f32 within K1_TOL of
+    max|plain|, bf16 within one bf16 ulp plus that) and recv bit for bit,
+    grad and recv bit for bit the first body's; then timed in turns (the
+    bodies in order, then in reverse; CUDA-event means of 50 calls onto one
+    buffer).  Returns ({body: {max_abs_err, ms (the better turn)}},
+    {body: [ms of each turn]}); fails on a difference."""
+    import torch
+
+    peer = model.peer
+    kw = {"op": model.op, "peer": peer, **model._gather_kw("interior")}
+    push = (None, None) if peer is not None else (model.dsts, model.srcs)
+
+    def call(buf):
+        g, r = bs.sweep_blocks_overlap_gather(*args, buf, sendbufs, *push,
+                                              **kw)
+        return g, r.clone()
+
+    g_ref, r_ref = bs.sweep_blocks_overlap_gather_ref(
+        *args, init.clone(), sendbufs, model.dsts, model.srcs, op=model.op)
+    want = g_ref.float()
+    scale = float(want.abs().max())
+    tol = K1_TOL * scale + (bs.bf16_ulp(want) if g_ref.dtype == torch.bfloat16
+                            else 0.0)
+    res, first = {}, None
+    for b in bodies:
+        with gather_body_forced(bs, b):
+            g, r = call(init.clone())
+            torch.cuda.synchronize()
+        err = (g.float() - want).abs()
+        if not bool((err <= tol).all()) or not torch.equal(r, r_ref):
+            fail(f"{path}: K3-gather's {b} body differs from the plain "
+                 f"version (grad {float(err.max()):.3e}, max|plain| "
+                 f"{scale:.3e}; recv equal {torch.equal(r, r_ref)})")
+        if first is None:
+            first = (g, r)
+        elif not (torch.equal(g, first[0]) and torch.equal(r, first[1])):
+            fail(f"{path}: K3-gather's {b} and {bodies[0]} bodies differ")
+        res[b] = {"max_abs_err": float(err.max())}
+        del g, r, err
+    del first, g_ref, r_ref, want
+    buf = init.clone()
+    ms = {b: [] for b in bodies}
+    for b in (*bodies, *reversed(bodies)):
+        with gather_body_forced(bs, b):
+            ms[b].append(cuda_ms(lambda: bs.sweep_blocks_overlap_gather(
+                *args, buf, sendbufs, *push, **kw), 50))
+    for b in bodies:
+        res[b]["ms"] = min(ms[b])
+    return res, ms
+
+
 def gather_facts(bs, model, cls: str, fused: bool = False,
                  peer: bool = False) -> dict:
     """The gather plan of class cls (EP, the live-EP maximum, the body the
@@ -665,14 +778,12 @@ def gather_kernel_facts(bs, body: str, bp: int, ep: int, op: str = "gg",
             "cluster": bs.cluster_bytes(bp, ep)}.get(body, 0)
     code = bs.GATHER_BODY_CODES[body]
     args = (bs.OPS.index(op), int(w_t == torch.bfloat16),
-            int(o_t == torch.bfloat16), smem)
-    threads = bs.cluster_threads(bp, ep)
+            int(o_t == torch.bfloat16), smem, bs.cluster_threads(bp, ep))
     facts = (_cuda.kernel_info("cfd_overlap_gather_info", int(peer), code,
                                *args) if fused else
-             _cuda.kernel_info("cfd_sweep_gather_info", code, 0, *args,
-                               threads))
+             _cuda.kernel_info("cfd_sweep_gather_info", code, 0, *args))
     return {**facts, "dynamic_smem": smem,
-            **({"threads": threads} if body == "cluster" else {})}
+            **({"threads": args[-1]} if body == "cluster" else {})}
 
 
 def device_profile(model, state, schedule: str, n: int = 20,
@@ -1444,14 +1555,209 @@ def main() -> int:
                     **ulp_stats.get(k, {}), **times[k], **work[k]}
                 for k in names}
 
-    # ---- flux, one shard: the PSD upwind flux model (bench.py's secondary
-    # row: packed, AUTO bp, bulk) on the same mesh and state, against the
-    # f64 compute_psd_flux golden (not linear in the state: each state
-    # checked here gets its own golden); then every schedule with the fused
-    # overlap kernel forced
+    # ---- K3's gather form at large block sizes, on the cluster body: the
+    # gather model's overlap step at P=1 `all` with force_rdma at the AUTO
+    # bp (4096) and at LARGE_BP, at P=2 AUTO, through the peer transport at
+    # P=2 AUTO (bit for bit the loopback step), and at P=1 LARGE_BP under
+    # flux and under bf16 weights, stores and halo (K3_CLUSTER_CFGS).  Each
+    # model's bulk, early and overlap steps counted (the cluster instance
+    # among them) and held against the golden of its op (the bf16 one
+    # inside BAND_FULL) and across schedules; its overlap step under each
+    # other body the fused kernel has there (staged where its table fits
+    # one block, direct), forced, bit for bit the rule's; the fused call at
+    # the interior + push shapes under each body against the plain version
+    # and bit for bit, timed in turns.  The kernel-table rows: K3-gather's
+    # cluster instances at P=1 LARGE_BP (the peer one at P=2 AUTO), its
+    # direct body forced there, and the K2 cluster instances these paths
+    # launch (the flux golden is the flux phases' too)
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     flux_ref = golden("flux", gmesh, gvar)
     t_gold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts2 = partition_mesh(gmesh, 2)
+    t_part2 = time.perf_counter() - t0
+
+    def fused_row(row, m, st_, gb, sendbufs, body=None):
+        """Kernel-table row `row`: K3-gather as m's overlap step calls it
+        (under `body`, forced, else the rule's) against its plain version,
+        timed in turns, its bound and facts."""
+        iargs = (st_["var_T"], *m._operands("interior", st_["tables"]))
+        push = (None, None) if m.peer is not None else (m.dsts, m.srcs)
+        kw = {"op": m.op, "peer": m.peer, **m._gather_kw("interior")}
+
+        def kern(i):
+            with (gather_body_forced(bs, body) if body
+                  else contextlib.nullcontext()):
+                return bs.sweep_blocks_overlap_gather(*iargs, i, sendbufs,
+                                                      *push, **kw)
+
+        compare_and_time(
+            row, kern, lambda i: bs.sweep_blocks_overlap_gather_ref(
+                *iargs, i, sendbufs, m.dsts, m.srcs, op=m.op),
+            init=gb, push=True)
+        work[row] = sweep_bound(m.op, iargs, gather=True, init=True,
+                                push=sendbufs, out_bytes=gb.element_size())
+        facts_ = gather_facts(bs, m, "interior", fused=True,
+                              peer=m.peer is not None)
+        if body:
+            facts_.update(body=body, kernel=gather_kernel_facts(
+                bs, body, m.bp, facts_["ep"], m.op, m.w_t, m.grad_t, True,
+                m.peer is not None))
+        times[row].update(bp=m.bp, **facts_)
+
+    def k2_row(row, m, st_, cls, init=None):
+        """Kernel-table row `row`: K2 (with init: its init form) on m's
+        class cls, against its plain version, timed in turns."""
+        args_ = (st_["var_T"], *m._operands(cls, st_["tables"]))
+        kw = {"op": m.op, "out_dtype": m.grad_t}
+        compare_and_time(
+            row, lambda i: bs.sweep_blocks_gather(
+                *args_, init=i, **kw, **m._gather_kw(cls)),
+            lambda i: bs.sweep_blocks_gather_ref(*args_, init=i, **kw),
+            init=init)
+        work[row] = sweep_bound(
+            m.op, args_, gather=True, init=init is not None,
+            out_bytes=2 if m.grad_t == torch.bfloat16 else 4)
+        times[row].update(bp=m.bp, **gather_facts(bs, m, cls))
+
+    k3_info, k3_rows, k3_models, loop_overlap = {}, [], {}, None
+    for name, (nparts, opts) in K3_CLUSTER_CFGS.items():
+        path = "k3_gather_" + name
+        bf = opts.get("grad_dtype") == BF
+        reset_counts()
+        t0 = time.perf_counter()
+        m = GreenGaussTorch(parts2 if nparts == 2 else parts, NVAR,
+                            kernel="gather", device=dev, **opts)
+        t_model = time.perf_counter() - t0
+        st_ = m.distribute_state(gvar)
+        outs = {s: m.step(st_, s) for s in ("bulk", "early", "overlap")}
+        counts = read_counts()
+        rel, cross, scale = check_schedules(
+            path, m, outs, gold=flux_ref if m.op == "flux" else None,
+            band=BAND_FULL if bf else (None, GOLDEN_TOL),
+            cross_tol=SCHED_TOL_BF16 if bf else SCHED_TOL)
+        peer = m.peer is not None
+        fused = gather_facts(bs, m, "interior", fused=True, peer=peer)
+        inst = ("sweep_blocks_overlap_gather" + "_peer" * peer
+                + "_flux" * (m.op == "flux") + "_w16_o16" * bf + "_cluster")
+        if fused["body"] != "cluster":
+            fail(f"{path}: the rule picks {fused['body']} for K3-gather at "
+                 f"bp {m.bp}, EP {fused['ep']}; the phase expects cluster")
+        expect_counts(path, counts, (inst,))
+        info = {"parts": nparts, "bp": m.bp, "ndev": m.ndev,
+                "nphases": m.nphases, "s_max": m.s_max,
+                "model_seconds": t_model, "transport": m.transport_name,
+                "interior": fused, "vs_golden_relmax": rel,
+                "band": BAND_FULL if bf else (None, GOLDEN_TOL),
+                "cross": cross, "max_abs_bulk": scale,
+                "cross_tol": (SCHED_TOL_BF16 if bf else SCHED_TOL) * scale,
+                "launches": counts}
+        if name == "p2_auto":
+            loop_overlap = outs["overlap"]       # the peer step's twin
+        if peer:
+            if not torch.equal(outs["overlap"], loop_overlap):
+                fail(f"{path}: the peer overlap step differs from the "
+                     f"loopback one (k3_gather_p2_auto)")
+            info["overlap_equals_loopback_bitwise"] = True
+        # the overlap step under each other body, forced: bit for bit
+        ep = fused["ep"]
+        bodies = (("staged",) if bs.staged_bytes(m.bp, ep)
+                  <= bs.GATHER_STAGE_MAX else ()) + ("cluster", "direct")
+        for b in bodies:
+            if b == "cluster":
+                continue
+            reset_counts()
+            with gather_body_forced(bs, b):
+                g_b = m.step(st_, "overlap")
+            forced = read_counts()
+            want_b = inst.replace("_cluster", "_" + b).replace("_staged", "")
+            if forced.get(want_b, 0) != 1:
+                fail(f"{path}: the overlap step forced onto the {b} body "
+                     f"launched {forced}")
+            if not torch.equal(g_b, outs["overlap"]):
+                fail(f"{path}: the overlap step on the {b} body differs "
+                     f"from the cluster body's")
+            if name == "p1_all_large" and b == "direct":
+                expect_counts(path + " (direct, forced)", {want_b: 1},
+                              (want_b,))
+            del g_b
+        info["overlap_forced_bodies_equal_bitwise"] = list(bodies)
+        # the fused call under each body at the interior + push shapes
+        gb = outs["bulk"].clone()                # any finite init
+        sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
+        iargs = (st_["var_T"], *m._operands("interior", st_["tables"]))
+        res, turns = fused_bodies_compared(path, bs, m, iargs, gb, sendbufs,
+                                           bodies)
+        info.update(card=smi, bodies=res, turns_ms=turns,
+                    bound=sweep_bound(m.op, iargs, gather=True, init=True,
+                                      push=sendbufs,
+                                      out_bytes=gb.element_size()),
+                    bodies_equal_bitwise=True, tol_rel=K1_TOL,
+                    facts={b: gather_kernel_facts(bs, b, m.bp, ep, m.op,
+                                                  m.w_t, m.grad_t, True, peer)
+                           for b in bodies},
+                    **{f"{b}_over_cluster": res[b]["ms"] / res["cluster"]["ms"]
+                       for b in bodies if b != "cluster"})
+        if peer:
+            # the peer cluster launch beside its loopback form on the same
+            # operands, in turns (loopback, peer, peer, loopback), under
+            # the K3-peer rows' gate
+            buf = gb.clone()
+            kw = {"op": m.op, **m._gather_kw("interior")}
+            kp = lambda: bs.sweep_blocks_overlap_gather(
+                *iargs, buf, sendbufs, None, None, peer=m.peer, **kw)
+            kl = lambda: bs.sweep_blocks_overlap_gather(
+                *iargs, buf, sendbufs, m.dsts, m.srcs, **kw)
+            l1, p1 = cuda_ms(kl, 50), cuda_ms(kp, 50)
+            p2, l2 = cuda_ms(kp, 50), cuda_ms(kl, 50)
+            ratio = min(p1, p2) / min(l1, l2)
+            info.update(peer_ms=min(p1, p2), loopback_ms=min(l1, l2),
+                        peer_over_loopback=ratio)
+            if ratio > PEER_OVER_LOOPBACK:
+                fail(f"{path}: the peer cluster launch took {ratio:.4f}x "
+                     f"its loopback form, above {PEER_OVER_LOOPBACK}")
+            del buf, kp, kl
+        del iargs
+        if name == "p1_all_large":
+            fused_row(inst, m, st_, gb, sendbufs)
+            fused_row("sweep_blocks_overlap_gather_direct", m, st_, gb,
+                      sendbufs, body="direct")
+            k2_row("sweep_blocks_gather_init_cluster", m, st_, "interior",
+                   gb)
+            k3_rows += [inst, "sweep_blocks_overlap_gather_direct",
+                        "sweep_blocks_gather_init_cluster"]
+        elif name in ("p2_auto_peer", "p1_all_large_flux",
+                      "p1_all_large_w16_o16"):
+            fused_row(inst, m, st_, gb, sendbufs)
+            k3_rows.append(inst)
+            if not peer:
+                tag = "_flux" if m.op == "flux" else ""
+                tag16 = "_w16_o16" * bf
+                k2_row(f"sweep_blocks_gather{tag}{tag16}_cluster", m, st_,
+                       "bulk")
+                k2_row(f"sweep_blocks_gather{tag}_init{tag16}_cluster", m,
+                       st_, "interior", gb)
+                k3_rows += [f"sweep_blocks_gather{tag}{tag16}_cluster",
+                            f"sweep_blocks_gather{tag}_init{tag16}_cluster"]
+        k3_info[name] = info
+        del outs, gb, sendbufs, st_
+        if name == "p2_auto":
+            k3_models[name] = m         # the graph phase's P=2 overlap step
+        else:
+            m.close()
+        del m
+    torch.cuda.empty_cache()
+    emit("k3_gather_large_bp", card=smi, configs=k3_info,
+         partition_seconds=t_part2, golden_flux_seconds=t_gold,
+         kernels=kernel_summary(k3_rows),
+         phase_s=time.perf_counter() - t_phase)
+
+    # ---- flux, one shard: the PSD upwind flux model (bench.py's secondary
+    # row: packed, AUTO bp, bulk) on the same mesh and state, against the
+    # f64 compute_psd_flux golden (not linear in the state: each state
+    # checked here gets its own golden; this one, flux_ref, was computed
+    # above); then every schedule with the fused overlap kernel forced
     reset_counts()
     t0 = time.perf_counter()
     fm = PSDFluxModel(parts, NVAR, force_rdma=True, device=dev)
@@ -2024,6 +2330,7 @@ def main() -> int:
     graph_models.update({"p1": packed_models[1], "p8": packed_models[P_MULTI],
                          "gather_p1": gather_models[1],
                          "gather_p8": gather_models[P_MULTI],
+                         "gather_p2": k3_models.pop("p2_auto"),
                          "full_p8": full_stack_p8})
     peer_twin = {"peer_p1": "p1", "peer_p8": "p8",
                  "peer_gather_p8": "gather_p8", "peer_full_p8": "full_p8"}
@@ -2057,6 +2364,7 @@ def main() -> int:
         + [(f"p8_{s}", "p8", s, 0) for s in SCHEDULES_ALL]
         + [("gather512_p1_solver_n1", "gather_p1", "bulk", 1),
            ("gather512_p8_solver_n2", "gather_p8", "bulk", 2),
+           ("gather_p2_auto_overlap", "gather_p2", "overlap", 0),
            ("full_p1_overlap", "full_p1", "overlap", 0),
            ("full_p8_early", "full_p8", "early", 0)]
         + [(f"flux_p1_all_{s}", "flux_p1", s, 0) for s in SCHEDULES_ALL]

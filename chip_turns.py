@@ -21,7 +21,14 @@ body also that body forced at each of its block sizes, 256 and 512
 threads, and the staged and cluster bodies forced on the edge plans
 EDGES: the one-shard plan at bp 512 and 2048 with its ext columns spread
 over a wider table, just under and just over GATHER_STAGE_PAIR, where the
-rule turns from staged to cluster); kbench's rows on its 96³ prefix
+rule turns from staged to cluster); K3-gather as the overlap step calls
+it at one shard (force_rdma) and two, at bp 4096 (AUTO) and 8192
+(K3_SHAPES), gg f32, w16-o16 (bf16 weights, stores and halo) and flux,
+loopback and through a one-process peer transport, under the rule's body
+and under each body the tree's fused kernel has (FUSED_GATHER_BODIES
+where the tree names them apart, else GATHER_BODIES) whose table fits
+one block there, forced, and the overlap step
+at each shape under the solver's dispatch; kbench's rows on its 96³ prefix
 tables (bp 4096): K5d (compact_i8), K1-w16-d16-o16 (compact_bso) and
 K5e-bf16 (cstream_bso); a hash of each gather and kbench output, which shows two
 trees' outputs equal bit for bit; and ptxas's registers and spill bytes of
@@ -38,6 +45,7 @@ trees agree.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -59,8 +67,15 @@ AUTO_BP, LARGE_BP = 4096, 8192     # the AUTO block size at one shard; 2x
 KB_BP = 4096                       # kbench's block size
 KB_ROWS = ("compact_i8", "compact_bso", "cstream_bso")
 # the row groups: K4, K6, K3-peer, the gather sweep at bp 512, K2 at bp 512,
-# 4096 and 8192, kbench's rows
-ROWS = ("k4", "k6", "peer", "gather", "bodies", "kbench")
+# 4096 and 8192, K3-gather at bp 4096 and 8192, kbench's rows
+ROWS = ("k4", "k6", "peer", "gather", "bodies", "k3large", "kbench")
+# K3-gather at large block sizes: its shapes (shards, bp; one shard with
+# force_rdma) and configurations (tag, model options)
+K3_SHAPES = ((1, AUTO_BP), (1, LARGE_BP), (2, AUTO_BP), (2, LARGE_BP))
+K3_LARGE = (("", {}),
+            ("_w16_o16", {"meta_dtype": BF16, "grad_dtype": BF16,
+                          "halo_dtype": BF16}),
+            ("_flux", {"op": "flux"}))
 # (bp, EP) of the edge plans: 3 584 table columns (114 688 B staged, under
 # GATHER_STAGE_PAIR's 115 456) and 3 712 (118 784 B, over it) at bp 512,
 # 3 712 at bp 2048
@@ -130,6 +145,7 @@ def measure(root: str, rows=ROWS) -> dict:
     from cfd_proxy_tpu_torch.ops import blocksweep as bs
     from cfd_proxy_tpu_torch.ops import push
     from cfd_proxy_tpu_torch.parallel.transport import Peer
+    from cfd_proxy_tpu_torch.solver import time_schedule
     from cfd_proxy_tpu_torch.tools import icibench
 
     if not torch.cuda.is_available():
@@ -283,6 +299,60 @@ def measure(root: str, rows=ROWS) -> dict:
                             bs.sweep_blocks_gather(*args, **kw))
                 del args, kw
             del m, st, real
+
+    if "k3large" in rows:
+        # K3-gather at the interior + push shapes of one shard (force_rdma)
+        # and two at bp 4096 and 8192, as the overlap step calls it,
+        # loopback and peer
+        parts2 = partition_mesh(gmesh, 2)
+        fused_bodies = getattr(bs, "FUSED_GATHER_BODIES", bs.GATHER_BODIES)
+        fits = {"staged": bs.staged_bytes, "direct": lambda *_: 0,
+                "cluster": lambda b, e: bs.staged_bytes(b, e) // 2}
+        for npart, bp in K3_SHAPES:
+            for tag, opts in K3_LARGE:
+                m = GreenGaussTorch(parts1 if npart == 1 else parts2, NVAR,
+                                    kernel="gather", bp=bp, device=dev,
+                                    force_rdma=npart == 1, **opts)
+                st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
+                iargs = (st["var_T"], *m._operands("interior", st["tables"]))
+                kw = {"op": m.op, **m._gather_kw("interior")}
+                gb = m.step(st, "bulk")
+                sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
+                ep = int(m.plans["interior"]["ext_idx"].shape[2])
+                shape = f"P{npart}_bp{bp}"
+                rule[f"k3g{tag}_{shape}"] = {
+                    "ep": ep, "body": bs.gather_body(bp, ep, m.op, True)}
+                # the bodies whose table (or half of it) fits one block
+                runs = {"": None}
+                for body in fused_bodies:
+                    if fits[body](bp, ep) <= bs.GATHER_STAGE_MAX:
+                        runs[f"_{body}"] = body
+                peer = Peer(m.dsts.numpy(), m.srcs.numpy(), rows=m.rows,
+                            s_max=m.s_max, dtype=m.halo_t, device=dev)
+                for form, push in (("", (m.dsts, m.srcs, {})),
+                                   ("_peer", (None, None, {"peer": peer}))):
+                    d, s_, how = push
+                    for suffix, body in runs.items():
+                        key = f"k3g{tag}{form}_{shape}{suffix}"
+                        buf = gb.clone()
+
+                        def call(i):
+                            return bs.sweep_blocks_overlap_gather(
+                                *iargs, i, sendbufs, d, s_, **kw, **how)
+
+                        with (cs.gather_body_forced(bs, body) if body
+                              else contextlib.nullcontext()):
+                            ms[key] = cs.cuda_ms(lambda: call(buf), 50)
+                            g, r = call(gb.clone())
+                            hashes[key] = digest(g) + digest(r)
+                peer.close()
+                if not tag:
+                    # the overlap step itself, under the solver's dispatch
+                    # (graph on the card)
+                    ms[f"step_{shape}_overlap"] = time_schedule(
+                        m, st, "overlap", 200, warmup=2,
+                        repeats=5).median * 1e3
+                del m, st, iargs, gb, sendbufs, peer, buf, g, r
 
     if "kbench" in rows:
         # kbench's rows on its 96³ prefix tables

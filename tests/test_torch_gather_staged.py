@@ -1,9 +1,10 @@
 """The gather sweep's staged and cluster bodies: K2 and K3's gather form
 stage each listed entry's [own ‖ live ext] table in shared memory (csrc/
 sweep_common.cuh::sweep_entry_staged) where `gather_body` picks it (K3's
-flux form keeps the direct body); K2 splits it over a cluster of two CUDA
-blocks, one float4 plane each (sweep_entry_cluster), where it passes two
-blocks an SM but half of it fits one.
+flux form keeps the direct body there), and split it over a cluster of two
+CUDA blocks, one float4 plane each (sweep_entry_cluster), where it passes
+two blocks an SM but half of it fits one; K3's cluster launch pads its
+push region to whole clusters (csrc/sweep_overlap.cu).
 
 On the CPU:
 
@@ -23,18 +24,27 @@ On the CPU:
   synthetic plans with pad entries and entries without ext columns at
   bp 128 and at the 96³ one-shard plan's bp 8192; the two blocks' lanes
   split every slot prefix in half;
+- so does a plain-torch form of K3-gather's cluster launch, grid and
+  all (`fused_cluster_grid`: the push region padded to whole clusters,
+  each CUDA block's (entry, rank) or push chunk, the pieces the first
+  128 threads of a push block copy, in the loopback and the peer form),
+  against
+  `sweep_blocks_overlap_gather_ref`, grad and recv bit for bit, on the JAX
+  plans and on synthetic plans at bp 4096 / EP 1920 and bp 8192 / EP 2688,
+  and against the JAX fused kernel in interpret mode;
 - the fixed body rule, the cluster's thread count and the shared-memory
   fit at the 96³ benchmark shapes, from the numbers alone, and the fused
   kernel's bodies.
 
-The `cuda`-marked tests hold every K2 instance under all three bodies and
-every K3-gather instance (loopback and peer) under the staged and direct
-ones to its plain version, with pad entries, zero-width slots, EP = 128
-and the largest EP the rule stages; the bodies against each other and
-K3-gather-peer against the loopback K3-gather bit for bit; every K2
-instance on the cluster body at bp 8192, both thread counts, against the
-direct body bit for bit; and the resident blocks per SM of the staged and
-cluster instances.  They import no JAX:
+The `cuda`-marked tests hold every K2 and every K3-gather instance
+(loopback and peer) under all three bodies to its plain version, with pad
+entries, zero-width slots, EP = 128 and the largest EP the rule stages;
+the bodies against each other and K3-gather-peer against the loopback
+K3-gather bit for bit; every K2 and K3-gather instance on the cluster body
+at bp 8192, both thread counts (K3-gather loopback and peer), against
+the direct body bit for bit; a peer cluster launch
+whose push blocks outnumber the SMs; and the resident blocks per SM of the
+staged and cluster instances.  They import no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_gather_staged.py -m cuda
@@ -412,10 +422,14 @@ RULE_CASES = [
 def test_gather_body_rule(bp, ep, body):
     """The fixed rule, where bp and EP allow 16-byte loads: staged where
     two staged blocks fit one SM's shared memory, else cluster where half
-    the table fits one block; else direct."""
+    the table fits one block; else direct.  K3's gather form follows it
+    (its flux form keeps the direct body where the rule says staged)."""
     assert bs.staged_bytes(bp, ep) == NV * (bp + ep) * 4
     assert bs.cluster_bytes(bp, ep) == NV * (bp + ep) * 2
     assert bs.gather_body(bp, ep) == body
+    assert bs.gather_body(bp, ep, "gg", fused=True) == body
+    assert bs.gather_body(bp, ep, "flux", fused=True) == \
+        ("direct" if body == "staged" else body)
     aligned = bp % 4 == 0 and ep % 4 == 0
     pair = 2 * (bs.staged_bytes(bp, ep) + STATIC_SMEM + BLOCK_RESERVED) \
         <= SM_TOTAL
@@ -431,17 +445,19 @@ def test_gather_body_rule(bp, ep, body):
 @pytest.mark.parametrize("bp,ep", [(512, 1024), (128, 128), (8192, 2560),
                                    (4096, 1920)])
 def test_fused_flux_keeps_the_direct_body(bp, ep):
-    """K3's gather form has no cluster body: its gg form stages wherever
-    the table fits one CUDA block (K2 takes the cluster body past two
-    blocks an SM), else direct; its flux form keeps the direct body, which
-    the staged one did not beat; K2 follows the rule in both ops."""
+    """K3's gather form takes K2's rule in its gg form: staged where two
+    staged blocks fit an SM, else the cluster body (one staged block per
+    SM at bp 4096 no more); its flux form keeps the direct body where the
+    rule says staged, which the staged one did not beat at bp 512, and
+    takes the cluster body past it; K2 follows the rule in both ops."""
     rule = bs.gather_body(bp, ep)
-    fits = bs.staged_bytes(bp, ep) <= bs.GATHER_STAGE_MAX
-    assert bs.gather_body(bp, ep, "gg", fused=True) == \
-        ("staged" if fits else "direct")
-    assert rule in ("staged", "cluster") or not fits
+    pair = bs.staged_bytes(bp, ep) <= bs.GATHER_STAGE_PAIR
+    assert rule == ("staged" if pair else "cluster")
+    assert bs.gather_body(bp, ep, "gg", fused=True) == rule
     assert bs.gather_body(bp, ep, "flux") == rule
-    assert bs.gather_body(bp, ep, "flux", fused=True) == "direct"
+    assert bs.gather_body(bp, ep, "flux", fused=True) == \
+        ("direct" if pair else "cluster")
+    assert set(bs.GATHER_BODIES) == {"staged", "cluster", "direct"}
 
 
 def test_staged_table_sizes_at_the_benchmark_plans():
@@ -531,6 +547,263 @@ def test_cluster_form_synthetic_plans(bp, ep, op, init):
         assert torch.equal(got, ref), threads
 
 
+# K3's push (csrc/sweep_overlap.cu, csrc/push_common.cuh): 16-byte pieces,
+# copied by a push block's first 128 threads (kPushThreads; the cluster
+# form's wider blocks leave the rest idle), four a thread in the loopback
+# form; the peer form's least pieces a block and most push blocks a launch
+# (kPushMinPieces, kPeerPushBlocks)
+PIECE, PUSH_THREADS, PEER_MIN_PIECES, PEER_MAX_BLOCKS = 16, 128, 128 * 4, 264
+PUSH_CHUNK = 4 * PUSH_THREADS                  # the loopback form's chunk
+
+
+def fused_cluster_grid(P, nb, nph, seg, peer):
+    """The CUDA blocks of one cluster launch of K3's gather form, in index
+    order: ("signal",) (the peer form's block 0), ("push", pk, c) (chunk c
+    of flat (shard, phase) pk), ("pad",), then ("sweep", g, rank) for the
+    blocks at region + i: entry g = i // 2 and the block's rank in its
+    cluster, which the hardware gives as blockIdx.x % 2.  The loopback
+    form cuts each buffer into chunks of PUSH_CHUNK pieces; the peer form
+    keeps `peer_chunks` (at least 512 pieces a block, at most 264 blocks),
+    which every rank computes alike.  Returns (blocks, region, chunks)."""
+    if peer:
+        npk = P * nph
+        chunks = min(-(-seg // PEER_MIN_PIECES),
+                     max(1, PEER_MAX_BLOCKS // npk)) if seg and npk else 0
+        blocks = [("signal",)]
+    else:
+        chunks = -(-seg // PUSH_CHUNK)
+        blocks = []
+    blocks += [("push", b // chunks, b % chunks)
+               for b in range(P * nph * chunks)]
+    if len(blocks) % CTAS:
+        blocks.append(("pad",))
+    region = len(blocks)
+    blocks += [("sweep", (b - region) // CTAS, b % CTAS)
+               for b in range(region, region + CTAS * P * nb)]
+    return blocks, region, chunks
+
+
+def push_pieces(c, chunks, seg, peer):
+    """The pieces of its buffer push chunk c copies, thread by thread in
+    the kernel's order, T = PUSH_THREADS: the loopback form's threads
+    t < T take lo + t, lo + t + T, ... below lo + PUSH_CHUNK
+    (lo = c·PUSH_CHUNK); the peer form's (copy_share) c·T + t, then
+    strides of chunks·T."""
+    T = PUSH_THREADS
+    out = []
+    for t in range(T):
+        if peer:
+            out.extend(range(c * T + t, seg, chunks * T))
+        else:
+            lo = c * PUSH_CHUNK
+            out.extend(range(lo + t, min(lo + PUSH_CHUNK, seg), T))
+    return out
+
+
+def fused_cluster(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
+                  init, sendbufs, dsts, ext_cnt, op="gg", threads=256,
+                  peer=False):
+    """K3-gather's cluster launch in plain torch, block by block of
+    `fused_cluster_grid`: the push blocks copy their pieces of sendbufs
+    (P, nph, rows, s_max) to recv[dsts[p, k], k], each piece once; every
+    (entry, rank) of the sweep is one block, in a cluster with its
+    partner; each block sweeps its rank's lanes (`cluster_lanes`) through
+    its plane and its peer's (`cluster_sweep`'s algorithm) onto init.
+    Returns (grad, recv)."""
+    P, nb, K, bp = slot_idx.shape
+    nph = sendbufs.shape[1]
+    # the buffers as 16-byte pieces (four int32 words each)
+    words = sendbufs.contiguous().view(torch.int32).reshape(P * nph, -1, 4)
+    seg = words.shape[1]
+    blocks, region, chunks = fused_cluster_grid(P, nb, nph, seg, peer)
+    assert region % CTAS == 0
+    for c0 in range(0, len(blocks), CTAS):          # no mixed cluster
+        assert len({b[0] == "sweep" for b in blocks[c0:c0 + CTAS]}) == 1
+    recv = torch.zeros_like(words)
+    written = torch.zeros(recv.shape[:2], dtype=torch.long)
+    for b in blocks[:region]:
+        if b[0] != "push":
+            continue
+        pk, c = b[1], b[2]
+        to = int(dsts[pk // nph, pk % nph]) * nph + pk % nph
+        idx = torch.tensor(push_pieces(c, chunks, seg, peer),
+                           dtype=torch.long)
+        recv[to, idx] = words[pk, idx]
+        written[to, idx] += 1
+    assert bool((written == 1).all())
+    # the sweep: each (entry, rank) once, each rank's lanes from its own
+    # block's view of the planes
+    swept = [(b[1], b[2]) for b in blocks[region:]]
+    assert sorted(swept) == [(g, r) for g in range(P * nb)
+                             for r in range(CTAS)]
+    planes = cluster_planes(var_T, exts, block_ids, ext_cnt, bp)
+    grad = init.clone()
+    for rank in range(CTAS):
+        local, partner = planes[rank], planes[rank ^ 1]
+        seen = torch.cat([local, partner] if rank == 0 else [partner, local],
+                         dim=2)
+
+        def terms(k, w, off, own, seen=seen):
+            idx = slot_idx[:, :, k, None, :w].long().expand(P, nb, NV, w)
+            return torch.gather(seen, 3, idx), slot_w[:, :, k, :, :w]
+
+        out = bs._sweep_plain(var_T, scale, block_ids, slots, init.clone(),
+                              terms, op)
+        lanes = torch.tensor(cluster_lanes(bp, rank, threads),
+                             dtype=torch.long)
+        for g, r in swept:
+            p, e = divmod(g, nb)
+            if r != rank or (e > 0 and block_ids[p, e] == block_ids[p, e - 1]):
+                continue                              # a pad entry
+            cols = int(block_ids[p, e]) * bp + lanes
+            grad[p][:, cols] = out[p][:, cols]
+    return grad, recv.view(sendbufs.dtype).reshape(sendbufs.shape)
+
+
+def _push_operands(P, rows, dtype, s_max=1000, nph=2, seed=5):
+    """Random send buffers (P, nph, rows, s_max) and a push map whose
+    phase k sends shard p to (p + k + 1) mod P."""
+    rng = np.random.default_rng(seed)
+    send = torch.from_numpy(rng.standard_normal(
+        (P, nph, rows, s_max)).astype(np.float32)).to(dtype)
+    dsts = torch.tensor([[(p + k + 1) % P for k in range(nph)]
+                         for p in range(P)], dtype=torch.int32)
+    srcs = torch.tensor([[(p - k - 1) % P for k in range(nph)]
+                         for p in range(P)], dtype=torch.int32)
+    return send, dsts, srcs
+
+
+def _fused_cases(args, cnt, init, send, dsts, srcs, op, bp, ep):
+    """fused_cluster at the rule's threads, loopback and peer-shaped, each
+    bit for bit the plain version, grad and recv."""
+    g_ref, r_ref = bs.sweep_blocks_overlap_gather_ref(
+        *args, init.clone(), send, dsts, srcs, op=op)
+    threads = bs.cluster_threads(bp, ep)
+    for peer in (False, True):
+        g, r = fused_cluster(*args, init, send, dsts, cnt, op=op,
+                             threads=threads, peer=peer)
+        assert g.dtype == g_ref.dtype and torch.equal(g, g_ref), peer
+        assert torch.equal(r, r_ref), peer
+
+
+@pytest.mark.parametrize("w16o16", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("P,bp", JAX_CASES)
+def test_fused_cluster_form_equals_plain_bitwise(jax_gather, P, bp, op,
+                                                 w16o16):
+    """K3-gather's cluster launch, grid and push included, on the JAX
+    model's interior plans with a random init and two push phases: grad
+    and recv bit for bit the plain version, with the loopback form's
+    chunks and the peer form's."""
+    jm, js, arrays, _ = jax_gather(P, bp, BF if w16o16 else "float32")
+    from cfd_proxy_tpu_torch.convert import state_from_jax
+
+    var_T = _t(state_from_jax(js))
+    odt = torch.bfloat16 if w16o16 else torch.float32
+    args, cnt = _port_args(arrays, var_T, "interior", w16o16)
+    rows = bs.out_rows(op)
+    init = _init(P, rows, var_T.shape[2], odt)
+    send, dsts, srcs = _push_operands(P, rows, odt)
+    _fused_cases(args, cnt, init, send, dsts, srcs, op, bp,
+                 args[1].shape[3])
+
+
+@pytest.mark.parametrize("w16o16", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("bp,ep", [(4096, 1920), (8192, 2688), (4096, 5760)])
+def test_fused_cluster_form_synthetic_plans(bp, ep, op, w16o16):
+    """The same on synthetic plans at the one-shard 96³ interior plans' AUTO
+    bp 4096 (EP 1920: 256 threads, two blocks an SM) and bp 8192 (EP 2688:
+    512 threads) and the two-shard one at bp 4096 (EP 5760: 512 threads),
+    with a pad entry, a zero-width slot and live counts 0 to EP."""
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=bp, nblk=5,
+                           device="cpu")
+    odt = torch.bfloat16 if w16o16 else torch.float32
+    if w16o16:
+        args = (*args[:3], args[3].bfloat16(), *args[4:])
+    assert bs.gather_body(bp, ep, op, fused=True) == "cluster"
+    rows = bs.out_rows(op)
+    init = _init(1, rows, args[0].shape[2], odt)
+    send, dsts, srcs = _push_operands(1, rows, odt, s_max=1064)
+    _fused_cases(args, cnt, init, send, dsts, srcs, op, bp, ep)
+
+
+def test_fused_cluster_grid_pads_the_push_region():
+    """An odd push region gets one pad block, so no cluster holds a push
+    block and a sweep block; the push chunks are the one-block forms'
+    (ceil(5000 / 512) = 10 in both forms), whatever the cluster's
+    threads."""
+    for peer in (False, True):
+        blocks, region, chunks = fused_cluster_grid(2, 3, 1, 5000, peer)
+        pushes = sum(b[0] == "push" for b in blocks)
+        assert region % CTAS == 0
+        assert region == pushes + peer + (pushes + peer) % CTAS
+        assert [b[0] for b in blocks[region:]] == ["sweep"] * 12
+        assert chunks == 10
+    blocks, region, _ = fused_cluster_grid(1, 1, 1, 512 * 3, True)
+    assert [b[0] for b in blocks[:region]] == ["signal", "push", "push",
+                                                "push"]
+
+
+def test_fused_cluster_form_matches_jax_overlap_kernel():
+    """K3-gather's cluster launch against the reference's fused kernel in
+    its gather form (sweep_blocks_overlap, interpret mode, under shard_map
+    on a one-device mesh) at bp 1024, the largest its interpret mode takes
+    (the reference model caps it there: cfd_proxy_tpu/models/
+    gradients_pallas.py:314): one shard of a 16 x 12 x 11 mesh, three
+    blocks, two self-send phases of random payloads.  grad within 1e-6 of
+    max|plain|, recv bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec
+    from cfd_proxy_tpu.models import GreenGaussPallas
+    from cfd_proxy_tpu.models.gradients_pallas import AXIS, _shard_map
+    from cfd_proxy_tpu.ops.blocksweep import sweep_blocks_overlap
+    from cfd_proxy_tpu_torch.convert import plans_from_jax, state_from_jax
+
+    big = generate_mesh(16, 12, 11, jitter=0.05, diag_frac=0.25,
+                        shuffle=True, seed=43)
+    jm = GreenGaussPallas(partition_mesh(big, 1, ghost_layers=1), NVAR,
+                          bp=1024, interpret=True, force_rdma=True,
+                          kernel="gather")
+    assert jm.bp == 1024
+    js = jm.distribute_state(make_state(big.npoint, NVAR, seed=19),
+                             schedules=["overlap"])
+    ep, ks, nb = jm._dims["interior"]
+    rng = np.random.default_rng(4)
+    init = rng.standard_normal((1, 24, jm.layout.ndev)).astype(np.float32)
+    send = rng.standard_normal((1, 2, 24, jm.layout.s_max)).astype(
+        np.float32)
+    dsts = np.zeros((1, 2), np.int32)
+    keys = list(jm._plans_dev["interior"])
+
+    def body(v, tbl, ini, sb, d, s, *plans):
+        pa = {k: x[0] for k, x in zip(keys, plans)}
+        pa["exts"] = tbl[0]
+        g, r = sweep_blocks_overlap(
+            v[0], pa, bp=jm.bp, ep=ep, kslots=ks, nblocks=nb, init=ini[0],
+            sendbufs=sb[0], dsts=d[0], srcs=s[0], interpret=True,
+            packed=False, wks=jm._wks["interior"])
+        return g[None], r[None]
+
+    one = Mesh(np.array(jax.devices()[:1]), (AXIS,))
+    spec = PartitionSpec(AXIS)
+    fn = jax.jit(_shard_map(body, one, in_specs=(spec,) * (6 + len(keys)),
+                            out_specs=(spec, spec)))
+    g_ref, r_ref = (np.asarray(x) for x in fn(
+        js["var_T"], js["tbl_interior"], jnp.asarray(init),
+        jnp.asarray(send), jnp.asarray(dsts), jnp.asarray(dsts),
+        *jm._plans_dev["interior"].values()))
+    var_T = _t(state_from_jax(js))
+    args, cnt = _port_args(plans_from_jax(jm), var_T, "interior", False)
+    g, r = fused_cluster(*args, _t(init), _t(send), _t(dsts), cnt,
+                         threads=bs.cluster_threads(jm.bp, ep))
+    scale = np.abs(g_ref).max()
+    assert scale > 0
+    assert np.abs(g.numpy() - g_ref).max() <= TOL * scale
+    np.testing.assert_array_equal(r.numpy(), r_ref)
+
+
 # ------------------------------------------------------------ on the card
 
 def _card():
@@ -602,7 +875,7 @@ def test_cuda_k2_instances_both_bodies(card_gather, body, op, init, w16,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("body", bs.FUSED_GATHER_BODIES, indirect=True)
+@pytest.mark.parametrize("body", bs.GATHER_BODIES, indirect=True)
 @pytest.mark.parametrize("w16,o16", PRECISIONS)
 @pytest.mark.parametrize("peer", [False, True])
 @pytest.mark.parametrize("op", ["gg", "flux"])
@@ -643,8 +916,7 @@ def test_cuda_k3_gather_instances_both_bodies(card_gather, body, op, peer,
 def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
                                            init):
     """The bodies compute the same values in the same order: equal bit for
-    bit on the same plan (K2 under all three, K3-gather's sweep under the
-    staged and direct ones)."""
+    bit on the same plan (K2 and K3-gather's sweep under all three)."""
     m, state = card_gather(False, op)
     out = {}
     for name in bs.GATHER_BODIES:
@@ -656,8 +928,6 @@ def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
                     if init else None)
             out[name, cls] = bs.sweep_blocks_gather(
                 *args, init=seed, op=op, ext_cnt=m.plans[cls]["ext_cnt"])
-        if name not in bs.FUSED_GATHER_BODIES:
-            continue
         args = (state["var_T"], *m._operands("interior", state["tables"]))
         seed = _init(len(m.parts), m.rows, m.ndev, torch.float32).cuda()
         out[name, "fused"] = bs.sweep_blocks_overlap_gather(
@@ -666,7 +936,6 @@ def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
     torch.cuda.synchronize()
     for key in (*CLASSES, "fused"):
         assert torch.equal(out["staged", key], out["direct", key]), key
-    for key in CLASSES:
         assert torch.equal(out["cluster", key], out["direct", key]), key
 
 
@@ -704,8 +973,7 @@ def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9, device="cuda"):
 def test_cuda_synthetic_pad_entries_and_widths(body, ep):
     """Pad entries, a zero-width slot, live counts from 0 to EP, at EP 128
     and at the largest EP the rule stages at bp 128; K2 with and without
-    init and K3-gather (under the bodies it has), each against its plain
-    version."""
+    init and K3-gather, each against its plain version."""
     _card()
     if ep == "largest":
         ep = bs.GATHER_STAGE_MAX // 32 - 128
@@ -718,8 +986,6 @@ def test_cuda_synthetic_pad_entries_and_widths(body, ep):
     init = _init(P, 3 * NV, ndev, torch.float32).cuda()
     got = bs.sweep_blocks_gather(*args, init=init.clone(), ext_cnt=cnt)
     _assert_close(got, bs.sweep_blocks_gather_ref(*args, init=init.clone()))
-    if body not in bs.FUSED_GATHER_BODIES:
-        return
     send = torch.randn((P, 2, 3 * NV, 8), device="cuda")
     dsts = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32)
     g, r = bs.sweep_blocks_overlap_gather(*args, init.clone(), send, dsts,
@@ -787,7 +1053,7 @@ def test_cuda_staged_resident_blocks(ep):
         for op in (0, 1):
             for w16, o16 in PRECISIONS:
                 info = _cuda.kernel_info("cfd_overlap_gather_info", peer, 1,
-                                         op, int(w16), int(o16), smem)
+                                         op, int(w16), int(o16), smem, 0)
                 assert info["blocks_per_sm"] >= admit, (peer, op, w16, info)
                 assert info["local_bytes"] <= 80, info
 
@@ -858,3 +1124,123 @@ def test_cuda_cluster_residency(bp, ep, per_sm):
                 assert info["blocks_per_sm"] == per_sm, info
                 assert info["active_clusters"] >= 1, info
                 assert info["local_bytes"] == 0, info
+
+
+def _peer(P, nph, rows, s_max, dtype):
+    """A Peer transport of P shards on the card, phase k of shard p sent
+    to shard p (self-sends)."""
+    from cfd_proxy_tpu_torch.parallel.transport import Peer
+
+    d = np.tile(np.arange(P, dtype=np.int32)[:, None], (1, nph))
+    return Peer(d, d, rows=rows, s_max=s_max, dtype=dtype, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w16,o16", PRECISIONS)
+@pytest.mark.parametrize("peer", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+def test_cuda_k3_gather_cluster_equals_direct_bitwise_at_bp_8192(
+        monkeypatch, op, peer, w16, o16):
+    """Every K3-gather instance, loopback and peer form, on the cluster
+    body at both thread counts, on the synthetic plan at bp 8192 / EP 2688
+    (where the rule picks it) with two pushed phases: grad and recv bit for bit the direct
+    body's, counted under the cluster tag, and within the plain version's
+    bounds."""
+    _card()
+    ep = 2688
+    assert bs.gather_body(8192, ep, op, fused=True) == "cluster"
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    if w16:
+        args = (*args[:3], args[3].bfloat16(), *args[4:])
+    odt = torch.bfloat16 if o16 else torch.float32
+    rows = bs.out_rows(op)
+    seed = _init(1, rows, args[0].shape[2], odt).cuda()
+    send = torch.randn((1, 2, rows, 1064), device="cuda").to(odt)
+    dsts = torch.zeros((1, 2), dtype=torch.int32)
+    tr = _peer(1, 2, rows, 1064, odt) if peer else None
+
+    def run():
+        g, r = bs.sweep_blocks_overlap_gather(
+            *args, seed.clone(), send, None if peer else dsts,
+            None if peer else dsts, op=op, peer=tr, ext_cnt=cnt)
+        return g, r.clone()
+
+    attr = _counter(op, False, w16, o16, "cluster", peer)
+    before = getattr(bs.sweep_blocks_overlap_gather, attr)
+    try:
+        got = {}
+        for threads in (256, 512):
+            monkeypatch.setattr(bs, "cluster_threads",
+                                lambda *_, n=threads: n)
+            got[threads] = run()
+        monkeypatch.setattr(bs, "gather_body", lambda *a, **kw: "direct")
+        direct = run()
+    finally:
+        if tr is not None:
+            tr.close()
+    g_ref, r_ref = bs.sweep_blocks_overlap_gather_ref(
+        *args, seed.clone(), send, dsts, dsts, op=op)
+    torch.cuda.synchronize()
+    assert getattr(bs.sweep_blocks_overlap_gather, attr) == before + 2
+    for key, (g, r) in got.items():
+        assert torch.equal(g, direct[0]), key
+        assert torch.equal(r, direct[1]), key
+    _assert_close(direct[0], g_ref)
+    assert torch.equal(direct[1], r_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bp,ep,per_sm", [(8192, 2688, 1), (4096, 1920, 2)])
+def test_cuda_fused_cluster_residency(bp, ep, per_sm):
+    """K3-gather's cluster instances (loopback and peer, every op and
+    precision) at the one-shard plans' half-tables keep one, or two, CUDA
+    blocks per SM at the rule's threads, push blocks included (they share
+    the launch's block shape and shared memory), spill nothing, and the
+    runtime can hold a cluster (a launch raises otherwise)."""
+    _card()
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    smem = bs.cluster_bytes(bp, ep)
+    threads = bs.cluster_threads(bp, ep)
+    assert threads * per_sm == 512
+    for peer in (0, 1):
+        for op in (0, 1):
+            for w16, o16 in PRECISIONS:
+                info = _cuda.kernel_info(
+                    "cfd_overlap_gather_info", peer,
+                    bs.GATHER_BODY_CODES["cluster"], op, int(w16), int(o16),
+                    smem, threads)
+                assert info["blocks_per_sm"] == per_sm, (peer, op, info)
+                assert info["active_clusters"] >= 1, info
+                assert info["local_bytes"] == 0, (peer, op, w16, o16, info)
+
+
+@pytest.mark.cuda
+def test_cuda_peer_cluster_push_region_fills_the_card():
+    """A peer cluster launch at bp 8192 (one CUDA block per SM) whose push
+    region (the signal block and 264 push blocks, padded) outnumbers the
+    card's SMs twice: every push block waits for block 0's readiness
+    signal while later ones queue behind it, and the sweep clusters wait
+    for free SM pairs; three launches on one transport end, and grad and
+    recv equal the loopback cluster launch's bit for bit."""
+    _card()
+    ep = 2688
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    s_max = 128 * 1024            # 24 rows: 384 K pieces a buffer, 2 phases
+    send = torch.randn((1, 2, 3 * NV, s_max), device="cuda")
+    dsts = torch.zeros((1, 2), dtype=torch.int32)
+    init = _init(1, 3 * NV, args[0].shape[2], torch.float32).cuda()
+    tr = _peer(1, 2, 3 * NV, s_max, torch.float32)
+    try:
+        for i in range(3):
+            g_peer, r_peer = bs.sweep_blocks_overlap_gather(
+                *args, init.clone() * (i + 1), send, None, None, peer=tr,
+                ext_cnt=cnt)
+            g_loop, r_loop = bs.sweep_blocks_overlap_gather(
+                *args, init.clone() * (i + 1), send, dsts, dsts,
+                ext_cnt=cnt)
+            torch.cuda.synchronize()
+            assert torch.equal(g_peer, g_loop), i
+            assert torch.equal(r_peer, r_loop), i
+    finally:
+        tr.close()
