@@ -83,8 +83,9 @@
 // block at best); bf16 weights, deltas and outputs halve their streams (6 B
 // of weights and 16 B of deltas per slot lane, 48 B or 16 B of output per
 // point).  A bf16 load is one 2-byte element per thread, still coalesced
-// along the point columns, in transactions half as wide: the simple form,
-// not yet paired into __nv_bfloat162 loads.  The math is 24 FMAs per slot
+// along the point columns, in transactions half as wide (the cluster body
+// loads two lanes' bf16 weights as one 4-byte word).  The math is 24 FMAs
+// per slot
 // (gg) or ~6 + 4*8 operations (flux).  Design: the accumulators (24 gg, 8
 // flux) and the 8 own values stay in registers for the whole slot loop, so
 // nothing but the streams touches memory; every stream is coalesced along
@@ -119,12 +120,16 @@
 //   8192, 340 KB), a cluster of two CUDA blocks per listed entry, on two
 //   SMs; block r stages plane r of
 //   the staged layout (variables 4r..4r+3, 16 B per column) and sweeps
-//   every other warp-sized run of the entry's lanes, reading its own plane
-//   from its shared memory and the other block's through the cluster's
-//   distributed shared memory, 16 B each.  Every table column, W-index and
-//   weight is still read from device memory once.
-// All three compute the same values in the same order (sweep_lane_staged
-// is sweep_chunk's arithmetic), so they agree bit for bit.
+//   every other 64-lane run of the entry's lanes, two neighbouring lanes a
+//   thread (sweep_pairs_cluster: one 8-byte W-index load, one float2 or
+//   bf16x2 word per weight, scale and output row for both; the thread's
+//   pairs one stream of items, fetched two items ahead across pairs),
+//   reading its own plane from its shared memory and the other block's
+//   through the cluster's distributed shared memory, 16 B each.  Every
+//   table column, W-index and weight is still read from device memory
+//   once.
+// All three compute the same values in the same order per lane
+// (slot_update is sweep_chunk's arithmetic), so they agree bit for bit.
 
 #pragma once
 
@@ -405,10 +410,36 @@ struct StagedTable {
   }
 };
 
-// One lane of a staged entry g (the staged and cluster bodies): its own
-// values and every live slot's sources come from the staged table through
-// load(i, x) (column i, eight variables); the W-index and weights from
-// device memory.  sweep_chunk's arithmetic, in its order.
+// One live slot of one lane in the staged and cluster bodies: its own
+// values, the slot's eight sources and three weights into the lane's
+// accumulators.  sweep_chunk's arithmetic, in its order.
+template <Op kOp>
+__device__ __forceinline__ void slot_update(float (&acc)[op_rows(kOp)],
+                                            const float (&own)[kNV],
+                                            const float (&src)[kNV],
+                                            const float (&w)[3]) {
+  if constexpr (kOp == Op::kGG) {
+#pragma unroll
+    for (int v = 0; v < kNV; ++v) {
+      const float avg = 0.5f * (own[v] + src[v]);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) acc[d * kNV + v] += w[d] * avg;
+    }
+  } else {
+    const float udw = own[0] * w[0] + own[1] * w[1] + own[2] * w[2];
+    const float uow = src[0] * w[0] + src[1] * w[1] + src[2] * w[2];
+    const float am = fmaxf(fabsf(udw), fabsf(uow));
+#pragma unroll
+    for (int v = 0; v < kNV; ++v) {
+      acc[v] += 0.5f * (udw * own[v] + uow * src[v]) -
+                0.5f * am * (src[v] - own[v]);
+    }
+  }
+}
+
+// One lane of a staged entry g (the staged body): its own values and every
+// live slot's sources come from the staged table through load(i, x)
+// (column i, eight variables); the W-index and weights from device memory.
 template <bool kAccumulate, Op kOp, class WT, class OutT, class Load>
 __device__ __forceinline__ void sweep_lane_staged(
     const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int* s_width,
@@ -446,23 +477,7 @@ __device__ __forceinline__ void sweep_lane_staged(
     if (kn < a.K) fetch(kn, i_n, w_n);
     float src[kNV];
     load(i, src);
-    if constexpr (kOp == Op::kGG) {
-#pragma unroll
-      for (int v = 0; v < kNV; ++v) {
-        const float avg = 0.5f * (own[v] + src[v]);
-#pragma unroll
-        for (int d = 0; d < 3; ++d) acc[d * kNV + v] += w[d] * avg;
-      }
-    } else {
-      const float udw = own[0] * w[0] + own[1] * w[1] + own[2] * w[2];
-      const float uow = src[0] * w[0] + src[1] * w[1] + src[2] * w[2];
-      const float am = fmaxf(fabsf(udw), fabsf(uow));
-#pragma unroll
-      for (int v = 0; v < kNV; ++v) {
-        acc[v] += 0.5f * (udw * own[v] + uow * src[v]) -
-                  0.5f * am * (src[v] - own[v]);
-      }
-    }
+    slot_update<kOp>(acc, own, src, w);
     k = kn;
     i = i_n;
 #pragma unroll
@@ -510,8 +525,11 @@ __device__ __forceinline__ void sweep_entry_staged(
 // The CTAs of one cluster: CTA r stages plane r of the table, variables
 // 4r..4r+3 (StagedTable's planes).
 constexpr int kClusterCtas = 2;
-// Lanes alternate between the CTAs in runs of one warp.
-constexpr int kClusterRun = 32;
+// Lanes a thread sweeps at once: a pair of neighbouring lanes, whose
+// W-indices, weights, scale and output are one wider word each.
+constexpr int kClusterPair = 2;
+// Lanes alternate between the CTAs in runs of one warp's pairs.
+constexpr int kClusterRun = 32 * kClusterPair;
 
 // Dynamic shared memory of one CTA of the cluster body: one float4 plane,
 // 16 B per column, half the staged table.
@@ -519,12 +537,159 @@ __host__ __device__ constexpr int64_t cluster_bytes(int64_t bp, int64_t ep) {
   return staged_bytes(bp, ep) / kClusterCtas;
 }
 
-// The lane of position j of CTA `rank`: run j / kClusterRun of that CTA is
-// run (j / kClusterRun)·kClusterCtas + rank of the entry, so the runs
-// alternate between the CTAs and each sweeps half of every slot's prefix.
+// The first lane of pair position j of CTA `rank`: run j / 32 of that CTA
+// is run (j / 32)·kClusterCtas + rank of the entry, so the runs alternate
+// between the CTAs and each sweeps half of every slot's prefix (the
+// widths are multiples of 128); a warp's 32 threads take one run, a pair
+// each.
 __host__ __device__ constexpr int cluster_lane(int j, int rank) {
-  return ((j / kClusterRun) * kClusterCtas + rank) * kClusterRun +
-         j % kClusterRun;
+  return ((j / 32) * kClusterCtas + rank) * kClusterRun +
+         (j % 32) * kClusterPair;
+}
+
+// Two neighbouring elements at p (aligned to two) widened to f32, the first
+// in .x: one 8-byte load of f32, one 4-byte load of bf16 (the first element
+// its low half; a bf16 widens exactly as its bits shifted into the high half
+// of a float).  ld2 reads through the read-only cache; ld2_out reads the
+// output (the init operand), which the same thread rewrites.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 bf16x2_widen(unsigned u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return bf16x2_widen(__ldg(reinterpret_cast<const unsigned*>(p)));
+}
+__device__ __forceinline__ float2 ld2_out(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2_out(const bf16* p) {
+  return bf16x2_widen(*reinterpret_cast<const unsigned*>(p));
+}
+// Two neighbouring outputs at once, each rounded as store() rounds it.
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Items of a thread's stream fetched ahead of the one it computes: two (on
+// an H100 at bp 8192 one item took 0.976-1.026x the time of two across the
+// K2 instances, three 0.984-1.014x; PERF.md section 6).  With two lanes a
+// thread every cluster instance fits 128 registers with no spill.
+constexpr int kClusterAhead = 2;
+
+// One item of a thread's work in the cluster body: a lane pair (its first
+// lane; bp or past it: no item left) at one slot k live in that lane (K:
+// the pair has no live slot, and only writes its output), with both
+// W-indices and both lanes' three weights.
+struct PairItem {
+  int lane;
+  int k;
+  int2 i;
+  float2 w[3];
+};
+
+// Every lane pair a thread of CTA `rank` sweeps in cluster entry g (pair
+// positions threadIdx.x, + blockDim.x, ...; cluster_lane), as one stream
+// of items in pair order, each pair's live slots in slot order: the
+// staged lane's work for both lanes of a pair, in the same order per
+// lane.  The W-indices and weights of the item kAhead items on are
+// fetched while an item computes, across pair boundaries, so the slot
+// stream's device-memory latency overlaps work from one pair to the next;
+// a pair's scale is fetched as it starts.  Liveness stays per lane: a
+// pair enters slot k where its first lane is live, and lane + 1 adds its
+// terms only where it is live too (an odd width can split a pair); a dead
+// lane's W-index still names a table column ([0, bp + EP)), so its reads
+// stay in the table.
+template <int kAhead, bool kAccumulate, Op kOp, class WT, class OutT,
+          class Load>
+__device__ __forceinline__ void sweep_pairs_cluster(
+    const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int* s_width,
+    int64_t g, int64_t base, int rank, const Load& load) {
+  constexpr int R = op_rows(kOp);
+  OutT* out_p = a.out + (g / a.nb) * R * a.ndev + base;
+  const float* scale = a.scale + g * a.bp;
+  const int K = a.K;
+  const int bp = a.bp;
+  const int step = static_cast<int>(blockDim.x);
+  // the first slot at or after k live in `lane` (K: none)
+  auto live_from = [&](int lane, int k) {
+    while (k < K && lane >= s_width[k]) ++k;
+    return k;
+  };
+  // the fetch cursor: pair position fj, slot fk of the next item
+  int fj = static_cast<int>(threadIdx.x);
+  int fk = live_from(cluster_lane(fj, rank), 0);
+  auto fetch = [&](PairItem& f) {
+    const int lane = cluster_lane(fj, rank);
+    f.lane = lane;
+    f.k = fk;
+    if (lane >= bp) return;
+    if (fk < K) {
+      const int64_t row = g * K + fk;     // (shard, entry, slot)
+      f.i = __ldg(reinterpret_cast<const int2*>(s.slot_idx + row * bp +
+                                                lane));
+      const WT* wp = s.slot_w + row * 3 * bp + lane;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) f.w[d] = ld2(wp + d * bp);
+      fk = live_from(lane, fk + 1);
+      if (fk < K) return;
+    }
+    fj += step;                           // the pair's last item
+    fk = live_from(cluster_lane(fj, rank), 0);
+  };
+  PairItem q[kAhead + 1];
+#pragma unroll
+  for (int d = 0; d < kAhead; ++d) fetch(q[d]);
+  int lane = q[0].lane;
+  if (lane >= bp) return;
+  float own[kClusterPair][kNV];
+  float acc[kClusterPair][R];
+  float2 sc;
+  auto begin = [&]() {
+    load(lane, own[0]);
+    load(lane + 1, own[1]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 x = kAccumulate ? ld2_out(out_p + r * a.ndev + lane)
+                                   : make_float2(0.0f, 0.0f);
+      acc[0][r] = x.x;
+      acc[1][r] = x.y;
+    }
+    sc = ld2(scale + lane);
+  };
+  begin();
+  while (true) {
+    fetch(q[kAhead]);
+    const PairItem& c = q[0];
+    if (c.k < K) {
+      float src[kClusterPair][kNV];
+      load(c.i.x, src[0]);
+      load(c.i.y, src[1]);
+      const float w0[3] = {c.w[0].x, c.w[1].x, c.w[2].x};
+      slot_update<kOp>(acc[0], own[0], src[0], w0);
+      if (lane + 1 < s_width[c.k]) {
+        const float w1[3] = {c.w[0].y, c.w[1].y, c.w[2].y};
+        slot_update<kOp>(acc[1], own[1], src[1], w1);
+      }
+    }
+    if (q[1].lane != lane) {              // the pair's last item
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        store2(out_p + r * a.ndev + lane, acc[0][r] * sc.x,
+               acc[1][r] * sc.y);
+      }
+      lane = q[1].lane;
+      if (lane >= bp) break;
+      begin();
+    }
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d) q[d] = q[d + 1];
+  }
 }
 
 // Copies `quads` groups of four columns of the four rows at src + u*stride
@@ -549,11 +714,12 @@ __device__ __forceinline__ void stage_plane(float4* p, const float* src,
 
 // One listed (shard, entry) g by a cluster of kClusterCtas CUDA blocks:
 // each stages its plane of the table (ext_cnt as in sweep_entry_staged),
-// the cluster synchronises, and each sweeps its half of the lanes, reading
-// its own plane from its shared memory and the other through the
-// cluster's distributed shared memory.  The last barrier keeps every plane
-// alive until the other CTA's reads are done.  The early return is uniform
-// over the cluster (both CTAs see the same entry).
+// the cluster synchronises, and each sweeps its half of the lanes, a pair
+// a thread, reading its own plane from its shared memory and the other
+// through the cluster's distributed shared memory.  The last barrier
+// keeps every plane alive until the other CTA's reads are done.  The
+// early return is uniform over the cluster (both CTAs see the same
+// entry).  bp is a multiple of 4, so a pair never passes it.
 template <bool kAccumulate, Op kOp, class WT, class OutT>
 __device__ __forceinline__ void sweep_entry_cluster(
     const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int32_t* ext_cnt,
@@ -587,11 +753,8 @@ __device__ __forceinline__ void sweep_entry_cluster(
     x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
     x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
   };
-  for (int j = threadIdx.x;; j += blockDim.x) {
-    const int lane = cluster_lane(j, rank);
-    if (lane >= a.bp) break;
-    sweep_lane_staged<kAccumulate, kOp>(a, s, s_width, g, base, lane, load);
-  }
+  sweep_pairs_cluster<kClusterAhead, kAccumulate, kOp>(a, s, s_width, g,
+                                                       base, rank, load);
   cluster.sync();                 // the other CTA's reads of this plane
 }
 

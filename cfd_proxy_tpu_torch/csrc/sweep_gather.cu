@@ -47,10 +47,15 @@
 //   blocksweep.cluster_threads).  The launch first asks the
 //   runtime how many such clusters can be resident
 //   (cudaOccupancyMaxActiveClusters) and refuses to launch if none can.
-//   On an H100 at bp 8192 it takes 0.139 ms (47 % of its bound; the direct
-//   body 0.306, 21 %), at AUTO's bp 4096 0.138 (two blocks of 256 threads
-//   an SM; the staged body 0.186): the rule takes it wherever two staged
-//   blocks do not fit one SM.
+//   Each thread sweeps two neighbouring lanes (sweep_pairs_cluster), its
+//   pairs one stream of slot items fetched two ahead; 109-128 registers,
+//   no spill.  On an H100 at bp 8192 gg f32 took 0.139 ms at one lane a
+//   thread (47 % of its bound; the direct body 0.306, 21 %) and takes
+//   0.126 at two (52 %); the bf16 and flux instances 0.115-0.125 (35-48 %:
+//   distributed shared memory reads and the slot stream set their pace,
+//   PERF.md section 6); at AUTO's bp 4096 gg 0.138 at one lane a thread
+//   (two blocks of 256 threads an SM; the staged body 0.186): the rule
+//   takes it wherever two staged blocks do not fit one SM.
 // - Direct (sweep_chunk with GatherSrc): one CUDA block of 128 threads per
 //   (shard, entry, 128-lane chunk), sources read from device memory; no
 //   shared memory, so it runs at any bp.

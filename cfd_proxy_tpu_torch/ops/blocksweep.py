@@ -660,9 +660,14 @@ def gather_body(bp: int, ep: int, op: str = "gg",
 
 def cluster_threads(bp: int, ep: int) -> int:
     """Threads of each CUDA block of the cluster body, 512 to an SM: 512
-    where one block takes an SM (bp 8192 at 96³: 0.139 ms against 0.210 at
-    256) and 256 where two fit (bp 4096: 0.138 against 0.145 at 512)."""
-    return 256 if cluster_bytes(bp, ep) <= GATHER_STAGE_PAIR else 512
+    where one block takes an SM (bp 8192 at 96³: 0.127 ms against 0.139 at
+    256) and 256 where two fit (bp 4096: 0.124 against 0.131 at 512); but
+    no more warps than a block has 32-pair runs of lanes (bp / 128, two
+    lanes a thread), and at least 128 threads (K3's push blocks copy with
+    128): at bp 512 128 threads, where 256 left half of them idle (bp 512,
+    EP 3200: 0.189 ms against 0.219 at 256; H100, PERF.md section 6)."""
+    n = 256 if cluster_bytes(bp, ep) <= GATHER_STAGE_PAIR else 512
+    return max(128, min(n, 32 * -(-bp // 128)))
 
 
 def ext_counts(slot_idx: np.ndarray, bp: int) -> np.ndarray:
@@ -700,16 +705,23 @@ def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
 
 
 def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
-                 dims, ext_cnt, op, fused=False):
+                 dims, ext_cnt, op, out, fused=False):
     """The gather entry points' sweep operands, the live ext counts and the
     body `gather_body` picks (its GATHER_BODY_CODES code); the staged and
-    cluster bodies load var_T and exts 16 bytes at a time."""
+    cluster bodies load var_T and exts 16 bytes at a time, and the cluster
+    body two lanes' W-indices, weights, scale and output at a time."""
     P, nb, ep, bp, ndev, K = dims
     body = gather_body(bp, ep, op, fused)
     check(body == "direct" or (var_T.data_ptr() % 16 == 0
                                and exts.data_ptr() % 16 == 0),
           "the %s gather sweep loads var_T and exts 16 bytes at a time: "
           "both must be 16-byte aligned", body)
+    paired = (slot_idx, slot_w, scale, out)
+    check(body != "cluster" or all(
+        t.data_ptr() % (2 * t.element_size()) == 0 for t in paired),
+        "the cluster gather sweep loads and stores two lanes at a time: "
+        "slot_idx, slot_w, scale and the output must be aligned to two "
+        "elements")
     return (var_T.data_ptr(), ndev, exts.data_ptr(), ep, slot_idx.data_ptr(),
             slot_w.data_ptr(), scale.data_ptr(), block_ids.data_ptr(),
             slots.data_ptr(), K, P, nb, bp,
@@ -761,7 +773,7 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
            if init is None else init)
     w16, o16 = _flags(slot_w, out)
     ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                        slots, dims, ext_cnt, op)
+                        slots, dims, ext_cnt, op, out)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_gather(
             *ptrs, int(init is not None), OPS.index(op), w16, o16,
@@ -1006,7 +1018,7 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
 
         w16, o16 = _flags(slot_w, init)
         ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                            slots, dims, ext_cnt, op, fused=True)
+                            slots, dims, ext_cnt, op, init, fused=True)
         with torch.cuda.device(dev):
             rc = _cuda.lib().cfd_sweep_overlap_gather_peer(
                 *ptrs, OPS.index(op), w16, o16, threads, init.data_ptr(),
@@ -1027,7 +1039,7 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
     recv = torch.zeros_like(sendbufs)
     w16, o16 = _flags(slot_w, init)
     ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                        slots, dims, ext_cnt, op, fused=True)
+                        slots, dims, ext_cnt, op, init, fused=True)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_overlap_gather(
             *ptrs, OPS.index(op), w16, o16, threads, init.data_ptr(),

@@ -15,6 +15,10 @@ K2-w16-o16 on the bulk plan at one and eight shards, K2-flux at eight;
 K2-init, K2-init-w16-o16 and K2-flux-init on the eight-shard interior
 plan; K3-gather, K3-gather-w16-o16 and K3-gather-flux at the eight-shard
 interior + push shapes; the peer form is the K3-peer gather row above);
+K2's cluster instances on the one-shard plans with force_rdma at bp 4096
+and 8192 (K2_CLUSTER: gg, flux and bf16 weights and stores, the bulk plan
+zero-filled and the interior plan with init), each also back to back
+on the card (`_held`: `chip_smoke.kernel_device_ms`);
 K2 on the one-shard bulk plan at bp 512, at the AUTO block size (4096)
 and at bp 8192 under the body the rule picks (in a tree with the cluster
 body also that body forced at each of its block sizes, 256 and 512
@@ -67,8 +71,10 @@ AUTO_BP, LARGE_BP = 4096, 8192     # the AUTO block size at one shard; 2x
 KB_BP = 4096                       # kbench's block size
 KB_ROWS = ("compact_i8", "compact_bso", "cstream_bso")
 # the row groups: K4, K6, K3-peer, the gather sweep at bp 512, K2 at bp 512,
-# 4096 and 8192, K3-gather at bp 4096 and 8192, kbench's rows
-ROWS = ("k4", "k6", "peer", "gather", "bodies", "k3large", "kbench")
+# 4096 and 8192, K2's cluster instances, K3-gather at bp 4096 and 8192,
+# kbench's rows
+ROWS = ("k4", "k6", "peer", "gather", "bodies", "cluster", "k3large",
+        "kbench")
 # K3-gather at large block sizes: its shapes (shards, bp; one shard with
 # force_rdma) and configurations (tag, model options)
 K3_SHAPES = ((1, AUTO_BP), (1, LARGE_BP), (2, AUTO_BP), (2, LARGE_BP))
@@ -76,6 +82,10 @@ K3_LARGE = (("", {}),
             ("_w16_o16", {"meta_dtype": BF16, "grad_dtype": BF16,
                           "halo_dtype": BF16}),
             ("_flux", {"op": "flux"}))
+# K2's cluster instances: the one-shard plans (force_rdma) at bp 4096 and
+# 8192, gg f32, flux and bf16 weights and stores (tag, model options)
+K2_CLUSTER = (("", {}), ("_flux", {"op": "flux"}),
+              ("_w16_o16", {"meta_dtype": BF16, "grad_dtype": BF16}))
 # (bp, EP) of the edge plans: 3 584 table columns (114 688 B staged, under
 # GATHER_STAGE_PAIR's 115 456) and 3 712 (118 784 B, over it) at bp 512,
 # 3 712 at bp 2048
@@ -299,6 +309,36 @@ def measure(root: str, rows=ROWS) -> dict:
                             bs.sweep_blocks_gather(*args, **kw))
                 del args, kw
             del m, st, real
+
+    if "cluster" in rows:
+        # K2 on the one-shard bulk plan (zero-filled) and interior plan
+        # (init) at bp 4096 and 8192, as the model's steps call it
+        for bp in (AUTO_BP, LARGE_BP):
+            for tag, opts in K2_CLUSTER:
+                m = GreenGaussTorch(parts1, NVAR, kernel="gather", bp=bp,
+                                    device=dev, force_rdma=True, **opts)
+                st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
+                var_T, tbs = st["var_T"], st["tables"]
+                gb = m.step(st, "bulk")
+                buf = gb.clone()
+                calls = {
+                    f"k2{tag}_bp{bp}": lambda: m._sweep("bulk", var_T, tbs),
+                    f"k2{tag}_init_bp{bp}": lambda: m._sweep(
+                        "interior", var_T, tbs, init=buf)}
+                for key, fn in calls.items():
+                    # as the smoke times it, and back to back on the card
+                    ms[key] = cs.cuda_ms(fn, 50)
+                    ms[key + "_held"] = cs.kernel_device_ms(fn, 50)
+                hashes[f"k2{tag}_bp{bp}"] = digest(
+                    m._sweep("bulk", var_T, tbs))
+                hashes[f"k2{tag}_init_bp{bp}"] = digest(
+                    m._sweep("interior", var_T, tbs, init=gb.clone()))
+                for cls in ("bulk", "interior"):
+                    ep = int(m.plans[cls]["ext_idx"].shape[2])
+                    rule[f"k2{tag}_{cls}_bp{bp}"] = {
+                        "ep": ep, "body": bs.gather_body(bp, ep, m.op)}
+                m.close()
+                del m, st, var_T, tbs, gb, buf
 
     if "k3large" in rows:
         # K3-gather at the interior + push shapes of one shard (force_rdma)

@@ -19,11 +19,13 @@ On the CPU:
   (`sweep_blocks(..., packed=False, interpret=True)`) within 1e-6 of
   max|ref| (f32) or one bf16 ulp plus that (bf16 outputs);
 - so does a plain-torch form of the cluster algorithm (block r stages
-  plane r at the kernel's offsets and sweeps its warp-sized runs of
-  lanes, reading its own plane and its peer's), on the JAX plans and on
-  synthetic plans with pad entries and entries without ext columns at
-  bp 128 and at the 96³ one-shard plan's bp 8192; the two blocks' lanes
-  split every slot prefix in half;
+  plane r at the kernel's offsets and sweeps its 64-lane runs of lanes,
+  two neighbouring lanes a thread, reading its own plane and its
+  peer's), on the JAX plans and on synthetic plans with pad entries and
+  entries without ext columns at bp 128 and at the 96³ one-shard plan's
+  bp 8192, and with odd slot widths that split a lane pair, at bp 128,
+  196 and 8132 (the last two end in a 4-lane run tail); the two blocks'
+  lanes split every slot prefix in half;
 - so does a plain-torch form of K3-gather's cluster launch, grid and
   all (`fused_cluster_grid`: the push region padded to whole clusters,
   each CUDA block's (entry, rank) or push chunk, the pieces the first
@@ -41,8 +43,9 @@ The `cuda`-marked tests hold every K2 and every K3-gather instance
 entries, zero-width slots, EP = 128 and the largest EP the rule stages;
 the bodies against each other and K3-gather-peer against the loopback
 K3-gather bit for bit; every K2 and K3-gather instance on the cluster body
-at bp 8192, both thread counts (K3-gather loopback and peer), against
-the direct body bit for bit; a peer cluster launch
+at bp 8192, both thread counts (K3-gather loopback and peer), also with
+lane pairs split by odd widths and at bp 8132, against the direct body
+bit for bit; a peer cluster launch
 whose push blocks outnumber the SMs; and the resident blocks per SM of the
 staged and cluster instances.  They import no JAX:
 
@@ -74,6 +77,13 @@ STATIC_SMEM = bs.MAX_SLOTS * 4            # the kernels' slot-width table
 SM_SMEM = 227 * 1024                      # what an H100 block may take
 # an H100 SM's shared memory, and what the runtime reserves per CUDA block
 SM_TOTAL, BLOCK_RESERVED = 228 * 1024, 1024
+
+
+def straddle_widths(bp):
+    """Slot widths (bp, 0, bp - 3, 65): two odd widths, each ending inside
+    a lane pair of the cluster body (lanes bp - 4, bp - 3 and 64, 65: the
+    first lane live, the second not)."""
+    return (bp, 0, bp - 3, 65)
 
 
 @pytest.fixture(scope="module")
@@ -150,22 +160,96 @@ def staged_sweep(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
                            out_dtype=bs._out_dtype(init, out_dtype))
 
 
-# the cluster body's CUDA blocks and lane runs (csrc/sweep_common.cuh::
-# kClusterCtas, kClusterRun)
-CTAS, RUN = 2, 32
+# the cluster body's CUDA blocks, lanes a thread and lane runs
+# (csrc/sweep_common.cuh::kClusterCtas, kClusterPair, kClusterRun)
+CTAS, PAIR = 2, 2
+RUN = 32 * PAIR
+
+
+def cluster_pairs(bp, rank, threads):
+    """The first lane of each pair CUDA block `rank` of a cluster sweeps,
+    per thread in the kernel's order: pair position j = t, t + threads, ...
+    of thread t is lanes l and l + 1, l = ((j // 32)·CTAS + rank)·RUN +
+    (j % 32)·PAIR, until l passes bp (a multiple of 4, so a pair never
+    straddles it)."""
+    out = []
+    for t in range(threads):
+        firsts, j = [], t
+        while (lane := cluster_pairs_lane(j, rank)) < bp:
+            firsts.append(lane)
+            j += threads
+        out.append(firsts)
+    return out
 
 
 def cluster_lanes(bp, rank, threads):
-    """The lanes CUDA block `rank` of a cluster sweeps, thread by thread in
-    the kernel's order: position j = t, t + threads, ... of thread t is
-    lane ((j // RUN)·CTAS + rank)·RUN + j % RUN, until one passes bp."""
-    out = []
+    """Every lane CUDA block `rank` sweeps, thread by thread in the
+    kernel's order (`cluster_pairs`, both lanes of each pair)."""
+    return [lane + h for firsts in cluster_pairs(bp, rank, threads)
+            for lane in firsts for h in range(PAIR)]
+
+
+# items of a thread's stream fetched ahead of the one it computes in the
+# cluster body (csrc/sweep_common.cuh::kClusterAhead)
+AHEAD = 2
+
+
+def cluster_items(bp, widths, rank, threads, ahead=AHEAD):
+    """The cluster body's item stream, as sweep_pairs_cluster walks it in
+    each thread of CUDA block `rank`: the thread's pairs (`cluster_pairs`)
+    in order, each pair's slots live in its first lane in slot order (one
+    empty item for a pair with none), fetched `ahead` items before they
+    compute.  Returns the events of every thread in order: ("add", lane, k)
+    where a lane adds slot k's terms, ("store", lane) where it writes its
+    output."""
+    K = len(widths)
+
+    def live_from(lane, k):
+        while k < K and lane >= widths[k]:
+            k += 1
+        return k
+
+    events = []
     for t in range(threads):
-        j = t
-        while (lane := ((j // RUN) * CTAS + rank) * RUN + j % RUN) < bp:
-            out.append(lane)
-            j += threads
-    return out
+        cur = {"j": t}
+        cur["k"] = live_from(cluster_pairs_lane(cur["j"], rank), 0)
+
+        def fetch():
+            lane = cluster_pairs_lane(cur["j"], rank)
+            item = (lane, cur["k"])
+            if lane >= bp:
+                return item
+            if cur["k"] < K:
+                cur["k"] = live_from(lane, cur["k"] + 1)
+                if cur["k"] < K:
+                    return item
+            cur["j"] += threads
+            cur["k"] = live_from(cluster_pairs_lane(cur["j"], rank), 0)
+            return item
+
+        q = [fetch() for _ in range(ahead)]
+        lane = q[0][0]
+        if lane >= bp:
+            continue
+        while True:
+            q.append(fetch())
+            k = q[0][1]
+            if k < K:
+                events += [("add", lane, k)] + (
+                    [("add", lane + 1, k)] if lane + 1 < widths[k] else [])
+            if q[1][0] != lane:
+                events += [("store", lane), ("store", lane + 1)]
+                lane = q[1][0]
+                if lane >= bp:
+                    break
+            q.pop(0)
+    return events
+
+
+def cluster_pairs_lane(j, rank):
+    """The first lane of pair position j of CUDA block `rank`
+    (csrc/sweep_common.cuh::cluster_lane)."""
+    return ((j // 32) * CTAS + rank) * RUN + (j % 32) * PAIR
 
 
 def cluster_planes(var_T, exts, block_ids, ext_cnt, bp):
@@ -439,7 +523,8 @@ def test_gather_body_rule(bp, ep, body):
     if body == "cluster":     # 512 threads an SM: one block of 512 or two
         per_sm = SM_TOTAL // (bs.cluster_bytes(bp, ep) + STATIC_SMEM
                               + BLOCK_RESERVED)
-        assert bs.cluster_threads(bp, ep) == 512 // min(per_sm, 2)
+        assert bs.cluster_threads(bp, ep) == max(
+            128, min(512 // min(per_sm, 2), 32 * -(-bp // 128)))
 
 
 @pytest.mark.parametrize("bp,ep", [(512, 1024), (128, 128), (8192, 2560),
@@ -478,24 +563,60 @@ def test_staged_table_sizes_at_the_benchmark_plans():
 
 
 @pytest.mark.parametrize("threads", [256, 512])
-@pytest.mark.parametrize("bp", [128, 512, 4096, 8192])
+@pytest.mark.parametrize("bp", [128, 196, 512, 4096, 8192])
 def test_cluster_lanes_split_every_prefix(bp, threads):
     """The two CUDA blocks of a cluster sweep every lane of the entry once
-    between them, half of every 64-lane-aligned prefix each (the slot
-    widths are multiples of 128), a warp's 32 threads on 32 consecutive
-    lanes at each step."""
+    between them, half of every 128-lane-aligned prefix each (the slot
+    widths are multiples of 128), a thread two neighbouring lanes and a
+    warp's 32 threads one run of 64 consecutive lanes at each step; bp 196
+    ends in an odd run tail (lanes 192-195, the fourth run: block 1's)."""
     lanes = [cluster_lanes(bp, r, threads) for r in range(CTAS)]
     assert sorted(lanes[0] + lanes[1]) == list(range(bp))
-    for w in range(64, bp + 1, 64):
+    for w in range(2 * RUN, bp + 1, 2 * RUN):
         for r in range(CTAS):
             assert sum(lane < w for lane in lanes[r]) == w // 2, (w, r)
-    # thread t's first lane: a warp (32 consecutive t) takes 32
-    # consecutive lanes, and so at every later step (j grows by threads)
+    tail = bp % RUN
+    if tail:
+        assert set(range(bp - tail, bp)) <= set(lanes[(bp // RUN) % CTAS])
     for r in range(CTAS):
-        assert cluster_lanes(bp, r, threads)[0] == r * RUN
-        per_thread = len(lanes[r]) // threads or 1
-        warp0 = lanes[r][::per_thread][:32]
-        assert warp0 == list(range(r * RUN, r * RUN + len(warp0)))
+        pairs = cluster_pairs(bp, r, threads)
+        assert pairs[0][0] == r * RUN
+        for step in range(max(map(len, pairs))):
+            for w in range(0, threads, 32):
+                warp = [p[step] for p in pairs[w:w + 32] if len(p) > step]
+                if warp:
+                    assert warp[0] % RUN == 0 and (warp[0] // RUN) % CTAS == r
+                    assert warp == list(range(warp[0], warp[0] + PAIR
+                                              * len(warp), PAIR))
+
+
+@pytest.mark.parametrize("ahead", [1, AHEAD, 3])
+@pytest.mark.parametrize("threads", [256, 512])
+@pytest.mark.parametrize("bp,widths", [
+    (128, (128, 0, 128, 64)), (128, straddle_widths(128)),
+    (196, straddle_widths(196)), (8192, (8192, 0, 8192, 4096, 2048)),
+    (8132, straddle_widths(8132))])
+def test_cluster_item_stream_adds_every_live_slot_once(bp, widths, threads,
+                                                       ahead):
+    """The cluster body's item stream, fetched 1-3 items ahead across pair
+    boundaries: every lane adds slot k exactly where it is live (lane <
+    widths[k]: a pair split by an odd width adds the first lane's terms
+    alone), in slot order, and writes its output once, after its last add;
+    a lane without a live slot still writes it."""
+    adds, stores = {}, {}
+    for rank in range(CTAS):
+        for n, ev in enumerate(cluster_items(bp, widths, rank, threads,
+                                             ahead)):
+            if ev[0] == "add":
+                assert ev[1] not in stores, ev
+                adds.setdefault(ev[1], []).append(ev[2])
+            else:
+                assert ev[1] not in stores, ev
+                stores[ev[1]] = n
+    assert sorted(stores) == list(range(bp))
+    for lane in range(bp):
+        want = [k for k, w in enumerate(widths) if lane < w]
+        assert adds.get(lane, []) == want, lane
 
 
 @pytest.mark.parametrize("w16,o16", [(False, False), (True, True)])
@@ -527,15 +648,20 @@ def test_cluster_form_equals_plain_bitwise(jax_gather, P, bp, op, w16, o16):
 
 @pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("op", ["gg", "flux"])
-@pytest.mark.parametrize("bp,ep", [(128, 128), (8192, 2688)])
-def test_cluster_form_synthetic_plans(bp, ep, op, init):
+@pytest.mark.parametrize("bp,ep,straddle", [
+    (128, 128, False), (8192, 2688, False), (128, 128, True),
+    (196, 132, True), (8132, 2688, True)])
+def test_cluster_form_synthetic_plans(bp, ep, straddle, op, init):
     """The cluster form on synthetic plans with pad entries, a zero-width
     slot and entries without ext columns (live count 0) or with all EP,
     at bp 128 and at the 96³ one-shard plan's bp 8192 and EP 2688, both
-    thread counts: bit for bit the plain version."""
-    live = [[0, ep, 7, 7]] if bp > 128 else [[0, ep, 7, 7], [ep // 2, 0, ep,
+    thread counts: bit for bit the plain version; and with odd slot widths
+    that split a lane pair (`straddle_widths`), at bp 128 and at bp 196
+    and 8132, whose last run of lanes is a 4-lane tail."""
+    live = [[0, ep, 7, 7]] if bp > 196 else [[0, ep, 7, 7], [ep // 2, 0, ep,
                                                              ep]]
-    args, cnt = _synthetic(ep, live, P=len(live), bp=bp, device="cpu")
+    args, cnt = _synthetic(ep, live, P=len(live), bp=bp, device="cpu",
+                           widths=straddle_widths(bp) if straddle else None)
     P, ndev = args[0].shape[0], args[0].shape[2]
     seed = _init(P, bs.out_rows(op), ndev, torch.float32) if init else None
     ref = bs.sweep_blocks_gather_ref(
@@ -939,12 +1065,13 @@ def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
         assert torch.equal(out["cluster", key], out["direct", key]), key
 
 
-def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9, device="cuda"):
+def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9, device="cuda",
+               widths=None):
     """Random gather operands on `device`: entries (0, 2, 3, 3) per shard —
     the last a pad entry — slots of widths (bp, 0, bp, bp/2) (one of zero
-    width), per-entry live ext counts `live` (P, 4), every W-index below
-    bp + its entry's count, the last slot's lanes pads (W-index 0, zero
-    weight)."""
+    width; or `widths`), per-entry live ext counts `live` (P, 4), every
+    W-index below bp + its entry's count, the last slot's lanes pads
+    (W-index 0, zero weight)."""
     rng = np.random.default_rng(seed)
     nb, K, ndev = 4, 4, nblk * bp
     live = np.asarray(live, np.int32)
@@ -958,7 +1085,7 @@ def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9, device="cuda"):
            "slot_idx": sidx, "slot_w": sw,
            "scale": rng.standard_normal((P, nb, 1, bp)),
            "block_ids": bids,
-           "slots": bs.slot_table((bp, 0, bp, bp // 2))}
+           "slots": bs.slot_table(widths or (bp, 0, bp, bp // 2))}
     dev = {k: torch.from_numpy(np.ascontiguousarray(
         v if v.dtype != np.float64 else v.astype(np.float32))).to(device)
         for k, v in ops.items()}
@@ -1058,21 +1185,31 @@ def test_cuda_staged_resident_blocks(ep):
                 assert info["local_bytes"] <= 80, info
 
 
+# (bp, straddle) of the card's cluster cases: the 96³ one-shard plan's bp
+# 8192, with its widths and with odd widths that split a lane pair
+# (`straddle_widths`), and bp 8132, whose last run of lanes is a 4-lane tail
+CLUSTER_CARD_CASES = [(8192, False), (8192, True), (8132, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w16,o16", PRECISIONS)
 @pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("op", ["gg", "flux"])
-def test_cuda_cluster_equals_direct_bitwise_at_bp_8192(monkeypatch, op, init,
+@pytest.mark.parametrize("bp,straddle", CLUSTER_CARD_CASES)
+def test_cuda_cluster_equals_direct_bitwise_at_bp_8192(monkeypatch, bp,
+                                                       straddle, op, init,
                                                        w16, o16):
     """Every K2 instance on the cluster body, at both thread counts, on a
     synthetic plan at the 96³ one-shard plan's bp 8192 and EP 2688 (where
     the rule picks it; pad entry, zero-width slot, an entry without ext
-    columns): bit for bit the direct body, counted under the cluster tag,
-    and within the plain version's bounds."""
+    columns), also with lane pairs split by odd widths and at bp 8132 (a
+    4-lane run tail): bit for bit the direct body, counted under the
+    cluster tag, and within the plain version's bounds."""
     _card()
     ep = 2688
-    assert bs.gather_body(8192, ep) == "cluster"
-    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    assert bs.gather_body(bp, ep) == "cluster"
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=bp, nblk=5,
+                           widths=straddle_widths(bp) if straddle else None)
     if w16:
         args = (*args[:3], args[3].bfloat16(), *args[4:])
     odt = torch.bfloat16 if o16 else torch.float32
@@ -1100,6 +1237,28 @@ def test_cuda_cluster_equals_direct_bitwise_at_bp_8192(monkeypatch, op, init,
     for threads, out in got.items():
         assert torch.equal(out, direct), threads
     _assert_close(direct, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", [2, 3, 4])
+def test_cuda_cluster_refuses_operands_off_a_pair(operand):
+    """The cluster body loads two lanes' W-indices, weights and scale at a
+    time: a slot_idx, slot_w or scale one element off a two-element
+    boundary (contiguous, at an odd storage offset) is refused before a
+    launch."""
+    from cfd_proxy_tpu_torch.utils.errors import CheckError
+
+    _card()
+    ep = 2688
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    t = args[operand]
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=t.device)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 != 0
+    bad = (*args[:operand], shifted, *args[operand + 1:])
+    with pytest.raises(CheckError, match="two lanes at a time"):
+        bs.sweep_blocks_gather(*bad, ext_cnt=cnt)
 
 
 @pytest.mark.cuda
@@ -1139,17 +1298,20 @@ def _peer(P, nph, rows, s_max, dtype):
 @pytest.mark.parametrize("w16,o16", PRECISIONS)
 @pytest.mark.parametrize("peer", [False, True])
 @pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("bp,straddle", CLUSTER_CARD_CASES)
 def test_cuda_k3_gather_cluster_equals_direct_bitwise_at_bp_8192(
-        monkeypatch, op, peer, w16, o16):
+        monkeypatch, bp, straddle, op, peer, w16, o16):
     """Every K3-gather instance, loopback and peer form, on the cluster
     body at both thread counts, on the synthetic plan at bp 8192 / EP 2688
-    (where the rule picks it) with two pushed phases: grad and recv bit for bit the direct
-    body's, counted under the cluster tag, and within the plain version's
-    bounds."""
+    (where the rule picks it; also with lane pairs split by odd widths and
+    at bp 8132) with two pushed phases: grad and recv bit for bit the
+    direct body's, counted under the cluster tag, and within the plain
+    version's bounds."""
     _card()
     ep = 2688
-    assert bs.gather_body(8192, ep, op, fused=True) == "cluster"
-    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    assert bs.gather_body(bp, ep, op, fused=True) == "cluster"
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=bp, nblk=5,
+                           widths=straddle_widths(bp) if straddle else None)
     if w16:
         args = (*args[:3], args[3].bfloat16(), *args[4:])
     odt = torch.bfloat16 if o16 else torch.float32
