@@ -98,7 +98,7 @@
 // near a tie, where the two are within those few ulp of each other, so the
 // result stays continuous).
 //
-// The gather form has three bodies, one per CUDA block shape:
+// The gather form has four bodies, one per CUDA block shape:
 //
 // - sweep_chunk with GatherSrc (the DIRECT body): one CUDA block per
 //   (shard, entry, 128-lane chunk); each live slot lane reads its eight
@@ -106,7 +106,8 @@
 //   scattered 4-byte loads at stride ndev (own) or EP (ext).  A warp's load
 //   of one variable touches up to 32 sectors, eight times per slot: the
 //   body ran at 21 % of its bound at bp 8192 (PERF.md section 6).  It needs
-//   no shared memory, so it takes any bp.
+//   no shared memory, so it takes any bp (the rule keeps it for bp or EP
+//   not a multiple of 4, and past a quarter table a block can hold).
 // - sweep_entry_staged (the STAGED body): one CUDA block per listed
 //   (shard, entry), which stages the entry's table [own (NV, bp) ‖ the live
 //   ext columns (NV, ext_cnt)] in shared memory with 16-byte loads, once,
@@ -128,8 +129,22 @@
 //   through the cluster's distributed shared memory, 16 B each.  Every
 //   table column, W-index and weight is still read from device memory
 //   once.
-// All three compute the same values in the same order per lane
-// (slot_update is sweep_chunk's arithmetic), so they agree bit for bit.
+// - sweep_entry_quad (the QUAD body): past that, where a quarter of the
+//   table fits one CUDA block (at the two-shard 96^3 plans at bp 8192, EP
+//   16768 and 10496: 195 and 146 KB a block), a cluster of four CUDA
+//   blocks per listed entry; block r stages variables 2r and 2r+1 of the
+//   table (8 B per column, one float2 plane).  gg is separable by
+//   variable, so block r sweeps every lane of the entry for its six output
+//   rows d*NV + 2r + u from its own plane alone: no distributed shared
+//   memory read, and each block reads the slot stream itself (four reads
+//   of it, from L2 while the cluster runs together).  flux needs
+//   variables 0-2 of every column, so there block r sweeps every fourth
+//   64-lane run of the entry and reads the other three planes through the
+//   cluster's distributed shared memory, 8 B each.  Both stream a
+//   thread's lane groups as the cluster body does (sweep_items_quad).
+// All four compute the same values in the same order per lane
+// (slot_update is sweep_chunk's arithmetic, and the quad body's gg update
+// is its per-variable part), so they agree bit for bit.
 
 #pragma once
 
@@ -758,30 +773,366 @@ __device__ __forceinline__ void sweep_entry_cluster(
   cluster.sync();                 // the other CTA's reads of this plane
 }
 
+// ---- The quad gather body (see the header comment).
+
+// The CTAs of one quad cluster: CTA r stages variables 2r and 2r+1.
+constexpr int kQuadCtas = 4;
+// Lanes a thread sweeps at once in the quad body: a group of neighbouring
+// lanes whose W-indices, weights, scale and output rows are one wider word
+// each.  gg keeps six accumulators a lane, so it takes kQuadLanesGG;
+// flux, with eight accumulators and eight own values a lane, takes a pair
+// as the cluster body does.
+constexpr int kQuadLanesGG = 4;
+constexpr int kQuadLanesFlux = 2;
+
+// Dynamic shared memory of one CTA of the quad body: two variables, 8 B
+// per column, a quarter of the staged table.
+__host__ __device__ constexpr int64_t quad_bytes(int64_t bp, int64_t ep) {
+  return staged_bytes(bp, ep) / kQuadCtas;
+}
+
+// L neighbouring elements at p (aligned to L) widened to f32: one load of
+// L*4 bytes (f32) or L*2 bytes (bf16), through the read-only cache (ldn),
+// or of the output, which the same thread rewrites (ldn_out); stn stores
+// L outputs at once, each rounded as store() rounds it.
+__device__ __forceinline__ void ldn(const int32_t* p, int (&x)[2]) {
+  const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+  x[0] = v.x; x[1] = v.y;
+}
+__device__ __forceinline__ void ldn(const int32_t* p, int (&x)[4]) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void ldn(const float* p, float (&x)[2]) {
+  const float2 v = ld2(p);
+  x[0] = v.x; x[1] = v.y;
+}
+__device__ __forceinline__ void ldn(const float* p, float (&x)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void ldn(const bf16* p, float (&x)[2]) {
+  const float2 v = ld2(p);
+  x[0] = v.x; x[1] = v.y;
+}
+__device__ __forceinline__ void ldn(const bf16* p, float (&x)[4]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = bf16x2_widen(u.x);
+  const float2 b = bf16x2_widen(u.y);
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+__device__ __forceinline__ void ldn_out(const float* p, float (&x)[2]) {
+  const float2 v = ld2_out(p);
+  x[0] = v.x; x[1] = v.y;
+}
+__device__ __forceinline__ void ldn_out(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void ldn_out(const bf16* p, float (&x)[2]) {
+  const float2 v = ld2_out(p);
+  x[0] = v.x; x[1] = v.y;
+}
+__device__ __forceinline__ void ldn_out(const bf16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = bf16x2_widen(u.x);
+  const float2 b = bf16x2_widen(u.y);
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+__device__ __forceinline__ void stn(float* p, const float (&x)[2]) {
+  store2(p, x[0], x[1]);
+}
+__device__ __forceinline__ void stn(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void stn(bf16* p, const float (&x)[2]) {
+  store2(p, x[0], x[1]);
+}
+__device__ __forceinline__ void stn(bf16* p, const float (&x)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                 *reinterpret_cast<const unsigned*>(&b));
+}
+
+// gg in the quad body, split by variables: CTA `rank` sweeps every lane of
+// the entry (lane group j is lanes L*j ..), two values a column from its
+// own plane, six output rows (local row d*2 + u is row d*NV + 2*rank + u).
+// update is slot_update's gg arithmetic for variables 2*rank + u, in its
+// order per accumulator.
+template <int L>
+struct QuadGG {
+  static constexpr Op kOp = Op::kGG;
+  static constexpr int kV = 2;
+  static constexpr int kR = 6;
+  const float2* plane;
+  int rank;
+
+  __device__ __forceinline__ int lane(int j) const { return L * j; }
+  __device__ __forceinline__ int row(int r) const {
+    return (r / 2) * kNV + 2 * rank + r % 2;
+  }
+  __device__ __forceinline__ void load(int i, float (&x)[kV]) const {
+    const float2 f = plane[i];
+    x[0] = f.x; x[1] = f.y;
+  }
+  __device__ __forceinline__ void update(float (&acc)[kR],
+                                         const float (&own)[kV],
+                                         const float (&src)[kV],
+                                         const float (&w)[3]) const {
+#pragma unroll
+    for (int u = 0; u < kV; ++u) {
+      const float avg = 0.5f * (own[u] + src[u]);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) acc[d * kV + u] += w[d] * avg;
+    }
+  }
+};
+
+// flux in the quad body, split by lanes: CTA `rank` sweeps run
+// (j / 32)·kQuadCtas + rank of the entry's runs of 32·L lanes, so the runs
+// go round the four CTAs and each sweeps a quarter of every slot's prefix
+// (widths are multiples of 128); a column's eight values are the four
+// planes' pairs, its own plane local, the other three through the
+// cluster's distributed shared memory; the eight rows and slot_update as
+// the other bodies.
+template <int L>
+struct QuadFlux {
+  static constexpr Op kOp = Op::kFlux;
+  static constexpr int kV = kNV;
+  static constexpr int kR = kNV;
+  const float2* planes[kQuadCtas];
+  int rank;
+
+  __device__ __forceinline__ int lane(int j) const {
+    return ((j / 32) * kQuadCtas + rank) * (32 * L) + (j % 32) * L;
+  }
+  __device__ __forceinline__ int row(int r) const { return r; }
+  __device__ __forceinline__ void load(int i, float (&x)[kV]) const {
+#pragma unroll
+    for (int q = 0; q < kQuadCtas; ++q) {
+      const float2 f = planes[q][i];
+      x[2 * q] = f.x;
+      x[2 * q + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ void update(float (&acc)[kR],
+                                         const float (&own)[kV],
+                                         const float (&src)[kV],
+                                         const float (&w)[3]) const {
+    slot_update<Op::kFlux>(acc, own, src, w);
+  }
+};
+
+// One item of a thread's work in the quad body: a group of L lanes (its
+// first lane; bp or past it: no item left) at one slot k live in that lane
+// (K: the group has no live slot, and only writes its output), with the L
+// W-indices and the L lanes' three weights.
+template <int L>
+struct LaneItem {
+  int lane;
+  int k;
+  int i[L];
+  float w[3][L];
+};
+
+// Every lane group a thread of a quad CTA sweeps in entry g (group
+// positions threadIdx.x, + blockDim.x, ...; part.lane), as one stream of
+// items in group order, each group's live slots in slot order: the
+// cluster body's stream (sweep_pairs_cluster) for groups of L lanes and
+// the rows and values of `part`.  Liveness stays per lane: a group enters
+// slot k where its first lane is live, and lane + u adds its terms only
+// where it is live too; a dead lane's W-index still names a table column
+// ([0, bp + EP)), so its reads stay in the table.
+template <int L, int kAhead, bool kAccumulate, class Part, class WT,
+          class OutT>
+__device__ __forceinline__ void sweep_items_quad(
+    const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int* s_width,
+    int64_t g, int64_t base, const Part& part) {
+  constexpr int R = Part::kR;
+  constexpr int V = Part::kV;
+  OutT* out_p = a.out + (g / a.nb) * op_rows(Part::kOp) * a.ndev + base;
+  const float* scale = a.scale + g * a.bp;
+  const int K = a.K;
+  const int bp = a.bp;
+  const int step = static_cast<int>(blockDim.x);
+  // the first slot at or after k live in `lane` (K: none)
+  auto live_from = [&](int lane, int k) {
+    while (k < K && lane >= s_width[k]) ++k;
+    return k;
+  };
+  // the fetch cursor: group position fj, slot fk of the next item
+  int fj = static_cast<int>(threadIdx.x);
+  int fk = live_from(part.lane(fj), 0);
+  auto fetch = [&](LaneItem<L>& f) {
+    const int lane = part.lane(fj);
+    f.lane = lane;
+    f.k = fk;
+    if (lane >= bp) return;
+    if (fk < K) {
+      const int64_t row = g * K + fk;     // (shard, entry, slot)
+      ldn(s.slot_idx + row * bp + lane, f.i);
+      const WT* wp = s.slot_w + row * 3 * bp + lane;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) ldn(wp + d * bp, f.w[d]);
+      fk = live_from(lane, fk + 1);
+      if (fk < K) return;
+    }
+    fj += step;                           // the group's last item
+    fk = live_from(part.lane(fj), 0);
+  };
+  LaneItem<L> q[kAhead + 1];
+#pragma unroll
+  for (int d = 0; d < kAhead; ++d) fetch(q[d]);
+  int lane = q[0].lane;
+  if (lane >= bp) return;
+  float own[L][V];
+  float acc[L][R];
+  float sc[L];
+  auto begin = [&]() {
+#pragma unroll
+    for (int u = 0; u < L; ++u) part.load(lane + u, own[u]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float x[L];
+      if constexpr (kAccumulate) {
+        ldn_out(out_p + part.row(r) * a.ndev + lane, x);
+      } else {
+#pragma unroll
+        for (int u = 0; u < L; ++u) x[u] = 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < L; ++u) acc[u][r] = x[u];
+    }
+    ldn(scale + lane, sc);
+  };
+  begin();
+  while (true) {
+    fetch(q[kAhead]);
+    const LaneItem<L>& c = q[0];
+    if (c.k < K) {
+      float src[L][V];
+#pragma unroll
+      for (int u = 0; u < L; ++u) part.load(c.i[u], src[u]);
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        if (u == 0 || lane + u < s_width[c.k]) {
+          const float w[3] = {c.w[0][u], c.w[1][u], c.w[2][u]};
+          part.update(acc[u], own[u], src[u], w);
+        }
+      }
+    }
+    if (q[1].lane != lane) {              // the group's last item
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float x[L];
+#pragma unroll
+        for (int u = 0; u < L; ++u) x[u] = acc[u][r] * sc[u];
+        stn(out_p + part.row(r) * a.ndev + lane, x);
+      }
+      lane = q[1].lane;
+      if (lane >= bp) break;
+      begin();
+    }
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d) q[d] = q[d + 1];
+  }
+}
+
+// Copies `quads` groups of four columns of the two rows at src and
+// src + stride (16-byte aligned) into the float2 plane p at columns
+// [col0, col0 + 4*quads): two 16-byte loads along the rows and two
+// 16-byte stores per group.
+__device__ __forceinline__ void stage_pair_plane(float2* p, const float* src,
+                                                 int64_t stride, int quads,
+                                                 int col0) {
+  for (int q = threadIdx.x; q < quads; q += blockDim.x) {
+    const float4 r0 = __ldg(reinterpret_cast<const float4*>(src) + q);
+    const float4 r1 = __ldg(reinterpret_cast<const float4*>(src + stride) +
+                            q);
+    float4* d = reinterpret_cast<float4*>(p + col0 + 4 * q);
+    d[0] = make_float4(r0.x, r1.x, r0.y, r1.y);
+    d[1] = make_float4(r0.z, r1.z, r0.w, r1.w);
+  }
+}
+
+// One listed (shard, entry) g by a cluster of kQuadCtas CUDA blocks: each
+// stages its two variables of the table (ext_cnt as in
+// sweep_entry_staged).  gg: the block synchronises with itself alone and
+// sweeps its six rows over every lane.  flux: the cluster synchronises,
+// each block sweeps its quarter of the lanes through all four planes, and
+// the last barrier keeps every plane alive until the other blocks' reads
+// are done.  The early return is uniform over the cluster (its blocks see
+// the same entry).  bp is a multiple of 4, so a lane group never passes
+// it.
+template <bool kAccumulate, Op kOp, class WT, class OutT>
+__device__ __forceinline__ void sweep_entry_quad(
+    const SweepArgs<OutT>& a, const GatherSrc<WT>& s, const int32_t* ext_cnt,
+    int64_t g) {
+  __shared__ int s_width[kMaxSlots];
+  extern __shared__ float4 s_quad[];
+  float2* plane = reinterpret_cast<float2*>(s_quad);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t b = g % a.nb;
+  if (b > 0 && a.block_ids[g] == a.block_ids[g - 1]) return;   // pad entry
+  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
+    s_width[k] = a.slots[k];
+  }
+  const int64_t ndev = a.ndev;
+  const int64_t base = static_cast<int64_t>(a.block_ids[g]) * a.bp;
+  const int ep = static_cast<int>(s.ep);
+  const int live = ext_cnt == nullptr ? ep : min(max(ext_cnt[g], 0), ep);
+  stage_pair_plane(plane,
+                   a.var_T + ((g / a.nb) * kNV + 2 * rank) * ndev + base,
+                   ndev, a.bp / 4, 0);
+  stage_pair_plane(plane, s.exts + (g * kNV + 2 * rank) * s.ep, s.ep,
+                   (live + 3) / 4, a.bp);
+  if constexpr (kOp == Op::kGG) {
+    __syncthreads();              // this block's plane (and s_width)
+    sweep_items_quad<kQuadLanesGG, kClusterAhead, kAccumulate>(
+        a, s, s_width, g, base, QuadGG<kQuadLanesGG>{plane, rank});
+  } else {
+    cluster.sync();               // every plane (and s_width) written
+    QuadFlux<kQuadLanesFlux> part;
+    part.rank = rank;
+#pragma unroll
+    for (int r = 0; r < kQuadCtas; ++r) {
+      part.planes[r] = r == rank ? plane : cluster.map_shared_rank(plane, r);
+    }
+    sweep_items_quad<kQuadLanesFlux, kClusterAhead, kAccumulate>(
+        a, s, s_width, g, base, part);
+    cluster.sync();               // the other blocks' reads of this plane
+  }
+}
+
 // The gather bodies as the entry points take them
 // (ops/blocksweep.py::GATHER_BODY_CODES).
-enum Body { kDirect = 0, kStaged = 1, kCluster = 2 };
+enum Body { kDirect = 0, kStaged = 1, kCluster = 2, kQuad = 3 };
 
-// The cluster body's CUDA blocks: a multiple of 32 threads, at most this
-// many (the launches take blocksweep.cluster_threads), one or two blocks
-// per SM.
+// The cluster and quad bodies' CUDA blocks: a multiple of 32 threads, at
+// most this many (the launches take blocksweep.cluster_threads and
+// quad_threads), one or two blocks per SM.
 constexpr int kClusterMaxThreads = 512;
 
 inline bool cluster_threads_ok(int threads) {
   return threads >= 32 && threads <= kClusterMaxThreads && threads % 32 == 0;
 }
 
-// The launch configuration of `clusters` clusters of kClusterCtas CUDA
-// blocks (cfg.attrs points at *attr).
+// The launch configuration of `clusters` clusters of `ctas` CUDA blocks
+// (kClusterCtas, or kQuadCtas; cfg.attrs points at *attr).
 inline cudaLaunchConfig_t cluster_config(int64_t clusters, int threads,
                                          int64_t smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
+                                         cudaLaunchAttribute* attr,
+                                         int ctas = kClusterCtas) {
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kClusterCtas;
+  attr->val.clusterDim.x = static_cast<unsigned>(ctas);
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kClusterCtas));
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * ctas));
   cfg.blockDim = dim3(static_cast<unsigned>(threads));
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
@@ -790,13 +1141,14 @@ inline cudaLaunchConfig_t cluster_config(int64_t clusters, int threads,
   return cfg;
 }
 
-// Clusters of `kernel` that can be resident at once on this card at
-// `threads` threads and `smem` dynamic bytes a block, into *n.
+// Clusters of `ctas` blocks of `kernel` that can be resident at once on
+// this card at `threads` threads and `smem` dynamic bytes a block, into *n.
 template <class Kernel>
 cudaError_t resident_clusters(Kernel kernel, int threads, int64_t smem,
-                              int* n) {
+                              int* n, int ctas = kClusterCtas) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(1, threads, smem, 0, &attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1, threads, smem, 0, &attr, ctas);
   return cudaOccupancyMaxActiveClusters(
       n, reinterpret_cast<const void*>(kernel), &cfg);
 }
@@ -813,10 +1165,10 @@ struct Residency {
 // such a launch would fail, and nothing falls back to another body.
 template <class Kernel>
 cudaError_t cluster_fits(Kernel kernel, int threads, int64_t smem,
-                         Residency* r) {
+                         Residency* r, int ctas = kClusterCtas) {
   if (smem == r->smem && threads == r->threads) return cudaSuccess;
   int n = 0;
-  const cudaError_t e = resident_clusters(kernel, threads, smem, &n);
+  const cudaError_t e = resident_clusters(kernel, threads, smem, &n, ctas);
   if (e != cudaSuccess) return e;
   if (n < 1) return cudaErrorInvalidConfiguration;
   r->smem = smem;
@@ -824,28 +1176,29 @@ cudaError_t cluster_fits(Kernel kernel, int threads, int64_t smem,
   return cudaSuccess;
 }
 
-// One cluster launch of `kernel`: `region` leading blocks (K3's push
+// One cluster launch of `kernel` in clusters of kCtas blocks (the cluster
+// body's two, or the quad body's four): `region` leading blocks (K3's push
 // region, padded to whole clusters; 0 for K2), then a cluster per entry,
-// after its checks: the shared memory of one plane a block (its limit
-// raised once per instance, *raised) and at least one resident cluster
-// (*resident).  `args` follow the kernel's signature.  Returns the
-// cudaError_t.
-template <class Kernel, class... Args>
+// after its checks: the shared memory of one 1/kCtas share of the table a
+// block (its limit raised once per instance, *raised) and at least one
+// resident cluster (*resident).  `args` follow the kernel's signature.
+// Returns the cudaError_t.
+template <int kCtas = kClusterCtas, class Kernel, class... Args>
 int launch_cluster(Kernel kernel, bool* raised, Residency* resident,
                    int bp, int64_t ep, int64_t region, int64_t entries,
                    int threads, cudaStream_t stream, Args... args) {
   int64_t smem = 0;
-  const int64_t grid = region + kClusterCtas * entries;
-  if (!cluster_threads_ok(threads) || region % kClusterCtas != 0 ||
+  const int64_t grid = region + kCtas * entries;
+  if (!cluster_threads_ok(threads) || region % kCtas != 0 ||
       grid > 0x7fffffffLL ||
-      !staged_launch_ok(kernel, raised, bp, ep, &smem, kClusterCtas)) {
+      !staged_launch_ok(kernel, raised, bp, ep, &smem, kCtas)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cluster_fits(kernel, threads, smem, resident);
+  cudaError_t e = cluster_fits(kernel, threads, smem, resident, kCtas);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      cluster_config(grid / kClusterCtas, threads, smem, stream, &attr);
+      cluster_config(grid / kCtas, threads, smem, stream, &attr, kCtas);
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

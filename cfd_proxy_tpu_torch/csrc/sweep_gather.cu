@@ -13,12 +13,13 @@
 // per-thread arithmetic, the precisions, the W-index and the handling of
 // pad entries are in sweep_common.cuh.
 //
-// Three bodies, chosen by the wrapper (ops/blocksweep.py::gather_body) from
+// Four bodies, chosen by the wrapper (ops/blocksweep.py::gather_body) from
 // (bp, EP) alone, by one fixed rule, where bp and EP are multiples of 4:
 // the STAGED body where two blocks' staged tables fit one SM's shared
 // memory, else the CLUSTER body where half the table fits one block
-// (cfd::kStagedMaxSmem, 227 KB less the static slot table); else, and
-// wherever bp or EP is not a multiple of 4, the DIRECT body.
+// (cfd::kStagedMaxSmem, 227 KB less the static slot table), else, for op
+// gg, the QUAD body where a quarter of it does; else, and wherever bp or EP
+// is not a multiple of 4, the DIRECT body.
 //
 // - Staged (sweep_common.cuh::sweep_entry_staged): one CUDA block of
 //   kStagedThreads per listed (shard, entry), two lanes per thread at bp
@@ -56,6 +57,22 @@
 //   PERF.md section 6); at AUTO's bp 4096 gg 0.138 at one lane a thread
 //   (two blocks of 256 threads an SM; the staged body 0.186): the rule
 //   takes it wherever two staged blocks do not fit one SM.
+// - Quad (sweep_common.cuh::sweep_entry_quad): past 14 512 columns (at the
+//   two-shard 96^3 plans at bp 8192: bp + EP 24 960 and 18 688) a cluster
+//   of four CUDA blocks per listed entry, each staging two variables,
+//   quad_bytes(bp, EP) = 8 B per column (195 and 146 KB: one block of
+//   blocksweep.quad_threads an SM), up to about 29 000 columns.  gg is
+//   split by variables (each block six output rows over every lane, four
+//   lanes a thread, its own plane alone), flux by lanes (each block every
+//   fourth 64-lane run, two lanes a thread, three planes through
+//   distributed shared memory).  The launch refuses, as the cluster
+//   body's does, where no cluster of four can be resident.  On an H100
+//   (PERF.md section 6) gg took 0.156 ms on the two-shard bulk plan
+//   (direct 0.309; 52 % of its bound; 102-116 registers, no spill, 30
+//   resident clusters); flux 0.305 against direct 0.309 and 0.29 at one
+//   shard against the cluster body's 0.117: its three remote planes take
+//   about 74 % of its time (all-local reads: 0.076), so the rule keeps
+//   flux on the direct body.
 // - Direct (sweep_chunk with GatherSrc): one CUDA block of 128 threads per
 //   (shard, entry, 128-lane chunk), sources read from device memory; no
 //   shared memory, so it runs at any bp.
@@ -134,6 +151,22 @@ sweep_gather_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
   cfd::sweep_entry_cluster<kAccumulate, kOp>(a, s, ext_cnt, g);
 }
 
+// The quad body (sweep_common.cuh::sweep_entry_quad): four CUDA blocks a
+// listed entry, one block an SM at the plans that take it.
+template <bool kAccumulate, cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kClusterMaxThreads, 1)
+sweep_gather_quad_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                         const int32_t* ext_cnt) {
+  const int64_t g = blockIdx.x / cfd::kQuadCtas;      // one entry a cluster
+  if constexpr (!kAccumulate) {   // the cluster's blocks split the gaps
+    const int rank = static_cast<int>(blockIdx.x % cfd::kQuadCtas);
+    cfd::clear_gaps<cfd::op_rows(kOp)>(
+        a, g, rank * static_cast<int>(blockDim.x) + threadIdx.x,
+        cfd::kQuadCtas * blockDim.x);
+  }
+  cfd::sweep_entry_quad<kAccumulate, kOp>(a, s, ext_cnt, g);
+}
+
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
 int launch_gather(const float* var_T, int64_t ndev, const float* exts,
                   int64_t ep, const int32_t* slot_idx, const void* slot_w,
@@ -163,6 +196,13 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
         sweep_gather_cluster_kernel<kAccumulate, kOp, W, O>, &raised,
         &resident, bp, ep, 0, P * nb, threads, stream, a, s, ext_cnt);
   }
+  if (body == cfd::kQuad) {
+    static bool raised = false;
+    static cfd::Residency resident;
+    return cfd::launch_cluster<cfd::kQuadCtas>(
+        sweep_gather_quad_kernel<kAccumulate, kOp, W, O>, &raised,
+        &resident, bp, ep, 0, P * nb, threads, stream, a, s, ext_cnt);
+  }
   if (body != cfd::kStaged) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = sweep_gather_staged_kernel<kAccumulate, kOp, W, O>;
   static bool raised = false;
@@ -185,13 +225,16 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
 // multiples of 4, var_T and exts 16-byte aligned, cfd::staged_bytes(bp, ep)
 // within a block's shared memory) and kCluster (the same, with
 // cfd::cluster_bytes(bp, ep) within it, `threads` a multiple of 32 up to
-// cfd::kClusterMaxThreads) read ext_cnt (P, nb) i32, each entry's live ext
-// columns, every live slot_idx below bp + ext_cnt (null: ep for every
-// entry); kDirect reads neither ext_cnt nor `threads`.  accumulate != 0:
+// cfd::kClusterMaxThreads) and kQuad (the same with cfd::quad_bytes, and
+// slot_idx, slot_w, scale and out aligned to cfd::kQuadLanesGG elements for
+// gg, cfd::kQuadLanesFlux for flux)
+// read ext_cnt (P, nb) i32, each entry's live ext columns, every live
+// slot_idx below bp + ext_cnt (null: ep for every entry); kDirect reads
+// neither ext_cnt nor `threads`.  accumulate != 0:
 // `out` holds init on entry.  w_bf16 / out_bf16 != 0: slot_w / out (and
 // init) are bf16; else f32.  Launches on `stream`; returns the launch's
 // cudaError_t (0 = success; cudaErrorInvalidConfiguration when no cluster
-// of the cluster body can be resident).
+// of the cluster or quad body can be resident).
 extern "C" int cfd_sweep_gather(const float* var_T, int64_t ndev,
                                 const float* exts, int64_t ep,
                                 const int32_t* slot_idx, const void* slot_w,
@@ -218,10 +261,10 @@ extern "C" int cfd_sweep_gather(const float* var_T, int64_t ndev,
 
 // Registers and local bytes per thread (spills and stack), static shared
 // bytes and resident blocks per SM at `smem` bytes of dynamic shared memory
-// (and, the cluster body, `threads` threads a block) of one K2 instance
-// (body, init form, op and dtype flags as in cfd_sweep_gather), into
-// out[0..4]; the cluster body also the clusters that can be resident at
-// once into out[4] (else 0).  Returns the cudaError_t.
+// (and, the cluster and quad bodies, `threads` threads a block) of one K2
+// instance (body, init form, op and dtype flags as in cfd_sweep_gather),
+// into out[0..4]; the cluster and quad bodies also the clusters that can
+// be resident at once into out[4] (else 0).  Returns the cudaError_t.
 extern "C" int cfd_sweep_gather_info(int body, int accumulate, int op,
                                      int w_bf16, int out_bf16, int smem,
                                      int threads, int* out) {
@@ -260,6 +303,13 @@ extern "C" int cfd_sweep_gather_info(int body, int accumulate, int op,
       if (e != 0) return e;
       return static_cast<int>(
           cfd::resident_clusters(kernel, threads, smem, out + 4));
+    }
+    if (body == cfd::kQuad) {
+      const auto kernel = sweep_gather_quad_kernel<kAcc, kOp, W, O>;
+      const int e = info(kernel, threads, smem);
+      if (e != 0) return e;
+      return static_cast<int>(cfd::resident_clusters(
+          kernel, threads, smem, out + 4, cfd::kQuadCtas));
     }
     return info(sweep_gather_kernel<kAcc, kOp, W, O>, cfd::kThreads, 0);
   });

@@ -24,7 +24,11 @@
 // shared memory (which the push blocks are given too and leave unused);
 // past that the cluster body where half the table fits one block, a
 // cluster of two CUDA blocks per entry (sweep_overlap_cluster_kernel: the
-// push region padded to whole clusters); else direct.  The flux form keeps
+// push region padded to whole clusters); past that, for gg, the quad body
+// where a quarter fits, a cluster of four (sweep_overlap_quad_kernel, the
+// region padded to whole clusters of four: 0.160 ms against direct 0.320
+// at the two-shard 96^3 interior plan at bp 8192 on an H100; its flux form
+// lost to direct there, 0.314 against 0.285); else direct.  The flux form keeps
 // the direct body where the rule says staged: the staged one took 1.0035x
 // the direct one's time in turns at the eight-shard 96^3 interior plan at
 // bp 512 on an H100, where its four 128-thread blocks per SM leave the
@@ -171,13 +175,45 @@ sweep_overlap_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
                                       (blk - region) / cfd::kClusterCtas);
 }
 
-// A gather launch's body (cfd::Body), the live ext counts the staged and
-// cluster bodies read, and the cluster body's threads.
+// The quad gather body's CUDA blocks (sweep_common.cuh::sweep_entry_quad)
+// and the push blocks that share its launch: sweep_overlap_cluster_kernel
+// with clusters of kQuadCtas, the push region padded to a multiple of
+// four blocks (the pad blocks return at once), entry g's cluster the
+// blocks region + 4g .. region + 4g + 3, of rank blockIdx.x % 4.
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kClusterMaxThreads, 1)
+sweep_overlap_quad_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                          const int32_t* ext_cnt, PushArgs p,
+                          int64_t region) {
+  const int64_t blk = blockIdx.x;
+  if (blk < region) {
+    if (blk < p.blocks && threadIdx.x < cfd::kThreads) push_chunk(p, blk);
+    return;
+  }
+  cfd::sweep_entry_quad<true, kOp>(a, s, ext_cnt,
+                                   (blk - region) / cfd::kQuadCtas);
+}
+
+// A gather launch's body (cfd::Body), the live ext counts the staged,
+// cluster and quad bodies read, and the cluster or quad body's threads.
 struct GatherLaunch {
   const int32_t* ext_cnt;   // (P, nb) live ext columns, or null
   int body;
-  int threads;              // the cluster body's CUDA block, >= kThreads
+  int threads;              // the cluster or quad body's block, >= kThreads
 };
+
+// CUDA blocks of one cluster of a gather launch's body: 2 (cluster), 4
+// (quad), else 1.
+inline int64_t body_ctas(int body) {
+  return body == cfd::kCluster ? cfd::kClusterCtas
+         : body == cfd::kQuad  ? cfd::kQuadCtas
+                               : 1;
+}
+
+// `blocks` padded up to whole clusters of `ctas` blocks.
+inline int64_t whole_clusters(int64_t blocks, int64_t ctas) {
+  return blocks + (ctas - blocks % ctas) % ctas;
+}
 
 // The gather fetch policy, and its weight type.
 template <class Src>
@@ -196,13 +232,13 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                    int64_t nph, int64_t s_max, void* recv,
                    cudaStream_t stream,
                    GatherLaunch st = {nullptr, cfd::kDirect, 0}) {
-  const bool cluster = st.body == cfd::kCluster;
-  if (cluster && st.threads < cfd::kThreads) {
+  const int64_t ctas = body_ctas(st.body);
+  if (ctas > 1 && st.threads < cfd::kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t sweep_blocks =
       st.body == cfd::kStaged ? P * a.nb
-      : cluster               ? cfd::kClusterCtas * P * a.nb
+      : ctas > 1              ? ctas * P * a.nb
                               : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
   const int64_t row_bytes = s_max * esize;
   if ((esize != 2 && esize != 4) || row_bytes % kPushBytes != 0) {
@@ -211,7 +247,7 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
   const int64_t seg = cfd::op_rows(kOp) * row_bytes / kPushBytes;
   const int64_t push_chunks = (seg + kPushChunk - 1) / kPushChunk;
   const int64_t push_blocks = P * nph * push_chunks;
-  const int64_t region = push_blocks + (cluster ? push_blocks % 2 : 0);
+  const int64_t region = whole_clusters(push_blocks, ctas);
   const int64_t grid = region + sweep_blocks;
   if (grid == 0) return 0;
   if (!cfd::sweep_args_ok(a.K, a.bp, grid)) {
@@ -221,11 +257,19 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                    push_chunks, push_blocks, static_cast<uint4*>(recv)};
   if constexpr (IsGather<Src>::value) {
     using W = typename IsGather<Src>::W;
-    if (cluster) {
+    if (st.body == cfd::kCluster) {
       static bool raised = false;
       static cfd::Residency resident;
       return cfd::launch_cluster(
           sweep_overlap_cluster_kernel<kOp, W, O>, &raised, &resident, a.bp,
+          s.ep, region, P * a.nb, st.threads, stream, a, s, st.ext_cnt, p,
+          region);
+    }
+    if (st.body == cfd::kQuad) {
+      static bool raised = false;
+      static cfd::Residency resident;
+      return cfd::launch_cluster<cfd::kQuadCtas>(
+          sweep_overlap_quad_kernel<kOp, W, O>, &raised, &resident, a.bp,
           s.ep, region, P * a.nb, st.threads, stream, a, s, st.ext_cnt, p,
           region);
     }
@@ -284,12 +328,16 @@ sweep_overlap_peer_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
   cfd::peer_finish_block(p);
 }
 
-// The peer form with the cluster gather body: block 0 signals, blocks
+// The peer form with the cluster gather body (and, kCtas 4, the quad
+// body): block 0 signals, blocks
 // [1, 1 + p.blocks) push as above, at the cluster's threads (their first
 // kPushThreads copy, every thread meets the push's block barriers), the pad
 // block (where 1 + p.blocks is odd) returns at once and draws no exit
 // ticket, so the ticket count stays 1 + p.blocks; clusters follow as in
-// sweep_overlap_cluster_kernel.
+// sweep_overlap_cluster_kernel.  The quad form pads the region to a
+// multiple of four blocks, up to three pad blocks, none drawing a ticket;
+// every rank computes the same p.blocks (push_common.cuh::peer_chunks),
+// so the arrival target is the same on every rank.
 //
 // Why no launch can deadlock, under cluster scheduling (push_common.cuh
 // argues the one-block forms).  The hardware hands out clusters, like
@@ -306,6 +354,16 @@ sweep_overlap_peer_staged_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
 // across ranks after its ticket (the last-ticket block, for arrivals) holds
 // one SM, as in the one-block forms.  The launch refuses to start where no
 // cluster can be resident (cfd::cluster_fits).
+//
+// The same argument holds for clusters of four (the quad body).  Blocks
+// 0-3 form the first cluster, resident first on an idle card; block 0
+// still waits for nothing before its ticket, and the pad blocks of that
+// or a later cluster return at once.  A quad sweep cluster waits only
+// inside itself: its gg form synchronises no more than its own block, its
+// flux form meets cluster.sync with its three co-scheduled partners, so
+// fewer free SMs, or no four of one GPC free while push blocks spin, only
+// delay it.  No push block waits for a sweep cluster, and no sweep cluster
+// waits for a push block.
 template <cfd::Op kOp, class W, class O>
 __global__ void __launch_bounds__(cfd::kClusterMaxThreads, 1)
 sweep_overlap_peer_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
@@ -318,6 +376,26 @@ sweep_overlap_peer_cluster_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
     return;
   }
   if (blk > p.blocks) return;                // the pad block: no ticket
+  if (blk == 0) {
+    cfd::peer_signal_block(p);
+  } else {
+    cfd::peer_push_block<true>(p, blk - 1);
+  }
+  cfd::peer_finish_block(p);
+}
+
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kClusterMaxThreads, 1)
+sweep_overlap_peer_quad_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                               const int32_t* ext_cnt, cfd::PeerPush p,
+                               int64_t region) {
+  const int64_t blk = blockIdx.x;
+  if (blk >= region) {
+    cfd::sweep_entry_quad<true, kOp>(a, s, ext_cnt,
+                                     (blk - region) / cfd::kQuadCtas);
+    return;
+  }
+  if (blk > p.blocks) return;                // a pad block: no ticket
   if (blk == 0) {
     cfd::peer_signal_block(p);
   } else {
@@ -344,13 +422,13 @@ int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                         GatherLaunch st = {nullptr, cfd::kDirect, 0}) {
   static_assert(cfd::kPushThreads == cfd::kThreads,
                 "push and sweep blocks share one launch");
-  const bool cluster = st.body == cfd::kCluster;
-  if (cluster && st.threads < cfd::kThreads) {
+  const int64_t ctas = body_ctas(st.body);
+  if (ctas > 1 && st.threads < cfd::kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t sweep_blocks =
       st.body == cfd::kStaged ? P * a.nb
-      : cluster               ? cfd::kClusterCtas * P * a.nb
+      : ctas > 1              ? ctas * P * a.nb
                               : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
   cfd::PeerPush p;
   if ((o.esize != 2 && o.esize != 4) ||
@@ -360,19 +438,27 @@ int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the push region: the signal block and the push blocks, padded to whole
-  // clusters in the cluster form
-  const int64_t region = 1 + p.blocks + (cluster ? (1 + p.blocks) % 2 : 0);
+  // clusters in the cluster and quad forms
+  const int64_t region = whole_clusters(1 + p.blocks, ctas);
   const int64_t grid = region + sweep_blocks;
   if (!cfd::sweep_args_ok(a.K, a.bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if constexpr (IsGather<Src>::value) {
     using W = typename IsGather<Src>::W;
-    if (cluster) {
+    if (st.body == cfd::kCluster) {
       static bool raised = false;
       static cfd::Residency resident;
       return cfd::launch_cluster(
           sweep_overlap_peer_cluster_kernel<kOp, W, O>, &raised, &resident,
+          a.bp, s.ep, region, P * a.nb, st.threads, stream, a, s,
+          st.ext_cnt, p, region);
+    }
+    if (st.body == cfd::kQuad) {
+      static bool raised = false;
+      static cfd::Residency resident;
+      return cfd::launch_cluster<cfd::kQuadCtas>(
+          sweep_overlap_peer_quad_kernel<kOp, W, O>, &raised, &resident,
           a.bp, s.ep, region, P * a.nb, st.threads, stream, a, s,
           st.ext_cnt, p, region);
     }
@@ -433,11 +519,11 @@ extern "C" int cfd_sweep_overlap(const float* var_T, int64_t ndev,
 }
 
 // The gather form: sweep operands (ext_cnt and the body included), op and
-// dtype flags as in cfd_sweep_gather, the cluster body's `threads` (as
-// cfd_sweep_gather's, at least 128; read by the cluster body alone), push
+// dtype flags as in cfd_sweep_gather, the cluster or quad body's `threads`
+// (as cfd_sweep_gather's, at least 128; read by those bodies alone), push
 // operands as in cfd_sweep_overlap.  Returns
-// cudaErrorInvalidConfiguration where no cluster of the cluster body can
-// be resident.
+// cudaErrorInvalidConfiguration where no cluster of the cluster or quad
+// body can be resident.
 extern "C" int cfd_sweep_overlap_gather(
     const float* var_T, int64_t ndev, const float* exts, int64_t ep,
     const int32_t* slot_idx, const void* slot_w, const float* scale,
@@ -447,7 +533,7 @@ extern "C" int cfd_sweep_overlap_gather(
     const void* sendbufs, int esize, const int32_t* dsts, int64_t nph,
     int64_t s_max, void* recv, cudaStream_t stream) {
   if (ep <= 0 || !cfd::op_ok(op) || body < cfd::kDirect ||
-      body > cfd::kCluster) {
+      body > cfd::kQuad) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool flags[] = {op == 1, w_bf16 != 0, out_bf16 != 0};
@@ -507,7 +593,7 @@ extern "C" int cfd_sweep_overlap_gather_peer(
     const void* sendbufs, int esize, const void* table, void* flags,
     void* recv, int64_t nph, int64_t s_max, int mode, cudaStream_t stream) {
   if (ep <= 0 || !cfd::op_ok(op) || body < cfd::kDirect ||
-      body > cfd::kCluster) {
+      body > cfd::kQuad) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PeerOperands o{sendbufs, esize, table, flags, recv, nph, s_max,
@@ -564,15 +650,15 @@ extern "C" int cfd_overlap_peer_info(int gather, int w_bf16, int src_bf16d,
 }
 
 // The same facts of a gather instance of the fused kernel, loopback or
-// peer form, direct, staged or cluster body (cfd::Body; at `smem` bytes of
-// dynamic shared memory, and the cluster body at `threads` threads a
-// block), op and dtype flags as in cfd_sweep_overlap_gather; the cluster
-// body also the clusters that can be resident at once into out[4] (else
-// 0).
+// peer form, direct, staged, cluster or quad body (cfd::Body; at `smem`
+// bytes of dynamic shared memory, and the cluster and quad bodies at
+// `threads` threads a block), op and dtype flags as in
+// cfd_sweep_overlap_gather; the cluster and quad bodies also the clusters
+// that can be resident at once into out[4] (else 0).
 extern "C" int cfd_overlap_gather_info(int peer, int body, int op,
                                        int w_bf16, int out_bf16, int smem,
                                        int threads, int* out) {
-  if (!cfd::op_ok(op) || body < cfd::kDirect || body > cfd::kCluster) {
+  if (!cfd::op_ok(op) || body < cfd::kDirect || body > cfd::kQuad) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   out[4] = 0;
@@ -590,11 +676,11 @@ extern "C" int cfd_overlap_gather_info(int peer, int body, int op,
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 3, kernel, block, smem));
   };
-  auto cluster = [&](auto kernel) {
+  auto cluster = [&](auto kernel, int ctas) {
     const int e = info(kernel, threads);
     if (e != 0) return e;
     return static_cast<int>(
-        cfd::resident_clusters(kernel, threads, smem, out + 4));
+        cfd::resident_clusters(kernel, threads, smem, out + 4, ctas));
   };
   const bool f[] = {peer != 0, op == 1, w_bf16 != 0, out_bf16 != 0};
   return cfd::with_flags(f, [&](auto pr, auto flux, auto w16, auto o16) {
@@ -604,7 +690,12 @@ extern "C" int cfd_overlap_gather_info(int peer, int body, int op,
         decltype(flux)::value ? cfd::Op::kFlux : cfd::Op::kGG;
     if constexpr (decltype(pr)::value) {
       if (body == cfd::kCluster) {
-        return cluster(sweep_overlap_peer_cluster_kernel<kOp, W, O>);
+        return cluster(sweep_overlap_peer_cluster_kernel<kOp, W, O>,
+                       cfd::kClusterCtas);
+      }
+      if (body == cfd::kQuad) {
+        return cluster(sweep_overlap_peer_quad_kernel<kOp, W, O>,
+                       cfd::kQuadCtas);
       }
       if (body == cfd::kStaged) {
         return info(sweep_overlap_peer_staged_kernel<kOp, W, O>,
@@ -614,7 +705,11 @@ extern "C" int cfd_overlap_gather_info(int peer, int body, int op,
                   cfd::kThreads);
     } else {
       if (body == cfd::kCluster) {
-        return cluster(sweep_overlap_cluster_kernel<kOp, W, O>);
+        return cluster(sweep_overlap_cluster_kernel<kOp, W, O>,
+                       cfd::kClusterCtas);
+      }
+      if (body == cfd::kQuad) {
+        return cluster(sweep_overlap_quad_kernel<kOp, W, O>, cfd::kQuadCtas);
       }
       if (body == cfd::kStaged) {
         return info(sweep_overlap_staged_kernel<kOp, W, O>, cfd::kThreads);

@@ -43,9 +43,10 @@ f32 operands, else "w16_" (bf16 weights), "d16_" (bf16 deltas) and "o16_"
 (bf16 output), in that order (`sweep_blocks.launches`,
 `sweep_blocks.flux_init_w16_d16_o16_launches`, `pack_srcs.d16_launches`);
 `sweep_blocks` on a bf16 state counts in `v16_w16_d16_o16_launches`; the
-gather wrappers count their direct and cluster bodies after the tag
-(`sweep_blocks_gather.direct_launches`, `.cluster_launches`; their staged
-body in the names without either: `gather_body`).
+gather wrappers count their direct, cluster and quad bodies after the tag
+(`sweep_blocks_gather.direct_launches`, `.cluster_launches`,
+`.quad_launches`; their staged body in the names without any:
+`gather_body`).
 `launch_counters()` lists them all, so a run can show which bodies its main
 path ran.
 
@@ -83,10 +84,13 @@ GATHER_STAGE_MAX = 227 * 1024 - MAX_SLOTS * 4
 # the most it may take for two such blocks to fit one SM (228 KB, less 1 KB
 # the runtime reserves per block)
 GATHER_STAGE_PAIR = 228 * 1024 // 2 - 1024 - MAX_SLOTS * 4
-GATHER_BODIES = ("staged", "cluster", "direct")
+GATHER_BODIES = ("staged", "cluster", "quad", "direct")
 # the bodies as the kernels take them (csrc/sweep_common.cuh::Body); the
-# fused kernel has all three
-GATHER_BODY_CODES = {"direct": 0, "staged": 1, "cluster": 2}
+# fused kernel has all four
+GATHER_BODY_CODES = {"direct": 0, "staged": 1, "cluster": 2, "quad": 3}
+# lanes a thread of the quad body loads and stores at once, per op
+# (csrc/sweep_common.cuh::kQuadLanesGG, kQuadLanesFlux)
+QUAD_LANES = {"gg": 4, "flux": 2}
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = (F32, BF16)   # the stored types a reduced-precision operand takes
 
@@ -113,9 +117,10 @@ _FUSED_FORMS = ("", "flux_", "peer_", "peer_flux_")
 _PACKED_TAGS = tuple(_tag(w, d, o) for w in (0, 1) for d in (0, 1)
                      for o in (0, 1))
 _GATHER_TAGS = tuple(_tag(w, False, o) for w in (0, 1) for o in (0, 1))
-# the gather wrappers count the direct and cluster bodies apart:
-# "<tag>direct_launches", "<tag>cluster_launches"
-_BODY_TAGS = {"staged": "", "cluster": "cluster_", "direct": "direct_"}
+# the gather wrappers count the direct, cluster and quad bodies apart:
+# "<tag>direct_launches", "<tag>cluster_launches", "<tag>quad_launches"
+_BODY_TAGS = {"staged": "", "cluster": "cluster_", "quad": "quad_",
+              "direct": "direct_"}
 _GATHER_BODY_TAGS = tuple(t + _BODY_TAGS[b] for b in GATHER_BODIES
                           for t in _GATHER_TAGS)
 
@@ -629,6 +634,12 @@ def cluster_bytes(bp: int, ep: int) -> int:
     return staged_bytes(bp, ep) // 2
 
 
+def quad_bytes(bp: int, ep: int) -> int:
+    """Shared memory of each CUDA block of the quad body: two of the staged
+    table's eight variables, 8 B per column (csrc/sweep_common.cuh)."""
+    return staged_bytes(bp, ep) // 4
+
+
 def gather_body(bp: int, ep: int, op: str = "gg",
                 fused: bool = False) -> str:
     """The gather sweep's body at block size bp and ext width EP (the live
@@ -638,8 +649,12 @@ def gather_body(bp: int, ep: int, op: str = "gg",
     where two such blocks fit one SM (GATHER_STAGE_PAIR bytes); else
     "cluster" (two CUDA blocks per entry, each staging half the table and
     reading the other half from its peer's shared memory) where half of it
-    fits one block (GATHER_STAGE_MAX); else "direct" (the sources read from
-    device memory, any bp).  Measured on an H100 (PERF.md section 6): at
+    fits one block (GATHER_STAGE_MAX); else, for op gg, "quad" (four CUDA
+    blocks per entry, each staging two variables and sweeping its six
+    output rows) where a quarter of it fits one block (up to about 29 000
+    columns: the two-shard 96³ plans at bp 8192); else "direct" (the
+    sources read from device memory, any bp).  Measured on an H100 (PERF.md
+    section 6): at
     bp 512 staged 0.100 ms against cluster 0.134; at the one-shard AUTO
     plan (bp 4096, a 188 KB table, one staged block per SM) cluster 0.138
     against staged 0.185.  The fused kernel (fused: K3's gather form)
@@ -648,13 +663,22 @@ def gather_body(bp: int, ep: int, op: str = "gg",
     staged body's 0.33 (bp 4096) and direct 0.32 (bp 8192), flux 0.13
     against direct 0.23 and 0.29; its flux form keeps the
     direct body where the rule says staged, which did not beat it at bp
-    512 (csrc/sweep_overlap.cu)."""
+    512 (csrc/sweep_overlap.cu).  At the two-shard plans at bp 8192 the
+    quad body took 0.156 ms for K2 gg against direct 0.309, 0.150 / 0.293
+    for K2-init on the interior plan and 0.160 / 0.320 for K3-gather (0.118
+    / 0.104 for K2-init on the boundary plan, whose lanes are mostly pads);
+    flux, which splits the lanes and reads three of its four planes
+    through distributed shared memory, 0.305 / 0.309 (K2), 0.305 / 0.294
+    (K2-init) and 0.314 / 0.285 (K3-gather), so flux keeps the direct body
+    there."""
     if bp % 4 or ep % 4:
         return "direct"
     if staged_bytes(bp, ep) <= GATHER_STAGE_PAIR:
         return "direct" if fused and op == "flux" else "staged"
     if cluster_bytes(bp, ep) <= GATHER_STAGE_MAX:
         return "cluster"
+    if quad_bytes(bp, ep) <= GATHER_STAGE_MAX and op == "gg":
+        return "quad"
     return "direct"
 
 
@@ -668,6 +692,27 @@ def cluster_threads(bp: int, ep: int) -> int:
     EP 3200: 0.189 ms against 0.219 at 256; H100, PERF.md section 6)."""
     n = 256 if cluster_bytes(bp, ep) <= GATHER_STAGE_PAIR else 512
     return max(128, min(n, 32 * -(-bp // 128)))
+
+
+def quad_threads(bp: int, ep: int) -> int:
+    """Threads of each CUDA block of the quad body: 512, the most its
+    kernels allow, where one block takes an SM (wherever the rule picks
+    it: a quarter table past GATHER_STAGE_PAIR), else 256; but no more
+    warps than a block has 32-lane-group runs (bp / 128, at least 128
+    threads, as `cluster_threads`).  At the two-shard 96³ plans at bp 8192
+    (H100, PERF.md section 6) 512 threads took 0.154 ms for K2 gg against
+    0.234 at 256, and 0.66-0.72x of 256's time over the K2, K2-init and
+    K3-gather plans; four lanes a thread (csrc/sweep_common.cuh::
+    kQuadLanesGG) 0.65-0.80x of two's in gg and bf16."""
+    n = 256 if quad_bytes(bp, ep) <= GATHER_STAGE_PAIR else 512
+    return max(128, min(n, 32 * -(-bp // 128)))
+
+
+def body_threads(body: str, bp: int, ep: int) -> int:
+    """The threads a gather launch on `body` takes: `cluster_threads` or
+    `quad_threads` (read at call time, so a test can force either); the
+    other bodies ignore it."""
+    return quad_threads(bp, ep) if body == "quad" else cluster_threads(bp, ep)
 
 
 def ext_counts(slot_idx: np.ndarray, bp: int) -> np.ndarray:
@@ -707,21 +752,23 @@ def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
 def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
                  dims, ext_cnt, op, out, fused=False):
     """The gather entry points' sweep operands, the live ext counts and the
-    body `gather_body` picks (its GATHER_BODY_CODES code); the staged and
-    cluster bodies load var_T and exts 16 bytes at a time, and the cluster
-    body two lanes' W-indices, weights, scale and output at a time."""
+    body `gather_body` picks (its GATHER_BODY_CODES code); the staged,
+    cluster and quad bodies load var_T and exts 16 bytes at a time, the
+    cluster body two lanes' W-indices, weights, scale and output at a time,
+    the quad body QUAD_LANES[op] lanes'."""
     P, nb, ep, bp, ndev, K = dims
     body = gather_body(bp, ep, op, fused)
     check(body == "direct" or (var_T.data_ptr() % 16 == 0
                                and exts.data_ptr() % 16 == 0),
           "the %s gather sweep loads var_T and exts 16 bytes at a time: "
           "both must be 16-byte aligned", body)
-    paired = (slot_idx, slot_w, scale, out)
-    check(body != "cluster" or all(
-        t.data_ptr() % (2 * t.element_size()) == 0 for t in paired),
-        "the cluster gather sweep loads and stores two lanes at a time: "
-        "slot_idx, slot_w, scale and the output must be aligned to two "
-        "elements")
+    lanes = {"cluster": 2, "quad": QUAD_LANES[op]}.get(body, 1)
+    word = {1: "one", 2: "two", 4: "four"}[lanes]
+    check(all(t.data_ptr() % (lanes * t.element_size()) == 0
+              for t in (slot_idx, slot_w, scale, out)),
+          "the %s gather sweep loads and stores %s lanes at a time: "
+          "slot_idx, slot_w, scale and the output must be aligned to %s "
+          "elements", body, word, word)
     return (var_T.data_ptr(), ndev, exts.data_ptr(), ep, slot_idx.data_ptr(),
             slot_w.data_ptr(), scale.data_ptr(), block_ids.data_ptr(),
             slots.data_ptr(), K, P, nb, bp,
@@ -729,10 +776,9 @@ def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
             GATHER_BODY_CODES[body])
 
 
-def _body_tag(ptrs: tuple) -> str:
-    """The count tag of the body _gather_ptrs picked."""
-    body = {c: b for b, c in GATHER_BODY_CODES.items()}[ptrs[-1]]
-    return _BODY_TAGS[body]
+def _body_of(ptrs: tuple) -> str:
+    """The body _gather_ptrs picked."""
+    return {c: b for b, c in GATHER_BODY_CODES.items()}[ptrs[-1]]
 
 
 def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
@@ -754,7 +800,8 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     (`ext_counts`; every W-index below bp + its count), which the staged
     and cluster bodies stage instead of all EP (None: all).  The kernel's
     body is `gather_body(bp, EP)`'s (the cluster body's CUDA blocks take
-    `cluster_threads(bp, EP)` threads).  Counterpart of
+    `cluster_threads(bp, EP)` threads, the quad body's
+    `quad_threads(bp, EP)`).  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks(..., packed=False, wks=...,
     init=..., op=..., out_dtype=...)`.  Kernel: csrc/sweep_gather.cu."""
     rows = _check_op(op)
@@ -774,18 +821,19 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     w16, o16 = _flags(slot_w, out)
     ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
                         slots, dims, ext_cnt, op, out)
+    body = _body_of(ptrs)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_gather(
             *ptrs, int(init is not None), OPS.index(op), w16, o16,
-            cluster_threads(bp, ep), out.data_ptr(), _stream(dev))
+            body_threads(body, bp, ep), out.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_gather")
     _count(sweep_blocks_gather, init, op,
-           _tag(w16, False, o16) + _body_tag(ptrs))
+           _tag(w16, False, o16) + _BODY_TAGS[body])
     return out
 
 
 # K2, K2-init, K2-flux, K2-flux-init, each with f32 or bf16 weights and out,
-# each in its staged, cluster and direct body
+# each in its staged, cluster, quad and direct body
 _zero_counts(sweep_blocks_gather, _SWEEP_FORMS, _GATHER_BODY_TAGS)
 
 
@@ -999,9 +1047,10 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
                                 ext_cnt: torch.Tensor | None = None):
     """Fused interior sweep (gather formulation) + halo push → (grad,
     recv): the sweep operands (and `ext_cnt`) as in `sweep_blocks_gather`,
-    the body `gather_body(bp, EP, op, fused=True)`'s (the cluster body's
-    CUDA blocks, push blocks included, take `cluster_threads(bp, EP)`
-    threads, of which 128 copy in a push block), the push (and `peer`,
+    the body `gather_body(bp, EP, op, fused=True)`'s (the cluster and quad
+    bodies' CUDA blocks, push blocks included, take `cluster_threads(bp,
+    EP)` and `quad_threads(bp, EP)` threads, of which 128 copy in a push
+    block), the push (and `peer`,
     `debug`) as in `sweep_blocks_overlap`.  Counterpart of
     `cfd_proxy_tpu.ops.blocksweep.sweep_blocks_overlap(..., packed=False)`.
     Kernel: csrc/sweep_overlap.cu (its gather instances)."""
@@ -1011,7 +1060,6 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
                          slots, init, rows, ext_cnt)
     dev = var_T.device
-    threads = cluster_threads(dims[3], dims[2])
     if peer is not None:
         mode = _check_peer(peer, sendbufs, dims[0], dev, rows, debug)
         from cfd_proxy_tpu_torch.ops import _cuda
@@ -1019,13 +1067,15 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
         w16, o16 = _flags(slot_w, init)
         ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
                             slots, dims, ext_cnt, op, init, fused=True)
+        body = _body_of(ptrs)
         with torch.cuda.device(dev):
             rc = _cuda.lib().cfd_sweep_overlap_gather_peer(
-                *ptrs, OPS.index(op), w16, o16, threads, init.data_ptr(),
+                *ptrs, OPS.index(op), w16, o16,
+                body_threads(body, dims[3], dims[2]), init.data_ptr(),
                 *_peer_args(peer, sendbufs, mode), _stream(dev))
         _cuda.check_launch(rc, "sweep_blocks_overlap_gather (peer)")
         _count(sweep_blocks_overlap_gather, None, op,
-               _tag(w16, False, o16) + _body_tag(ptrs), peer=True)
+               _tag(w16, False, o16) + _BODY_TAGS[body], peer=True)
         return init, peer.recv
     check(debug is None, "debug %r: a mode of the peer form", debug)
     nph, s_max, dmap = _check_push(sendbufs, dsts, src_devs, dims[0], dev,
@@ -1040,17 +1090,19 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
     w16, o16 = _flags(slot_w, init)
     ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
                         slots, dims, ext_cnt, op, init, fused=True)
+    body = _body_of(ptrs)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_overlap_gather(
-            *ptrs, OPS.index(op), w16, o16, threads, init.data_ptr(),
+            *ptrs, OPS.index(op), w16, o16,
+            body_threads(body, dims[3], dims[2]), init.data_ptr(),
             sendbufs.data_ptr(), sendbufs.element_size(), dmap.data_ptr(),
             nph, s_max, recv.data_ptr(), _stream(dev))
     _cuda.check_launch(rc, "sweep_blocks_overlap_gather")
     _count(sweep_blocks_overlap_gather, None, op,
-           _tag(w16, False, o16) + _body_tag(ptrs))
+           _tag(w16, False, o16) + _BODY_TAGS[body])
     return init, recv
 
 
 # K3-gather and K3-gather-flux with f32 or bf16 weights and out, loopback
-# and peer form, each in its staged, cluster and direct body
+# and peer form, each in its staged, cluster, quad and direct body
 _zero_counts(sweep_blocks_overlap_gather, _FUSED_FORMS, _GATHER_BODY_TAGS)

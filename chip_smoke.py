@@ -26,8 +26,9 @@ faces, nvar 7, random state from a seed):
 - `gather_large_bp`: the gather kernel at bp 8192, where the staged table
   does not fit a CUDA block's shared memory: the cluster body (two CUDA
   blocks per entry, half the table each), then the direct body forced
-  through the same step, both counted, held against the plain version and
-  each other bit for bit, and timed in turns;
+  through the same step, both counted, held with the quad body forced
+  against the plain version and each other bit for bit, and timed in
+  turns;
 - `solver_mode_timing`: the solver-mode step at P=1 and P=8, bulk, for
   gather/bp 512 and packed/AUTO at 1, 2 and 4 sweeps per step — the
   numbers `solver.solver_mode_defaults` is decided from;
@@ -36,11 +37,14 @@ faces, nvar 7, random state from a seed):
   gather model's bulk, early and overlap steps at P=1 `all` with
   force_rdma at the AUTO bp (4096) and at bp 8192, at P=2 AUTO, through
   the peer transport at P=2 AUTO (bit for bit the loopback step), and at
-  P=1 bp 8192 under flux and under bf16 weights, stores and halo: each
-  against its golden and across schedules, its overlap step forced onto
-  the kernel's other bodies bit for bit, the fused call under each body
-  against the plain version and timed in turns, the peer call against its
-  loopback form in turns (at most PEER_OVER_LOOPBACK of its time);
+  P=1 bp 8192 under flux and under bf16 weights, stores and halo; then on
+  the quad body (four CUDA blocks per entry, the push region padded to
+  whole clusters of four) at P=2 bp 8192, loopback and peer, where K2 and
+  K2-init run on it too: each against its golden and across schedules,
+  its overlap step forced onto the kernel's other bodies that fit bit for
+  bit, the fused call under each body against the plain version and timed
+  in turns, the peer call against its loopback form in turns (at most
+  PEER_OVER_LOOPBACK of its time);
 - `flux_p1`: the PSD upwind flux model (`PSDFluxModel`, bench.py's
   secondary row: packed, AUTO bp, bulk) at one shard, timed, then every
   schedule with the fused overlap kernel forced;
@@ -63,7 +67,8 @@ faces, nvar 7, random state from a seed):
   dispatch every loop above took) against the same step eager, at P=1
   bulk, P=1 `all` with force_rdma, P=8 every schedule, gather/512 solver
   mode (P=1 one sweep, P=8 two), gather P=2 AUTO overlap (K3-gather's
-  cluster launch), the full bf16 stack (P=1 overlap, P=8
+  cluster launch) and P=2 bp 8192 overlap (K2-init's and K3-gather's quad
+  launches), the full bf16 stack (P=1 overlap, P=8
   early), flux P=1 `all`, the overlap step through the peer transport
   (P=1 `all` with force_rdma; P=8 packed f32, gather/512 and the full bf16
   stack: the launch epochs are device words, so the step replays; its
@@ -150,11 +155,14 @@ faces, nvar 7, random state from a seed):
 The gather paths print each plan's EP, its live-EP maximum and the body
 the rule picks; K2 and K3-gather count each body apart (the cluster body's
 row ends in `_cluster`: K2 and K3-gather at bp 8192, K3-gather's peer form
-at P=2 AUTO; the direct body's in `_direct`: K2 and K3-gather at bp 8192
-forced, and K3's gather flux form at bp 512, which keeps it), so the
+at P=2 AUTO; the quad body's in `_quad`: K2, K2-init and K3-gather,
+loopback and peer, at P=2 bp 8192; the direct body's in `_direct`: K2 and
+K3-gather at bp 8192 forced, and K3's gather flux form at bp 512, which
+keeps it), so the
 kernel table lists each under the body its path launched, with that
 instance's registers, local bytes, shared memory and resident blocks per
-SM (the cluster body also the clusters the card can hold at once).
+SM (the cluster and quad bodies also the clusters the card can hold at
+once).
 
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after, and checked against the f64 golden of its op
@@ -444,13 +452,31 @@ KERNELS.update({
         "cfd_proxy_tpu/ops/blocksweep.py:414")
        for tag in ("_w16_o16_cluster", "_init_w16_o16_cluster")},
 })
+# the quad body (blocksweep.gather_body: where half the table passes a CUDA
+# block and a quarter fits), which the two-shard paths at LARGE_BP launch:
+# K2 (bulk), K2-init (boundary and interior) and K3-gather, loopback and
+# peer
+KERNELS.update({
+    **{"sweep_blocks_gather" + tag: (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:549")
+       for tag in ("_quad", "_init_quad")},
+    "sweep_blocks_overlap_gather_quad": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:747"),
+    "sweep_blocks_overlap_gather_peer_quad": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:783"),
+})
 # that phase's configurations of the gather model: name: (shards, model
 # options); each runs bulk, early and overlap.  At one shard (force_rdma)
 # the interior plan's EP is about the bulk plan's (1920 at AUTO's bp 4096,
 # 2688 at bp 8192), K2's cluster shapes in `gather_*_bp`; at two shards it is
-# 5760 at bp 4096 (the half table, 154 KB, still fits a block) and 10496 at
-# bp 8192, where the half table (292 KB) does not and the rule keeps the
-# direct body (so no configuration here)
+# 5760 at bp 4096 (the half table, 154 KB, still fits a block).  At two
+# shards and bp 8192 (K3_QUAD_CFGS) the interior EP is 10496 and the bulk
+# and boundary EP 16768: half of each table (292 and 390 KB) passes a
+# block, a quarter (146 and 195 KB) fits, and the rule picks the quad body
+# for K2, K2-init and K3-gather
 K3_CLUSTER_CFGS = {
     "p1_all_auto": (1, {"force_rdma": True}),
     "p1_all_large": (1, {"force_rdma": True, "bp": LARGE_BP}),
@@ -462,6 +488,10 @@ K3_CLUSTER_CFGS = {
                                  "meta_dtype": "bfloat16",
                                  "grad_dtype": "bfloat16",
                                  "halo_dtype": "bfloat16"}),
+}
+K3_QUAD_CFGS = {
+    "p2_large": (2, {"bp": LARGE_BP}),
+    "p2_large_peer": (2, {"bp": LARGE_BP, "transport": "peer"}),
 }
 PEER_STEPS = 5        # timed steps of a two-process run (time-sliced)
 PEER_MIN_BLOCKS = 6   # K3's resident blocks per SM (sweep_overlap.cu kMinBlocks)
@@ -767,23 +797,25 @@ def gather_kernel_facts(bs, body: str, bp: int, ep: int, op: str = "gg",
                         peer: bool = False) -> dict:
     """Registers, local bytes, shared memory and resident blocks per SM of
     the gather instance of `body` (K2, or K3's loopback or peer form) at
-    these shapes and dtypes (None: f32); the cluster body's at
-    `blocksweep.cluster_threads` threads, with the clusters the card can
-    hold at once."""
+    these shapes and dtypes (None: f32); the cluster and quad bodies' at
+    `blocksweep.body_threads` threads, with the clusters the card can hold
+    at once."""
     import torch
 
     from cfd_proxy_tpu_torch.ops import _cuda
 
     smem = {"staged": bs.staged_bytes(bp, ep),
-            "cluster": bs.cluster_bytes(bp, ep)}.get(body, 0)
+            "cluster": bs.cluster_bytes(bp, ep),
+            "quad": bs.quad_bytes(bp, ep)}.get(body, 0)
     code = bs.GATHER_BODY_CODES[body]
     args = (bs.OPS.index(op), int(w_t == torch.bfloat16),
-            int(o_t == torch.bfloat16), smem, bs.cluster_threads(bp, ep))
+            int(o_t == torch.bfloat16), smem, bs.body_threads(body, bp, ep))
     facts = (_cuda.kernel_info("cfd_overlap_gather_info", int(peer), code,
                                *args) if fused else
              _cuda.kernel_info("cfd_sweep_gather_info", code, 0, *args))
     return {**facts, "dynamic_smem": smem,
-            **({"threads": args[-1]} if body == "cluster" else {})}
+            **({"threads": args[-1]} if body in ("cluster", "quad")
+               else {})}
 
 
 def device_profile(model, state, schedule: str, n: int = 20,
@@ -1336,8 +1368,9 @@ def main() -> int:
     # ---- the gather kernel at bp 8192 (one shard), where the staged table
     # passes one CUDA block's shared memory but half of it fits: the cluster
     # body, counted, then the direct body forced through the same step,
-    # counted; both against the plain version and each other, timed in
-    # turns (their kernel-table rows)
+    # counted; both, and the quad body forced, against the plain version and
+    # each other, timed in turns (the cluster and direct bodies' kernel-table
+    # rows)
     reset_counts()
     gm = GreenGaussTorch(parts, NVAR, kernel="gather", bp=LARGE_BP,
                          device=dev)
@@ -1364,7 +1397,7 @@ def main() -> int:
     k2l = (state["var_T"], *gm._operands("bulk", state["tables"]))
     kw = gm._gather_kw("bulk")
     bodies, large_ms = gather_bodies_compared("gather_large_bp", bs, k2l, kw,
-                                              ("cluster", "direct"))
+                                              ("cluster", "quad", "direct"))
     want = bs.sweep_blocks_gather_ref(*k2l)
     scale_l = float(want.abs().max())
     scales = {}         # max|plain| per kernel-table row, from here on
@@ -1559,17 +1592,20 @@ def main() -> int:
     # gather model's overlap step at P=1 `all` with force_rdma at the AUTO
     # bp (4096) and at LARGE_BP, at P=2 AUTO, through the peer transport at
     # P=2 AUTO (bit for bit the loopback step), and at P=1 LARGE_BP under
-    # flux and under bf16 weights, stores and halo (K3_CLUSTER_CFGS).  Each
+    # flux and under bf16 weights, stores and halo (K3_CLUSTER_CFGS); on the
+    # quad body at P=2 LARGE_BP, loopback and peer (K3_QUAD_CFGS).  Each
     # model's bulk, early and overlap steps counted (the cluster instance
     # among them) and held against the golden of its op (the bf16 one
     # inside BAND_FULL) and across schedules; its overlap step under each
-    # other body the fused kernel has there (staged where its table fits
-    # one block, direct), forced, bit for bit the rule's; the fused call at
-    # the interior + push shapes under each body against the plain version
-    # and bit for bit, timed in turns.  The kernel-table rows: K3-gather's
-    # cluster instances at P=1 LARGE_BP (the peer one at P=2 AUTO), its
-    # direct body forced there, and the K2 cluster instances these paths
-    # launch (the flux golden is the flux phases' too)
+    # other body the fused kernel has there whose table (or share) fits
+    # one block, and direct, forced, bit for bit the rule's; the fused call
+    # at the interior + push shapes under each body against the plain
+    # version and bit for bit, timed in turns.  The kernel-table rows:
+    # K3-gather's cluster instances at P=1 LARGE_BP (the peer one at P=2
+    # AUTO), its direct body forced there, the K2 cluster instances these
+    # paths launch, and the quad instances of P=2 LARGE_BP (K2 bulk, K2-init
+    # boundary, K3-gather loopback and peer; the flux golden is the flux
+    # phases' too)
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     flux_ref = golden("flux", gmesh, gvar)
@@ -1621,9 +1657,10 @@ def main() -> int:
             out_bytes=2 if m.grad_t == torch.bfloat16 else 4)
         times[row].update(bp=m.bp, **gather_facts(bs, m, cls))
 
-    k3_info, k3_rows, k3_models, loop_overlap = {}, [], {}, None
-    for name, (nparts, opts) in K3_CLUSTER_CFGS.items():
+    k3_info, k3_rows, k3_models, loop_overlap = {}, [], {}, {}
+    for name, (nparts, opts) in {**K3_CLUSTER_CFGS, **K3_QUAD_CFGS}.items():
         path = "k3_gather_" + name
+        rule_body = "quad" if name in K3_QUAD_CFGS else "cluster"
         bf = opts.get("grad_dtype") == BF
         reset_counts()
         t0 = time.perf_counter()
@@ -1640,11 +1677,21 @@ def main() -> int:
         peer = m.peer is not None
         fused = gather_facts(bs, m, "interior", fused=True, peer=peer)
         inst = ("sweep_blocks_overlap_gather" + "_peer" * peer
-                + "_flux" * (m.op == "flux") + "_w16_o16" * bf + "_cluster")
-        if fused["body"] != "cluster":
+                + "_flux" * (m.op == "flux") + "_w16_o16" * bf + "_"
+                + rule_body)
+        if fused["body"] != rule_body:
             fail(f"{path}: the rule picks {fused['body']} for K3-gather at "
-                 f"bp {m.bp}, EP {fused['ep']}; the phase expects cluster")
-        expect_counts(path, counts, (inst,))
+                 f"bp {m.bp}, EP {fused['ep']}; the phase expects "
+                 f"{rule_body}")
+        k2_insts = ()
+        if rule_body == "quad":     # every class of the plan on the quad body
+            for cls in ("bulk", "boundary"):
+                if gather_facts(bs, m, cls)["body"] != "quad":
+                    fail(f"{path}: the rule does not pick quad for K2 on "
+                         f"the {cls} plan")
+            k2_insts = ("sweep_blocks_gather_quad",
+                        "sweep_blocks_gather_init_quad")
+        expect_counts(path, counts, (inst, *k2_insts))
         info = {"parts": nparts, "bp": m.bp, "ndev": m.ndev,
                 "nphases": m.nphases, "s_max": m.s_max,
                 "model_seconds": t_model, "transport": m.transport_name,
@@ -1653,31 +1700,35 @@ def main() -> int:
                 "cross": cross, "max_abs_bulk": scale,
                 "cross_tol": (SCHED_TOL_BF16 if bf else SCHED_TOL) * scale,
                 "launches": counts}
-        if name == "p2_auto":
-            loop_overlap = outs["overlap"]       # the peer step's twin
-        if peer:
-            if not torch.equal(outs["overlap"], loop_overlap):
+        if not peer:
+            loop_overlap[name] = outs["overlap"]     # the peer step's twin
+        else:
+            twin = name[:-len("_peer")]
+            if not torch.equal(outs["overlap"], loop_overlap.pop(twin)):
                 fail(f"{path}: the peer overlap step differs from the "
-                     f"loopback one (k3_gather_p2_auto)")
+                     f"loopback one (k3_gather_{twin})")
             info["overlap_equals_loopback_bitwise"] = True
-        # the overlap step under each other body, forced: bit for bit
+        # the overlap step under each other body whose table (or its
+        # share) fits one block, forced: bit for bit the rule's
         ep = fused["ep"]
-        bodies = (("staged",) if bs.staged_bytes(m.bp, ep)
-                  <= bs.GATHER_STAGE_MAX else ()) + ("cluster", "direct")
-        for b in bodies:
-            if b == "cluster":
-                continue
+        fits = {"staged": bs.staged_bytes, "cluster": bs.cluster_bytes,
+                "quad": bs.quad_bytes}
+        bodies = (rule_body,) + tuple(
+            b for b in bs.GATHER_BODIES if b != rule_body
+            and (b == "direct" or fits[b](m.bp, ep) <= bs.GATHER_STAGE_MAX))
+        for b in bodies[1:]:
             reset_counts()
             with gather_body_forced(bs, b):
                 g_b = m.step(st_, "overlap")
             forced = read_counts()
-            want_b = inst.replace("_cluster", "_" + b).replace("_staged", "")
+            want_b = inst.replace("_" + rule_body, "_" + b).replace(
+                "_staged", "")
             if forced.get(want_b, 0) != 1:
                 fail(f"{path}: the overlap step forced onto the {b} body "
                      f"launched {forced}")
             if not torch.equal(g_b, outs["overlap"]):
                 fail(f"{path}: the overlap step on the {b} body differs "
-                     f"from the cluster body's")
+                     f"from the {rule_body} body's")
             if name == "p1_all_large" and b == "direct":
                 expect_counts(path + " (direct, forced)", {want_b: 1},
                               (want_b,))
@@ -1697,8 +1748,9 @@ def main() -> int:
                     facts={b: gather_kernel_facts(bs, b, m.bp, ep, m.op,
                                                   m.w_t, m.grad_t, True, peer)
                            for b in bodies},
-                    **{f"{b}_over_cluster": res[b]["ms"] / res["cluster"]["ms"]
-                       for b in bodies if b != "cluster"})
+                    **{f"{b}_over_{rule_body}":
+                       res[b]["ms"] / res[rule_body]["ms"]
+                       for b in bodies[1:]})
         if peer:
             # the peer cluster launch beside its loopback form on the same
             # operands, in turns (loopback, peer, peer, loopback), under
@@ -1715,8 +1767,9 @@ def main() -> int:
             info.update(peer_ms=min(p1, p2), loopback_ms=min(l1, l2),
                         peer_over_loopback=ratio)
             if ratio > PEER_OVER_LOOPBACK:
-                fail(f"{path}: the peer cluster launch took {ratio:.4f}x "
-                     f"its loopback form, above {PEER_OVER_LOOPBACK}")
+                fail(f"{path}: the peer {rule_body} launch took "
+                     f"{ratio:.4f}x its loopback form, above "
+                     f"{PEER_OVER_LOOPBACK}")
             del buf, kp, kl
         del iargs
         if name == "p1_all_large":
@@ -1727,7 +1780,14 @@ def main() -> int:
                    gb)
             k3_rows += [inst, "sweep_blocks_overlap_gather_direct",
                         "sweep_blocks_gather_init_cluster"]
-        elif name in ("p2_auto_peer", "p1_all_large_flux",
+        elif name == "p2_large":
+            fused_row(inst, m, st_, gb, sendbufs)
+            k2_row("sweep_blocks_gather_quad", m, st_, "bulk")
+            k2_row("sweep_blocks_gather_init_quad", m, st_, "boundary",
+                   torch.zeros_like(gb))
+            k3_rows += [inst, "sweep_blocks_gather_quad",
+                        "sweep_blocks_gather_init_quad"]
+        elif name in ("p2_auto_peer", "p2_large_peer", "p1_all_large_flux",
                       "p1_all_large_w16_o16"):
             fused_row(inst, m, st_, gb, sendbufs)
             k3_rows.append(inst)
@@ -1742,8 +1802,8 @@ def main() -> int:
                             f"sweep_blocks_gather{tag}_init{tag16}_cluster"]
         k3_info[name] = info
         del outs, gb, sendbufs, st_
-        if name == "p2_auto":
-            k3_models[name] = m         # the graph phase's P=2 overlap step
+        if name in ("p2_auto", "p2_large"):
+            k3_models[name] = m         # the graph phase's P=2 overlap steps
         else:
             m.close()
         del m
@@ -2331,6 +2391,7 @@ def main() -> int:
                          "gather_p1": gather_models[1],
                          "gather_p8": gather_models[P_MULTI],
                          "gather_p2": k3_models.pop("p2_auto"),
+                         "gather_p2_large": k3_models.pop("p2_large"),
                          "full_p8": full_stack_p8})
     peer_twin = {"peer_p1": "p1", "peer_p8": "p8",
                  "peer_gather_p8": "gather_p8", "peer_full_p8": "full_p8"}
@@ -2365,6 +2426,7 @@ def main() -> int:
         + [("gather512_p1_solver_n1", "gather_p1", "bulk", 1),
            ("gather512_p8_solver_n2", "gather_p8", "bulk", 2),
            ("gather_p2_auto_overlap", "gather_p2", "overlap", 0),
+           ("gather_p2_large_overlap", "gather_p2_large", "overlap", 0),
            ("full_p1_overlap", "full_p1", "overlap", 0),
            ("full_p8_early", "full_p8", "early", 0)]
         + [(f"flux_p1_all_{s}", "flux_p1", s, 0) for s in SCHEDULES_ALL]

@@ -32,7 +32,13 @@ loopback and through a one-process peer transport, under the rule's body
 and under each body the tree's fused kernel has (FUSED_GATHER_BODIES
 where the tree names them apart, else GATHER_BODIES) whose table fits
 one block there, forced, and the overlap step
-at each shape under the solver's dispatch; kbench's rows on its 96³ prefix
+at each shape under the solver's dispatch; every K2 and K3-gather instance
+of the two-shard plans at bp 8192 (`quad`: K2 bulk, K2-init on the
+boundary and interior plans, K3-gather loopback and peer; gg f32,
+w16-o16 and flux) under the rule's body, also back to back, with each
+call's bound and its body's facts, and in a tree with the quad body the
+one-shard bp 8192 plan under the quad and cluster bodies forced and the
+two-shard gg plans at 256 and 512 quad threads; kbench's rows on its 96³ prefix
 tables (bp 4096): K5d (compact_i8), K1-w16-d16-o16 (compact_bso) and
 K5e-bf16 (cstream_bso); a hash of each gather and kbench output, which shows two
 trees' outputs equal bit for bit; and ptxas's registers and spill bytes of
@@ -72,9 +78,10 @@ KB_BP = 4096                       # kbench's block size
 KB_ROWS = ("compact_i8", "compact_bso", "cstream_bso")
 # the row groups: K4, K6, K3-peer, the gather sweep at bp 512, K2 at bp 512,
 # 4096 and 8192, K2's cluster instances, K3-gather at bp 4096 and 8192,
+# every instance of the two-shard plans at bp 8192 (the quad body's),
 # kbench's rows
 ROWS = ("k4", "k6", "peer", "gather", "bodies", "cluster", "k3large",
-        "kbench")
+        "quad", "kbench")
 # K3-gather at large block sizes: its shapes (shards, bp; one shard with
 # force_rdma) and configurations (tag, model options)
 K3_SHAPES = ((1, AUTO_BP), (1, LARGE_BP), (2, AUTO_BP), (2, LARGE_BP))
@@ -347,7 +354,8 @@ def measure(root: str, rows=ROWS) -> dict:
         parts2 = partition_mesh(gmesh, 2)
         fused_bodies = getattr(bs, "FUSED_GATHER_BODIES", bs.GATHER_BODIES)
         fits = {"staged": bs.staged_bytes, "direct": lambda *_: 0,
-                "cluster": lambda b, e: bs.staged_bytes(b, e) // 2}
+                "cluster": lambda b, e: bs.staged_bytes(b, e) // 2,
+                "quad": lambda b, e: bs.staged_bytes(b, e) // 4}
         for npart, bp in K3_SHAPES:
             for tag, opts in K3_LARGE:
                 m = GreenGaussTorch(parts1 if npart == 1 else parts2, NVAR,
@@ -393,6 +401,120 @@ def measure(root: str, rows=ROWS) -> dict:
                         m, st, "overlap", 200, warmup=2,
                         repeats=5).median * 1e3
                 del m, st, iargs, gb, sendbufs, peer, buf, g, r
+
+    if "quad" in rows:
+        # every K2 and K3-gather instance of the two-shard plans at bp 8192
+        # as the model's steps call them (K2 on the bulk plan, K2-init on
+        # the boundary plan from zeros and on the interior plan, K3-gather
+        # loopback and peer), under the rule's body (the quad body in a tree
+        # that has it, else direct), also back to back on the card
+        # (`_held`), each with its bound and its body's facts; the overlap
+        # step under the solver's dispatch.  In a tree with the quad body,
+        # also the one-shard bp 8192 plan (force_rdma) under the quad body
+        # forced beside the cluster body, and the two-shard gg plans at 256
+        # and 512 quad threads
+        parts2 = partition_mesh(gmesh, 2)
+        quad = "quad" in getattr(bs, "GATHER_BODIES", ())
+        bounds = {}
+        for tag, opts in K3_LARGE:
+            m = GreenGaussTorch(parts2, NVAR, kernel="gather", bp=LARGE_BP,
+                                device=dev, **opts)
+            st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
+            var_T, tbs = st["var_T"], st["tables"]
+            gb = m.step(st, "bulk")
+            sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
+            iargs = (var_T, *m._operands("interior", tbs))
+            kw = {"op": m.op, **m._gather_kw("interior")}
+            peer = Peer(m.dsts.numpy(), m.srcs.numpy(), rows=m.rows,
+                        s_max=m.s_max, dtype=m.halo_t, device=dev)
+            # key: (call on an init buffer, the init, class, fused, peer)
+            calls = {
+                f"q_k2{tag}_bulk": (
+                    lambda i: m._sweep("bulk", var_T, tbs), None, "bulk",
+                    False, False),
+                f"q_k2{tag}_init_boundary": (
+                    lambda i: m._sweep("boundary", var_T, tbs, init=i),
+                    torch.zeros_like(gb), "boundary", False, False),
+                f"q_k2{tag}_init_interior": (
+                    lambda i: m._sweep("interior", var_T, tbs, init=i), gb,
+                    "interior", False, False),
+                f"q_k3g{tag}": (
+                    lambda i: bs.sweep_blocks_overlap_gather(
+                        *iargs, i, sendbufs, m.dsts, m.srcs, **kw), gb,
+                    "interior", True, False),
+                f"q_k3g{tag}_peer": (
+                    lambda i: bs.sweep_blocks_overlap_gather(
+                        *iargs, i, sendbufs, None, None, peer=peer, **kw),
+                    gb, "interior", True, True)}
+            threads = {"": None}
+            if quad and not tag:
+                threads.update({f"_t{n}": n for n in (256, 512)})
+            for key, (fn, init, cls, fused, is_peer) in calls.items():
+                buf = None if init is None else init.clone()
+                for suffix, n in threads.items():
+                    rule_threads = getattr(bs, "quad_threads", None)
+                    if n is not None:
+                        bs.quad_threads = lambda *_, n=n: n
+                    ms[key + suffix] = cs.cuda_ms(lambda: fn(buf), 50)
+                    if n is None:
+                        ms[key + "_held"] = cs.kernel_device_ms(
+                            lambda: fn(buf), 50)
+                    out = fn(None if init is None else init.clone())
+                    hashes[key + suffix] = "".join(
+                        digest(o) for o in (out if fused else (out,)))
+                    if n is not None:
+                        bs.quad_threads = rule_threads
+                args = (var_T, *m._operands(cls, tbs))
+                bounds[key] = cs.sweep_bound(
+                    m.op, args, gather=True, init=init is not None,
+                    push=sendbufs if fused else None,
+                    out_bytes=gb.element_size())["bound_ms"]
+                ep = int(m.plans[cls]["ext_idx"].shape[2])
+                body = bs.gather_body(LARGE_BP, ep, m.op, fused)
+                rule[key] = {"ep": ep, "body": body,
+                             "kernel": cs.gather_kernel_facts(
+                                 bs, body, LARGE_BP, ep, m.op, m.w_t,
+                                 m.grad_t, fused, is_peer)}
+                del buf
+            peer.close()
+            if not tag:
+                ms["q_step_P2_bp8192_overlap"] = time_schedule(
+                    m, st, "overlap", 200, warmup=2, repeats=5).median * 1e3
+            m.close()
+            del m, st, var_T, tbs, gb, sendbufs, iargs, peer, calls, out
+        for tag, opts in K3_LARGE if quad else ():
+            m = GreenGaussTorch(parts1, NVAR, kernel="gather", bp=LARGE_BP,
+                                device=dev, force_rdma=True, **opts)
+            st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
+            var_T, tbs = st["var_T"], st["tables"]
+            gb = m.step(st, "bulk")
+            sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
+            iargs = (var_T, *m._operands("interior", tbs))
+            kw = {"op": m.op, **m._gather_kw("interior")}
+            calls = {
+                f"q1_k2{tag}_bulk": (
+                    lambda i: m._sweep("bulk", var_T, tbs), None, False),
+                f"q1_k2{tag}_init_interior": (
+                    lambda i: m._sweep("interior", var_T, tbs, init=i), gb,
+                    False),
+                f"q1_k3g{tag}": (
+                    lambda i: bs.sweep_blocks_overlap_gather(
+                        *iargs, i, sendbufs, m.dsts, m.srcs, **kw), gb,
+                    True)}
+            for key, (fn, init, fused) in calls.items():
+                buf = None if init is None else init.clone()
+                for body in ("cluster", "quad"):
+                    with cs.gather_body_forced(bs, body):
+                        ms[f"{key}_{body}"] = cs.cuda_ms(lambda: fn(buf), 50)
+                        ms[f"{key}_{body}_held"] = cs.kernel_device_ms(
+                            lambda: fn(buf), 50)
+                        out = fn(None if init is None else init.clone())
+                    hashes[f"{key}_{body}"] = "".join(
+                        digest(o) for o in (out if fused else (out,)))
+                del buf
+            m.close()
+            del m, st, var_T, tbs, gb, sendbufs, iargs, calls, out
+        rule["q_bound_ms"] = bounds
 
     if "kbench" in rows:
         # kbench's rows on its 96³ prefix tables

@@ -1,10 +1,12 @@
-"""The gather sweep's staged and cluster bodies: K2 and K3's gather form
-stage each listed entry's [own ‖ live ext] table in shared memory (csrc/
-sweep_common.cuh::sweep_entry_staged) where `gather_body` picks it (K3's
-flux form keeps the direct body there), and split it over a cluster of two
-CUDA blocks, one float4 plane each (sweep_entry_cluster), where it passes
-two blocks an SM but half of it fits one; K3's cluster launch pads its
-push region to whole clusters (csrc/sweep_overlap.cu).
+"""The gather sweep's staged, cluster and quad bodies: K2 and K3's gather
+form stage each listed entry's [own ‖ live ext] table in shared memory
+(csrc/sweep_common.cuh::sweep_entry_staged) where `gather_body` picks it
+(K3's flux form keeps the direct body there), split it over a cluster of
+two CUDA blocks, one float4 plane each (sweep_entry_cluster), where it
+passes two blocks an SM but half of it fits one, and over a cluster of
+four, two variables each (sweep_entry_quad), where half passes a block but
+a quarter fits; K3's cluster launches pad their push region to whole
+clusters (csrc/sweep_overlap.cu).
 
 On the CPU:
 
@@ -34,20 +36,32 @@ On the CPU:
   `sweep_blocks_overlap_gather_ref`, grad and recv bit for bit, on the JAX
   plans and on synthetic plans at bp 4096 / EP 1920 and bp 8192 / EP 2688,
   and against the JAX fused kernel in interpret mode;
-- the fixed body rule, the cluster's thread count and the shared-memory
-  fit at the 96³ benchmark shapes, from the numbers alone, and the fused
-  kernel's bodies.
+- so does a plain-torch form of the quad algorithm (`quad_sweep`: block
+  r stages variables 2r and 2r+1; under gg it sweeps every lane for its
+  six rows from its own plane, the other variables NaN; under flux it
+  sweeps every fourth 64-lane run through all four planes), on the JAX
+  plans in every precision and on synthetic plans at bp 8192 with the
+  two-shard 96³ plans' EP (10496, 16768), with odd widths that split a
+  lane group; the four blocks' lanes (every lane in each under gg, a
+  quarter of every prefix under flux) and item streams; K3-gather's quad
+  launch (`fused_quad`: the push region padded to whole clusters of four,
+  one to three pad blocks) against `sweep_blocks_overlap_gather_ref`;
+- the fixed body rule at both edges of each body, the cluster's and quad
+  body's thread counts and the shared-memory fit at the 96³ benchmark
+  shapes, from the numbers alone, and the fused kernel's bodies.
 
 The `cuda`-marked tests hold every K2 and every K3-gather instance
-(loopback and peer) under all three bodies to its plain version, with pad
+(loopback and peer) under all four bodies to its plain version, with pad
 entries, zero-width slots, EP = 128 and the largest EP the rule stages;
 the bodies against each other and K3-gather-peer against the loopback
 K3-gather bit for bit; every K2 and K3-gather instance on the cluster body
 at bp 8192, both thread counts (K3-gather loopback and peer), also with
 lane pairs split by odd widths and at bp 8132, against the direct body
-bit for bit; a peer cluster launch
+bit for bit; every K2 and K3-gather instance on the quad body at bp 8192
+with the two-shard EP, both thread counts, against the direct body bit for
+bit; operands off a lane group refused; peer cluster and quad launches
 whose push blocks outnumber the SMs; and the resident blocks per SM of the
-staged and cluster instances.  They import no JAX:
+staged, cluster and quad instances.  They import no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_gather_staged.py -m cuda
@@ -202,6 +216,16 @@ def cluster_items(bp, widths, rank, threads, ahead=AHEAD):
     compute.  Returns the events of every thread in order: ("add", lane, k)
     where a lane adds slot k's terms, ("store", lane) where it writes its
     output."""
+    return lane_items(bp, widths, lambda j: cluster_pairs_lane(j, rank),
+                      PAIR, threads, ahead)
+
+
+def lane_items(bp, widths, lane_of, group, threads, ahead=AHEAD):
+    """The item stream of a body whose threads sweep groups of `group`
+    neighbouring lanes, group position j of a thread starting at lane
+    lane_of(j) (sweep_pairs_cluster, sweep_items_quad): `cluster_items`'
+    events, a group entering slot k where its first lane is live and each
+    further lane adding only where it is live too."""
     K = len(widths)
 
     def live_from(lane, k):
@@ -212,10 +236,10 @@ def cluster_items(bp, widths, rank, threads, ahead=AHEAD):
     events = []
     for t in range(threads):
         cur = {"j": t}
-        cur["k"] = live_from(cluster_pairs_lane(cur["j"], rank), 0)
+        cur["k"] = live_from(lane_of(cur["j"]), 0)
 
         def fetch():
-            lane = cluster_pairs_lane(cur["j"], rank)
+            lane = lane_of(cur["j"])
             item = (lane, cur["k"])
             if lane >= bp:
                 return item
@@ -224,7 +248,7 @@ def cluster_items(bp, widths, rank, threads, ahead=AHEAD):
                 if cur["k"] < K:
                     return item
             cur["j"] += threads
-            cur["k"] = live_from(cluster_pairs_lane(cur["j"], rank), 0)
+            cur["k"] = live_from(lane_of(cur["j"]), 0)
             return item
 
         q = [fetch() for _ in range(ahead)]
@@ -235,10 +259,10 @@ def cluster_items(bp, widths, rank, threads, ahead=AHEAD):
             q.append(fetch())
             k = q[0][1]
             if k < K:
-                events += [("add", lane, k)] + (
-                    [("add", lane + 1, k)] if lane + 1 < widths[k] else [])
+                events += [("add", lane + u, k) for u in range(group)
+                           if u == 0 or lane + u < widths[k]]
             if q[1][0] != lane:
-                events += [("store", lane), ("store", lane + 1)]
+                events += [("store", lane + u) for u in range(group)]
                 lane = q[1][0]
                 if lane >= bp:
                     break
@@ -306,6 +330,103 @@ def cluster_sweep(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
     owner[cluster_lanes(bp, 1, threads)] = 1
     lane_of_col = torch.arange(var_T.shape[2]) % bp
     return torch.where(owner[lane_of_col] == 0, outs[0], outs[1])
+
+
+# the quad body's CUDA blocks and lanes a thread per op
+# (csrc/sweep_common.cuh::kQuadCtas, kQuadLanesGG, kQuadLanesFlux)
+QUAD = 4
+QUAD_LANES = {"gg": 4, "flux": 2}
+
+
+def quad_lane(j, rank, op):
+    """The first lane of lane group j of CUDA block `rank` of a quad
+    cluster (QuadGG::lane, QuadFlux::lane): gg sweeps every lane in every
+    block, groups of four; flux splits the lanes, run (j // 32)·QUAD + rank
+    of the entry's runs of 32 groups of two."""
+    L = QUAD_LANES[op]
+    if op == "gg":
+        return L * j
+    return ((j // 32) * QUAD + rank) * (32 * L) + (j % 32) * L
+
+
+def quad_lanes(bp, rank, op, threads):
+    """Every lane CUDA block `rank` of a quad cluster sweeps, thread by
+    thread in the kernel's order (group positions t, t + threads, ...)."""
+    L, out = QUAD_LANES[op], []
+    for t in range(threads):
+        j = t
+        while (lane := quad_lane(j, rank, op)) < bp:
+            out += range(lane, lane + L)
+            j += threads
+    return out
+
+
+def quad_planes(var_T, exts, block_ids, ext_cnt, bp):
+    """What each CUDA block of a quad cluster stages for every listed
+    entry: plane r (P, nb, 2, bp + EP) holds rows 2r and 2r+1 of var_T's
+    own columns and of the entry's first ext_cnt ext columns rounded up to
+    whole quads, read at the kernel's flat offsets ((p·NV + 2r)·ndev +
+    base, and (g·NV + 2r)·EP); the columns it does not stage are NaN."""
+    P, nb, _, ep = exts.shape
+    ndev = var_T.shape[2]
+    flat_v, flat_e = var_T.reshape(-1), exts.reshape(-1)
+    planes = torch.full((QUAD, P, nb, 2, bp + ep), float("nan"))
+    for r in range(QUAD):
+        for p in range(P):
+            for b in range(nb):
+                g = p * nb + b
+                base = int(block_ids[p, b]) * bp
+                quads = (min(max(int(ext_cnt[p, b]), 0), ep) + 3) // 4
+                for u in range(2):
+                    row = (p * NV + 2 * r + u) * ndev + base
+                    planes[r, p, b, u, :bp] = flat_v[row:row + bp]
+                    row = (g * NV + 2 * r + u) * ep
+                    planes[r, p, b, u, bp:bp + 4 * quads] = \
+                        flat_e[row:row + 4 * quads]
+    return planes
+
+
+def quad_sweep(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
+               ext_cnt, init=None, op="gg", out_dtype=None, threads=512):
+    """The quad body's algorithm in plain torch: block r of each entry's
+    cluster stages plane r (`quad_planes`).  gg: block r sees its own
+    plane alone (the other six variables NaN, which its rows never read),
+    sweeps every lane and owns the rows d·NV + 2r + u.  flux: every block
+    sees the four planes (its own and, through distributed shared memory,
+    the other three), sweeps the lanes `quad_lanes` gives it and owns
+    them.  Each block runs the plain versions' arithmetic (`_sweep_plain`)
+    on the table as it sees it; an output element is taken from the block
+    that owns it."""
+    P, nb, K, bp = slot_idx.shape
+    planes = quad_planes(var_T, exts, block_ids, ext_cnt, bp)
+    ndev = var_T.shape[2]
+    rows = bs.out_rows(op)
+    odt = bs._out_dtype(init, out_dtype)
+    out = None
+    for rank in range(QUAD):
+        if op == "gg":
+            seen = torch.full((P, nb, NV, bp + exts.shape[3]), float("nan"))
+            seen[:, :, 2 * rank:2 * rank + 2] = planes[rank]
+        else:
+            seen = torch.cat(list(planes), dim=2)     # (P, nb, NV, bp + EP)
+
+        def terms(k, w, off, own, seen=seen):
+            idx = slot_idx[:, :, k, None, :w].long().expand(P, nb, NV, w)
+            return torch.gather(seen, 3, idx), slot_w[:, :, k, :, :w]
+
+        res = bs._sweep_plain(var_T, scale, block_ids, slots,
+                              None if init is None else init.clone(), terms,
+                              op, out_dtype=odt)
+        own = torch.zeros((rows, ndev), dtype=torch.bool)
+        if op == "gg":
+            for d in range(3):
+                own[d * NV + 2 * rank:d * NV + 2 * rank + 2] = True
+        else:
+            mine = torch.zeros(bp, dtype=torch.bool)
+            mine[quad_lanes(bp, rank, op, threads)] = True
+            own[:] = mine[torch.arange(ndev) % bp]
+        out = res if out is None else torch.where(own, res, out)
+    return out
 
 
 def _port_args(arrays, var_T, cls, w16):
@@ -487,39 +608,56 @@ def test_gather_wrappers_check_ext_counts():
 
 # (bp, EP, body): the 96³ plans at bp 512 (one shard EP 512, eight shards
 # EP 1024 and 1280), at the AUTO block size (4096, EP 1920: one staged
-# block per SM) and at bp 8192 (EP 2688 at one shard), the card tests' bp
-# 128, and the rule's edges: the largest table two blocks of an SM hold,
-# the largest half-table one block holds
+# block per SM) and at bp 8192 (EP 2688 at one shard; at two shards 16768
+# bulk and boundary, 10496 interior), the card tests' bp 128, and the
+# rule's edges: the largest table two blocks of an SM hold, the largest
+# half-table and the largest quarter-table one block holds
 PAIR_MAX = bs.GATHER_STAGE_PAIR // 32           # columns of the largest
 HALF_MAX = 2 * (bs.GATHER_STAGE_MAX // 32)
+QUAD_MAX = 4 * (bs.GATHER_STAGE_MAX // 32)
 RULE_CASES = [
     (512, 512, "staged"), (512, 1024, "staged"), (512, 1280, "staged"),
     (4096, 1920, "cluster"), (8192, 2560, "cluster"), (128, 128, "staged"),
     (8192, 2688, "cluster"),
     (512, PAIR_MAX - 512, "staged"), (512, PAIR_MAX - 508, "cluster"),
-    (512, HALF_MAX - 512, "cluster"), (512, HALF_MAX - 508, "direct"),
+    (512, HALF_MAX - 512, "cluster"), (512, HALF_MAX - 508, "quad"),
+    (8192, 16768, "quad"), (8192, 10496, "quad"),
+    (512, QUAD_MAX - 512, "quad"), (512, QUAD_MAX - 508, "direct"),
     (8190, 2688, "direct"), (8192, 2686, "direct"),
-    (128, 130, "direct"), (126, 128, "direct")]
+    (8192, 16766, "direct"), (128, 130, "direct"), (126, 128, "direct")]
 
 
 @pytest.mark.parametrize("bp,ep,body", RULE_CASES)
 def test_gather_body_rule(bp, ep, body):
     """The fixed rule, where bp and EP allow 16-byte loads: staged where
     two staged blocks fit one SM's shared memory, else cluster where half
-    the table fits one block; else direct.  K3's gather form follows it
-    (its flux form keeps the direct body where the rule says staged)."""
+    the table fits one block, else quad where a quarter does (op gg); else
+    direct.  K3's gather form follows it (its flux form keeps the direct
+    body where the rule says staged); flux keeps the direct body where it
+    says quad, in K2 and K3."""
     assert bs.staged_bytes(bp, ep) == NV * (bp + ep) * 4
     assert bs.cluster_bytes(bp, ep) == NV * (bp + ep) * 2
+    assert bs.quad_bytes(bp, ep) == NV * (bp + ep)
     assert bs.gather_body(bp, ep) == body
     assert bs.gather_body(bp, ep, "gg", fused=True) == body
     assert bs.gather_body(bp, ep, "flux", fused=True) == \
-        ("direct" if body == "staged" else body)
+        ("direct" if body in ("staged", "quad") else body)
+    assert bs.gather_body(bp, ep, "flux") == \
+        ("direct" if body == "quad" else body)
     aligned = bp % 4 == 0 and ep % 4 == 0
     pair = 2 * (bs.staged_bytes(bp, ep) + STATIC_SMEM + BLOCK_RESERVED) \
         <= SM_TOTAL
     half = bs.cluster_bytes(bp, ep) + STATIC_SMEM <= SM_SMEM
+    quarter = bs.quad_bytes(bp, ep) + STATIC_SMEM <= SM_SMEM
     assert (body == "staged") == (pair and aligned)
     assert (body == "cluster") == (half and aligned and not pair)
+    assert (body == "quad") == (quarter and aligned and not half)
+    if body == "quad":        # one block an SM, where the rule picks it:
+        # 512 threads, or fewer where bp has fewer 128-lane runs
+        assert 2 * (bs.quad_bytes(bp, ep) + STATIC_SMEM + BLOCK_RESERVED) \
+            > SM_TOTAL
+        assert bs.quad_threads(bp, ep) == max(128, min(512, 32 * -(-bp
+                                                                 // 128)))
     if body == "cluster":     # 512 threads an SM: one block of 512 or two
         per_sm = SM_TOTAL // (bs.cluster_bytes(bp, ep) + STATIC_SMEM
                               + BLOCK_RESERVED)
@@ -542,7 +680,21 @@ def test_fused_flux_keeps_the_direct_body(bp, ep):
     assert bs.gather_body(bp, ep, "flux") == rule
     assert bs.gather_body(bp, ep, "flux", fused=True) == \
         ("direct" if pair else "cluster")
-    assert set(bs.GATHER_BODIES) == {"staged", "cluster", "direct"}
+    assert set(bs.GATHER_BODIES) == {"staged", "cluster", "quad", "direct"}
+
+
+@pytest.mark.parametrize("bp,ep", [(8192, 16768), (8192, 10496),
+                                   (512, QUAD_MAX - 512)])
+def test_flux_keeps_the_direct_body_past_half_a_block(bp, ep):
+    """Where half the table passes a block and a quarter fits, gg (K2 and
+    K3-gather) takes the quad body and flux keeps the direct body, in K2
+    and K3: its quad form, which splits the lanes and reads three of its
+    four planes through distributed shared memory, took 0.99-1.39x the
+    direct body's time at the two-shard 96³ plans at bp 8192 (H100)."""
+    assert bs.gather_body(bp, ep) == "quad"
+    assert bs.gather_body(bp, ep, "gg", fused=True) == "quad"
+    assert bs.gather_body(bp, ep, "flux") == "direct"
+    assert bs.gather_body(bp, ep, "flux", fused=True) == "direct"
 
 
 def test_staged_table_sizes_at_the_benchmark_plans():
@@ -560,6 +712,14 @@ def test_staged_table_sizes_at_the_benchmark_plans():
     large = bs.cluster_bytes(8192, 2688)
     assert bs.staged_bytes(8192, 2688) // 1024 == 340 and large // 1024 == 170
     assert SM_TOTAL // (large + STATIC_SMEM + BLOCK_RESERVED) == 1
+    # two shards at bp 8192 (EP 16768 and 10496): half the table (390 and
+    # 292 KB) passes one block, each quad quarter (195 and 146 KB) takes one
+    # block per SM
+    for ep, kb in ((16768, 195), (10496, 146)):
+        assert bs.cluster_bytes(8192, ep) > bs.GATHER_STAGE_MAX
+        quarter = bs.quad_bytes(8192, ep)
+        assert quarter // 1024 == kb
+        assert SM_TOTAL // (quarter + STATIC_SMEM + BLOCK_RESERVED) == 1
 
 
 @pytest.mark.parametrize("threads", [256, 512])
@@ -673,6 +833,149 @@ def test_cluster_form_synthetic_plans(bp, ep, straddle, op, init):
         assert torch.equal(got, ref), threads
 
 
+@pytest.mark.parametrize("threads", [256, 512])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("bp", [128, 196, 512, 8192, 8132])
+def test_quad_lanes_split_every_prefix(bp, op, threads):
+    """The quad cluster's four CUDA blocks: under gg each sweeps every lane
+    of the entry once (its own six rows), a warp 128 consecutive lanes at
+    each step; under flux they sweep every lane once between them, a
+    quarter of every 256-lane-aligned prefix each (the slot widths are
+    multiples of 128: every 128-aligned prefix is split as evenly as runs
+    of 64 allow), a warp one run of 64 lanes at each step; bp 196 and 8132
+    end in a 4-lane tail."""
+    lanes = [quad_lanes(bp, r, op, threads) for r in range(QUAD)]
+    L = QUAD_LANES[op]
+    if op == "gg":
+        for r in range(QUAD):
+            assert sorted(lanes[r]) == list(range(bp)), r
+    else:
+        assert sorted(sum(lanes, [])) == list(range(bp))
+        run = 32 * L
+        for w in range(QUAD * run, bp + 1, QUAD * run):
+            for r in range(QUAD):
+                assert sum(lane < w for lane in lanes[r]) == w // QUAD, (w, r)
+        for w in range(128, bp + 1, 128):    # every prefix a slot can have
+            got = [sum(lane < w for lane in lanes[r]) for r in range(QUAD)]
+            assert sum(got) == w and max(got) - min(got) <= run, (w, got)
+        if bp % run:
+            assert set(range(bp - bp % run, bp)) <= set(
+                lanes[(bp // run) % QUAD])
+    for r in range(QUAD):
+        for w in range(0, threads, 32):      # a warp's groups, step by step
+            step = 0
+            while True:
+                firsts = [quad_lane(t + step * threads, r, op)
+                          for t in range(w, w + 32)]
+                firsts = [f for f in firsts if f < bp]
+                if not firsts:
+                    break
+                assert firsts == list(range(firsts[0], firsts[0]
+                                            + L * len(firsts), L))
+                step += 1
+
+
+@pytest.mark.parametrize("ahead", [1, AHEAD, 3])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("bp,widths", [
+    (128, (128, 0, 128, 64)), (128, straddle_widths(128)),
+    (196, straddle_widths(196)), (8192, (8192, 0, 8192, 4096, 2048)),
+    (8132, straddle_widths(8132))])
+def test_quad_item_stream_adds_every_live_slot_once(bp, widths, op, ahead):
+    """The quad body's item stream (sweep_items_quad: groups of four lanes
+    under gg, pairs under flux), fetched 1-3 items ahead across group
+    boundaries: in each block that owns a lane (every block under gg, one
+    under flux) the lane adds slot k exactly where it is live, a group
+    split by an odd width adding its live lanes alone, in slot order, and
+    writes its output once, after its last add; a lane without a live slot
+    still writes it."""
+    threads = 512
+    owners = range(QUAD) if op == "gg" else [None]
+    for owner in owners:
+        adds, stores = {}, {}
+        for rank in (range(QUAD) if owner is None else [owner]):
+            events = lane_items(bp, widths,
+                                lambda j, r=rank: quad_lane(j, r, op),
+                                QUAD_LANES[op], threads, ahead)
+            for n, ev in enumerate(events):
+                assert ev[1] not in stores, ev
+                if ev[0] == "add":
+                    adds.setdefault(ev[1], []).append(ev[2])
+                else:
+                    stores[ev[1]] = n
+        assert sorted(stores) == list(range(bp))
+        for lane in range(bp):
+            want = [k for k, w in enumerate(widths) if lane < w]
+            assert adds.get(lane, []) == want, (owner, lane)
+
+
+@pytest.mark.parametrize("w16,o16", PRECISIONS)
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("P,bp", JAX_CASES)
+def test_quad_form_equals_plain_bitwise(jax_gather, P, bp, op, w16, o16):
+    """Four blocks each staging two variables (gg: each sweeping its six
+    rows from its own plane; flux: each sweeping its quarter of the lanes
+    through all four planes) == sweep_blocks_gather_ref bit for bit, every
+    class of the JAX model's plans, with and without init; the plain
+    version is held to the JAX gather kernel in interpret mode by
+    test_staged_form_matches_jax_gather_kernel."""
+    jm, js, arrays, _ = jax_gather(P, bp, BF if w16 else "float32")
+    from cfd_proxy_tpu_torch.convert import state_from_jax
+
+    var_T = _t(state_from_jax(js))
+    odt = torch.bfloat16 if o16 else torch.float32
+    for c in CLASSES:
+        args, cnt = _port_args(arrays, var_T, c, w16)
+        for seeded in (False, True):
+            init = (_init(P, bs.out_rows(op), var_T.shape[2], odt)
+                    if seeded else None)
+
+            def run(fn, **kw):
+                return fn(*args, init=None if init is None else init.clone(),
+                          op=op, out_dtype=odt, **kw)
+
+            got = run(quad_sweep, ext_cnt=cnt)
+            ref = run(bs.sweep_blocks_gather_ref)
+            assert got.dtype == odt and torch.equal(got, ref), (c, seeded)
+
+
+# (EP, straddle) of the synthetic quad plans at bp 8192: the two-shard 96³
+# plans' interior EP (10496) and bulk / boundary EP (16768), and odd widths
+# that split a lane group (`straddle_widths`)
+QUAD_SYNTH = [(10496, False), (16768, False), (16768, True)]
+
+
+@pytest.mark.parametrize("w16,o16", PRECISIONS)
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("ep,straddle", QUAD_SYNTH)
+def test_quad_form_synthetic_plans(ep, straddle, op, init, w16, o16):
+    """The quad form on synthetic plans at bp 8192 with the two-shard 96³
+    plans' EP, where the rule picks it (one shard, a pad entry, a
+    zero-width slot, live counts 0 to EP), with odd widths that split a
+    lane group, every precision, with and without init: bit for bit the
+    plain version, at 256 and 512 threads."""
+    bp = 8192
+    assert bs.gather_body(bp, ep) == "quad"
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=bp, nblk=5,
+                           device="cpu",
+                           widths=straddle_widths(bp) if straddle else None)
+    if w16:
+        args = (*args[:3], args[3].bfloat16(), *args[4:])
+    odt = torch.bfloat16 if o16 else torch.float32
+    seed = (_init(1, bs.out_rows(op), args[0].shape[2], odt) if init
+            else None)
+    ref = bs.sweep_blocks_gather_ref(
+        *args, init=None if seed is None else seed.clone(), op=op,
+        out_dtype=odt)
+    assert float(ref.float().abs().max()) > 0
+    for threads in (256, 512):
+        got = quad_sweep(*args, cnt, init=None if seed is None
+                         else seed.clone(), op=op, out_dtype=odt,
+                         threads=threads)
+        assert got.dtype == odt and torch.equal(got, ref), threads
+
+
 # K3's push (csrc/sweep_overlap.cu, csrc/push_common.cuh): 16-byte pieces,
 # copied by a push block's first 128 threads (kPushThreads; the cluster
 # form's wider blocks leave the rest idle), four a thread in the loopback
@@ -682,15 +985,17 @@ PIECE, PUSH_THREADS, PEER_MIN_PIECES, PEER_MAX_BLOCKS = 16, 128, 128 * 4, 264
 PUSH_CHUNK = 4 * PUSH_THREADS                  # the loopback form's chunk
 
 
-def fused_cluster_grid(P, nb, nph, seg, peer):
-    """The CUDA blocks of one cluster launch of K3's gather form, in index
-    order: ("signal",) (the peer form's block 0), ("push", pk, c) (chunk c
-    of flat (shard, phase) pk), ("pad",), then ("sweep", g, rank) for the
-    blocks at region + i: entry g = i // 2 and the block's rank in its
-    cluster, which the hardware gives as blockIdx.x % 2.  The loopback
-    form cuts each buffer into chunks of PUSH_CHUNK pieces; the peer form
-    keeps `peer_chunks` (at least 512 pieces a block, at most 264 blocks),
-    which every rank computes alike.  Returns (blocks, region, chunks)."""
+def fused_cluster_grid(P, nb, nph, seg, peer, ctas=CTAS):
+    """The CUDA blocks of one cluster launch of K3's gather form (clusters
+    of `ctas` blocks: the cluster body's two, the quad body's four), in
+    index order: ("signal",) (the peer form's block 0), ("push", pk, c)
+    (chunk c of flat (shard, phase) pk), ("pad",) up to whole clusters,
+    then ("sweep", g, rank) for the blocks at region + i: entry
+    g = i // ctas and the block's rank in its cluster, which the hardware
+    gives as blockIdx.x % ctas.  The loopback form cuts each buffer into
+    chunks of PUSH_CHUNK pieces; the peer form keeps `peer_chunks` (at
+    least 512 pieces a block, at most 264 blocks), which every rank
+    computes alike.  Returns (blocks, region, chunks)."""
     if peer:
         npk = P * nph
         chunks = min(-(-seg // PEER_MIN_PIECES),
@@ -701,11 +1006,11 @@ def fused_cluster_grid(P, nb, nph, seg, peer):
         blocks = []
     blocks += [("push", b // chunks, b % chunks)
                for b in range(P * nph * chunks)]
-    if len(blocks) % CTAS:
+    while len(blocks) % ctas:
         blocks.append(("pad",))
     region = len(blocks)
-    blocks += [("sweep", (b - region) // CTAS, b % CTAS)
-               for b in range(region, region + CTAS * P * nb)]
+    blocks += [("sweep", (b - region) // ctas, b % ctas)
+               for b in range(region, region + ctas * P * nb)]
     return blocks, region, chunks
 
 
@@ -786,6 +1091,41 @@ def fused_cluster(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
     return grad, recv.view(sendbufs.dtype).reshape(sendbufs.shape)
 
 
+def fused_quad(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
+               init, sendbufs, dsts, ext_cnt, op="gg", threads=512,
+               peer=False):
+    """K3-gather's quad launch in plain torch, block by block of
+    `fused_cluster_grid` with clusters of four: the push blocks copy their
+    pieces as in `fused_cluster`, no cluster mixes push and sweep blocks,
+    every (entry, rank) of the sweep is one block, and the sweep is the
+    quad body's (`quad_sweep`) onto init.  Returns (grad, recv)."""
+    P, nb = slot_idx.shape[:2]
+    nph = sendbufs.shape[1]
+    words = sendbufs.contiguous().view(torch.int32).reshape(P * nph, -1, 4)
+    seg = words.shape[1]
+    blocks, region, chunks = fused_cluster_grid(P, nb, nph, seg, peer, QUAD)
+    assert region % QUAD == 0
+    for c0 in range(0, len(blocks), QUAD):
+        assert len({b[0] == "sweep" for b in blocks[c0:c0 + QUAD]}) == 1
+    recv = torch.zeros_like(words)
+    written = torch.zeros(recv.shape[:2], dtype=torch.long)
+    for b in blocks[:region]:
+        if b[0] != "push":
+            continue
+        pk, c = b[1], b[2]
+        to = int(dsts[pk // nph, pk % nph]) * nph + pk % nph
+        idx = torch.tensor(push_pieces(c, chunks, seg, peer),
+                           dtype=torch.long)
+        recv[to, idx] = words[pk, idx]
+        written[to, idx] += 1
+    assert bool((written == 1).all())
+    swept = sorted((b[1], b[2]) for b in blocks[region:])
+    assert swept == [(g, r) for g in range(P * nb) for r in range(QUAD)]
+    grad = quad_sweep(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
+                      ext_cnt, init=init.clone(), op=op, threads=threads)
+    return grad, recv.view(sendbufs.dtype).reshape(sendbufs.shape)
+
+
 def _push_operands(P, rows, dtype, s_max=1000, nph=2, seed=5):
     """Random send buffers (P, nph, rows, s_max) and a push map whose
     phase k sends shard p to (p + k + 1) mod P."""
@@ -852,6 +1192,58 @@ def test_fused_cluster_form_synthetic_plans(bp, ep, op, w16o16):
     init = _init(1, rows, args[0].shape[2], odt)
     send, dsts, srcs = _push_operands(1, rows, odt, s_max=1064)
     _fused_cases(args, cnt, init, send, dsts, srcs, op, bp, ep)
+
+
+@pytest.mark.parametrize("w16o16", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("ep", [10496, 16768])
+def test_fused_quad_form_synthetic_plans(ep, op, w16o16):
+    """K3-gather's quad launch, grid and push included, on synthetic plans
+    at bp 8192 with the two-shard 96³ plans' EP (a pad entry, a zero-width
+    slot, live counts 0 to EP), loopback and peer-shaped: grad and recv
+    bit for bit the plain version."""
+    bp = 8192
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=bp, nblk=5,
+                           device="cpu")
+    odt = torch.bfloat16 if w16o16 else torch.float32
+    if w16o16:
+        args = (*args[:3], args[3].bfloat16(), *args[4:])
+    assert bs.gather_body(bp, ep, op, fused=True) == \
+        ("quad" if op == "gg" else "direct")
+    rows = bs.out_rows(op)
+    init = _init(1, rows, args[0].shape[2], odt)
+    send, dsts, srcs = _push_operands(1, rows, odt, s_max=1064)
+    g_ref, r_ref = bs.sweep_blocks_overlap_gather_ref(
+        *args, init.clone(), send, dsts, srcs, op=op)
+    for peer in (False, True):
+        g, r = fused_quad(*args, init, send, dsts, cnt, op=op,
+                          threads=bs.quad_threads(bp, ep), peer=peer)
+        assert g.dtype == g_ref.dtype and torch.equal(g, g_ref), peer
+        assert torch.equal(r, r_ref), peer
+
+
+def test_fused_quad_grid_pads_the_push_region():
+    """The quad launch pads its push region to whole clusters of four (one
+    to three pad blocks), so no cluster holds a push block and a sweep
+    block; the push chunks stay the one-block forms'; the sweep blocks are
+    four per entry, ranks 0-3 in order."""
+    for peer in (False, True):
+        for seg in (5000, 512 * 3, 512 * 4, 512 * 5, 512 * 7):
+            blocks, region, chunks = fused_cluster_grid(2, 3, 1, seg, peer,
+                                                        QUAD)
+            pushes = sum(b[0] == "push" for b in blocks)
+            pads = sum(b[0] == "pad" for b in blocks)
+            assert region % QUAD == 0 and pads < QUAD
+            assert region == pushes + peer + pads
+            assert chunks == -(-seg // 512)
+            assert [b[0] for b in blocks[region:]] == ["sweep"] * 24
+            assert [b[2] for b in blocks[region:]] == [0, 1, 2, 3] * 6
+    blocks, region, _ = fused_cluster_grid(1, 1, 1, 512 * 3, True, QUAD)
+    assert [b[0] for b in blocks[:region]] == ["signal", "push", "push",
+                                                "push"]
+    blocks, region, _ = fused_cluster_grid(1, 1, 1, 512 * 4, True, QUAD)
+    assert [b[0] for b in blocks[:region]] == [
+        "signal", "push", "push", "push", "push", "pad", "pad", "pad"]
 
 
 def test_fused_cluster_grid_pads_the_push_region():
@@ -1063,6 +1455,7 @@ def test_cuda_staged_equals_direct_bitwise(card_gather, monkeypatch, op,
     for key in (*CLASSES, "fused"):
         assert torch.equal(out["staged", key], out["direct", key]), key
         assert torch.equal(out["cluster", key], out["direct", key]), key
+        assert torch.equal(out["quad", key], out["direct", key]), key
 
 
 def _synthetic(ep, live, P=2, bp=128, nblk=6, seed=9, device="cuda",
@@ -1406,3 +1799,203 @@ def test_cuda_peer_cluster_push_region_fills_the_card():
             assert torch.equal(r_peer, r_loop), i
     finally:
         tr.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w16,o16", PRECISIONS)
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("ep,straddle", QUAD_SYNTH)
+def test_cuda_quad_equals_direct_bitwise_at_bp_8192(monkeypatch, ep,
+                                                    straddle, op, init, w16,
+                                                    o16):
+    """Every K2 instance on the quad body (flux forced: the rule keeps it on
+    direct), at 256 and 512 threads, on a synthetic plan at bp 8192 with
+    the two-shard 96³ plans' EP (where the rule picks it for gg; pad entry,
+    zero-width slot, an entry without ext columns), also with lane groups
+    split by odd widths: bit for bit the direct body, counted under the
+    quad tag, and within the plain version's bounds."""
+    _card()
+    bp = 8192
+    assert bs.gather_body(bp, ep) == "quad"
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=bp, nblk=5,
+                           widths=straddle_widths(bp) if straddle else None)
+    if w16:
+        args = (*args[:3], args[3].bfloat16(), *args[4:])
+    odt = torch.bfloat16 if o16 else torch.float32
+    seed = (_init(1, bs.out_rows(op), args[0].shape[2], odt).cuda() if init
+            else None)
+
+    def run():
+        return bs.sweep_blocks_gather(
+            *args, init=None if seed is None else seed.clone(), op=op,
+            out_dtype=odt, ext_cnt=cnt)
+
+    attr = _counter(op, init, w16, o16, "quad")
+    before = getattr(bs.sweep_blocks_gather, attr)
+    got = {}
+    # flux keeps the direct body there (the rule's test): its quad form,
+    # forced
+    monkeypatch.setattr(bs, "gather_body", lambda *a, **kw: "quad")
+    for threads in (256, 512):
+        monkeypatch.setattr(bs, "quad_threads", lambda *_, n=threads: n)
+        got[threads] = run()
+    monkeypatch.setattr(bs, "gather_body", lambda *a, **kw: "direct")
+    direct = run()
+    ref = bs.sweep_blocks_gather_ref(
+        *args, init=None if seed is None else seed.clone(), op=op,
+        out_dtype=odt)
+    torch.cuda.synchronize()
+    assert getattr(bs.sweep_blocks_gather, attr) == before + 2
+    for threads, out in got.items():
+        assert torch.equal(out, direct), threads
+    _assert_close(direct, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w16,o16", PRECISIONS)
+@pytest.mark.parametrize("peer", [False, True])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("ep,straddle", QUAD_SYNTH)
+def test_cuda_k3_gather_quad_equals_direct_bitwise_at_bp_8192(
+        monkeypatch, ep, straddle, op, peer, w16, o16):
+    """Every K3-gather instance, loopback and peer form, on the quad body
+    (flux forced) at 256 and 512 threads, on the synthetic plans at bp 8192
+    with the two-shard EP (also with lane groups split by odd widths) with
+    two pushed phases: grad and recv bit for bit the direct body's, counted
+    under the quad tag, and within the plain version's bounds."""
+    _card()
+    bp = 8192
+    assert bs.gather_body(bp, ep, op, fused=True) == \
+        ("quad" if op == "gg" else "direct")
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=bp, nblk=5,
+                           widths=straddle_widths(bp) if straddle else None)
+    if w16:
+        args = (*args[:3], args[3].bfloat16(), *args[4:])
+    odt = torch.bfloat16 if o16 else torch.float32
+    rows = bs.out_rows(op)
+    seed = _init(1, rows, args[0].shape[2], odt).cuda()
+    send = torch.randn((1, 2, rows, 1064), device="cuda").to(odt)
+    dsts = torch.zeros((1, 2), dtype=torch.int32)
+    tr = _peer(1, 2, rows, 1064, odt) if peer else None
+
+    def run():
+        g, r = bs.sweep_blocks_overlap_gather(
+            *args, seed.clone(), send, None if peer else dsts,
+            None if peer else dsts, op=op, peer=tr, ext_cnt=cnt)
+        return g, r.clone()
+
+    attr = _counter(op, False, w16, o16, "quad", peer)
+    before = getattr(bs.sweep_blocks_overlap_gather, attr)
+    monkeypatch.setattr(bs, "gather_body", lambda *a, **kw: "quad")
+    try:
+        got = {}
+        for threads in (256, 512):
+            monkeypatch.setattr(bs, "quad_threads",
+                                lambda *_, n=threads: n)
+            got[threads] = run()
+        monkeypatch.setattr(bs, "gather_body", lambda *a, **kw: "direct")
+        direct = run()
+    finally:
+        if tr is not None:
+            tr.close()
+    g_ref, r_ref = bs.sweep_blocks_overlap_gather_ref(
+        *args, seed.clone(), send, dsts, dsts, op=op)
+    torch.cuda.synchronize()
+    assert getattr(bs.sweep_blocks_overlap_gather, attr) == before + 2
+    for key, (g, r) in got.items():
+        assert torch.equal(g, direct[0]), key
+        assert torch.equal(r, direct[1]), key
+    _assert_close(direct[0], g_ref)
+    assert torch.equal(direct[1], r_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ep", [16768, 10496])
+def test_cuda_quad_residency(ep):
+    """At the two-shard bp 8192 plans' quarter tables (195 and 146 KB)
+    every quad instance, K2 (with and without init) and K3-gather
+    (loopback and peer, push blocks included), every op and precision,
+    keeps one CUDA block per SM at the rule's threads, spills nothing, and
+    the runtime can hold a cluster of four (a launch raises otherwise)."""
+    _card()
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    bp = 8192
+    smem = bs.quad_bytes(bp, ep)
+    threads = bs.quad_threads(bp, ep)
+    assert threads == 512
+    code = bs.GATHER_BODY_CODES["quad"]
+    for op in (0, 1):
+        for w16, o16 in PRECISIONS:
+            infos = [_cuda.kernel_info("cfd_sweep_gather_info", code, acc,
+                                       op, int(w16), int(o16), smem, threads)
+                     for acc in (0, 1)]
+            infos += [_cuda.kernel_info("cfd_overlap_gather_info", peer,
+                                        code, op, int(w16), int(o16), smem,
+                                        threads) for peer in (0, 1)]
+            for info in infos:
+                assert info["blocks_per_sm"] == 1, (op, w16, o16, info)
+                assert info["active_clusters"] >= 1, info
+                assert info["local_bytes"] == 0, (op, w16, o16, info)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,shift", [("gg", 2), ("gg", 1), ("flux", 1)])
+@pytest.mark.parametrize("operand", [2, 3, 4])
+def test_cuda_quad_refuses_operands_off_a_group(monkeypatch, operand, op,
+                                                shift):
+    """The quad body loads four lanes' W-indices, weights and scale at a
+    time under gg, two under flux (forced: the rule keeps flux on direct):
+    a slot_idx, slot_w or scale `shift` elements off that boundary
+    (contiguous, at an offset storage) is refused before a launch."""
+    from cfd_proxy_tpu_torch.utils.errors import CheckError
+
+    _card()
+    monkeypatch.setattr(bs, "gather_body", lambda *a, **kw: "quad")
+    ep = 16768
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    t = args[operand]
+    shifted = torch.empty(t.numel() + shift, dtype=t.dtype,
+                          device=t.device)[shift:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous()
+    bad = (*args[:operand], shifted, *args[operand + 1:])
+    word = {"gg": "four", "flux": "two"}[op]
+    with pytest.raises(CheckError, match=f"{word} lanes at a time"):
+        bs.sweep_blocks_gather(*bad, op=op, ext_cnt=cnt)
+
+
+@pytest.mark.cuda
+def test_cuda_peer_quad_push_region_fills_the_card():
+    """A peer quad launch at bp 8192 (one CUDA block per SM) whose push
+    region (the signal block and 264 push blocks, padded to whole clusters
+    of four) outnumbers the card's SMs twice: every push block waits for
+    block 0's readiness signal while later ones queue behind it, and the
+    sweep clusters wait for four free SMs of one GPC; three launches on one
+    transport end, and grad and recv equal the loopback quad launch's bit
+    for bit."""
+    _card()
+    ep = 16768
+    args, cnt = _synthetic(ep, [[0, ep, 7, 7]], P=1, bp=8192, nblk=5)
+    assert bs.gather_body(8192, ep, fused=True) == "quad"
+    s_max = 128 * 1024            # 24 rows: 384 K pieces a buffer, 2 phases
+    send = torch.randn((1, 2, 3 * NV, s_max), device="cuda")
+    dsts = torch.zeros((1, 2), dtype=torch.int32)
+    init = _init(1, 3 * NV, args[0].shape[2], torch.float32).cuda()
+    tr = _peer(1, 2, 3 * NV, s_max, torch.float32)
+    before = bs.sweep_blocks_overlap_gather.peer_quad_launches
+    try:
+        for i in range(3):
+            g_peer, r_peer = bs.sweep_blocks_overlap_gather(
+                *args, init.clone() * (i + 1), send, None, None, peer=tr,
+                ext_cnt=cnt)
+            g_loop, r_loop = bs.sweep_blocks_overlap_gather(
+                *args, init.clone() * (i + 1), send, dsts, dsts,
+                ext_cnt=cnt)
+            torch.cuda.synchronize()
+            assert torch.equal(g_peer, g_loop), i
+            assert torch.equal(r_peer, r_loop), i
+    finally:
+        tr.close()
+    assert bs.sweep_blocks_overlap_gather.peer_quad_launches == before + 3
