@@ -60,7 +60,7 @@ extern "C" int cfd_push_phases(const void* sendbufs, int64_t P, int64_t nph,
 }
 
 // K6's registers and local bytes per thread, static shared bytes and
-// resident blocks per SM, into out[0..4] (as cfd_overlap_peer_info).
+// resident blocks per SM, into out[0..3] (as cfd_overlap_peer_info).
 // Returns the cudaError_t.
 extern "C" int cfd_push_phases_info(int* out) {
   cudaFuncAttributes a;

@@ -92,9 +92,10 @@
 // (and so finished) before it; across ranks it is the one block that may
 // spin while the sweep blocks run beside it.  Push blocks are capped at
 // kPeerPushBlocks in all, below the 132 x 6 blocks a card keeps resident in
-// the packed and direct gather forms (132 x 4 in the staged gather form at
-// the 96^3 eight-shard plans, whose 48 KB table every block of the launch
-// carries).  A staged table large enough to leave fewer resident blocks
+// the packed forms, the 132 x 4 of the direct gather form under gg (132 x
+// 5 under flux) and the 132 x 4 of the staged gather form at the 96^3
+// eight-shard plans, whose 48 KB table every block of the launch carries.
+// A staged table large enough to leave fewer resident blocks
 // than push blocks only delays the sweep blocks: every wait of a push block
 // is for a block 0 that is resident before it (the lowest index of its
 // grid, here or on the other rank), so the spinning blocks always drain.

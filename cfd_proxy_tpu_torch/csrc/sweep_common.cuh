@@ -37,7 +37,7 @@
 // bf16 state, widened as it is loaded like every other bf16 operand
 // (own_ref[:].astype(f32) in the reference body).
 // The two formulations differ only in where slot k's source and weights
-// are read, which the `Src` policy of sweep_chunk decides:
+// are read:
 //
 // - PackedSrc (K1): the source values were gathered ahead of the sweep
 //   (K4, pack_srcs.cu) into the compact (P, nb, NV, L) table; slot k's
@@ -48,16 +48,19 @@
 //   entry's pre-gathered ext table), with rectangular (P, nb, K, 3, bp)
 //   weights.  The reference's _masked_gather (W/128 compare-and-select
 //   passes) exists because a TPU gather shuffles within one vreg; here it
-//   is one indexed load per variable (of global memory in the direct body,
-//   of shared memory in the staged one: below).  Pad slots hold W-index 0
-//   and zero weight: they read own column 0 and add nothing (under flux
-//   too: with w = 0, udw = uow = a = 0).
+//   is an indexed load of the column (in the direct body from a
+//   point-major copy of the table in device memory, or from the tables as
+//   they lie; in the others from shared memory: below).  Pad slots hold
+//   W-index 0 and zero weight: they read own column 0 and add nothing
+//   (under flux too: with w = 0, udw = uow = a = 0).  The gather bodies
+//   are functions of their own (below); sweep_chunk, with PackedSrc as
+//   its `Src` policy, runs the packed formulation.
 //
 // The reference's gather kernel skips slot k for a whole 128-lane tile when
 // wks[k] <= t*128; wks are multiples of 128, so the per-lane test below
-// skips exactly the same (lane, slot) pairs.  Both policies feed the same
-// arithmetic in the same order, so K1 and K2 agree bit for bit on the same
-// plan.
+// skips exactly the same (lane, slot) pairs.  Both formulations feed the
+// same arithmetic in the same order, so K1 and K2 agree bit for bit on the
+// same plan.
 //
 // The Pallas kernels walk one block per grid step with the slot loop
 // unrolled over static widths; here every (shard, block) entry of the plan
@@ -100,14 +103,22 @@
 //
 // The gather form has four bodies, one per CUDA block shape:
 //
-// - sweep_chunk with GatherSrc (the DIRECT body): one CUDA block per
-//   (shard, entry, 128-lane chunk); each live slot lane reads its eight
-//   sources straight from global memory through the read-only cache, eight
-//   scattered 4-byte loads at stride ndev (own) or EP (ext).  A warp's load
-//   of one variable touches up to 32 sectors, eight times per slot: the
-//   body ran at 21 % of its bound at bp 8192 (PERF.md section 6).  It needs
-//   no shared memory, so it takes any bp (the rule keeps it for bp or EP
-//   not a multiple of 4, and past a quarter table a block can hold).
+// - sweep_chunk_direct (the DIRECT body): no shared memory table, so it
+//   takes any bp and EP (the rule keeps it for bp or EP not a multiple of
+//   4, past a quarter table a block can hold, and for flux past half a
+//   table).  Its wrapper first writes the entry's [own ‖ live ext] columns
+//   point-major into device memory (gather_table_part: a column's eight
+//   values one 32-byte sector); one CUDA block then sweeps kDirectChunk
+//   lanes of an entry, two lanes 32 apart a thread, the thread's live
+//   slots one stream of items fetched kDirectAhead ahead, and a slot
+//   lane's sources are two 16-byte loads of one sector.  The W-indices of
+//   a warp scatter over the table (a plan analysis of the 96^3 mesh's
+//   kind: 22-29 distinct columns a warp and slot), so the column-major
+//   reads it replaced (eight 4-byte loads at stride ndev or EP) touched
+//   158-209 sectors a warp and slot, and that traffic set the old body's
+//   pace (21-29 % of its bound at bp 8192 on an H100, PERF.md section
+//   6).  The wrapper may also hand no table (blocksweep.direct_sources
+//   "columns"): the same stream then reads var_T and exts as they lie.
 // - sweep_entry_staged (the STAGED body): one CUDA block per listed
 //   (shard, entry), which stages the entry's table [own (NV, bp) ‖ the live
 //   ext columns (NV, ext_cnt)] in shared memory with 16-byte loads, once,
@@ -245,25 +256,15 @@ struct PackedSrc {
 };
 
 // K2: gather from [own ‖ exts] by the W-index; the sources are the f32
-// state (the reference refuses bf16 sources with this formulation).
+// state (the reference refuses bf16 sources with this formulation).  The
+// gather bodies below read these operands (sweep_chunk takes PackedSrc
+// alone).
 template <class WT>
 struct GatherSrc {
-  static constexpr bool kDelta = false;
   const float* exts;        // (P, nb, NV, EP)
   const int32_t* slot_idx;  // (P, nb, K, bp) W-index in [0, bp + EP)
   const WT* slot_w;         // (P, nb, K, 3, bp)
   int64_t ep;
-
-  template <class OutT>
-  __device__ __forceinline__ SlotPtrs<float, WT> slot(
-      const SweepArgs<OutT>& a, int64_t g, int k, int /*off*/, int lane,
-      const float* own_blk) const {
-    const int64_t row = g * a.K + k;                 // (shard, entry, slot)
-    const int i = __ldg(slot_idx + row * a.bp + lane);
-    const bool own = i < a.bp;
-    return {own ? own_blk + i : exts + g * kNV * ep + (i - a.bp),
-            own ? a.ndev : ep, slot_w + row * 3 * a.bp + lane, a.bp};
-  }
 };
 
 // Grid blocks a sweep needs: one per (shard, entry, chunk).
@@ -449,6 +450,246 @@ __device__ __forceinline__ void slot_update(float (&acc)[op_rows(kOp)],
       acc[v] += 0.5f * (udw * own[v] + uow * src[v]) -
                 0.5f * am * (src[v] - own[v]);
     }
+  }
+}
+
+// ---- The direct gather body (see the header comment).
+
+// Lanes a thread sweeps in the direct body: lanes l and l + 32 of one
+// 64-lane run, so each of a warp's loads and stores is one row of 32
+// neighbouring elements at any bp and any operand offset.
+constexpr int kDirectLanes = 2;
+// Lanes one CUDA block of the direct body sweeps: a group of kDirectLanes
+// lanes per thread.
+constexpr int kDirectChunk = kThreads * kDirectLanes;
+// Items of a thread's stream fetched ahead of the one it computes (the
+// cluster body's depth).
+constexpr int kDirectAhead = 2;
+// Resident blocks per SM that ptxas is asked to allow for in the direct
+// body's kernels (K2's, sweep_gather.cu, and K3's, sweep_overlap.cu): gg
+// keeps 48 accumulators and 16 own values (two lanes) and takes up to 128
+// registers at four blocks; flux, with 16 accumulators, five.
+template <Op kOp>
+constexpr int kDirectMinBlocks = kOp == Op::kGG ? 4 : 5;
+
+// Grid blocks of the direct body: one per (shard, entry, kDirectChunk
+// lanes).
+inline int64_t direct_grid(int64_t P, int64_t nb, int bp, int64_t* chunks) {
+  *chunks = (bp + kDirectChunk - 1) / kDirectChunk;
+  return P * nb * (*chunks);
+}
+
+// The direct body's source table in device memory (built by
+// sweep_gather.cu::cfd_gather_table): entry g's [own (bp) ‖ ext (EP)]
+// columns point-major, column i's eight variables the two float4 at
+// t[2i] and t[2i + 1] of t = tbl + 2·g·(bp + EP), one 32-byte sector, so a
+// slot lane's eight sources are two 16-byte loads of one sector where the
+// column-major tables take eight scattered 4-byte loads.  Columns
+// [bp + ext_cnt[g], bp + EP) are never written nor read.
+__host__ __device__ constexpr int64_t table_floats(int64_t P, int64_t nb,
+                                                   int64_t bp, int64_t ep) {
+  return P * nb * (bp + ep) * kNV;
+}
+
+// One item of a thread's work in the direct body: a lane group (its first
+// lane; the block's last lane or past it: no item left) at one slot k live
+// in that lane (K: the group has no live slot, and only writes its
+// output), with the group's W-indices and three weights a lane.
+template <int L>
+struct DirectItem {
+  int lane;
+  int k;
+  int i[L];
+  float w[3][L];
+};
+
+// The direct body: kDirectChunk lanes of one listed (shard, entry), chunk
+// blk % a.chunks of entry blk / a.chunks, by one CUDA block; `tbl` the
+// point-major table above, or null: the sources are read from var_T and
+// exts as they lie (eight 4-byte loads a source).  Thread t takes lanes
+// l and l + 32 of its 64-lane run, l = lo + (t / 32)·64 + t % 32, as one
+// stream of items in slot order, each item's W-indices and weights
+// fetched kDirectAhead items before it computes (sweep_items_quad's
+// stream for a group of lanes 32 apart); every load of a warp is a row of
+// 32 neighbouring elements.  Liveness stays per lane (the group enters
+// slot k where its first lane is live, lane + 32 adds its terms only where
+// it is live too), and a lane past bp neither reads nor writes.  The
+// arithmetic is slot_update's, in slot order per lane, so the body agrees
+// bit for bit with the staged, cluster and quad bodies.  The early returns
+// are uniform over the CUDA block up to the barrier.
+template <bool kAccumulate, Op kOp, class WT, class OutT>
+__device__ __forceinline__ void sweep_chunk_direct(const SweepArgs<OutT>& a,
+                                                   const GatherSrc<WT>& s,
+                                                   const float4* tbl,
+                                                   int64_t blk) {
+  constexpr int R = op_rows(kOp);
+  constexpr int L = kDirectLanes;
+  __shared__ int s_width[kMaxSlots];
+  const int64_t g = blk / a.chunks;     // flat (shard, entry) index
+  const int64_t b = g % a.nb;           // entry within the shard's list
+  if (b > 0 && a.block_ids[g] == a.block_ids[g - 1]) return;   // pad entry
+  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
+    s_width[k] = a.slots[k];
+  }
+  __syncthreads();
+
+  const int K = a.K;
+  const int bp = a.bp;
+  const int lo = static_cast<int>(blk % a.chunks) * kDirectChunk;
+  const int hi = min(lo + kDirectChunk, bp);
+  const int64_t ndev = a.ndev;
+  const int64_t base = static_cast<int64_t>(a.block_ids[g]) * bp;
+  const float* own_blk = a.var_T + (g / a.nb) * kNV * ndev + base;
+  const float* ext = s.exts + g * kNV * s.ep;
+  const float4* t = tbl + 2 * g * (bp + s.ep);
+  OutT* out_p = a.out + (g / a.nb) * R * ndev + base;
+  const float* scale = a.scale + g * bp;
+  // column i of the entry's table (own i < bp, else ext i - bp)
+  auto load = [&](int i, float (&x)[kNV]) {
+    if (tbl != nullptr) {
+      const float4 p = __ldg(t + 2 * i);
+      const float4 q = __ldg(t + 2 * i + 1);
+      x[0] = p.x; x[1] = p.y; x[2] = p.z; x[3] = p.w;
+      x[4] = q.x; x[5] = q.y; x[6] = q.z; x[7] = q.w;
+    } else {
+      const bool own = i < bp;
+      const float* p = own ? own_blk + i : ext + (i - bp);
+      const int64_t stride = own ? ndev : s.ep;
+#pragma unroll
+      for (int v = 0; v < kNV; ++v) x[v] = __ldg(p + v * stride);
+    }
+  };
+  // the first lane of group position j
+  auto lane_of = [&](int j) { return lo + (j / 32) * (32 * L) + j % 32; };
+  // the first slot at or after k live in `lane` (K: none)
+  auto live_from = [&](int lane, int k) {
+    while (k < K && lane >= s_width[k]) ++k;
+    return k;
+  };
+  const int step = static_cast<int>(blockDim.x);
+  // the fetch cursor: group position fj, slot fk of the next item
+  int fj = static_cast<int>(threadIdx.x);
+  int fk = live_from(lane_of(fj), 0);
+  auto fetch = [&](DirectItem<L>& f) {
+    const int lane = lane_of(fj);
+    f.lane = lane;
+    f.k = fk;
+    if (lane >= hi) return;
+    if (fk < K) {
+      const int64_t row = g * K + fk;     // (shard, entry, slot)
+      const int32_t* ip = s.slot_idx + row * bp + lane;
+      const WT* wp = s.slot_w + row * 3 * bp + lane;
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        const bool in = lane + 32 * u < hi;
+        f.i[u] = in ? __ldg(ip + 32 * u) : 0;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          f.w[d][u] = in ? ld(wp + d * bp + 32 * u) : 0.0f;
+        }
+      }
+      fk = live_from(lane, fk + 1);
+      if (fk < K) return;
+    }
+    fj += step;                           // the group's last item
+    fk = live_from(lane_of(fj), 0);
+  };
+  DirectItem<L> q[kDirectAhead + 1];
+#pragma unroll
+  for (int d = 0; d < kDirectAhead; ++d) fetch(q[d]);
+  int lane = q[0].lane;
+  if (lane >= hi) return;
+  float own[L][kNV];
+  float acc[L][R];
+  float sc[L];
+  auto begin = [&]() {
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+      const int l = lane + 32 * u;
+      const bool in = l < hi;
+      if (in) {
+        load(l, own[u]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < kNV; ++v) own[u][v] = 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[u][r] = kAccumulate && in ? widen(out_p[r * ndev + l]) : 0.0f;
+      }
+      sc[u] = in ? __ldg(scale + l) : 0.0f;
+    }
+  };
+  begin();
+  while (true) {
+    fetch(q[kDirectAhead]);
+    const DirectItem<L>& c = q[0];
+    if (c.k < K) {
+      float src[L][kNV];
+#pragma unroll
+      for (int u = 0; u < L; ++u) load(c.i[u], src[u]);
+      const int live = min(s_width[c.k], hi);
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        if (u == 0 || lane + 32 * u < live) {
+          const float w[3] = {c.w[0][u], c.w[1][u], c.w[2][u]};
+          slot_update<kOp>(acc[u], own[u], src[u], w);
+        }
+      }
+    }
+    if (q[1].lane != lane) {              // the group's last item
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        const int l = lane + 32 * u;
+        if (l < hi) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            store(out_p + r * ndev + l, acc[u][r] * sc[u]);
+          }
+        }
+      }
+      lane = q[1].lane;
+      if (lane >= hi) break;
+      begin();
+    }
+#pragma unroll
+    for (int d = 0; d < kDirectAhead; ++d) q[d] = q[d + 1];
+  }
+}
+
+// The direct body's table (see table_floats) for CUDA block blk of a grid
+// of `splits` blocks per listed (shard, entry): entry blk / splits, its
+// own columns var_T[p, :, base : base + bp] then its live ext columns
+// exts[p, b, :, :ext_cnt] (null: all EP), float4 q of the entry's table
+// (column q / 2, variables 4·(q % 2) ..) a thread, so a warp writes 512
+// neighbouring bytes and reads 16 neighbouring columns of four rows.  A
+// pad entry writes nothing (the sweep skips it).
+__device__ __forceinline__ void gather_table_part(
+    const float* var_T, int64_t ndev, const float* exts, int64_t ep,
+    const int32_t* block_ids, const int32_t* ext_cnt, int64_t nb, int bp,
+    int64_t splits, float4* tbl, int64_t blk) {
+  const int64_t g = blk / splits;
+  const int64_t b = g % nb;
+  if (b > 0 && block_ids[g] == block_ids[g - 1]) return;   // pad entry
+  const int live = ext_cnt == nullptr
+                       ? static_cast<int>(ep)
+                       : min(max(ext_cnt[g], 0), static_cast<int>(ep));
+  const int64_t n = 2 * (static_cast<int64_t>(bp) + live);
+  const float* own =
+      var_T + (g / nb) * kNV * ndev + static_cast<int64_t>(block_ids[g]) * bp;
+  const float* ext = exts + g * kNV * ep;
+  float4* t = tbl + 2 * g * (bp + ep);
+  const int64_t stride = splits * blockDim.x;
+  for (int64_t q = (blk % splits) * blockDim.x + threadIdx.x; q < n;
+       q += stride) {
+    const int64_t c = q / 2;
+    const int h = static_cast<int>(q % 2);
+    const bool o = c < bp;
+    const float* p = (o ? own + c : ext + (c - bp)) +
+                     4 * h * (o ? ndev : ep);
+    const int64_t st = o ? ndev : ep;
+    t[q] = make_float4(__ldg(p), __ldg(p + st), __ldg(p + 2 * st),
+                       __ldg(p + 3 * st));
   }
 }
 

@@ -73,20 +73,32 @@
 //   shard against the cluster body's 0.117: its three remote planes take
 //   about 74 % of its time (all-local reads: 0.076), so the rule keeps
 //   flux on the direct body.
-// - Direct (sweep_chunk with GatherSrc): one CUDA block of 128 threads per
-//   (shard, entry, 128-lane chunk), sources read from device memory; no
-//   shared memory, so it runs at any bp.
+// - Direct (sweep_common.cuh::sweep_chunk_direct): no shared memory, so it
+//   runs at any bp and EP.  The wrapper (blocksweep.gather_table) first
+//   launches sweep_gather_table_kernel, which writes each listed entry's
+//   own and live ext columns point-major into a device-memory table
+//   (P, nb, bp + EP, NV), 16-byte stores, a warp 512 neighbouring bytes;
+//   then one CUDA block of 128 threads per (shard, entry, 256 lanes)
+//   sweeps, two lanes 32 apart a thread (each load and store of a warp one
+//   row of 32 neighbouring elements, at any operand offset), each
+//   thread's live slots one stream of items whose W-indices and weights
+//   are fetched two items ahead, a slot lane's eight sources two 16-byte
+//   loads of one sector of the table.  The table's bytes (written once,
+//   read once) count in the kernel's time; its bound stays the sweep's
+//   own, and chip_smoke.py::table_bound reports the one with the table's
+//   bytes beside it (bound_ms_with_table).
 //
 // Bound: sweep_common.cuh's, with every table column read once per entry
 // (chip_smoke.py::sweep_bound).  Registers: the accumulators (24 gg, 8
 // flux), the 8 own values and the next slot's prefetched W-index and
-// weights stay in registers.  The zero-filled forms ask ptxas for four
-// resident blocks per SM, which fits them in 64 registers with no spill
-// (left free, gg took 68 and three blocks, 7 % slower at the one-shard
-// plan); the init forms ask for two and take 64-71, no spill, three
-// blocks.  The direct kernel keeps K1's hint (five blocks; 96 registers
-// and 8 bytes of spill for gg-init).  Both counts are in the build log
-// (chip_smoke.py's build phase, chip_turns.py).
+// weights stay in registers.  The zero-filled staged forms ask ptxas for
+// four resident blocks per SM, which fits them in 64 registers with no
+// spill (left free, gg took 68 and three blocks, 7 % slower at the
+// one-shard plan); the init forms ask for two and take 64-71, no spill,
+// three blocks.  The direct kernel asks for four blocks under gg (two
+// lanes' 48 accumulators and 16 own values in up to 128 registers) and
+// five under flux (sweep_common.cuh::kDirectMinBlocks).  Both counts are
+// in the build log (chip_smoke.py's build phase, chip_turns.py).
 //
 // Without init the wrapper hands an uninitialised output and the kernel
 // writes zeros into the columns of blocks the plan does not list
@@ -99,10 +111,10 @@
 
 namespace {
 
-// Resident blocks per SM that ptxas is asked to allow for: K1's value (see
-// sweep_packed.cu), kept for the same body and for the flux and
-// reduced-precision instances.
-constexpr int kMinBlocks = 5;
+// The direct body's table build: threads a block, and float4 of an
+// entry's own columns a thread (sets the blocks per entry).
+constexpr int kTableThreads = 256;
+constexpr int kTableQuads = 4;
 
 // The staged body's CUDA block, and the resident blocks per SM ptxas is
 // asked to allow for: four for the zero-filled forms (64 registers), two
@@ -112,16 +124,26 @@ constexpr int kStagedMinBlocks = 4;
 constexpr int kStagedInitMinBlocks = 2;
 
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
-__global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
-sweep_gather_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s) {
-  if constexpr (!kAccumulate) {     // this chunk's lane of unlisted blocks
+__global__ void __launch_bounds__(cfd::kThreads, cfd::kDirectMinBlocks<kOp>)
+sweep_gather_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                    const float4* tbl) {
+  if constexpr (!kAccumulate) {     // this block's lanes of unlisted blocks
     cfd::clear_gaps<cfd::op_rows(kOp)>(
         a, blockIdx.x / a.chunks,
         static_cast<int>((blockIdx.x % a.chunks) * cfd::kThreads) +
             static_cast<int>(threadIdx.x),
-        a.bp);
+        static_cast<int>(a.chunks) * cfd::kThreads);
   }
-  cfd::sweep_chunk<kAccumulate, kOp>(a, s, blockIdx.x);
+  cfd::sweep_chunk_direct<kAccumulate, kOp>(a, s, tbl, blockIdx.x);
+}
+
+__global__ void __launch_bounds__(kTableThreads)
+sweep_gather_table_kernel(const float* var_T, int64_t ndev, const float* exts,
+                          int64_t ep, const int32_t* block_ids,
+                          const int32_t* ext_cnt, int64_t nb, int bp,
+                          int64_t splits, float4* tbl) {
+  cfd::gather_table_part(var_T, ndev, exts, ep, block_ids, ext_cnt, nb, bp,
+                         splits, tbl, blockIdx.x);
 }
 
 template <bool kAccumulate, cfd::Op kOp, class W, class O>
@@ -172,12 +194,13 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
                   int64_t ep, const int32_t* slot_idx, const void* slot_w,
                   const float* scale, const int32_t* block_ids,
                   const int32_t* slots, int K, int64_t P, int64_t nb, int bp,
-                  const int32_t* ext_cnt, int body, int threads, void* out,
-                  cudaStream_t stream) {
+                  const int32_t* ext_cnt, const void* tbl, int body,
+                  int threads, void* out, cudaStream_t stream) {
   if (P == 0 || nb == 0) return 0;
   int64_t chunks = 0;
-  const int64_t grid = cfd::sweep_grid(P, nb, bp, &chunks);
-  if (!cfd::sweep_args_ok(K, bp, grid) || ep <= 0) {
+  const int64_t grid = cfd::direct_grid(P, nb, bp, &chunks);
+  if (!cfd::sweep_args_ok(K, bp, grid) || ep <= 0 ||
+      reinterpret_cast<uintptr_t>(tbl) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cfd::SweepArgs<O> a{var_T, ndev, scale, block_ids, slots, K, nb, bp,
@@ -186,7 +209,8 @@ int launch_gather(const float* var_T, int64_t ndev, const float* exts,
                             ep};
   if (body == cfd::kDirect) {
     sweep_gather_kernel<kAccumulate, kOp, W, O>
-        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
+        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(
+            a, s, static_cast<const float4*>(tbl));
     return static_cast<int>(cudaGetLastError());
   }
   if (body == cfd::kCluster) {
@@ -241,8 +265,8 @@ extern "C" int cfd_sweep_gather(const float* var_T, int64_t ndev,
                                 const float* scale, const int32_t* block_ids,
                                 const int32_t* slots, int K, int64_t P,
                                 int64_t nb, int bp, const int32_t* ext_cnt,
-                                int body, int accumulate, int op,
-                                int w_bf16, int out_bf16, int threads,
+                                const void* tbl, int body, int accumulate,
+                                int op, int w_bf16, int out_bf16, int threads,
                                 void* out, cudaStream_t stream) {
   if (!cfd::op_ok(op)) return static_cast<int>(cudaErrorInvalidValue);
   const bool flags[] = {accumulate != 0, op == 1, w_bf16 != 0,
@@ -255,8 +279,36 @@ extern "C" int cfd_sweep_gather(const float* var_T, int64_t ndev,
                          cfd::Elt<decltype(w16)::value>,
                          cfd::Elt<decltype(o16)::value>>(
         var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids, slots, K,
-        P, nb, bp, ext_cnt, body, threads, out, stream);
+        P, nb, bp, ext_cnt, tbl, body, threads, out, stream);
   });
+}
+
+// The direct body's table of P*nb entries (cfd::table_floats floats at
+// `tbl`, 16-byte aligned) from var_T (P, NV, ndev) and exts (P, nb, NV,
+// ep) as cfd_sweep_gather takes them, each entry's own columns and its
+// ext_cnt live ext columns (null: all ep).  Launches on `stream`; returns
+// the launch's cudaError_t.
+extern "C" int cfd_gather_table(const float* var_T, int64_t ndev,
+                                const float* exts, int64_t ep,
+                                const int32_t* block_ids,
+                                const int32_t* ext_cnt, int64_t P,
+                                int64_t nb, int bp, void* tbl,
+                                cudaStream_t stream) {
+  if (P == 0 || nb == 0) return 0;
+  // blocks an entry: its own columns kTableQuads float4 a thread; the
+  // live ext columns continue the same blocks' stride
+  const int64_t per = static_cast<int64_t>(kTableThreads) * kTableQuads;
+  const int64_t splits = (2 * static_cast<int64_t>(bp) + per - 1) / per;
+  const int64_t grid = P * nb * splits;
+  if (bp <= 0 || ep <= 0 || grid > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(tbl) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sweep_gather_table_kernel<<<static_cast<unsigned>(grid), kTableThreads, 0,
+                              stream>>>(var_T, ndev, exts, ep, block_ids,
+                                        ext_cnt, nb, bp, splits,
+                                        static_cast<float4*>(tbl));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Registers and local bytes per thread (spills and stack), static shared
@@ -313,4 +365,17 @@ extern "C" int cfd_sweep_gather_info(int body, int accumulate, int op,
     }
     return info(sweep_gather_kernel<kAcc, kOp, W, O>, cfd::kThreads, 0);
   });
+}
+
+// The same facts of the direct body's table build (out[4] = 0).
+extern "C" int cfd_gather_table_info(int* out) {
+  cudaFuncAttributes f;
+  const cudaError_t e = cudaFuncGetAttributes(&f, sweep_gather_table_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = f.numRegs;
+  out[1] = static_cast<int>(f.localSizeBytes);
+  out[2] = static_cast<int>(f.sharedSizeBytes);
+  out[4] = 0;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 3, sweep_gather_table_kernel, kTableThreads, 0));
 }

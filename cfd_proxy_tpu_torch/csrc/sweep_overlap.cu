@@ -28,12 +28,16 @@
 // where a quarter fits, a cluster of four (sweep_overlap_quad_kernel, the
 // region padded to whole clusters of four: 0.160 ms against direct 0.320
 // at the two-shard 96^3 interior plan at bp 8192 on an H100; its flux form
-// lost to direct there, 0.314 against 0.285); else direct.  The flux form keeps
-// the direct body where the rule says staged: the staged one took 1.0035x
-// the direct one's time in turns at the eight-shard 96^3 interior plan at
-// bp 512 on an H100, where its four 128-thread blocks per SM leave the
-// flux body (8 accumulators, little work per load) short of the direct
-// body's six.  The
+// lost to direct there, 0.314 against 0.285); else direct
+// (sweep_overlap_direct_kernel: K2's direct body in the sweep blocks, the
+// wrapper building its point-major table before the launch where
+// blocksweep.direct_sources says so).  The flux form keeps the direct
+// body where the rule says staged: the staged one took 1.0035x the time
+// of an earlier direct body (one lane a thread, six blocks an SM) in
+// turns at the eight-shard 96^3 interior plan at bp 512 on an H100, where
+// its four 128-thread blocks per SM leave the flux body (8 accumulators,
+// little work per load) short; the present direct body took 0.84x of
+// that one's time there (PERF.md section 6).  The
 // push is a copy of bytes, so one body serves f32 and bf16 buffers: each
 // (shard, phase) buffer is rows*s_max*esize bytes, moved in 16-byte pieces.
 //
@@ -113,8 +117,9 @@ __device__ __forceinline__ void push_chunk(const PushArgs& p, int64_t blk) {
 // Resident blocks per SM that ptxas is asked to allow for (see
 // sweep_packed.cu).  Measured on an H100 at the one-shard 96^3 shapes, in
 // turns: no hint 0.240 ms, 5 0.243 ms, 6 0.190 ms, 8 0.241 ms.
-// The direct gather, flux and reduced-precision instances keep the same
-// hint (untuned).
+// The packed flux and reduced-precision instances keep the same hint
+// (untuned); the gather forms' direct sweep blocks run kernels of their
+// own (sweep_overlap_direct_kernel, below).
 constexpr int kMinBlocks = 6;
 
 template <cfd::Op kOp, class Src, class O>
@@ -127,15 +132,33 @@ sweep_overlap_kernel(cfd::SweepArgs<O> a, Src s, PushArgs p) {
   cfd::sweep_chunk<true, kOp>(a, s, blockIdx.x - p.blocks);
 }
 
+// The gather forms' direct sweep blocks (sweep_common.cuh::
+// sweep_chunk_direct: kDirectChunk lanes of one entry a block, two lanes a
+// thread, sources from the table `tbl` or, null, from var_T and exts) after
+// the push blocks.  Resident blocks per SM asked of ptxas as K2's direct
+// instances (sweep_common.cuh::kDirectMinBlocks): four for gg, five for
+// flux.
+
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kThreads, cfd::kDirectMinBlocks<kOp>)
+sweep_overlap_direct_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                            const float4* tbl, PushArgs p) {
+  if (static_cast<int64_t>(blockIdx.x) < p.blocks) {
+    push_chunk(p, blockIdx.x);
+    return;
+  }
+  cfd::sweep_chunk_direct<true, kOp>(a, s, tbl, blockIdx.x - p.blocks);
+}
+
 // The gather forms' staged sweep blocks: one per listed entry
 // (sweep_common.cuh::sweep_entry_staged), of kThreads like the push blocks
 // (the push code is written for them); the launch's dynamic shared memory
 // holds one staged table per block.  Resident blocks per SM asked of
 // ptxas: the staged table (48 KB at the eight-shard 96^3 interior plan at
 // bp 512) admits four, so the sweep keeps up to 128 registers (it takes
-// 66-80) and spills nothing, where the direct body at six blocks spills 80
-// bytes.  The push blocks' waits drain at any occupancy a staged table
-// leaves (push_common.cuh).
+// 66-80) and spills nothing, where the first direct body (one lane a
+// thread) at six blocks spilled 80 bytes.  The push blocks' waits drain
+// at any occupancy a staged table leaves (push_common.cuh).
 constexpr int kStagedMinBlocks = 4;
 
 template <cfd::Op kOp, class W, class O>
@@ -200,6 +223,7 @@ struct GatherLaunch {
   const int32_t* ext_cnt;   // (P, nb) live ext columns, or null
   int body;
   int threads;              // the cluster or quad body's block, >= kThreads
+  const float4* tbl;        // the direct body's table, or null
 };
 
 // CUDA blocks of one cluster of a gather launch's body: 2 (cluster), 4
@@ -223,23 +247,32 @@ struct IsGather<cfd::GatherSrc<WT>> : std::true_type {
   using W = WT;
 };
 
+// The sweep blocks of a launch of one instance: a gather body's (one a
+// staged entry, ctas a cluster entry, kDirectChunk lanes a direct block),
+// else sweep_chunk's; sets a->chunks where the body reads it.
+template <class Src, class O>
+int64_t sweep_blocks_of(cfd::SweepArgs<O>* a, int64_t P, int body,
+                        int64_t ctas) {
+  if (body == cfd::kStaged) return P * a->nb;
+  if (ctas > 1) return ctas * P * a->nb;
+  return IsGather<Src>::value ? cfd::direct_grid(P, a->nb, a->bp, &a->chunks)
+                              : cfd::sweep_grid(P, a->nb, a->bp, &a->chunks);
+}
+
 // Checks the push shape, sizes the grid and launches one instance: the
-// staged or cluster gather body as `st.body` says (Src a GatherSrc), else
-// sweep_chunk.
+// staged, cluster, quad or direct gather body as `st.body` says (Src a
+// GatherSrc), else sweep_chunk.
 template <cfd::Op kOp, class Src, class O>
 int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                    const void* sendbufs, int esize, const int32_t* dsts,
                    int64_t nph, int64_t s_max, void* recv,
                    cudaStream_t stream,
-                   GatherLaunch st = {nullptr, cfd::kDirect, 0}) {
+                   GatherLaunch st = {nullptr, cfd::kDirect, 0, nullptr}) {
   const int64_t ctas = body_ctas(st.body);
   if (ctas > 1 && st.threads < cfd::kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t sweep_blocks =
-      st.body == cfd::kStaged ? P * a.nb
-      : ctas > 1              ? ctas * P * a.nb
-                              : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+  const int64_t sweep_blocks = sweep_blocks_of<Src>(&a, P, st.body, ctas);
   const int64_t row_bytes = s_max * esize;
   if ((esize != 2 && esize != 4) || row_bytes % kPushBytes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -284,9 +317,13 @@ int launch_overlap(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                static_cast<size_t>(smem), stream>>>(a, s, st.ext_cnt, p);
       return static_cast<int>(cudaGetLastError());
     }
+    sweep_overlap_direct_kernel<kOp, W, O><<<static_cast<unsigned>(grid),
+                                             cfd::kThreads, 0, stream>>>(
+        a, s, st.tbl, p);
+  } else {
+    sweep_overlap_kernel<kOp, Src, O><<<static_cast<unsigned>(grid),
+                                        cfd::kThreads, 0, stream>>>(a, s, p);
   }
-  sweep_overlap_kernel<kOp, Src, O><<<static_cast<unsigned>(grid),
-                                      cfd::kThreads, 0, stream>>>(a, s, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,6 +337,24 @@ sweep_overlap_peer_kernel(cfd::SweepArgs<O> a, Src s, cfd::PeerPush p) {
   const int64_t blk = blockIdx.x;
   if (blk > p.blocks) {
     cfd::sweep_chunk<true, kOp>(a, s, blk - 1 - p.blocks);
+    return;
+  }
+  if (blk == 0) {
+    cfd::peer_signal_block(p);
+  } else {
+    cfd::peer_push_block(p, blk - 1);
+  }
+  cfd::peer_finish_block(p);
+}
+
+// The same with the direct gather body in the sweep blocks.
+template <cfd::Op kOp, class W, class O>
+__global__ void __launch_bounds__(cfd::kThreads, cfd::kDirectMinBlocks<kOp>)
+sweep_overlap_peer_direct_kernel(cfd::SweepArgs<O> a, cfd::GatherSrc<W> s,
+                                 const float4* tbl, cfd::PeerPush p) {
+  const int64_t blk = blockIdx.x;
+  if (blk > p.blocks) {
+    cfd::sweep_chunk_direct<true, kOp>(a, s, tbl, blk - 1 - p.blocks);
     return;
   }
   if (blk == 0) {
@@ -419,17 +474,15 @@ struct PeerOperands {
 template <cfd::Op kOp, class Src, class O>
 int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                         const PeerOperands& o, cudaStream_t stream,
-                        GatherLaunch st = {nullptr, cfd::kDirect, 0}) {
+                        GatherLaunch st = {nullptr, cfd::kDirect, 0,
+                                           nullptr}) {
   static_assert(cfd::kPushThreads == cfd::kThreads,
                 "push and sweep blocks share one launch");
   const int64_t ctas = body_ctas(st.body);
   if (ctas > 1 && st.threads < cfd::kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t sweep_blocks =
-      st.body == cfd::kStaged ? P * a.nb
-      : ctas > 1              ? ctas * P * a.nb
-                              : cfd::sweep_grid(P, a.nb, a.bp, &a.chunks);
+  const int64_t sweep_blocks = sweep_blocks_of<Src>(&a, P, st.body, ctas);
   cfd::PeerPush p;
   if ((o.esize != 2 && o.esize != 4) ||
       !cfd::make_peer_push(&p, o.sendbufs, o.recv, o.table, o.flags, P,
@@ -473,10 +526,14 @@ int launch_overlap_peer(cfd::SweepArgs<O> a, int64_t P, const Src& s,
                static_cast<size_t>(smem), stream>>>(a, s, st.ext_cnt, p);
       return static_cast<int>(cudaGetLastError());
     }
+    sweep_overlap_peer_direct_kernel<kOp, W, O>
+        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(
+            a, s, st.tbl, p);
+  } else {
+    sweep_overlap_peer_kernel<kOp, Src, O><<<static_cast<unsigned>(grid),
+                                             cfd::kThreads, 0, stream>>>(
+        a, s, p);
   }
-  sweep_overlap_peer_kernel<kOp, Src, O><<<static_cast<unsigned>(grid),
-                                           cfd::kThreads, 0, stream>>>(a, s,
-                                                                       p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,12 +585,12 @@ extern "C" int cfd_sweep_overlap_gather(
     const float* var_T, int64_t ndev, const float* exts, int64_t ep,
     const int32_t* slot_idx, const void* slot_w, const float* scale,
     const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
-    int64_t nb, int bp, const int32_t* ext_cnt, int body, int op,
-    int w_bf16, int out_bf16, int threads, void* out,
+    int64_t nb, int bp, const int32_t* ext_cnt, const void* tbl, int body,
+    int op, int w_bf16, int out_bf16, int threads, void* out,
     const void* sendbufs, int esize, const int32_t* dsts, int64_t nph,
     int64_t s_max, void* recv, cudaStream_t stream) {
   if (ep <= 0 || !cfd::op_ok(op) || body < cfd::kDirect ||
-      body > cfd::kQuad) {
+      body > cfd::kQuad || reinterpret_cast<uintptr_t>(tbl) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool flags[] = {op == 1, w_bf16 != 0, out_bf16 != 0};
@@ -548,7 +605,8 @@ extern "C" int cfd_sweep_overlap_gather(
                               ep};
     return launch_overlap<kOp>(
         a, P, s, sendbufs, esize, dsts, nph, s_max, recv, stream,
-        GatherLaunch{ext_cnt, body, threads});
+        GatherLaunch{ext_cnt, body, threads,
+                     static_cast<const float4*>(tbl)});
   });
 }
 
@@ -588,12 +646,12 @@ extern "C" int cfd_sweep_overlap_gather_peer(
     const float* var_T, int64_t ndev, const float* exts, int64_t ep,
     const int32_t* slot_idx, const void* slot_w, const float* scale,
     const int32_t* block_ids, const int32_t* slots, int K, int64_t P,
-    int64_t nb, int bp, const int32_t* ext_cnt, int body, int op,
-    int w_bf16, int out_bf16, int threads, void* out,
+    int64_t nb, int bp, const int32_t* ext_cnt, const void* tbl, int body,
+    int op, int w_bf16, int out_bf16, int threads, void* out,
     const void* sendbufs, int esize, const void* table, void* flags,
     void* recv, int64_t nph, int64_t s_max, int mode, cudaStream_t stream) {
   if (ep <= 0 || !cfd::op_ok(op) || body < cfd::kDirect ||
-      body > cfd::kQuad) {
+      body > cfd::kQuad || reinterpret_cast<uintptr_t>(tbl) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PeerOperands o{sendbufs, esize, table, flags, recv, nph, s_max,
@@ -610,23 +668,26 @@ extern "C" int cfd_sweep_overlap_gather_peer(
                               ep};
     return launch_overlap_peer<kOp>(
         a, P, s, o, stream,
-        GatherLaunch{ext_cnt, body, threads});
+        GatherLaunch{ext_cnt, body, threads,
+                     static_cast<const float4*>(tbl)});
   });
 }
 
 // Registers and local bytes per thread (spills and stack), static shared
 // bytes and resident blocks per SM of the gg peer instance (packed, or
-// gather) with the given dtype flags, into out[0..4].  Returns the
-// cudaError_t.
+// gather: its direct body) with the given dtype flags, into out[0..3], and
+// the resident blocks per SM its launch bounds ask for into out[4].
+// Returns the cudaError_t.
 extern "C" int cfd_overlap_peer_info(int gather, int w_bf16, int src_bf16d,
                                      int out_bf16, int* out) {
-  auto info = [out](auto kernel) {
+  auto info = [out](auto kernel, int asked) {
     cudaFuncAttributes a;
     const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);
     out[2] = static_cast<int>(a.sharedSizeBytes);
+    out[4] = asked;
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 3, kernel, cfd::kThreads, 0));
   };
@@ -635,8 +696,8 @@ extern "C" int cfd_overlap_peer_info(int gather, int w_bf16, int src_bf16d,
     return cfd::with_flags(f, [&](auto w16, auto o16) {
       using W = cfd::Elt<decltype(w16)::value>;
       using O = cfd::Elt<decltype(o16)::value>;
-      return info(
-          sweep_overlap_peer_kernel<cfd::Op::kGG, cfd::GatherSrc<W>, O>);
+      return info(sweep_overlap_peer_direct_kernel<cfd::Op::kGG, W, O>,
+                  cfd::kDirectMinBlocks<cfd::Op::kGG>);
     });
   }
   const bool f[] = {w_bf16 != 0, src_bf16d != 0, out_bf16 != 0};
@@ -645,7 +706,8 @@ extern "C" int cfd_overlap_peer_info(int gather, int w_bf16, int src_bf16d,
     using S = cfd::Elt<decltype(d16)::value>;
     using O = cfd::Elt<decltype(o16)::value>;
     return info(
-        sweep_overlap_peer_kernel<cfd::Op::kGG, cfd::PackedSrc<W, S>, O>);
+        sweep_overlap_peer_kernel<cfd::Op::kGG, cfd::PackedSrc<W, S>, O>,
+        kMinBlocks);
   });
 }
 
@@ -701,7 +763,7 @@ extern "C" int cfd_overlap_gather_info(int peer, int body, int op,
         return info(sweep_overlap_peer_staged_kernel<kOp, W, O>,
                     cfd::kThreads);
       }
-      return info(sweep_overlap_peer_kernel<kOp, cfd::GatherSrc<W>, O>,
+      return info(sweep_overlap_peer_direct_kernel<kOp, W, O>,
                   cfd::kThreads);
     } else {
       if (body == cfd::kCluster) {
@@ -714,8 +776,7 @@ extern "C" int cfd_overlap_gather_info(int peer, int body, int op,
       if (body == cfd::kStaged) {
         return info(sweep_overlap_staged_kernel<kOp, W, O>, cfd::kThreads);
       }
-      return info(sweep_overlap_kernel<kOp, cfd::GatherSrc<W>, O>,
-                  cfd::kThreads);
+      return info(sweep_overlap_direct_kernel<kOp, W, O>, cfd::kThreads);
     }
   });
 }

@@ -98,6 +98,7 @@ from cfd_proxy_tpu_torch.ops.blocksweep import (
     BF16,
     F32,
     OPS,
+    direct_sources,
     ext_counts,
     gather_exts,
     out_rows,
@@ -107,6 +108,7 @@ from cfd_proxy_tpu_torch.ops.blocksweep import (
     sweep_blocks_gather,
     sweep_blocks_overlap,
     sweep_blocks_overlap_gather,
+    table_lanes_per_column,
 )
 from cfd_proxy_tpu_torch.ops.plan import (
     NV,
@@ -484,6 +486,9 @@ class GreenGaussTorch(nn.Module):
 
         self.plans: dict[str, dict[str, torch.Tensor]] = {}
         self.wks: dict[str, tuple[int, ...]] = {}
+        # a gather class's choice of the direct body's sources, made here
+        # once (blocksweep.direct_sources)
+        self.sources: dict[str, str] = {}
         for c in CLASSES:
             ca = a["classes"][c]
             missing = [k for k in CLASS_KEYS[self.kernel] if k not in ca]
@@ -500,6 +505,9 @@ class GreenGaussTorch(nn.Module):
                   "slots": torch.tensor(slot_table(wks), device=self.device)}
             if self.kernel == "gather":
                 pl.update(self._gather_tables(c, ca, wks, bids.shape[1], dev))
+                self.sources[c] = direct_sources(
+                    self.bp, int(ca["ep"]), table_lanes_per_column(
+                        pl["slot_w"], pl["block_ids"], wks, pl["ext_cnt"]))
             else:
                 pl.update(self._packed_tables(c, ca, wks, bids.shape[1],
                                               pl["slot_w"].shape[3], dev))
@@ -723,11 +731,12 @@ class GreenGaussTorch(nn.Module):
         return (tables[cls], *(pl[k] for k in SWEEP_OPERANDS[self.kernel]))
 
     def _gather_kw(self, cls: str) -> dict:
-        """The gather sweeps' keyword operand: the class's live ext counts
-        (none for the packed kernel)."""
+        """The gather sweeps' keyword operands: the class's live ext counts
+        and its direct body's sources (none for the packed kernel)."""
         if self.kernel != "gather":
             return {}
-        return {"ext_cnt": self.plans[cls]["ext_cnt"]}
+        return {"ext_cnt": self.plans[cls]["ext_cnt"],
+                "sources": self.sources[cls]}
 
     def _sweep(self, cls: str, var_T, tables, init=None):
         """A class's sweep; its output (init's, else a new one) is stored

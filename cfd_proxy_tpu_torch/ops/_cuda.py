@@ -134,9 +134,10 @@ def lib() -> ctypes.CDLL:
                                 i64, i64, i32, i32, vp, vp]
     sweep = [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i64, i32]
     # gather: var_T, ndev, exts, ep, slot_idx, slot_w, scale, block_ids,
-    # slots, K, P, nb, bp, ext_cnt, the body (blocksweep.GATHER_BODY_CODES)
+    # slots, K, P, nb, bp, ext_cnt, the direct body's table, the body
+    # (blocksweep.GATHER_BODY_CODES)
     gather = [vp, i64, vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32, vp,
-              i32]
+              vp, i32]
     # sendbufs, esize, dsts, nph, s_max, recv, stream
     push = [vp, i32, vp, i64, i64, vp, vp]
     # the peer form's: sendbufs, esize, table, flags, recv, nph, s_max,
@@ -156,6 +157,10 @@ def lib() -> ctypes.CDLL:
                                         *peer]),
             ("cfd_sweep_overlap_gather_peer", [*gather, i32, i32, i32, i32,
                                                vp, *peer]),
+            # the direct gather body's table: var_T, ndev, exts, ep,
+            # block_ids, ext_cnt, P, nb, bp, tbl, stream
+            ("cfd_gather_table", [vp, i64, vp, i64, vp, vp, i64, i64, i32,
+                                  vp, vp]),
             # K6: sendbufs, P, nph, bytes, table, flags, recv, mode, stream
             ("cfd_push_phases", [vp, i64, i64, i64, vp, vp, vp, i32, vp]),
             # kernel facts (registers, local bytes, static shared bytes,
@@ -170,6 +175,7 @@ def lib() -> ctypes.CDLL:
             ("cfd_overlap_gather_info", [i32, i32, i32, i32, i32, i32,
                                          i32, vp]),
             ("cfd_push_phases_info", [vp]),
+            ("cfd_gather_table_info", [vp]),
             ("cfd_pack_srcs_info", [i32, i32, vp]),
             # mapped exchange memory (csrc/ipc.cu): device first
             ("cfd_ipc_alloc", [i32, i64, ctypes.POINTER(vp)]),
@@ -198,13 +204,16 @@ def kernel_info(name: str, *args: int) -> dict:
     "cfd_push_phases_info", "cfd_pack_srcs_info", "cfd_sweep_gather_info"
     or "cfd_overlap_gather_info" (the last two also give `active_clusters`:
     the clusters of the cluster body that can be resident at once, 0 for
-    the other bodies), args as it takes them."""
+    the other bodies; the first also `min_blocks`: the resident blocks per
+    SM its launch bounds ask for), args as it takes them."""
     out = (ctypes.c_int * 5)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
     check_launch(getattr(lib(), name)(*args, ptr), name)
     keys = ("regs", "local_bytes", "static_smem", "blocks_per_sm")
     if name in ("cfd_sweep_gather_info", "cfd_overlap_gather_info"):
         keys += ("active_clusters",)
+    elif name == "cfd_overlap_peer_info":
+        keys += ("min_blocks",)
     return dict(zip(keys, out))
 
 

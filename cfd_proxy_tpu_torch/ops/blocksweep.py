@@ -46,7 +46,9 @@ f32 operands, else "w16_" (bf16 weights), "d16_" (bf16 deltas) and "o16_"
 gather wrappers count their direct, cluster and quad bodies after the tag
 (`sweep_blocks_gather.direct_launches`, `.cluster_launches`,
 `.quad_launches`; their staged body in the names without any:
-`gather_body`).
+`gather_body`), and the direct body's table build, which they launch
+first where the plan's `sources` is "table" (`direct_sources`), counts in
+`gather_table.launches`.
 `launch_counters()` lists them all, so a run can show which bodies its main
 path ran.
 
@@ -88,6 +90,11 @@ GATHER_BODIES = ("staged", "cluster", "quad", "direct")
 # the bodies as the kernels take them (csrc/sweep_common.cuh::Body); the
 # fused kernel has all four
 GATHER_BODY_CODES = {"direct": 0, "staged": 1, "cluster": 2, "quad": 3}
+# where the direct body reads a slot lane's sources (`direct_sources`)
+DIRECT_SOURCES = ("columns", "table")
+# the direct body reads its point-major table where a plan has at least
+# this many real slot lanes per table column (`direct_sources`)
+DIRECT_TABLE_LANES = 1.0
 # lanes a thread of the quad body loads and stores at once, per op
 # (csrc/sweep_common.cuh::kQuadLanesGG, kQuadLanesFlux)
 QUAD_LANES = {"gg": 4, "flux": 2}
@@ -149,7 +156,8 @@ def launch_counters(wrappers: tuple = ()) -> dict:
     "pack_srcs_d16"."""
     out = {}
     for fn in wrappers or (pack_srcs, sweep_blocks, sweep_blocks_gather,
-                           sweep_blocks_overlap, sweep_blocks_overlap_gather):
+                           sweep_blocks_overlap, sweep_blocks_overlap_gather,
+                           gather_table):
         for a in fn.count_attrs:
             out["_".join([fn.__name__, *a.split("_")[:-1]])] = (fn, a)
     return out
@@ -728,7 +736,7 @@ def ext_counts(slot_idx: np.ndarray, bp: int) -> np.ndarray:
 
 
 def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
-                  init, rows, ext_cnt=None):
+                  init, rows, ext_cnt=None, sources="columns"):
     """Validate the gather sweep's operands; returns (P, nb, EP, bp, ndev,
     K).  The W-indices' range and the live ext counts are checked where the
     plan is loaded (models/gradients.py), not per call."""
@@ -746,16 +754,145 @@ def _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
     if ext_cnt is not None:
         _expect(ext_cnt, "ext_cnt", torch.int32, 2, dev)
         _shape(ext_cnt, "ext_cnt", (P, nb))
+    check(sources in DIRECT_SOURCES, "sources %r: one of %s", sources,
+          DIRECT_SOURCES)
     return P, nb, ep, bp, ndev, K
 
 
+def direct_sources(bp: int, ep: int, lanes_per_column: float) -> str:
+    """A gather plan's choice of where the direct body reads a slot lane's
+    eight sources, made once where the plan is loaded
+    (models/gradients.py keeps it beside the plan's ext counts): "table"
+    (the point-major table `gather_table` builds before the sweep: two
+    16-byte loads of one 32-byte sector a source) or "columns" (var_T and
+    exts as they lie: eight 4-byte loads, each a sector of its own where a
+    warp's W-indices scatter).  The table where the entry's column-major
+    table passes GATHER_STAGE_PAIR (an SM's L1 no longer holds the sectors
+    a warp's scattered loads touch) and the plan reads it enough:
+    `lanes_per_column` (`table_lanes_per_column`) at least
+    DIRECT_TABLE_LANES.  Measured on an H100 (PERF.md section 6 PR 20),
+    direct forced: at the 96³ plans at bp 8192 the table took 0.46-0.61x
+    the column-major reads' time (one and two shards, bulk and interior,
+    flux and gg; 3.1-5.0 lanes a column), but 1.2-1.8x on the two-shard
+    boundary plan, whose lanes are mostly pads (0.23 a column), and 1.5x
+    at the eight-shard interior plan at bp 512 (a 48 KB table).
+    DIRECT_TABLE_LANES only separates those two groups: no plan between
+    0.23 and 3.1 lanes a column was measured, so where the two layouts
+    cross is not known."""
+    if staged_bytes(bp, ep) <= GATHER_STAGE_PAIR:
+        return "columns"
+    return "table" if lanes_per_column >= DIRECT_TABLE_LANES else "columns"
+
+
+def table_lanes_per_column(slot_w: torch.Tensor, block_ids: torch.Tensor,
+                           wks, ext_cnt: torch.Tensor) -> float:
+    """A gather plan's real slot lanes (a nonzero weight within slot k's
+    prefix [0, wks[k])) per column of the direct body's table (each listed
+    entry's bp own and ext_cnt live ext columns; pad entries none): what
+    the table's one-sector reads save against the bytes it costs.  On a
+    48³ mesh (two shards at bp 2048, eight at bp 512) the bulk and interior
+    plans read 2.3-2.9 lanes a column, the boundary plans 0.3-0.7: their
+    entries are mostly pad lanes."""
+    P, nb, K, _, bp = slot_w.shape
+    first = torch.ones_like(block_ids, dtype=torch.bool)
+    first[:, 1:] = block_ids[:, 1:] != block_ids[:, :-1]
+    live = (torch.arange(bp, device=slot_w.device)
+            < torch.tensor(list(wks), device=slot_w.device)[:, None])
+    real = int(((slot_w != 0).any(dim=3) & live)[first].sum())
+    cols = int(first.sum()) * bp + int(ext_cnt.long()[first].sum())
+    return real / max(cols, 1)
+
+
+def gather_table_ref(var_T: torch.Tensor, exts: torch.Tensor,
+                     block_ids: torch.Tensor, bp: int) -> torch.Tensor:
+    """Plain version of the direct body's table: (P, nb, bp + EP, NV) f32,
+    entry (p, b)'s own columns var_T[p, :, base : base + bp] (base =
+    block_ids[p, b]·bp) then its EP ext columns, each column's NV values
+    contiguous.  The kernel writes only the listed entries' own and live
+    ext columns (`table_written`)."""
+    own = _block_cols(var_T, block_ids, bp)        # (P, nb, NV, bp)
+    return torch.cat([own, exts], dim=3).transpose(2, 3).contiguous()
+
+
+def table_written(block_ids: torch.Tensor, bp: int, ep: int,
+                  ext_cnt: torch.Tensor | None = None) -> torch.Tensor:
+    """(P, nb, bp + EP) bool: the columns of the direct body's table the
+    kernel writes (and the sweep reads): every entry's own columns and its
+    first ext_cnt ext columns (None: all), pad entries (a repeat of the
+    entry before) none."""
+    P, nb = block_ids.shape
+    cnt = (torch.full((P, nb), ep, dtype=torch.int64) if ext_cnt is None
+           else ext_cnt.cpu().long().clamp(0, ep))
+    cols = torch.arange(bp + ep)
+    w = cols[None, None, :] < (bp + cnt)[:, :, None]
+    ids = block_ids.cpu()
+    pad = torch.zeros((P, nb), dtype=torch.bool)
+    pad[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    return w & ~pad[:, :, None]
+
+
+def gather_table(var_T: torch.Tensor, exts: torch.Tensor,
+                 block_ids: torch.Tensor, bp: int, *,
+                 ext_cnt: torch.Tensor | None = None) -> torch.Tensor:
+    """The direct gather body's source table (P, nb, bp + EP, NV) f32
+    (`gather_table_ref`'s layout; operands as `sweep_blocks_gather` takes
+    them); on CUDA tensors only the columns `table_written` names are
+    written.  It replaces no TPU kernel of its own: it is the reference's
+    block table [own ‖ exts] of `_block_compute`, laid out point-major so
+    that the direct sweep resolves a W-index with two 16-byte loads.
+    Kernel: csrc/sweep_gather.cu (`cfd_gather_table`)."""
+    dev = var_T.device
+    _expect(var_T, "var_T", F32, 3, dev)
+    _expect(exts, "exts", F32, 4, dev)
+    _expect(block_ids, "block_ids", torch.int32, 2, dev)
+    P, nb, _, ep = exts.shape
+    _shape(exts, "exts", (P, nb, NV, ep))
+    _shape(block_ids, "block_ids", (P, nb))
+    check(var_T.shape[:2] == (P, NV), "var_T: shape %s, want (%d, %d, ndev)",
+          tuple(var_T.shape), P, NV)
+    check(bp > 0 and ep > 0, "gather_table: bp and EP must be positive")
+    if ext_cnt is not None:
+        _expect(ext_cnt, "ext_cnt", torch.int32, 2, dev)
+        _shape(ext_cnt, "ext_cnt", (P, nb))
+    if _device_kind(var_T) == "cpu":
+        return gather_table_ref(var_T, exts, block_ids, bp)
+    with torch.cuda.device(dev):
+        return _launch_table(var_T, exts, block_ids, bp, ext_cnt,
+                             _stream(dev))
+
+
+def _launch_table(var_T, exts, block_ids, bp, ext_cnt,
+                  stream: int) -> torch.Tensor:
+    """`gather_table`'s launch on checked CUDA operands (the gather
+    wrappers' own, which they checked already) on `stream`, inside the
+    caller's device context; counted."""
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    P, nb, _, ep = exts.shape
+    tbl = torch.empty((P, nb, bp + ep, NV), dtype=F32, device=var_T.device)
+    rc = _cuda.lib().cfd_gather_table(
+        var_T.data_ptr(), var_T.shape[2], exts.data_ptr(), ep,
+        block_ids.data_ptr(), None if ext_cnt is None else ext_cnt.data_ptr(),
+        P, nb, bp, tbl.data_ptr(), stream)
+    _cuda.check_launch(rc, "gather_table")
+    gather_table.launches += 1
+    return tbl
+
+
+# the table build, one instance
+_zero_counts(gather_table, ("",), ("",))
+
+
 def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
-                 dims, ext_cnt, op, out, fused=False):
-    """The gather entry points' sweep operands, the live ext counts and the
-    body `gather_body` picks (its GATHER_BODY_CODES code); the staged,
-    cluster and quad bodies load var_T and exts 16 bytes at a time, the
-    cluster body two lanes' W-indices, weights, scale and output at a time,
-    the quad body QUAD_LANES[op] lanes'."""
+                 dims, ext_cnt, op, out, stream, sources, fused=False):
+    """The gather entry points' sweep operands, the live ext counts, the
+    direct body's table and the body `gather_body` picks (its
+    GATHER_BODY_CODES code), and the table tensor (None but for the direct
+    body reading it, sources "table": launched here on `stream`, inside
+    the caller's device context), which must outlive the launch; the
+    staged, cluster and quad bodies load var_T and exts 16 bytes at a
+    time, the cluster body two lanes' W-indices, weights, scale and output
+    at a time, the quad body QUAD_LANES[op] lanes'."""
     P, nb, ep, bp, ndev, K = dims
     body = gather_body(bp, ep, op, fused)
     check(body == "direct" or (var_T.data_ptr() % 16 == 0
@@ -769,11 +906,15 @@ def _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids, slots,
           "the %s gather sweep loads and stores %s lanes at a time: "
           "slot_idx, slot_w, scale and the output must be aligned to %s "
           "elements", body, word, word)
+    tbl = None
+    if body == "direct" and sources == "table":
+        tbl = _launch_table(var_T, exts, block_ids, bp, ext_cnt, stream)
     return (var_T.data_ptr(), ndev, exts.data_ptr(), ep, slot_idx.data_ptr(),
             slot_w.data_ptr(), scale.data_ptr(), block_ids.data_ptr(),
             slots.data_ptr(), K, P, nb, bp,
             None if ext_cnt is None else ext_cnt.data_ptr(),
-            GATHER_BODY_CODES[body])
+            None if tbl is None else tbl.data_ptr(),
+            GATHER_BODY_CODES[body]), tbl
 
 
 def _body_of(ptrs: tuple) -> str:
@@ -788,7 +929,8 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
                         init: torch.Tensor | None = None,
                         op: str = "gg",
                         out_dtype: torch.dtype | None = None, *,
-                        ext_cnt: torch.Tensor | None = None) -> torch.Tensor:
+                        ext_cnt: torch.Tensor | None = None,
+                        sources: str = "columns") -> torch.Tensor:
     """Gather-formulation sweep → (P, rows, ndev), rows and output dtype as
     in `sweep_blocks`.
 
@@ -798,7 +940,12 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     in `sweep_blocks`; slots (2, K) i32 from `slot_table(wks)` (only the
     widths are read); ext_cnt (P, nb) i32, each entry's live ext columns
     (`ext_counts`; every W-index below bp + its count), which the staged
-    and cluster bodies stage instead of all EP (None: all).  The kernel's
+    and cluster bodies stage instead of all EP (None: all); sources where
+    the direct body reads a slot lane's sources: "columns" (var_T and exts
+    as they lie) or "table" (the point-major table `gather_table` builds
+    first), the plan's choice (`direct_sources`, which a model makes where
+    it loads the plan and passes here; the other bodies ignore it).  The
+    kernel's
     body is `gather_body(bp, EP)`'s (the cluster body's CUDA blocks take
     `cluster_threads(bp, EP)` threads, the quad body's
     `quad_threads(bp, EP)`).  Counterpart of
@@ -806,7 +953,7 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     init=..., op=..., out_dtype=...)`.  Kernel: csrc/sweep_gather.cu."""
     rows = _check_op(op)
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                         slots, init, rows, ext_cnt)
+                         slots, init, rows, ext_cnt, sources)
     odt = _out_dtype(init, out_dtype)
     if _device_kind(var_T) == "cpu":
         return sweep_blocks_gather_ref(var_T, exts, slot_idx, slot_w, scale,
@@ -819,13 +966,15 @@ def sweep_blocks_gather(var_T: torch.Tensor, exts: torch.Tensor,
     out = (torch.empty((P, rows, ndev), dtype=odt, device=dev)
            if init is None else init)
     w16, o16 = _flags(slot_w, out)
-    ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                        slots, dims, ext_cnt, op, out)
-    body = _body_of(ptrs)
     with torch.cuda.device(dev):
+        stream = _stream(dev)
+        ptrs, tbl = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale,
+                                 block_ids, slots, dims, ext_cnt, op, out,
+                                 stream, sources)
+        body = _body_of(ptrs)
         rc = _cuda.lib().cfd_sweep_gather(
             *ptrs, int(init is not None), OPS.index(op), w16, o16,
-            body_threads(body, bp, ep), out.data_ptr(), _stream(dev))
+            body_threads(body, bp, ep), out.data_ptr(), stream)
     _cuda.check_launch(rc, "sweep_blocks_gather")
     _count(sweep_blocks_gather, init, op,
            _tag(w16, False, o16) + _BODY_TAGS[body])
@@ -1044,9 +1193,11 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
                                 src_devs: torch.Tensor | None,
                                 op: str = "gg", peer=None,
                                 debug: str | None = None, *,
-                                ext_cnt: torch.Tensor | None = None):
+                                ext_cnt: torch.Tensor | None = None,
+                                sources: str = "columns"):
     """Fused interior sweep (gather formulation) + halo push → (grad,
-    recv): the sweep operands (and `ext_cnt`) as in `sweep_blocks_gather`,
+    recv): the sweep operands (and `ext_cnt`, `sources`) as in
+    `sweep_blocks_gather`,
     the body `gather_body(bp, EP, op, fused=True)`'s (the cluster and quad
     bodies' CUDA blocks, push blocks included, take `cluster_threads(bp,
     EP)` and `quad_threads(bp, EP)` threads, of which 128 copy in a push
@@ -1058,21 +1209,23 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
           "init")
     rows = _check_op(op)
     dims = _check_gather(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                         slots, init, rows, ext_cnt)
+                         slots, init, rows, ext_cnt, sources)
     dev = var_T.device
     if peer is not None:
         mode = _check_peer(peer, sendbufs, dims[0], dev, rows, debug)
         from cfd_proxy_tpu_torch.ops import _cuda
 
         w16, o16 = _flags(slot_w, init)
-        ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                            slots, dims, ext_cnt, op, init, fused=True)
-        body = _body_of(ptrs)
         with torch.cuda.device(dev):
+            stream = _stream(dev)
+            ptrs, tbl = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale,
+                                     block_ids, slots, dims, ext_cnt, op,
+                                     init, stream, sources, fused=True)
+            body = _body_of(ptrs)
             rc = _cuda.lib().cfd_sweep_overlap_gather_peer(
                 *ptrs, OPS.index(op), w16, o16,
                 body_threads(body, dims[3], dims[2]), init.data_ptr(),
-                *_peer_args(peer, sendbufs, mode), _stream(dev))
+                *_peer_args(peer, sendbufs, mode), stream)
         _cuda.check_launch(rc, "sweep_blocks_overlap_gather (peer)")
         _count(sweep_blocks_overlap_gather, None, op,
                _tag(w16, False, o16) + _BODY_TAGS[body], peer=True)
@@ -1088,15 +1241,17 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
 
     recv = torch.zeros_like(sendbufs)
     w16, o16 = _flags(slot_w, init)
-    ptrs = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale, block_ids,
-                        slots, dims, ext_cnt, op, init, fused=True)
-    body = _body_of(ptrs)
     with torch.cuda.device(dev):
+        stream = _stream(dev)
+        ptrs, tbl = _gather_ptrs(var_T, exts, slot_idx, slot_w, scale,
+                                 block_ids, slots, dims, ext_cnt, op, init,
+                                 stream, sources, fused=True)
+        body = _body_of(ptrs)
         rc = _cuda.lib().cfd_sweep_overlap_gather(
             *ptrs, OPS.index(op), w16, o16,
             body_threads(body, dims[3], dims[2]), init.data_ptr(),
             sendbufs.data_ptr(), sendbufs.element_size(), dmap.data_ptr(),
-            nph, s_max, recv.data_ptr(), _stream(dev))
+            nph, s_max, recv.data_ptr(), stream)
     _cuda.check_launch(rc, "sweep_blocks_overlap_gather")
     _count(sweep_blocks_overlap_gather, None, op,
            _tag(w16, False, o16) + _BODY_TAGS[body])

@@ -40,7 +40,10 @@ faces, nvar 7, random state from a seed):
   P=1 bp 8192 under flux and under bf16 weights, stores and halo; then on
   the quad body (four CUDA blocks per entry, the push region padded to
   whole clusters of four) at P=2 bp 8192, loopback and peer, where K2 and
-  K2-init run on it too: each against its golden and across schedules,
+  K2-init run on it too; then the same plans under flux, loopback and
+  peer, which the rule keeps on the direct body (K2, K2-init and K3-gather
+  direct, each launch's point-major table built first): each against its
+  golden and across schedules,
   its overlap step forced onto the kernel's other bodies that fit bit for
   bit, the fused call under each body against the plain version and timed
   in turns, the peer call against its loopback form in turns (at most
@@ -67,8 +70,9 @@ faces, nvar 7, random state from a seed):
   dispatch every loop above took) against the same step eager, at P=1
   bulk, P=1 `all` with force_rdma, P=8 every schedule, gather/512 solver
   mode (P=1 one sweep, P=8 two), gather P=2 AUTO overlap (K3-gather's
-  cluster launch) and P=2 bp 8192 overlap (K2-init's and K3-gather's quad
-  launches), the full bf16 stack (P=1 overlap, P=8
+  cluster launch), P=2 bp 8192 overlap (K2-init's and K3-gather's quad
+  launches) and its flux twin (their direct launches, each after its
+  table's), the full bf16 stack (P=1 overlap, P=8
   early), flux P=1 `all`, the overlap step through the peer transport
   (P=1 `all` with force_rdma; P=8 packed f32, gather/512 and the full bf16
   stack: the launch epochs are device words, so the step replays; its
@@ -157,8 +161,12 @@ the rule picks; K2 and K3-gather count each body apart (the cluster body's
 row ends in `_cluster`: K2 and K3-gather at bp 8192, K3-gather's peer form
 at P=2 AUTO; the quad body's in `_quad`: K2, K2-init and K3-gather,
 loopback and peer, at P=2 bp 8192; the direct body's in `_direct`: K2 and
-K3-gather at bp 8192 forced, and K3's gather flux form at bp 512, which
-keeps it), so the
+K3-gather at bp 8192 forced, K3's gather flux form at bp 512, which keeps
+it, and K2, K2-init and K3-gather-peer flux at P=2 bp 8192, where the rule
+keeps it; `gather_table` is the point-major table a direct launch reads
+where its plan's sources is "table", which its wrapper builds first; a
+direct row's bound is the sweep's own, `bound_ms_with_table` beside it
+adds the table's bytes written and read once), so the
 kernel table lists each under the body its path launched, with that
 instance's registers, local bytes, shared memory and resident blocks per
 SM (the cluster and quad bodies also the clusters the card can hold at
@@ -468,6 +476,23 @@ KERNELS.update({
         "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
         "cfd_proxy_tpu/ops/blocksweep.py:783"),
 })
+# the direct body where the rule keeps it at the two-shard paths at LARGE_BP
+# (K3_DIRECT_CFGS: flux, half the table past a block): K2 (bulk), K2-init
+# (boundary) and K3-gather's peer form (its loopback form is the
+# eight-shard flux row above), and the point-major table every direct
+# launch reads, built by its wrapper first (the reference's block table
+# [own ‖ exts] of _block_compute)
+KERNELS.update({
+    **{"sweep_blocks_gather" + tag: (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:420")
+       for tag in ("_flux_direct", "_flux_init_direct")},
+    "sweep_blocks_overlap_gather_peer_flux_direct": (
+        "cuda", "cfd_proxy_tpu_torch/csrc/sweep_overlap.cu",
+        "cfd_proxy_tpu/ops/blocksweep.py:783"),
+    "gather_table": ("cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
+                     "cfd_proxy_tpu/ops/blocksweep.py:391"),
+})
 # that phase's configurations of the gather model: name: (shards, model
 # options); each runs bulk, early and overlap.  At one shard (force_rdma)
 # the interior plan's EP is about the bulk plan's (1920 at AUTO's bp 4096,
@@ -492,6 +517,14 @@ K3_CLUSTER_CFGS = {
 K3_QUAD_CFGS = {
     "p2_large": (2, {"bp": LARGE_BP}),
     "p2_large_peer": (2, {"bp": LARGE_BP, "transport": "peer"}),
+}
+# the same plans under flux, which the rule keeps on the direct body there
+# (its quad form reads three remote planes a source): K2, K2-init and
+# K3-gather direct, loopback and peer
+K3_DIRECT_CFGS = {
+    "p2_large_flux": (2, {"bp": LARGE_BP, "op": "flux"}),
+    "p2_large_flux_peer": (2, {"bp": LARGE_BP, "op": "flux",
+                               "transport": "peer"}),
 }
 PEER_STEPS = 5        # timed steps of a two-process run (time-sliced)
 PEER_MIN_BLOCKS = 6   # K3's resident blocks per SM (sweep_overlap.cu kMinBlocks)
@@ -665,6 +698,28 @@ def sweep_bound(op: str, args, gather: bool, init: bool = False,
     zero = int((scale[first] == 0).flatten(1).all(1).sum())
     return {**bound(moved, lanes * OPS_PER_SLOT_LANE[op] + cols * rows),
             "entries": entries, "zero_scale_entries": zero}
+
+
+def table_bound(bs, b: dict, args, kw: dict) -> dict:
+    """A direct-body call's bound `b` (`sweep_bound`'s, on args = (var_T,
+    exts, plan operands...) and the gather keywords kw), and beside it,
+    where kw's sources is "table", the bound with the point-major table
+    the wrapper builds first: each column the table holds (`table_written`)
+    written once and read once, NV f32 each (bound_ms_with_table).  The
+    table is the direct body's own intermediate, not the function's, so
+    bound_ms (and the row's share) stays the sweep's."""
+    var_T, exts = args[:2]
+    scale, block_ids = args[-3], args[-2]
+    bp, ep = scale.shape[-1], exts.shape[-1]
+    sources = kw.get("sources", "columns")
+    extra = 0
+    if sources == "table":
+        cols = int(bs.table_written(block_ids, bp, ep,
+                                    kw.get("ext_cnt")).sum())
+        extra = 2 * cols * var_T.shape[1] * 4
+    return {**b, "bound_ms_with_table": bound(b["bound_bytes"] + extra,
+                                              b["bound_ops"])["bound_ms"],
+            "table_bytes": extra, "sources": sources}
 
 
 @contextlib.contextmanager
@@ -1409,6 +1464,8 @@ def main() -> int:
         errs[row] = bodies[b]["max_abs_err"]
         scales[row] = scale_l
         work[row] = sweep_bound("gg", k2l, gather=True)
+        if b == "direct":
+            work[row] = table_bound(bs, work[row], k2l, kw)
         with gather_body_forced(bs, b):
             times[row] = {**paired_ms(
                 lambda: bs.sweep_blocks_gather(*k2l, **kw),
@@ -1636,6 +1693,8 @@ def main() -> int:
                                 push=sendbufs, out_bytes=gb.element_size())
         facts_ = gather_facts(bs, m, "interior", fused=True,
                               peer=m.peer is not None)
+        if (body or facts_["body"]) == "direct":
+            work[row] = table_bound(bs, work[row], iargs, kw)
         if body:
             facts_.update(body=body, kernel=gather_kernel_facts(
                 bs, body, m.bp, facts_["ep"], m.op, m.w_t, m.grad_t, True,
@@ -1655,12 +1714,51 @@ def main() -> int:
         work[row] = sweep_bound(
             m.op, args_, gather=True, init=init is not None,
             out_bytes=2 if m.grad_t == torch.bfloat16 else 4)
-        times[row].update(bp=m.bp, **gather_facts(bs, m, cls))
+        facts_ = gather_facts(bs, m, cls)
+        if facts_["body"] == "direct":
+            work[row] = table_bound(bs, work[row], args_,
+                                    m._gather_kw(cls))
+        times[row].update(bp=m.bp, **facts_)
+
+    def table_row(row, m, st_, cls):
+        """Kernel-table row `row`: the direct body's table of m's class cls
+        (`gather_table`) against its plain version, bit for bit on the
+        columns it writes, timed in turns; bound: those columns read and
+        written once."""
+        args_ = (st_["var_T"], *m._operands(cls, st_["tables"]))
+        var_T_, exts_, block_ids_ = args_[0], args_[1], args_[-2]
+        cnt = m._gather_kw(cls).get("ext_cnt")
+        ep_ = exts_.shape[-1]
+
+        def kern():
+            return bs.gather_table(var_T_, exts_, block_ids_, m.bp,
+                                   ext_cnt=cnt)
+
+        def plain():
+            return bs.gather_table_ref(var_T_, exts_, block_ids_, m.bp)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        mask = bs.table_written(block_ids_, m.bp, ep_, cnt).to(dev)
+        if not torch.equal(got[mask], want[mask]):
+            fail(f"{row} differs from its plain version on the columns "
+                 f"it writes")
+        errs[row] = 0.0
+        scales[row] = float(want[mask].abs().max())
+        cols = int(mask.sum())
+        del got, want, mask
+        times[row] = {**paired_ms(kern, plain), "bp": m.bp, "ep": ep_,
+                      "columns": cols,
+                      "kernel": _cuda.kernel_info("cfd_gather_table_info")}
+        work[row] = bound(2 * cols * var_T_.shape[1] * 4
+                          + nbytes(block_ids_, cnt), 0)
 
     k3_info, k3_rows, k3_models, loop_overlap = {}, [], {}, {}
-    for name, (nparts, opts) in {**K3_CLUSTER_CFGS, **K3_QUAD_CFGS}.items():
+    for name, (nparts, opts) in {**K3_CLUSTER_CFGS, **K3_QUAD_CFGS,
+                                 **K3_DIRECT_CFGS}.items():
         path = "k3_gather_" + name
-        rule_body = "quad" if name in K3_QUAD_CFGS else "cluster"
+        rule_body = ("quad" if name in K3_QUAD_CFGS
+                     else "direct" if name in K3_DIRECT_CFGS else "cluster")
         bf = opts.get("grad_dtype") == BF
         reset_counts()
         t0 = time.perf_counter()
@@ -1684,13 +1782,17 @@ def main() -> int:
                  f"bp {m.bp}, EP {fused['ep']}; the phase expects "
                  f"{rule_body}")
         k2_insts = ()
-        if rule_body == "quad":     # every class of the plan on the quad body
+        if rule_body != "cluster":  # every class of the plan on that body
             for cls in ("bulk", "boundary"):
-                if gather_facts(bs, m, cls)["body"] != "quad":
-                    fail(f"{path}: the rule does not pick quad for K2 on "
-                         f"the {cls} plan")
-            k2_insts = ("sweep_blocks_gather_quad",
-                        "sweep_blocks_gather_init_quad")
+                if gather_facts(bs, m, cls)["body"] != rule_body:
+                    fail(f"{path}: the rule does not pick {rule_body} for "
+                         f"K2 on the {cls} plan")
+            tag = "_flux" * (m.op == "flux")
+            k2_insts = (f"sweep_blocks_gather{tag}_{rule_body}",
+                        f"sweep_blocks_gather{tag}_init_{rule_body}")
+            if (rule_body == "direct"
+                    and m.sources["interior"] == "table"):
+                k2_insts += ("gather_table",)
         expect_counts(path, counts, (inst, *k2_insts))
         info = {"parts": nparts, "bp": m.bp, "ndev": m.ndev,
                 "nphases": m.nphases, "s_max": m.s_max,
@@ -1752,20 +1854,23 @@ def main() -> int:
                        res[b]["ms"] / res[rule_body]["ms"]
                        for b in bodies[1:]})
         if peer:
-            # the peer cluster launch beside its loopback form on the same
-            # operands, in turns (loopback, peer, peer, loopback), under
-            # the K3-peer rows' gate
+            # the peer launch beside its loopback form on the same
+            # operands, in turns (loopback, peer, peer, loopback), the
+            # better of each side's turns under the K3-peer rows' gate
             buf = gb.clone()
             kw = {"op": m.op, **m._gather_kw("interior")}
             kp = lambda: bs.sweep_blocks_overlap_gather(
                 *iargs, buf, sendbufs, None, None, peer=m.peer, **kw)
             kl = lambda: bs.sweep_blocks_overlap_gather(
                 *iargs, buf, sendbufs, m.dsts, m.srcs, **kw)
-            l1, p1 = cuda_ms(kl, 50), cuda_ms(kp, 50)
-            p2, l2 = cuda_ms(kp, 50), cuda_ms(kl, 50)
-            ratio = min(p1, p2) / min(l1, l2)
-            info.update(peer_ms=min(p1, p2), loopback_ms=min(l1, l2),
-                        peer_over_loopback=ratio)
+            turns_ = {"loopback": [], "peer": []}
+            for side in ("loopback", "peer", "peer", "loopback"):
+                turns_[side].append(cuda_ms(kl if side == "loopback" else kp,
+                                            50))
+            ratio = min(turns_["peer"]) / min(turns_["loopback"])
+            info.update(peer_ms=min(turns_["peer"]),
+                        loopback_ms=min(turns_["loopback"]),
+                        peer_over_loopback=ratio, peer_turns_ms=turns_)
             if ratio > PEER_OVER_LOOPBACK:
                 fail(f"{path}: the peer {rule_body} launch took "
                      f"{ratio:.4f}x its loopback form, above "
@@ -1787,8 +1892,19 @@ def main() -> int:
                    torch.zeros_like(gb))
             k3_rows += [inst, "sweep_blocks_gather_quad",
                         "sweep_blocks_gather_init_quad"]
+        elif name == "p2_large_flux":
+            # K3-gather's loopback flux direct instance is the eight-shard
+            # row (flux_p8); here its times and bound are in `turns_ms`,
+            # `bodies` and `bound`
+            k2_row("sweep_blocks_gather_flux_direct", m, st_, "bulk")
+            k2_row("sweep_blocks_gather_flux_init_direct", m, st_,
+                   "boundary", torch.zeros_like(gb))
+            table_row("gather_table", m, st_, "bulk")
+            k3_rows += ["sweep_blocks_gather_flux_direct",
+                        "sweep_blocks_gather_flux_init_direct",
+                        "gather_table"]
         elif name in ("p2_auto_peer", "p2_large_peer", "p1_all_large_flux",
-                      "p1_all_large_w16_o16"):
+                      "p1_all_large_w16_o16", "p2_large_flux_peer"):
             fused_row(inst, m, st_, gb, sendbufs)
             k3_rows.append(inst)
             if not peer:
@@ -1802,7 +1918,7 @@ def main() -> int:
                             f"sweep_blocks_gather{tag}_init{tag16}_cluster"]
         k3_info[name] = info
         del outs, gb, sendbufs, st_
-        if name in ("p2_auto", "p2_large"):
+        if name in ("p2_auto", "p2_large", "p2_large_flux"):
             k3_models[name] = m         # the graph phase's P=2 overlap steps
         else:
             m.close()
@@ -1987,8 +2103,9 @@ def main() -> int:
         init=gb, push=True)
     work["sweep_blocks_gather_flux_init"] = sweep_bound(
         "flux", iargs, gather=True, init=True)
-    work["sweep_blocks_overlap_gather_flux_direct"] = sweep_bound(
-        "flux", iargs, gather=True, init=True, push=sendbufs)
+    work["sweep_blocks_overlap_gather_flux_direct"] = table_bound(
+        bs, sweep_bound("flux", iargs, gather=True, init=True,
+                        push=sendbufs), iargs, kw)
     times["sweep_blocks_gather_flux_init"].update(
         gather_facts(bs, gm, "interior"))
     times["sweep_blocks_overlap_gather_flux_direct"].update(
@@ -2392,6 +2509,8 @@ def main() -> int:
                          "gather_p8": gather_models[P_MULTI],
                          "gather_p2": k3_models.pop("p2_auto"),
                          "gather_p2_large": k3_models.pop("p2_large"),
+                         "gather_p2_large_flux": k3_models.pop(
+                             "p2_large_flux"),
                          "full_p8": full_stack_p8})
     peer_twin = {"peer_p1": "p1", "peer_p8": "p8",
                  "peer_gather_p8": "gather_p8", "peer_full_p8": "full_p8"}
@@ -2415,6 +2534,7 @@ def main() -> int:
     # GOLDEN_TOL, the full bf16 stack within BAND_FULL's, ELL f64 within
     # ELL_F64_TOL
     graph_gold = {"flux_p1": (flux_ref, GOLDEN_TOL),
+                  "gather_p2_large_flux": (flux_ref, GOLDEN_TOL),
                   "full_p1": (None, BAND_FULL[1]),
                   "full_p8": (None, BAND_FULL[1]),
                   "peer_full_p8": (None, BAND_FULL[1]),
@@ -2427,6 +2547,8 @@ def main() -> int:
            ("gather512_p8_solver_n2", "gather_p8", "bulk", 2),
            ("gather_p2_auto_overlap", "gather_p2", "overlap", 0),
            ("gather_p2_large_overlap", "gather_p2_large", "overlap", 0),
+           ("gather_p2_large_flux_overlap", "gather_p2_large_flux",
+            "overlap", 0),
            ("full_p1_overlap", "full_p1", "overlap", 0),
            ("full_p8_early", "full_p8", "early", 0)]
         + [(f"flux_p1_all_{s}", "flux_p1", s, 0) for s in SCHEDULES_ALL]

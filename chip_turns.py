@@ -38,7 +38,19 @@ boundary and interior plans, K3-gather loopback and peer; gg f32,
 w16-o16 and flux) under the rule's body, also back to back, with each
 call's bound and its body's facts, and in a tree with the quad body the
 one-shard bp 8192 plan under the quad and cluster bodies forced and the
-two-shard gg plans at 256 and 512 quad threads; kbench's rows on its 96³ prefix
+two-shard gg plans at 256 and 512 quad threads; the direct body
+(`direct`), forced where the rule picks another: K2 bulk, K2-init on the
+boundary (from zeros) and interior plans and K3-gather loopback and peer
+at the two-shard bp 8192 plans, flux and gg (beside `quad`'s rows: the
+rule's evidence), K2 bulk and K3-gather on the
+one-shard bp 8192 gg plan (force_rdma), K3-gather-flux at the eight-shard
+interior + push shapes at bp 512, and K2 on the one-shard bp 8192 bulk
+plan widened past 29 000 columns (`edge_plan`, EP DIRECT_EDGE_EP) and cut
+to a bp that is not a multiple of 4 (`odd_plan`, DIRECT_ODD_BP), each
+with its bound and the instance's facts, and in a tree whose direct body
+has two source layouts (a plan's `sources`, `blocksweep.direct_sources`)
+each layout forced;
+kbench's rows on its 96³ prefix
 tables (bp 4096): K5d (compact_i8), K1-w16-d16-o16 (compact_bso) and
 K5e-bf16 (cstream_bso); a hash of each gather and kbench output, which shows two
 trees' outputs equal bit for bit; and ptxas's registers and spill bytes of
@@ -79,9 +91,15 @@ KB_ROWS = ("compact_i8", "compact_bso", "cstream_bso")
 # the row groups: K4, K6, K3-peer, the gather sweep at bp 512, K2 at bp 512,
 # 4096 and 8192, K2's cluster instances, K3-gather at bp 4096 and 8192,
 # every instance of the two-shard plans at bp 8192 (the quad body's),
-# kbench's rows
+# the direct body's plans, kbench's rows
 ROWS = ("k4", "k6", "peer", "gather", "bodies", "cluster", "k3large",
-        "quad", "kbench")
+        "quad", "direct", "kbench")
+# the direct body's edge plans: the one-shard bp 8192 bulk plan with its
+# ext table widened to 24 576 columns (32 768 in all, past the quarter
+# table a block holds: the rule's direct body for every op), and cut to bp
+# 8190 (not a multiple of 4)
+DIRECT_EDGE_EP = 24576
+DIRECT_ODD_BP = 8190
 # K3-gather at large block sizes: its shapes (shards, bp; one shard with
 # force_rdma) and configurations (tag, model options)
 K3_SHAPES = ((1, AUTO_BP), (1, LARGE_BP), (2, AUTO_BP), (2, LARGE_BP))
@@ -131,9 +149,75 @@ def edge_plan(args: tuple, kw: dict, ep: int) -> tuple:
     return (var_T, exts, wide.to(sidx.dtype), *rest), {"ext_cnt": cnt}
 
 
+def odd_plan(args: tuple, kw: dict, bp: int) -> tuple:
+    """K2's operands `args` of a real plan cut to block size `bp` (below
+    the plan's): the state and the output to the first ndev // bp·bp
+    columns, every table to its first bp lanes, the slot widths capped at
+    bp; an own W-index past the cut moved two columns down, an ext one
+    kept on its ext column.  Returns (args, kw, columns of the output)."""
+    var_T, exts, sidx, slot_w, scale, block_ids, slots = args
+    bp0 = scale.shape[-1]
+    ndev = var_T.shape[-1] // bp * bp
+    assert int(block_ids.max()) < ndev // bp
+    cut = sidx[..., :bp]
+    cut = (cut.where(cut < bp, cut - (bp0 - bp)))
+    widths = slots.clone()
+    widths[0] = widths[0].clamp(max=bp)
+    return ((var_T[..., :ndev].contiguous(), exts, cut.contiguous(),
+             slot_w[..., :bp].contiguous(), scale[..., :bp].contiguous(),
+             block_ids, widths), dict(kw), ndev)
+
+
+def plan_sources(bs, args: tuple, kw: dict) -> dict:
+    """kw with the direct body's sources that a model of module bs chooses
+    where it loads the plan `args` (var_T, exts, slot_idx, slot_w, scale,
+    block_ids, slots): `blocksweep.direct_sources` on its lanes per table
+    column; kw as it is in a tree without that choice."""
+    if not hasattr(bs, "direct_sources"):
+        return kw
+    exts, slot_w, scale, block_ids, slots = (args[1], *args[3:])
+    lanes = bs.table_lanes_per_column(slot_w, block_ids, slots[0].tolist(),
+                                      kw["ext_cnt"])
+    return {**kw, "sources": bs.direct_sources(scale.shape[-1],
+                                               exts.shape[-1], lanes)}
+
+
+@contextlib.contextmanager
+def sources_forced(m, kw: dict, mode):
+    """The direct body's sources `mode` ("table" or "columns"; None: each
+    plan's own) in model m's choices per class and the gather keywords kw
+    while the block runs."""
+    if mode is None:
+        yield
+        return
+    held = dict(m.sources), kw.get("sources")
+    m.sources.update(dict.fromkeys(m.sources, mode))
+    kw["sources"] = mode
+    try:
+        yield
+    finally:
+        m.sources.update(held[0])
+        kw["sources"] = held[1]
+
+
+def demangled(names: list) -> list:
+    """C++ symbols as c++filt prints them (the names as they are where it
+    is missing): an anonymous namespace's mangled name differs from one
+    build of a source to the next, its demangled one does not."""
+    import subprocess
+
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+    except (OSError, subprocess.CalledProcessError):
+        return names
+    out = res.stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
 def ptxas_facts(log: str) -> dict:
     """{entry: [registers, spill store bytes]} of the K6, K3-peer and
-    gather instances in a ptxas report."""
+    gather instances in a ptxas report, by demangled name."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -144,7 +228,7 @@ def ptxas_facts(log: str) -> dict:
             out.setdefault(name, [None, None])[1] = int(m.group(1))
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
             out.setdefault(name, [None, None])[0] = int(m.group(1))
-    return out
+    return dict(zip(demangled(list(out)), out.values()))
 
 
 def measure(root: str, rows=ROWS) -> dict:
@@ -516,6 +600,129 @@ def measure(root: str, rows=ROWS) -> dict:
             del m, st, var_T, tbs, gb, sendbufs, iargs, calls, out
         rule["q_bound_ms"] = bounds
 
+    if "direct" in rows:
+        # the direct body, forced, under each source layout the tree has
+        modes = {"": None}
+        if hasattr(bs, "direct_sources"):
+            modes.update({f"_{m}": m for m in ("table", "columns")})
+        bounds = {}
+
+        def direct_rows(key, fn, init, fused, args, m, kw, cols=None):
+            """Time fn(init buffer) under the direct body in each layout
+            (the tree's own also back to back on the card, `_held`), and
+            the table build alone (`_tbl`), hash its output (the first
+            `cols` columns), record its bound, its plan's real slot lanes
+            per table column and the instance's facts."""
+            for suffix, mode in modes.items():
+                buf = None if init is None else init.clone()
+                with cs.gather_body_forced(bs, "direct"), \
+                        sources_forced(m, kw, mode):
+                    ms[key + suffix] = cs.cuda_ms(lambda: fn(buf), 50)
+                    if mode is None:        # back to back on the card
+                        ms[key + "_held"] = cs.kernel_device_ms(
+                            lambda: fn(buf), 50)
+                    out = fn(None if init is None else init.clone())
+                outs = out if fused else (out,)
+                hashes[key + suffix] = "".join(
+                    digest(o if o.dim() < 3 or cols is None
+                           else o[..., :cols]) for o in outs)
+                del buf, out, outs
+            w_bytes = 2 if m.grad_t == torch.bfloat16 else 4
+            bounds[key] = cs.sweep_bound(
+                m.op, args, gather=True, init=init is not None,
+                push=fn.push if fused else None, out_bytes=w_bytes)
+            bp_ = int(args[-3].shape[-1])
+            ep = int(args[1].shape[-1])
+            rule[key] = {"ep": ep, "bp": bp_,
+                         "rule_body": bs.gather_body(bp_, ep, m.op, fused),
+                         "kernel": cs.gather_kernel_facts(
+                             bs, "direct", bp_, ep, m.op, m.w_t, m.grad_t,
+                             fused, fn.peer)}
+            if hasattr(bs, "gather_table"):
+                cnt = kw.get("ext_cnt")
+                ms[key + "_tbl"] = cs.cuda_ms(lambda: bs.gather_table(
+                    args[0], args[1], args[5], bp_, ext_cnt=cnt), 50)
+                bounds[key] = cs.table_bound(bs, bounds[key], args, kw)
+                rule[key].update(
+                    sources=kw.get("sources"),
+                    lanes_per_column=bs.table_lanes_per_column(
+                        args[3], args[5], args[6][0].tolist(),
+                        cnt if cnt is not None else torch.full_like(
+                            args[5], ep)))
+
+        def call(f, push=None, peer=False):
+            f.push, f.peer = push, peer
+            return f
+
+        parts2 = partition_mesh(gmesh, 2)
+        for npart, bp, opts in ((2, LARGE_BP, {"op": "flux"}),
+                                (2, LARGE_BP, {}),
+                                (1, LARGE_BP, {"force_rdma": True}),
+                                (8, GATHER_BP, {"op": "flux"})):
+            m = GreenGaussTorch({1: parts1, 2: parts2, 8: parts8}[npart],
+                                NVAR, kernel="gather", bp=bp, device=dev,
+                                **opts)
+            st = m.distribute_state(gvar, schedules=["overlap", "bulk"])
+            var_T, tbs = st["var_T"], st["tables"]
+            gb = m.step(st, "bulk")
+            sendbufs = m._pack(gb, m.pack_scale, m.halo_t)
+            iargs = (var_T, *m._operands("interior", tbs))
+            # the plan's keywords read at call time (`sources_forced`)
+            kw = {"op": m.op}
+            shape = f"{m.op}_P{npart}_bp{bp}"
+            calls = {
+                "k2_bulk": (call(lambda i: m._sweep("bulk", var_T, tbs)),
+                            None, "bulk", False),
+                "k2_init_boundary": (
+                    call(lambda i: m._sweep("boundary", var_T, tbs, init=i)),
+                    torch.zeros_like(gb), "boundary", False),
+                "k2_init_interior": (
+                    call(lambda i: m._sweep("interior", var_T, tbs, init=i)),
+                    gb, "interior", False),
+                "k3g": (call(lambda i: bs.sweep_blocks_overlap_gather(
+                    *iargs, i, sendbufs, m.dsts, m.srcs, **kw,
+                    **m._gather_kw("interior")), sendbufs),
+                    gb, "interior", True)}
+            if npart == 2:
+                peer = Peer(m.dsts.numpy(), m.srcs.numpy(), rows=m.rows,
+                            s_max=m.s_max, dtype=m.halo_t, device=dev)
+                calls["k3g_peer"] = (call(
+                    lambda i: bs.sweep_blocks_overlap_gather(
+                        *iargs, i, sendbufs, None, None, peer=peer, **kw,
+                        **m._gather_kw("interior")),
+                    sendbufs, True), gb, "interior", True)
+            else:
+                peer = None
+                keep = ("k2_bulk", "k3g") if npart == 1 else ("k3g",)
+                calls = {k: v for k, v in calls.items() if k in keep}
+            for name, (fn, init, cls, fused) in calls.items():
+                direct_rows(f"d_{name}_{shape}", fn, init, fused,
+                            (var_T, *m._operands(cls, tbs)), m,
+                            m._gather_kw(cls))
+            if peer is not None:
+                peer.close()
+            if npart == 1:
+                # K2 on the bulk plan widened past a quarter table a block
+                # holds, and cut to a bp that is not a multiple of 4
+                real = (var_T, *m._operands("bulk", tbs))
+                args, ekw = edge_plan(real, m._gather_kw("bulk"),
+                                      DIRECT_EDGE_EP)
+                ekw = plan_sources(bs, args, ekw)
+                direct_rows(f"d_k2_edge_ep{DIRECT_EDGE_EP}_{shape}",
+                            call(lambda i: bs.sweep_blocks_gather(
+                                *args, **ekw)), None, False, args, m, ekw)
+                args, okw, cols = odd_plan(real, m._gather_kw("bulk"),
+                                           DIRECT_ODD_BP)
+                okw = plan_sources(bs, args, okw)
+                direct_rows(f"d_k2_bp{DIRECT_ODD_BP}_P1",
+                            call(lambda i: bs.sweep_blocks_gather(
+                                *args, **okw)), None, False, args, m, okw,
+                            cols=cols)
+                del real, args, ekw, okw
+            m.close()
+            del m, st, var_T, tbs, gb, sendbufs, iargs, calls, peer
+        rule["d_bound"] = bounds
+
     if "kbench" in rows:
         # kbench's rows on its 96³ prefix tables
         from cfd_proxy_tpu_torch.tools import kbench
@@ -554,6 +761,18 @@ def summary(path: str) -> dict:
         out["equal_bitwise"] = {k: hashes[a][k] == hashes[b][k]
                                 and len(hashes[a][k]) == 1
                                 for k in hashes[a] if k in hashes[b]}
+        # ptxas: the instances both trees build whose registers or spills
+        # differ, and those one tree alone builds
+        pa, pb = ({k: v for r in runs if r["label"] == lb
+                   for k, v in r.get("ptxas", {}).items()} for lb in (a, b))
+        common = set(pa) & set(pb)
+        out["ptxas"] = {"common": len(common),
+                        "changed": {k: [pa[k], pb[k]] for k in sorted(common)
+                                    if pa[k] != pb[k]},
+                        f"only_{a}": {k: pa[k]
+                                      for k in sorted(set(pa) - common)},
+                        f"only_{b}": {k: pb[k]
+                                      for k in sorted(set(pb) - common)}}
     return out
 
 

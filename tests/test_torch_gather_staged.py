@@ -568,7 +568,8 @@ def test_model_carries_ext_counts(mesh, gvar):
         np.testing.assert_array_equal(
             cnt.numpy(), bs.ext_counts(pl["slot_idx"].numpy(), tm.bp))
         assert int(cnt.max()) <= ep and int(cnt.min()) >= 0
-        assert tm._gather_kw(c) == {"ext_cnt": cnt}
+        assert tm.sources[c] in bs.DIRECT_SOURCES
+        assert tm._gather_kw(c) == {"ext_cnt": cnt, "sources": tm.sources[c]}
     args = (state["var_T"], *tm._operands("bulk", state["tables"]))
     assert torch.equal(tm.step(state, "nocomm"),
                        staged_sweep(*args, tm.plans["bulk"]["ext_cnt"]))

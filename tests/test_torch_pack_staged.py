@@ -43,6 +43,7 @@ FULL = {"src_dtype": BF, "meta_dtype": BF, "grad_dtype": BF,
         "halo_dtype": BF}
 # (P, bp); at P=8 the test mesh's shards cap bp at 128
 JAX_CASES = [(1, 128), (1, 256), (8, 128)]
+PEER_PUSH_BLOCKS = 264   # csrc/push_common.cuh::kPeerPushBlocks
 
 
 @pytest.fixture(scope="module")
@@ -355,11 +356,23 @@ def test_cuda_overlap_peer_equals_loopback_bitwise(card_p4, form):
 
 @pytest.mark.cuda
 def test_cuda_peer_form_keeps_its_resident_blocks():
-    """K3's peer form keeps the 6 blocks per SM its launch bounds ask for
-    (packed f32, gather f32, packed bf16 stack)."""
+    """K3's peer form keeps the blocks per SM its launch bounds ask for
+    (`min_blocks`, read from the instance: the packed forms' kMinBlocks,
+    f32 and bf16 stack; the gather form's direct body under gg,
+    sweep_common.cuh::kDirectMinBlocks, fewer: two lanes a thread).  Any
+    of them holds the peer push's residency argument
+    (csrc/push_common.cuh, why no launch can deadlock on itself): the
+    signal block and every push block, at most kPeerPushBlocks (264), are
+    resident at once beside sweep blocks, so no push block waits for a
+    slot behind the sweep; fewer slots would only delay the sweep blocks,
+    since every wait is for a block 0 that is resident first."""
     _card()
     from cfd_proxy_tpu_torch.ops import _cuda
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for flags in ((0, 0, 0, 0), (1, 0, 0, 0), (0, 1, 1, 1)):
         info = _cuda.kernel_info("cfd_overlap_peer_info", *flags)
-        assert info["blocks_per_sm"] >= 6, (flags, info)
+        assert info["min_blocks"] >= 1, (flags, info)
+        assert info["blocks_per_sm"] >= info["min_blocks"], (flags, info)
+        assert info["blocks_per_sm"] * sms > 1 + PEER_PUSH_BLOCKS, (flags,
+                                                                    info)
