@@ -53,7 +53,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from cfd_proxy_tpu_torch.ops import blocksweep
+from cfd_proxy_tpu_torch.models import compiled
 from cfd_proxy_tpu_torch.solver import (SolverConfig, run,
                                         solver_mode_defaults)
 from cfd_proxy_tpu_torch.utils.errors import check
@@ -578,7 +578,7 @@ def kernel_launches() -> dict:
     """Launches of each CUDA kernel instance in this process so far (none
     on the CPU, where the wrappers run their plain versions)."""
     return {k: getattr(fn, a)
-            for k, (fn, a) in blocksweep.launch_counters().items()
+            for k, (fn, a) in compiled.launch_counters().items()
             if getattr(fn, a)}
 
 

@@ -1472,6 +1472,38 @@ __device__ __forceinline__ void clear_gaps(const SweepArgs<OutT>& a,
   }
 }
 
+// K1's zero-filled forms write the columns of unlisted blocks as zeros
+// themselves, spread over the whole launch: its grid holds `span` CTAs a
+// shard, a kThreads-column chunk of every block of the shard, listed or not,
+// as well as one of every entry (sweep_packed.cu).  CTA r of a shard writes
+// zeros into chunk r % chunks of block r / chunks (below ndev / bp) where
+// the shard's list, strictly ascending then pad repeats, does not hold that
+// block (a binary search of the list).  So the zeros of a plan with long
+// gaps, a boundary class that lists a few blocks, are spread as a fill's
+// would be, where clear_gaps would hand each gap to one entry's CTAs.
+template <int R, class OutT, class VarT>
+__device__ __forceinline__ void clear_unlisted(const SweepArgs<OutT, VarT>& a,
+                                               int64_t shard, int64_t r) {
+  const int64_t blk = r / a.chunks;
+  const int lane = static_cast<int>((r % a.chunks) * kThreads) +
+                   static_cast<int>(threadIdx.x);
+  if (blk >= a.ndev / a.bp || lane >= a.bp) return;
+  const int32_t* ids = a.block_ids + shard * a.nb;
+  int64_t lo = 0, hi = a.nb;          // the first entry not below blk
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (ids[mid] < blk) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  if (lo < a.nb && ids[lo] == blk) return;                   // listed
+  OutT* out_p = a.out + shard * R * a.ndev + blk * a.bp + lane;
+#pragma unroll
+  for (int r_ = 0; r_ < R; ++r_) store(out_p + r_ * a.ndev, 0.0f);
+}
+
 // Host-side checks shared by the entry points; a bad shape never launches.
 inline bool sweep_args_ok(int K, int bp, int64_t grid) {
   return K >= 1 && K <= kMaxSlots && bp > 0 && grid <= 0x7fffffffLL;

@@ -11,11 +11,19 @@
 // body, its bound, the precisions and the handling of pad entries are in
 // sweep_common.cuh.
 //
-// Without init the wrapper hands a zero-filled output, so columns of blocks
-// the plan does not list stay zero.  With init the output IS init (the
-// reference aliases them, and checks that their dtypes agree): listed
-// columns are seeded from it and rewritten in place, unlisted columns keep
-// their values, and nothing is zero-filled.
+// Without init the wrapper hands an uninitialised output and the kernel
+// writes zeros into the columns of the blocks the plan does not list
+// (sweep_common.cuh::clear_unlisted), so no separate fill streams the whole
+// output once more before the sweep writes it (at the one-shard 96^3 plan a
+// torch.zeros of 85 MB, 0.026 ms on an H100; PERF.md section 5).  The
+// zeros are spread over the launch: its grid holds, per shard, a CTA for
+// every kThreads-column chunk of every block, listed or not, beside one for
+// every chunk of every entry, so a plan with long gaps (the boundary class,
+// which at one shard lists a single block) clears them as fast as a fill.
+// With init the output IS init (the reference aliases them, and checks
+// that their dtypes agree): listed columns are seeded from it and rewritten
+// in place, unlisted columns keep their values, the grid is one CTA per
+// chunk of each entry, and nothing is zeroed.
 
 #include "sweep_common.cuh"
 
@@ -27,13 +35,33 @@ namespace {
 // 0.235 ms; with 5, 0.128 and 0.161 ms — the init form keeps its 96
 // registers, so the gain is ptxas's schedule, not occupancy.  6 and 8 were
 // slower (and make the init form spill).  The flux and reduced-precision
-// instances keep the same hint (untuned).
+// instances keep the same hint (untuned).  The zero-filled gg forms' own
+// zeros (clear_unlisted) took them from 64 to 71-72 registers, no spill;
+// K1 alone went from 0.128 to 0.130 ms at the one-shard bulk plan, and the
+// clear placed after the sweep took 72-80 registers at the same time.
 constexpr int kMinBlocks = 5;
+
+// CTA r of a shard's `span` (launch_packed): the zeros of chunk r of the
+// unlisted blocks (zero-filled forms), then chunk r of the shard's entries
+// where r < nb * chunks.  The init forms' span is nb * chunks: one CTA per
+// chunk of each entry, blockIdx.x as sweep_chunk takes it.
+template <bool kAccumulate, cfd::Op kOp, class S, class O, class V>
+__device__ __forceinline__ void sweep_packed_cta(const cfd::SweepArgs<O, V>& a,
+                                                 const S& s, int64_t span) {
+  const int64_t shard = blockIdx.x / span, r = blockIdx.x % span;
+  if constexpr (!kAccumulate) {
+    cfd::clear_unlisted<cfd::op_rows(kOp)>(a, shard, r);
+  }
+  if (r < a.nb * a.chunks) {
+    cfd::sweep_chunk<kAccumulate, kOp>(a, s, shard * a.nb * a.chunks + r);
+  }
+}
 
 template <bool kAccumulate, cfd::Op kOp, class W, class S, class O>
 __global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
-sweep_packed_kernel(cfd::SweepArgs<O> a, cfd::PackedSrc<W, S> s) {
-  cfd::sweep_chunk<kAccumulate, kOp>(a, s, blockIdx.x);
+sweep_packed_kernel(cfd::SweepArgs<O> a, cfd::PackedSrc<W, S> s,
+                    int64_t span) {
+  sweep_packed_cta<kAccumulate, kOp>(a, s, span);
 }
 
 // K1 on a bf16 state (var16): the same body, the own values widened as
@@ -41,8 +69,9 @@ sweep_packed_kernel(cfd::SweepArgs<O> a, cfd::PackedSrc<W, S> s) {
 // keep their names and code.
 __global__ void __launch_bounds__(cfd::kThreads, kMinBlocks)
 sweep_packed_v16_kernel(cfd::SweepArgs<cfd::bf16, cfd::bf16> a,
-                        cfd::PackedSrc<cfd::bf16, cfd::bf16> s) {
-  cfd::sweep_chunk<false, cfd::Op::kGG>(a, s, blockIdx.x);
+                        cfd::PackedSrc<cfd::bf16, cfd::bf16> s,
+                        int64_t span) {
+  sweep_packed_cta<false, cfd::Op::kGG>(a, s, span);
 }
 
 // V: the state's element type; bf16 runs the var16 kernel (W, S and O are
@@ -56,7 +85,12 @@ int launch_packed(const void* var_T, int64_t ndev, const void* srcs,
                   cudaStream_t stream) {
   if (P == 0 || nb == 0) return 0;
   int64_t chunks = 0;
-  const int64_t grid = cfd::sweep_grid(P, nb, bp, &chunks);
+  cfd::sweep_grid(P, nb, bp, &chunks);
+  // CTAs a shard: a chunk of each entry, and without init also one of each
+  // block (sweep_packed_cta)
+  const int64_t nblk = ndev / bp;
+  const int64_t span = chunks * (kAccumulate || nb >= nblk ? nb : nblk);
+  const int64_t grid = P * span;
   if (!cfd::sweep_args_ok(K, bp, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -67,10 +101,12 @@ int launch_packed(const void* var_T, int64_t ndev, const void* srcs,
                                static_cast<const W*>(slot_w), L};
   if constexpr (std::is_same<V, cfd::bf16>::value) {
     sweep_packed_v16_kernel
-        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
+        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s,
+                                                                    span);
   } else {
     sweep_packed_kernel<kAccumulate, kOp, W, S, O>
-        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s);
+        <<<static_cast<unsigned>(grid), cfd::kThreads, 0, stream>>>(a, s,
+                                                                    span);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,11 +16,11 @@ once.  Here the models' `iterate_fn` runners take one of two forms:
   shared-memory limits and fills the allocator's pool), captures the two
   graphs, then replays n − 1 times; later calls copy the caller's state in
   and replay n times.  The step's last operation writes the other buffer
-  (`torch.add(v, COUPLING · g[:, :NV], out=...)`: the eager loop's
-  operations and types, only the destination given), so the graph equals
-  the eager loop bit for bit and no step copies the state.  The caller's
-  state is left untouched and a new tensor comes back, as JAX returns a
-  new array.
+  (the update `ops.update.chain_update(v, g, COUPLING, out=...)`: the
+  eager loop's kernel and types, only the destination given), so the graph
+  equals the eager loop bit for bit and no step copies the state.  The
+  caller's state is left untouched and a new tensor comes back, as JAX
+  returns a new array.
 - **eager**: the same body, step by step from Python.
 
 `dispatch(model, schedule, solver_mode)` decides per chained body, by one
@@ -70,7 +70,7 @@ import typing
 
 import torch
 
-from cfd_proxy_tpu_torch.ops import blocksweep, push
+from cfd_proxy_tpu_torch.ops import blocksweep, push, update
 from cfd_proxy_tpu_torch.utils.errors import check
 
 GRAPH, EAGER = "graph", "eager"
@@ -161,8 +161,9 @@ def take_calls() -> dict:
 
 def launch_counters() -> dict:
     """The port's launch counters a chained body can raise: the sweep
-    kernels' and K6's (the push bench's chain)."""
-    return {**blocksweep.launch_counters(), **push.launch_counters()}
+    kernels', the chained update's and K6's (the push bench's chain)."""
+    return {**blocksweep.launch_counters(), **update.launch_counters(),
+            **push.launch_counters()}
 
 
 def _counts() -> dict:

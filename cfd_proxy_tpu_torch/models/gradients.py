@@ -66,7 +66,7 @@ Reduced precision, the reference's four options, each "float32" or
 "bfloat16": `meta_dtype` stores the slot weights in bf16 (rounded here from
 the f32 plan, to nearest even, as the reference's `astype`); `src_dtype`
 packs bf16 DELTAS src − own (packed kernel only); `grad_dtype` stores every
-gradient buffer in bf16 (outputs, the boundary partial, the zero fill),
+gradient buffer in bf16 (outputs, the boundary partial),
 while the kernels accumulate in f32; `halo_dtype` casts the GRADIENT
 exchange's send buffers at pack time (the var exchange stays f32) and the
 unpack casts back into the output's dtype.  The state `var_T` is f32 in
@@ -120,6 +120,7 @@ from cfd_proxy_tpu_torch.ops.plan import (
     compact_widx,
     prefix_widths,
 )
+from cfd_proxy_tpu_torch.ops.update import chain_update
 from cfd_proxy_tpu_torch.parallel.tlayout import (
     build_tlayout,
     device_faces,
@@ -790,9 +791,16 @@ class GreenGaussTorch(nn.Module):
             if schedule == "bulk" and self.moves:
                 self._exchange(g, self.send_mask, self.halo_t)
             return g
-        zeros = torch.zeros((self.nlocal, self.rows, self.ndev),
+        # the boundary sums.  K1's zero-filled form writes the zeros of the
+        # blocks the class leaves out itself, spread over its launch, so no
+        # fill runs before it.  K2's hand each gap to the CTAs of the entry
+        # before it (sweep_common.cuh::clear_gaps), and a boundary plan
+        # lists few entries (at one shard one, of one to four CTAs): there
+        # the sweep accumulates onto a zero fill (PERF.md section 6)
+        init = (torch.zeros((self.nlocal, self.rows, self.ndev),
                             dtype=self.grad_t, device=self.device)
-        gb = self._sweep("boundary", var_T, tables, init=zeros)
+                if self.kernel == "gather" else None)
+        gb = self._sweep("boundary", var_T, tables, init=init)
         if schedule == "overlap" and self.has_comm and self.kernel_phases:
             return self._overlap(var_T, tables, gb)
         # early, or overlap with nothing for the fused kernel to carry
@@ -843,11 +851,11 @@ class GreenGaussTorch(nn.Module):
     def chain_body(self, schedule: str, coupling: float = COUPLING):
         """One step of the chained loop: body(v, tables, out=None) → v +
         coupling · g[:, :NV] (the reference's chained update, with its
-        types: the product in the grad dtype, the sum f32), a new tensor
-        or, given, `out` (the sum written there); v is not written."""
+        types: the product in the grad dtype, the sum f32; one kernel,
+        `ops.update.chain_update`, as XLA fuses it), a new tensor or,
+        given, `out` (the sum written there); v is not written."""
         def body(v, tables, out=None):
-            return torch.add(v, coupling * self(v, tables, schedule)[:, :NV],
-                             out=out)
+            return chain_update(v, self(v, tables, schedule), coupling, out)
 
         return body
 
@@ -864,8 +872,8 @@ class GreenGaussTorch(nn.Module):
         def body(v, out=None):
             tb = self._build_tables(v, needed)
             for i in range(sweeps_per_step):
-                v = torch.add(v, coupling * self(v, tb, schedule)[:, :NV],
-                              out=out if i == sweeps_per_step - 1 else None)
+                v = chain_update(v, self(v, tb, schedule), coupling,
+                                 out if i == sweeps_per_step - 1 else None)
             return self._var_exchange(v)
 
         return body

@@ -31,7 +31,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("pack_srcs.cu", "sweep_packed.cu", "sweep_gather.cu",
            "sweep_overlap.cu", "kbench_twins.cu", "kbench_rungs.cu",
-           "push_bench.cu", "ipc.cu")
+           "push_bench.cu", "ipc.cu", "update.cu")
 HEADERS = ("sweep_common.cuh", "push_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -190,7 +190,11 @@ def lib() -> ctypes.CDLL:
             ("cfd_nv7_sweep", [*sweep, vp, vp]),
             # the bench's rungs: rung (its index in twins.RUNGS), extra
             # (wsum or i8_scale, else null), out, stream
-            ("cfd_kbench_rung", [*sweep, i32, vp, vp, vp])):
+            ("cfd_kbench_rung", [*sweep, i32, vp, vp, vp]),
+            # the chained update: var, g, g_bf16, g's rows, P, ndev, the
+            # coupling (f32), out, stream
+            ("cfd_chain_update", [vp, vp, i32, i64, i64, i64,
+                                  ctypes.c_float, vp, vp])):
         fn = getattr(L, name)
         fn.restype = ctypes.c_int
         fn.argtypes = args

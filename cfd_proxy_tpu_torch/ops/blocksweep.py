@@ -553,7 +553,9 @@ def sweep_blocks(var_T: torch.Tensor, srcs: torch.Tensor,
     values or bf16 deltas; slot_w (P, nb, 3, L) f32 or bf16; scale
     (P, nb, 1, bp) f32; block_ids (P, nb) i32; slots (2, K) i32 from
     `slot_table`.  Without init the output (out_dtype, default f32) is zero
-    at the columns of blocks the plan does not list.  With init (P, rows,
+    at the columns of blocks the plan does not list: the kernel writes
+    those zeros itself, spread over its launch, into a `torch.empty`, so
+    no fill of the whole output runs before it.  With init (P, rows,
     ndev) f32 or bf16 the sweep accumulates onto it IN PLACE and returns it
     — the reference aliases init to the output, so unlisted columns keep
     init's values, and out_dtype, if given, must be init's.  Counterpart of
@@ -583,7 +585,8 @@ def sweep_blocks(var_T: torch.Tensor, srcs: torch.Tensor,
 
     dev = var_T.device
     P, _, _, _, ndev, _ = dims
-    out = (torch.zeros((P, rows, ndev), dtype=odt, device=dev)
+    # the kernel zeroes the columns of unlisted blocks itself
+    out = (torch.empty((P, rows, ndev), dtype=odt, device=dev)
            if init is None else init)
     flags = _flags(slot_w, srcs, out)
     with torch.cuda.device(dev):

@@ -52,7 +52,7 @@ from cfd_proxy_tpu_torch.mesh.partition import partition_mesh
 from cfd_proxy_tpu_torch.models import compiled
 from cfd_proxy_tpu_torch.models.gradients import GreenGaussTorch
 from cfd_proxy_tpu_torch.ops.blocksweep import gather_exts
-from cfd_proxy_tpu_torch.ops.plan import NV
+from cfd_proxy_tpu_torch.ops.update import chain_update
 from cfd_proxy_tpu_torch.utils.errors import check
 from cfd_proxy_tpu_torch.utils.timing import two_point_sampler
 
@@ -82,11 +82,9 @@ def knockout_fn(model: GreenGaussTorch, state: dict, mode: str,
     def body(v, fixed, out=None):
         if mode == "all":
             tb = model._build_tables(v, ("bulk",))
-            v2 = torch.add(v, coupling * keep(model(v, tb, "bulk"))[:, :NV],
-                           out=out)
+            v2 = chain_update(v, keep(model(v, tb, "bulk")), coupling, out)
         elif mode == "sweeponly":
-            v2 = torch.add(v, coupling * keep(model(v, fixed, "bulk"))[:, :NV],
-                           out=out)
+            v2 = chain_update(v, keep(model(v, fixed, "bulk")), coupling, out)
         elif mode == "tablesonly":
             tb = keep(model._build_tables(v, ("bulk",))["bulk"])
             v2 = torch.add(v, tb.float().sum() * c_tab, out=out)

@@ -8,7 +8,14 @@ the port's CUDA kernels from `cfd_proxy_tpu_torch/csrc/` and drives the
 port's paths at the benchmark size (a 96³-point generated mesh, ~2.8 M
 faces, nvar 7, random state from a seed):
 
-- `main_path`: one shard, the `bulk` schedule;
+- `main_path`: one shard, the `bulk` schedule; then `kernels` (K4 and K1
+  against their plain versions), `kernels_update` (the chained update's
+  kernel, ops/update.py, bit for bit its plain version: f32 and bf16
+  gradients, gg and flux rows, into a new tensor and into `out`), `timing`
+  and `main_path_profile` (the P=1 bulk step's device parts, eager and
+  under graph: K1 and the update, one launch each, no fill, no other
+  kernel; `main_path_profile_p1_all` the same for the overlap step: no
+  fill, one update);
 - `main_path_p1_all`: one shard with the fused overlap kernel forced
   (`force_rdma`), schedules bulk, early and overlap;
 - `main_path_p8`: the mesh cut into 8 shards, all on the card, schedules
@@ -89,7 +96,9 @@ faces, nvar 7, random state from a seed):
   replay launches, read from the captured graphs (`compiled.kernel_nodes`),
   the port's among them equal to the launches an eager step counts and to
   the counts the runner adds (CUPTI's view of an eager step and of the
-  replays recorded beside them); the capture's seconds and peak memory;
+  replays recorded beside them; the P=1 bulk step's replay K1 and the
+  update kernel once each, nothing else); the capture's seconds and peak
+  memory;
   the step in turns
   (eager, graph, graph, eager) with each turn's device ms and idle share,
   failing where the graph step is over 1.03x the eager (each turn's step
@@ -229,7 +238,7 @@ PROFILE_BAND = (0.95, 1.05)  # profiled device ms, graph over eager
 PROFILE_TURNS = 2    # rounds of profiled windows (eager, graph, graph, eager)
 IDLE_FLOOR = 0.01    # an idle share at or under it leaves the host no share
 IDLE_CFGS = ("p1_all_overlap", "full_p1_overlap", "flux_p1_all_overlap")
-PORT_KERNEL = re.compile(r"\b(?:sweep|pack)_\w*kernel\b")  # csrc's symbols
+PORT_KERNEL = re.compile(r"\b(?:sweep|pack|chain)_\w*kernel\b")  # csrc's
 SCHEDULES_ALL = ("bulk", "early", "overlap", "nocomm")
 GATHER_BP = 512      # the gather kernel's solver-mode block size
 LARGE_BP = 8192      # a block size whose gather table no block's shared
@@ -492,6 +501,12 @@ KERNELS.update({
         "cfd_proxy_tpu/ops/blocksweep.py:783"),
     "gather_table": ("cuda", "cfd_proxy_tpu_torch/csrc/sweep_gather.cu",
                      "cfd_proxy_tpu/ops/blocksweep.py:391"),
+    # the chained update v + c·g[:, :NV] (ops/update.py), f32 and bf16
+    # gradients: XLA's fusion of the reference's `v + 1e-30 * g[:, :NV, :]`
+    # in its jitted loops (no pallas_call)
+    **{"chain_update" + tag: ("cuda", "cfd_proxy_tpu_torch/csrc/update.cu",
+                              "cfd_proxy_tpu/models/gradients_pallas.py:1102")
+       for tag in ("", "_g16")},
 })
 # that phase's configurations of the gather model: name: (shards, model
 # options); each runs bulk, early and overlap.  At one shard (force_rdma)
@@ -571,7 +586,8 @@ BENCH_KEYS = ("sched_ms", "reduced", "small", "flux_gfps", "solver_ms",
 BENCH_LAUNCHED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
                   "sweep_blocks_overlap", "pack_srcs_d16",
                   "sweep_blocks_w16_d16", "sweep_blocks_w16_d16_o16",
-                  "sweep_blocks_flux", "sweep_blocks_gather")
+                  "sweep_blocks_flux", "sweep_blocks_gather",
+                  "chain_update", "chain_update_g16")
 REDUCED_PACKED = ("pack_srcs_d16", "sweep_blocks_w16_d16_o16",
                   "sweep_blocks_init_w16_d16_o16",
                   "sweep_blocks_overlap_w16_d16_o16")
@@ -980,7 +996,7 @@ def main() -> int:
                                                           PSDFluxModel)
         from cfd_proxy_tpu_torch.ops import _cuda
         from cfd_proxy_tpu_torch.ops import blocksweep as bs
-        from cfd_proxy_tpu_torch.ops import push, twins
+        from cfd_proxy_tpu_torch.ops import push, twins, update
         from cfd_proxy_tpu_torch.parallel import launch, workers
         from cfd_proxy_tpu_torch.parallel.transport import (Dist, Loopback,
                                                             Peer)
@@ -1006,7 +1022,7 @@ def main() -> int:
     # every kernel instance: (wrapper, its count attribute), by instance
     # name (the rows' names, but for the twins': TWIN_ROWS)
     counters = {**bs.launch_counters(), **twins.launch_counters(),
-                **push.launch_counters()}
+                **push.launch_counters(), **update.launch_counters()}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -1173,6 +1189,35 @@ def main() -> int:
         fail(f"sweep_blocks differs from its plain version: "
              f"{errs['sweep_blocks']:.3e} > {K1_TOL} x {k1_scale:.3e}")
 
+    # the chained update against its plain version, bit for bit, on the
+    # P=1 bulk step's state and gradients: f32 and bf16 gradients, gg (24
+    # rows) and flux (its first 8 rows as a flux output), into a new tensor
+    # and into `out`, at a coupling that moves the state and at the
+    # reference's; v never written
+    upd_g = {"chain_update": out, "chain_update_g16": out.to(torch.bfloat16)}
+    var0 = var_T.clone()
+    upd_cases = 0
+    for row, g_ in upd_g.items():
+        for g_rows in (g_, g_[:, :var_T.shape[1]].contiguous()):
+            for c_ in (GRAPH_MOVE, compiled.COUPLING):
+                for buf_ in (None, torch.empty_like(var_T)):
+                    got_ = update.chain_update(var_T, g_rows, c_, out=buf_)
+                    want_ = update.chain_update_ref(var_T, g_rows, c_)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got_.view(torch.int32),
+                                       want_.view(torch.int32)):
+                        fail(f"{row} differs from its plain version "
+                             f"(rows {g_rows.shape[1]}, coupling {c_}, out "
+                             f"{buf_ is not None}): max abs "
+                             f"{float((got_ - want_).abs().max()):.3e}")
+                    upd_cases += 1
+        errs[row] = 0.0
+    if not torch.equal(var_T, var0):
+        fail("chain_update wrote its input state")
+    del var0, got_, want_
+    emit("kernels_update", cases=upd_cases, bitwise=True,
+         rows=[int(out.shape[1]), int(var_T.shape[1])])
+
     # bounds; K4's one-call PyTorch counterpart: torch.gather straight
     # into the table's layout (its int64 index made outside the timing)
     P1, nb1, L1 = pl["src_cols"].shape
@@ -1187,6 +1232,18 @@ def main() -> int:
     library = {"pack_srcs": cuda_ms(lambda: torch.gather(src4, 3, idx64),
                                     50)}
     del idx64, src4
+    # the update's bound: v and out f32, g's first NV rows at their width,
+    # each once; two operations an element.  Its one-call torch yardstick,
+    # torch.add(v, g[:, :NV], alpha=c), rounds the product otherwise (not
+    # on the path)
+    upd_buf = torch.empty_like(var_T)
+    for row, g_ in upd_g.items():
+        nv_ = var_T.shape[1]
+        work[row] = bound(nbytes(var_T, upd_buf)
+                          + var_T.numel() * g_.element_size(),
+                          2 * var_T.numel())
+        library[row] = cuda_ms(lambda g_=g_: torch.add(
+            var_T, g_[:, :nv_], alpha=compiled.COUPLING, out=upd_buf), 50)
 
     # ---- timing: kernels vs plain (same call, in turns), then the bulk step
     times = {
@@ -1196,8 +1253,16 @@ def main() -> int:
             **pack_facts(pk32)},
         "sweep_blocks": paired_ms(
             lambda: bs.sweep_blocks(var_T, tbl, *args),
-            lambda: bs.sweep_blocks_ref(var_T, tbl, *args))}
-    del tbl, tbl_ref, out, out_ref
+            lambda: bs.sweep_blocks_ref(var_T, tbl, *args)),
+        # the update as the graph runner calls it (into its static buffer)
+        **{row: paired_ms(
+            lambda g_=g_: update.chain_update(var_T, g_, compiled.COUPLING,
+                                              out=upd_buf),
+            lambda g_=g_: update.chain_update_ref(var_T, g_,
+                                                  compiled.COUPLING,
+                                                  out=upd_buf))
+           for row, g_ in upd_g.items()}}
+    del tbl, tbl_ref, out, out_ref, upd_g, upd_buf
     st = time_schedule(model, state, "bulk", TIMED_STEPS, warmup=2,
                        repeats=5)
     f32_bulk_s = st.median          # reduced_p1's speedup denominator
@@ -1208,6 +1273,34 @@ def main() -> int:
          faces_per_sec=nface / st.median, steps=TIMED_STEPS)
     if not np.isfinite(st.median):
         fail("bulk step timing fell below the two-point noise floor")
+
+    def step_parts(path, m, st_, schedule, port_only, fills=0):
+        """The step's device parts (`device_profile` over 20 chained steps,
+        eager and under the graph the timed loops replay): one launch a
+        step of the update kernel, `fills` fill launches (a fill kernel or
+        a memset; the overlap step keeps one, its push's receive buffer,
+        `sweep_blocks_overlap`), and with port_only no kernel but the
+        port's (no multiply, no add)."""
+        res_ = {}
+        for mode_, graph_ in (("eager", False), ("graph", None)):
+            prof_ = device_profile(m, st_, schedule, graph=graph_,
+                                   detail=True)
+            per_step = prof_.pop("launches")
+            del prof_["kernels"]
+            upd_ = sum(n_ for k_, n_ in per_step.items()
+                       if "chain_update" in k_)
+            fills_ = {k_: n_ for k_, n_ in per_step.items()
+                      if "Fill" in k_ or k_.startswith("Memset")}
+            other_ = [k_ for k_ in per_step if not PORT_KERNEL.search(k_)]
+            if (upd_ != 1 or sum(fills_.values()) != fills
+                    or (port_only and other_)):
+                fail(f"{path} {schedule} ({mode_}): {upd_} update launches "
+                     f"a step, fills {fills_}, launches {per_step}")
+            res_[mode_] = {**prof_, "launches": per_step}
+        return res_
+
+    emit("main_path_profile", card=smi, schedule="bulk",
+         parts=step_parts("main_path_profile", model, state, "bulk", True))
 
     # ---- P=1, every schedule, the fused overlap kernel forced
     reset_counts()
@@ -1224,6 +1317,9 @@ def main() -> int:
     for s in ("bulk", "early", "overlap", "nocomm"):
         st = time_schedule(model, state, s, TIMED_STEPS, warmup=2, repeats=5)
         step_ms[1][s] = st.median * 1e3
+    emit("main_path_profile_p1_all", card=smi, schedule="overlap",
+         parts=step_parts("main_path_profile_p1_all", model, state,
+                          "overlap", False, fills=1))
     packed_models = {1: model}    # timed again in solver mode
     del state
 
@@ -1575,7 +1671,7 @@ def main() -> int:
                                  for k, c in counts.items() if c}
                 sweep = ("sweep_blocks_gather" if m.kernel == "gather"
                          else "sweep_blocks")
-                want = {sweep: float(n)}
+                want = {sweep: float(n), "chain_update": float(n)}
                 if m.kernel == "packed":
                     want["pack_srcs"] = 1.0   # one rebuilt class (bulk)
                 if per_step[key] != want:
@@ -2779,6 +2875,14 @@ def main() -> int:
         if nodes[0] != nodes[1]:
             fail(f"graph {name}: the two captured graphs launch different "
                  f"kernels: {nodes}")
+        # the P=1 bulk step, from the code: K1 (zero-filled, its own zeros)
+        # and the update, one kernel each; no fill, multiply or add
+        if name == "p1_bulk" and sorted(
+                ("sweep_packed_kernel" in k_, "chain_update_kernel" in k_, n_)
+                for k_, n_ in nodes[0].items()) != [(False, True, 1),
+                                                   (True, False, 1)]:
+            fail(f"graph {name}: a replay launches {dict(nodes[0])}, not "
+                 f"K1 and the update once each")
         if (case.port_kernels and ours == 0) or ours != sum(
                 eager_counts.values()) or added != {
                 k_: n_ * GRAPH_CHECK_N for k_, n_ in eager_counts.items()}:
@@ -3604,7 +3708,8 @@ def main() -> int:
     want = {"dump": 0, "golden": 0, "seed1": 1, "pallas": 0, "xla": 0}
     if rcs != want:
         fail(f"golden_tool: exit codes {rcs}, expected {want}: {lines}")
-    expect_counts("golden_tool", counts, ("pack_srcs", "sweep_blocks_init",
+    # the overlap step: the boundary zero-filled (K1), the interior fused
+    expect_counts("golden_tool", counts, ("pack_srcs", "sweep_blocks",
                                           "sweep_blocks_overlap"))
     emit("golden_tool", nx=GT_NX, parts=4, exit_codes=rcs, output=lines,
          launches=counts, seconds=time.perf_counter() - t0)

@@ -49,12 +49,18 @@ plan widened past 29 000 columns (`edge_plan`, EP DIRECT_EDGE_EP) and cut
 to a bp that is not a multiple of 4 (`odd_plan`, DIRECT_ODD_BP), each
 with its bound and the instance's facts, and in a tree whose direct body
 has two source layouts (a plan's `sources`, `blocksweep.direct_sources`)
-each layout forced;
+each layout forced; the main path's step and its glue (`main`): the
+boundary sweep zero-filled as the tree runs it and on a zero fill with
+init, at one shard (force_rdma, AUTO bp) and eight (bp 1024), packed and
+gather/512, K1 zero-filled on the one-shard bulk plan, the chained update
+as two torch operations and, in a tree that has it, as ops.update's
+kernel, and the one-shard bulk, early and overlap and eight-shard bulk
+steps under the solver's dispatch (`time_schedule`);
 kbench's rows on its 96³ prefix
 tables (bp 4096): K5d (compact_i8), K1-w16-d16-o16 (compact_bso) and
 K5e-bf16 (cstream_bso); a hash of each gather and kbench output, which shows two
 trees' outputs equal bit for bit; and ptxas's registers and spill bytes of
-every K6, K3-peer, gather and kbench rung instance.  `--rows` times only
+every K6, K3-peer, gather, kbench rung, K1 and update instance.  `--rows` times only
 the named groups of ROWS.  The mesh is the smoke run's (96³, seed 0, nvar 7).  Times are
 CUDA-event means of 50 calls (`chip_smoke.cuda_ms`), K6 back to back on the
 card (`chip_smoke.kernel_device_ms`), both from DIR's `chip_smoke.py`.  Run
@@ -81,19 +87,26 @@ FULL = {k: BF16 for k in ("src_dtype", "meta_dtype", "grad_dtype",
                           "halo_dtype")}
 K6_CELLS = ((4, 8.0), (4, 32.0))
 K6_SMALL = 0.125
-# K6, K3-peer, K2 and K3's gather instances and kbench's rungs (their
-# mangled names)
+# K6, K3-peer, K2 and K3's gather instances, kbench's rungs, K1 and the
+# chained update (their mangled names)
 PTXAS_KERNELS = ("overlap_peer", "push_phases", "sweep_gather", "GatherSrc",
-                 "rung_kernel", "i8_kernel")
+                 "rung_kernel", "i8_kernel", "sweep_packed", "chain_update")
 AUTO_BP, LARGE_BP = 4096, 8192     # the AUTO block size at one shard; 2x
 KB_BP = 4096                       # kbench's block size
 KB_ROWS = ("compact_i8", "compact_bso", "cstream_bso")
 # the row groups: K4, K6, K3-peer, the gather sweep at bp 512, K2 at bp 512,
 # 4096 and 8192, K2's cluster instances, K3-gather at bp 4096 and 8192,
 # every instance of the two-shard plans at bp 8192 (the quad body's),
-# the direct body's plans, kbench's rows
+# the direct body's plans, the main path's step and glue, kbench's rows
 ROWS = ("k4", "k6", "peer", "gather", "bodies", "cluster", "k3large",
-        "quad", "direct", "kbench")
+        "quad", "direct", "main", "kbench")
+# the main path's group: its models (tag, shards, options; one shard with
+# force_rdma), the update's coupling (the reference's) and the timed steps
+MAIN_MODELS = (("p1", 1, {}), ("p8", 8, {}),
+               ("gather512_p1", 1, {"kernel": "gather", "bp": GATHER_BP}),
+               ("gather512_p8", 8, {"kernel": "gather", "bp": GATHER_BP}))
+MAIN_COUPLING = 1e-30
+MAIN_STEPS = 200
 # the direct body's edge plans: the one-shard bp 8192 bulk plan with its
 # ext table widened to 24 576 columns (32 768 in all, past the quarter
 # table a block holds: the rule's direct body for every op), and cut to bp
@@ -722,6 +735,78 @@ def measure(root: str, rows=ROWS) -> dict:
             m.close()
             del m, st, var_T, tbs, gb, sendbufs, iargs, calls, peer
         rule["d_bound"] = bounds
+
+    if "main" in rows:
+        # the main path's step and its glue: the boundary sweep both ways,
+        # zero-filled as the tree's wrapper runs it (its own zeros, or a
+        # fill before it) and its init form on a zero fill, at P=1 `all`
+        # (force_rdma, AUTO bp: bench.py's main row) and P=8 (bp 1024),
+        # packed and gather/512 (cuda_ms and back to back, `_held`); K1
+        # zero-filled on the P=1 bulk plan; the update on the P=1 bulk
+        # step's state and gradients, as two torch operations (the parent's
+        # chained body) and, in a tree that has it, as ops.update's kernel;
+        # then the P=1 bulk, early and overlap and P=8 bulk steps under the
+        # solver's dispatch (graph on the card), the solver's two-point
+        # median of MAIN_STEPS-step loops
+        try:
+            from cfd_proxy_tpu_torch.ops import update
+        except ImportError:
+            update = None
+        for tag, npart, opts in MAIN_MODELS:
+            m = GreenGaussTorch(parts1 if npart == 1 else parts8, NVAR,
+                                device=dev, force_rdma=npart == 1, **opts)
+            st = m.distribute_state(gvar)
+            var_T, tbs = st["var_T"], st["tables"]
+            sweep = (bs.sweep_blocks_gather if m.kernel == "gather"
+                     else bs.sweep_blocks)
+            kw = (m._gather_kw("boundary") if m.kernel == "gather" else {})
+            bargs = (var_T, *m._operands("boundary", tbs))
+            zeros = torch.zeros((m.nlocal, m.rows, m.ndev), device=dev)
+            calls = {
+                "boundary_zero_filled": lambda: sweep(*bargs, **kw),
+                "boundary_fill_init": lambda: sweep(
+                    *bargs, init=torch.zeros_like(zeros), **kw)}
+            for name, fn in calls.items():
+                key = f"{name}_{tag}"
+                ms[key] = cs.cuda_ms(fn, 50)
+                ms[key + "_held"] = cs.kernel_device_ms(fn, 50)
+                hashes[key] = digest(fn())
+            rule[f"boundary_{tag}"] = {
+                "bp": m.bp, "blocks": m.ndev // m.bp,
+                "listed": [len(set(r.tolist())) for r in
+                           m.plans["boundary"]["block_ids"].cpu()]}
+            if tag == "p1":
+                args = (var_T, *m._operands("bulk", tbs))
+                ms["k1_bulk_p1"] = cs.cuda_ms(lambda: bs.sweep_blocks(*args),
+                                              50)
+                ms["k1_bulk_p1_held"] = cs.kernel_device_ms(
+                    lambda: bs.sweep_blocks(*args), 50)
+                g = bs.sweep_blocks(*args)
+                buf = torch.empty_like(var_T)
+                upd = {"update_two_op": lambda: torch.add(
+                    var_T, MAIN_COUPLING * g[:, :var_T.shape[1]], out=buf)}
+                if update is not None:
+                    upd["update_kernel"] = lambda: update.chain_update(
+                        var_T, g, MAIN_COUPLING, out=buf)
+                for name, fn in upd.items():
+                    ms[name] = cs.cuda_ms(fn, 50)
+                    ms[name + "_held"] = cs.kernel_device_ms(fn, 50)
+                del args, g, buf, upd
+            if m.kernel == "packed":
+                for s_ in (("bulk", "early", "overlap") if npart == 1
+                           else ("bulk",)):
+                    ms[f"step_{s_}_{tag}"] = time_schedule(
+                        m, st, s_, MAIN_STEPS, warmup=2,
+                        repeats=5).median * 1e3
+                    # the eager step's device parts: ms a launch, launches
+                    prof = cs.device_profile(m, st, s_, graph=False,
+                                             detail=True)
+                    rule[f"parts_{s_}_{tag}"] = {
+                        k: [prof["kernels"][k][1] / prof["kernels"][k][0]
+                            / 1e3, n]
+                        for k, n in prof["launches"].items()}
+            m.close()
+            del m, st, var_T, tbs, bargs, zeros, calls
 
     if "kbench" in rows:
         # kbench's rows on its 96³ prefix tables

@@ -518,7 +518,7 @@ def test_ell_model_takes_the_runner(mesh, gvar, stand_in):
 # ------------------------------------------------------------ on the card
 
 GOLDEN_TOL = 1e-5    # a step against the f64 golden (the reference's gate)
-PORT_KERNEL = re.compile(r"\b(?:sweep|pack)_\w*kernel\b")  # csrc's symbols
+PORT_KERNEL = re.compile(r"\b(?:sweep|pack|chain)_\w*kernel\b")  # csrc's
 
 
 @pytest.fixture(scope="module")

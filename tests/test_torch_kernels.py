@@ -22,7 +22,12 @@ the card, for both ops (the flux instances: K1-flux with and without init,
 K2-flux with and without init, K3-flux in both bodies) and every
 reduced-precision instance (bf16 weights, deltas and outputs: f32 outputs
 within the sweep bound, bf16 outputs within one bf16 ulp; K4's delta pack
-and the bf16 push bitwise), and skip without one.  The reduced-precision
+and the bf16 push bitwise); K1's zero-filled forms on NaN-filled outputs
+(the zeros of the blocks a plan leaves out are the kernel's own: +0.0 bit
+for bit, the whole output bit for bit K1-init on zeros) at one and eight
+shards' boundary plans, every K1 instance's ptxas registers and spills,
+and the chained update kernel bit for bit its plain version; and skip
+without one.  The reduced-precision
 CPU cases are in tests/test_torch_precision.py.  The flux op's CPU cases are in tests/test_torch_flux.py.  They import no JAX, so they run on a GPU
 machine without it:
 
@@ -1092,7 +1097,8 @@ def test_cuda_i8_bad_slot_width_traps():
     _cuda.build()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", I8_BAD_WIDTH, root],
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode != 0 and "no trap" not in r.stdout, r.stdout
     assert "CUDA" in r.stderr or "cuda" in r.stderr, r.stderr[-2000:]
 
@@ -1438,3 +1444,191 @@ def test_cuda_two_ranks_share_one_card():
     ring = launch.spawn(2, workers.push_ring, (2, 24, 128 * 5, "cuda", True),
                         timeout_s=300)
     assert all(r["bitwise"] for r in ring)
+
+
+# ------------------------- K1 clears its own gaps; the chained update
+
+def _bits(t):
+    """Bit patterns: a -0.0 against a +0.0 shows, and so does NaN."""
+    t = t.contiguous()
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.fixture(scope="module")
+def cuda_gap_models():
+    """(P, op) → model and state on a 20×20×20 mesh at bp 128: at one shard
+    (force_rdma) the boundary class lists a single block of many, at eight
+    it leaves long gaps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from cfd_proxy_tpu_torch.models.gradients import PSDFluxModel
+
+    g = generate_mesh(20, 20, 20, jitter=0.05, diag_frac=0.25, seed=7)
+    gv = make_state(g.npoint, NVAR, seed=9)
+    cache = {}
+
+    def get(npart, op):
+        if (npart, op) not in cache:
+            cls = GreenGaussTorch if op == "gg" else PSDFluxModel
+            m = cls(partition_mesh(g, npart, ghost_layers=1), NVAR, bp=128,
+                    device="cuda", force_rdma=npart == 1)
+            cache[(npart, op)] = m, m.distribute_state(gv)
+        return cache[(npart, op)]
+
+    return get
+
+
+def _nan_empty(monkeypatch):
+    """torch.empty hands NaN-filled tensors while the test runs: a column
+    the kernel leaves unwritten stays NaN."""
+    full = torch.full
+
+    def empty(size, *a, dtype=None, device=None, **kw):
+        return full(size, float("nan"), dtype=dtype, device=device)
+
+    monkeypatch.setattr(torch, "empty", empty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "w16_d16_o16", "v16"])
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("npart,cls", [(1, "boundary"), (8, "boundary"),
+                                       (8, "bulk"), (8, "interior")])
+def test_cuda_zero_filled_sweep_clears_its_gaps(cuda_gap_models, monkeypatch,
+                                                npart, cls, op, form):
+    """K1 without init into an output pre-filled with NaN: the columns of
+    the blocks the list leaves out are +0.0 (bit for bit the plain
+    version's), the listed ones within the sweep bound of it, and the whole
+    bit for bit K1-init on a zero output (the same sums); the bf16-state
+    instance (v16, gg only) on the same plans."""
+    if form == "v16" and op == "flux":
+        pytest.skip("the bf16-state instance runs op gg only")
+    model, state = cuda_gap_models(npart, op)
+    w16 = d16 = o16 = form != "f32"
+    args = list(_packed_operands(model, state, cls, w16, d16))
+    if form == "v16":
+        args[0] = args[0].to(torch.bfloat16)
+    odt = torch.bfloat16 if o16 else torch.float32
+    attr = (("flux_" if op == "flux" else "")
+            + bs._tag(w16, d16, o16, v16=form == "v16") + "launches")
+    before = getattr(bs.sweep_blocks, attr)
+    with monkeypatch.context() as mp:
+        _nan_empty(mp)
+        got = bs.sweep_blocks(*args, op=op, out_dtype=odt)
+    want = bs.sweep_blocks_ref(*args, op=op, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert getattr(bs.sweep_blocks, attr) == before + 1
+    assert not bool(got.isnan().any())
+    ids = model.plans[cls]["block_ids"].long().cpu()
+    listed = torch.zeros((len(model.parts), model.ndev), dtype=torch.bool)
+    for p in range(len(model.parts)):
+        for b in ids[p].unique():
+            listed[p, b * model.bp:(b + 1) * model.bp] = True
+    if cls == "boundary":
+        assert int((~listed).sum()) > 4 * model.bp     # a long gap
+    gaps = ~listed[:, None, :].expand(-1, got.shape[1], -1).to(got.device)
+    assert bool((_bits(got)[gaps] == 0).all())
+    assert bool((_bits(want)[gaps] == 0).all())
+    if float(want.float().abs().max()) == 0.0:
+        # the one-shard boundary plan lists the trash block alone (zero
+        # scale): the output is +0.0 throughout
+        assert bool((_bits(got) == 0).all())
+    else:
+        _assert_close(got, want, o16)
+    if form != "v16":
+        zeros = torch.zeros_like(got)
+        init = bs.sweep_blocks(*args, init=zeros, op=op)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(init))
+
+
+def _k1_ptxas(log):
+    """{K1 instance (mangled): (registers, spill store bytes, spill load
+    bytes)} from nvcc's ptxas report."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1) if "sweep_packed" in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.setdefault(name, [None, None, None])[1:] = map(int,
+                                                                m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, [None, None, None])[0] = int(m.group(1))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_k1_instances_keep_their_registers():
+    """Every K1 instance (33: gg and flux, each form and precision, and the
+    bf16-state one), by ptxas: the zero-filled forms, which now clear their
+    gaps, without a spill, gg in at most 72 registers (64 before), flux in
+    48 as before; the init forms as before: gg 96 registers, the four whose
+    weights and sources differ in type with their 8 bytes of spill stores,
+    the rest none; flux 48, none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import re
+    import subprocess
+
+    from cfd_proxy_tpu_torch.ops import _cuda
+
+    facts = _k1_ptxas(_cuda.build()["log"])
+    assert len(facts) == 33, sorted(facts)
+    names = subprocess.run(["c++filt"], input="\n".join(facts),
+                           capture_output=True, text=True).stdout.split("\n")
+    for (mangled, (regs, st, ld)), name in zip(facts.items(), names):
+        init = "<true," in name
+        flux = "(cfd::Op)1" in name
+        w, src = re.search(r"PackedSrc<([\w:]+), ([\w:]+)>", name).groups()
+        if flux:
+            assert (regs, st, ld) == (48, 0, 0), name
+        elif init:
+            assert regs == 96 and st == ld == (8 if w != src else 0), name
+        else:
+            assert regs <= 72 and st == ld == 0, (name, regs, st, ld)
+
+
+UPDATE_SHAPES = [(1, 4096), (3, 1001)]     # vectorised, and the scalar path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_out", [False, True])
+@pytest.mark.parametrize("rows", [24, 8])
+@pytest.mark.parametrize("g16", [False, True])
+@pytest.mark.parametrize("P,ndev", UPDATE_SHAPES)
+def test_cuda_chain_update_equals_plain_bitwise(P, ndev, g16, rows,
+                                                with_out):
+    """The update kernel against `chain_update_ref` bit for bit (f32 and
+    bf16 g, gradient and flux rows, into a new tensor or `out`), v left
+    unwritten, at a coupling that moves the state and at the reference's
+    1e-30."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from cfd_proxy_tpu_torch.ops import update
+
+    gen = torch.Generator("cuda").manual_seed(ndev + rows)
+    v = torch.randn((P, 8, ndev), device="cuda", generator=gen)
+    g = torch.randn((P, rows, ndev), device="cuda", generator=gen) * 7
+    if g16:
+        g = g.to(torch.bfloat16)
+    v0 = v.clone()
+    attr = "g16_launches" if g16 else "launches"
+    for c in (0.1, 1e-30, -3.7):
+        before = getattr(update.chain_update, attr)
+        out = torch.full_like(v, float("nan")) if with_out else None
+        got = update.chain_update(v, g, c, out=out)
+        want = update.chain_update_ref(v, g, c)
+        torch.cuda.synchronize()
+        assert getattr(update.chain_update, attr) == before + 1
+        assert got is out if with_out else got.data_ptr() != v.data_ptr()
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(v, v0)

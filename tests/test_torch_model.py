@@ -336,7 +336,7 @@ print("ok", err)
 def test_port_runs_with_jax_unimportable():
     res = subprocess.run([sys.executable, "-c", JAX_BLOCKED.format(repo=REPO)],
                          capture_output=True, text=True, timeout=120,
-                         cwd=REPO)
+                         cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
 
@@ -363,8 +363,8 @@ def test_bench_runs_with_jax_unimportable():
     """`python -m cfd_proxy_tpu_torch.bench` on the CPU, the model block
     forced, with JAX, the JAX package and the root bench unimportable."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    env.update(BENCH_DEVICE="cpu", BENCH_NX="8", BENCH_ITERS="3",
-               BENCH_SCHEDULE="bulk", BENCH_CPU_DRAM_NX="16",
+    env.update(OMP_NUM_THREADS="1", BENCH_DEVICE="cpu", BENCH_NX="8",
+               BENCH_ITERS="3", BENCH_SCHEDULE="bulk", BENCH_CPU_DRAM_NX="16",
                BENCH_MODEL_BLOCK="force", BENCH_NORTHSTAR_NX="10",
                BENCH_CROSSING_NX="8")
     res = subprocess.run(

@@ -554,6 +554,12 @@ def cli_one():
 
 
 def _cli(argv, env=None):
+    """The solver CLI in a child process with one thread (OMP_NUM_THREADS=1
+    merged into `env`, default this process's environment): under xdist a
+    child with torch's default pool, one thread a core, shares the cores
+    with every worker, and its time follows the load (4-5 s alone, cut at
+    the limit beside a loaded suite)."""
+    env = {**(os.environ if env is None else env), "OMP_NUM_THREADS": "1"}
     res = subprocess.run(
         [sys.executable, "-m", "cfd_proxy_tpu_torch.solver", *argv],
         capture_output=True, text=True, timeout=SPAWN_LIMIT_S, cwd=REPO,
