@@ -51,14 +51,32 @@ shows nothing of the gradients.  The runners take a larger one
 gradients in the state it carries (the tests, chip_smoke.py's `graph`
 phase).
 
-Launch counts.  The kernel wrappers count a launch when their Python runs
-(`ops/blocksweep.py::_count`), which a replay does not do.  The capture
-records which counters its step raised, takes those counts back (a
-captured launch runs nothing) and the runner adds them once per replay.
-`kernel_nodes` lists the kernels a replay launches, read from the
-captured graph; chip_smoke.py's `graph` phase holds them against the
-kernels CUPTI sees an eager step launch and against the counts a replay
-adds.
+Counters.  The port's counters (`counters()`) are function attributes that
+the step's Python raises: the kernel wrappers' launch counts
+(`ops/blocksweep.py::_count`, `launch_counters()`), the bytes the
+exchange's pack writes, padded and live (`halo_bytes`, `halo_live_bytes`,
+models/gradients.py), and the graphs captured (`captures`).  A replay runs
+no Python, so the capture records which counters its step raised, takes
+those counts back (a captured launch runs nothing) and the runner adds
+them once per replay (`Entry.delta`); `captures` is raised after the take
+back, so a replay does not raise it.  `kernel_nodes` lists the kernels a
+replay launches, read from the captured graph; chip_smoke.py's `graph`
+phase holds them against the kernels CUPTI sees an eager step launch and
+against the counts a replay adds.  `event_nodes` counts the graph's
+event-record nodes: the span recorder's (utils/spans.py), none while it is
+off.
+
+Spans (utils/spans.py, off by default).  Each eager step is a
+`spans.step()`, which groups its device spans.  The graphs the runner
+replays hold no span event; with the recorder on, `capture` also captures
+each graph's step once more inside a `spans.step()` (`Entry.timed`: the
+same kernels, and the spans' event nodes), and the runner replays that
+pair as the last two steps of a call, whose events `spans.read()` then
+takes: a graph with event nodes replays slower, and only the last replay
+of each is read.  The runner's own host spans: `cfd.runner` around a
+call, and inside it `cfd.runner.lookup` (the schedule's check, the graph
+key, the cache), `cfd.runner.copy_in`, `cfd.runner.replay` (the replays
+and their counts) and `cfd.runner.copy_out`.
 """
 
 from __future__ import annotations
@@ -71,6 +89,7 @@ import typing
 import torch
 
 from cfd_proxy_tpu_torch.ops import blocksweep, push, update
+from cfd_proxy_tpu_torch.utils import spans
 from cfd_proxy_tpu_torch.utils.errors import check
 
 GRAPH, EAGER = "graph", "eager"
@@ -166,21 +185,32 @@ def launch_counters() -> dict:
             **push.launch_counters()}
 
 
-def _counts() -> dict:
-    return {k: getattr(fn, a) for k, (fn, a) in launch_counters().items()}
+def counters() -> dict:
+    """The port's counters, {name: (function, attribute)}: the launch
+    counters, the pack's `halo_bytes` and `halo_live_bytes`
+    (models/gradients.py) and `captures`, the graphs captured."""
+    from cfd_proxy_tpu_torch.models import gradients
+
+    return {**launch_counters(), **gradients.halo_counters(),
+            "captures": (capture, "captures")}
 
 
-def _set_counts(counts: dict) -> None:
-    for k, (fn, a) in launch_counters().items():
-        setattr(fn, a, counts[k])
+def counts() -> dict:
+    """{name: value} of every counter of `counters()`."""
+    return {k: getattr(fn, a) for k, (fn, a) in counters().items()}
+
+
+def _set_counts(values: dict) -> None:
+    for k, (fn, a) in counters().items():
+        setattr(fn, a, values[k])
 
 
 def _add_counts(delta: dict, times: int) -> None:
     if times <= 0:
         return
-    counters = launch_counters()
+    registry = counters()
     for k, d in delta.items():
-        fn, a = counters[k]
+        fn, a = registry[k]
         setattr(fn, a, getattr(fn, a) + d * times)
 
 
@@ -188,13 +218,16 @@ def _add_counts(delta: dict, times: int) -> None:
 
 class Entry(typing.NamedTuple):
     """One captured step: its two graphs and state buffers (`capture`), the
-    launch counts one replay stands for, the tensors it reads (held, so
-    the pointers in the graphs stay theirs), the capture's seconds."""
+    counts one replay stands for, the tensors it reads (held, so the
+    pointers in the graphs stay theirs), the capture's seconds, and, with
+    the span recorder on, the timed twin of each graph with its step of
+    spans, [(graph, spans.step)] (None while the recorder is off)."""
     graphs: list
     bufs: tuple
     delta: dict
     keep: list
     seconds: float
+    timed: list | None
 
 
 def _sig(t: torch.Tensor, ptr: bool) -> tuple:
@@ -258,6 +291,38 @@ def _record(step, pool=None):
     return graph
 
 
+def _graph_nodes(graph):
+    """(cuda driver, [(node, CUgraphNodeType)]) of a captured graph
+    (`cuGraphGetNodes`, `cuGraphNodeGetType`)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    num = ctypes.c_size_t(0)
+    _ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(num)),
+        "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * num.value)()
+    _ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(num)),
+        "cuGraphGetNodes")
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        out.append((node, kind.value))
+    return cu, out
+
+
+def _ok(rc: int, what: str) -> None:
+    check(rc == 0, "%s failed (CUresult %d)", what, rc)
+
+
+def event_nodes(graph) -> int:
+    """The event-record nodes of a captured graph (the span recorder's:
+    none while it is off)."""
+    return sum(kind == 7 for _, kind in _graph_nodes(graph)[1])  # EVENT_RECORD
+
+
 def kernel_nodes(graph) -> list:
     """The kernels one replay of a captured graph launches: the demangled
     symbol of each of its kernel nodes, read from the graph through the
@@ -265,7 +330,6 @@ def kernel_nodes(graph) -> list:
     `cuFuncGetName` or `cuKernelGetName`)."""
     import ctypes
 
-    cu = ctypes.CDLL("libcuda.so.1")
     cxx = ctypes.CDLL("libstdc++.so.6")
     demangle = cxx.__cxa_demangle
     demangle.restype = ctypes.c_void_p
@@ -280,33 +344,23 @@ def kernel_nodes(graph) -> list:
                     ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
                     ("ctx", ctypes.c_void_p)]
 
-    def ok(rc, what):
-        check(rc == 0, "%s failed (CUresult %d)", what, rc)
-
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    num = ctypes.c_size_t(0)
-    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(num)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * num.value)()
-    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(num)),
-       "cuGraphGetNodes")
+    cu, nodes = _graph_nodes(graph)
     out = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
-           "cuGraphNodeGetType")
-        if kind.value != 0:             # CU_GRAPH_NODE_TYPE_KERNEL
+    for node, kind in nodes:
+        if kind != 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         p = Params()
-        ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
-                                            ctypes.byref(p)),
-           "cuGraphKernelNodeGetParams")
+        _ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                             ctypes.byref(p)),
+            "cuGraphKernelNodeGetParams")
         name = ctypes.c_char_p()
         if p.func:
-            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)),
-               "cuFuncGetName")
+            _ok(cu.cuFuncGetName(ctypes.byref(name),
+                                 ctypes.c_void_p(p.func)), "cuFuncGetName")
         else:
-            ok(cu.cuKernelGetName(ctypes.byref(name),
-                                  ctypes.c_void_p(p.kern)), "cuKernelGetName")
+            _ok(cu.cuKernelGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(p.kern)),
+                "cuKernelGetName")
         status = ctypes.c_int(-1)
         buf = demangle(name.value, None, None, ctypes.byref(status))
         if status.value == 0:
@@ -323,42 +377,64 @@ def capture(body, var_T: torch.Tensor, rest: tuple) -> Entry:
     calls fill the wrappers' host-side caches); then graph i captured as
     the step bufs[i] → bufs[1 − i], both in one memory pool (they never run
     at once, and nothing they allocate outlives a replay).  The captures'
-    counts are taken back; one capture's is the delta a replay adds."""
+    counts are taken back; one capture's is the delta a replay adds.  With
+    the span recorder on, each graph's step is captured once more inside a
+    `spans.step()`, into the same pool (`Entry.timed`)."""
     t0 = time.perf_counter()
     bufs = (var_T.clone(), torch.empty_like(var_T))
-    with _side_stream(var_T.device):
+    with _side_stream(var_T.device), spans.step():
         body(bufs[0], *rest, out=bufs[1])
-    warm = _counts()
-    graphs, delta = [], None
+    warm = counts()
+    graphs, delta, timed = [], None, []
+
+    def step(i):
+        body(bufs[i], *rest, out=bufs[1 - i])
+
+    def timed_step(i, into):
+        with spans.step() as st:
+            step(i)
+        into.append(st)
+
     try:
         for i in (0, 1):
-            graphs.append(_record(
-                lambda i=i: body(bufs[i], *rest, out=bufs[1 - i]),
-                graphs[0].pool() if graphs else None))
+            graphs.append(_record(lambda i=i: step(i),
+                                  graphs[0].pool() if graphs else None))
             if delta is None:
-                after = _counts()
+                after = counts()
                 delta = {k: after[k] - warm[k] for k in after
                          if after[k] != warm[k]}
+        if spans.enabled():
+            for i in (0, 1):
+                st: list = []
+                timed.append((_record(lambda i=i: timed_step(i, st),
+                                      graphs[0].pool()), st[0]))
     except Exception as e:
         raise RuntimeError(f"CUDA graph capture of the chained step failed "
                            f"({type(e).__name__}: {e}); dispatch said graph "
                            f"and nothing falls back to eager") from e
     finally:
         _set_counts(warm)
+    capture.captures += len(graphs) + len(timed)
     return Entry(graphs, bufs, delta, _tensors(rest),
-                 time.perf_counter() - t0)
+                 time.perf_counter() - t0, timed or None)
+
+
+capture.captures = 0
 
 
 # -------------------------------------------------------------- runners
 
 def runner(model, body, n: int, key, *, graph: bool | None = None,
-           schedule: str | None = None, solver_mode: bool = False):
+           schedule: str | None = None, solver_mode: bool = False,
+           precheck=None):
     """The chained n-step runner of `body(v, *rest, out=None) -> v'` (v is
     not written; v' is a new tensor, or `out` when given, which the step's
     last operation writes as it would a new tensor): run(var_T, *rest) →
     the state after n steps, a new tensor.  graph: as in `use_graph`, for
     the body's schedule and solver mode (the dispatch rule's inputs).  key:
-    what tells this body from the model's others.
+    what tells this body from the model's others.  precheck(var_T, *rest),
+    when given, runs first at every call and raises on arguments the body
+    cannot take.
 
     Under graph the captured steps live in `model.graphs` (an OrderedDict,
     the least recently used dropped past CACHE_SIZE), keyed on `key`, the
@@ -373,35 +449,53 @@ def runner(model, body, n: int, key, *, graph: bool | None = None,
                else "graph=False")
 
         def run_eager(var_T, *rest):
-            _CALLS[(EAGER, why)] += 1
-            v = var_T
-            for _ in range(n):
-                v = body(v, *rest)
-            return v
+            with spans.span("runner"):
+                if precheck is not None:
+                    precheck(var_T, *rest)
+                _CALLS[(EAGER, why)] += 1
+                v = var_T
+                for _ in range(n):
+                    with spans.step():
+                        v = body(v, *rest)
+                return v
 
         return run_eager
 
     cache = model.graphs
 
     def run_graph(var_T, *rest):
-        _CALLS[(GRAPH, GRAPH_REASON)] += 1
-        if n == 0:
-            return var_T.clone()
-        k = graph_key(key, var_T, rest)
-        entry = cache.get(k)
-        done = cur = 0
-        if entry is None:
-            entry = cache[k] = capture(body, var_T, rest)
-            while len(cache) > CACHE_SIZE:
-                cache.popitem(last=False)
-            done = cur = 1          # the eager warm-up was step 1
-        else:
-            cache.move_to_end(k)
-            entry.bufs[0].copy_(var_T)
-        for _ in range(n - done):
-            entry.graphs[cur].replay()
-            cur = 1 - cur
-        _add_counts(entry.delta, n - done)
-        return entry.bufs[cur].clone()
+        with spans.span("runner"):
+            with spans.span("runner.lookup"):
+                if precheck is not None:
+                    precheck(var_T, *rest)
+                _CALLS[(GRAPH, GRAPH_REASON)] += 1
+                if n == 0:
+                    return var_T.clone()
+                k = graph_key(key, var_T, rest)
+                entry = cache.get(k)
+                if entry is not None:
+                    cache.move_to_end(k)
+            done = cur = 0
+            if entry is None:
+                entry = cache[k] = capture(body, var_T, rest)
+                while len(cache) > CACHE_SIZE:
+                    cache.popitem(last=False)
+                done = cur = 1          # the eager warm-up was step 1
+            else:
+                with spans.span("runner.copy_in"):
+                    entry.bufs[0].copy_(var_T)
+            m, timed = n - done, entry.timed
+            with spans.span("runner.replay"):
+                for j in range(m):
+                    # the last two steps on the timed twins, if any
+                    (entry.graphs[cur] if timed is None or j < m - 2
+                     else timed[cur][0]).replay()
+                    cur = 1 - cur
+                _add_counts(entry.delta, m)
+            if timed is not None:
+                # the twins replayed: the last step's, and the one before
+                spans.replayed(timed[i][1] for i in [1 - cur, cur][:m])
+            with spans.span("runner.copy_out"):
+                return entry.bufs[cur].clone()
 
     return run_graph

@@ -140,6 +140,7 @@ from cfd_proxy_tpu_torch.parallel.transport import (
     group_size,
     shard_range,
 )
+from cfd_proxy_tpu_torch.utils import spans
 from cfd_proxy_tpu_torch.utils.errors import check
 
 # AUTO block-size rule (bp=None), kept from the reference so that both
@@ -147,6 +148,7 @@ from cfd_proxy_tpu_torch.utils.errors import check
 BP_AUTO_SMALL = 262144
 BP_SMALL = 1024
 CLASSES = ("bulk", "boundary", "interior")
+SWEEP_SPANS = {c: "sweep." + c for c in CLASSES}    # utils/spans.py
 KERNELS = ("packed", "gather")
 SCHEDULES = ("bulk", "early", "overlap", "nocomm")
 # the reduced-precision options and the stored types they name
@@ -479,6 +481,9 @@ class GreenGaussTorch(nn.Module):
         # pack: buf[p, k, r, j] = g[p, r, send_idx[p, k, j]] * scale
         self.pack_cols = dev(a["send_idx"], np.int64)[:, :, None, :]
         self.send_mask = dev(a["send_mask"], np.float32)[:, :, None, :]
+        # this rank's live send columns over every phase (halo_live_bytes)
+        self.live_cols = int(np.count_nonzero(
+            np.asarray(a["send_mask"])[lo:hi]))
         self.pack_scale = dev(a["pack_scale"], np.float32)[:, :, None, :]
         self.pack_shard = torch.arange(n, device=self.device).view(n, 1, 1, 1)
         # sized for the most rows any exchange moves (3·NV gradients)
@@ -671,15 +676,17 @@ class GreenGaussTorch(nn.Module):
                                              self.classes_for(schedules))}
 
     def _build_tables(self, var_T: torch.Tensor, classes) -> dict:
-        """Each class's table from the state: packed sources (`pack_srcs`
-        kernel) or ext columns (`gather_exts`, a plain gather)."""
-        if self.kernel == "gather":
-            return {c: gather_exts(var_T, self.plans[c]["ext_idx"])
+        """Each class's table from the state, in span "rebuild": packed
+        sources (`pack_srcs` kernel) or ext columns (`gather_exts`, a plain
+        gather)."""
+        with spans.span("rebuild", self.device):
+            if self.kernel == "gather":
+                return {c: gather_exts(var_T, self.plans[c]["ext_idx"])
+                        for c in classes}
+            return {c: pack_srcs(var_T, self.plans[c]["src_cols"],
+                                 src_format=self.src_format, bp=self.bp,
+                                 **self.pack_operands(c))
                     for c in classes}
-        return {c: pack_srcs(var_T, self.plans[c]["src_cols"],
-                             src_format=self.src_format, bp=self.bp,
-                             **self.pack_operands(c))
-                for c in classes}
 
     def pack_operands(self, c: str) -> dict:
         """The plan operands `pack_srcs` takes for class c beside var_T,
@@ -692,9 +699,11 @@ class GreenGaussTorch(nn.Module):
         owners' columns by send_idx × send_mask (no scale), through the
         collective transport, into the static ghost regions, rows 0..NV-1.
         Skipped when no phase moves data, as the reference skips phases
-        with an empty perm."""
+        with an empty perm.  One span, "var_exchange", holds its device
+        time, its pack and unpack included."""
         if self.moves:
-            self._exchange(var_T, self.send_mask, F32)
+            with spans.span("var_exchange", self.device, leaf=True):
+                self._exchange(var_T, self.send_mask, F32)
         return var_T
 
     def refresh_state(self, var_T: torch.Tensor, *, schedules=None) -> dict:
@@ -740,13 +749,14 @@ class GreenGaussTorch(nn.Module):
                 "sources": self.sources[cls]}
 
     def _sweep(self, cls: str, var_T, tables, init=None):
-        """A class's sweep; its output (init's, else a new one) is stored
-        in the grad dtype."""
+        """A class's sweep, in span "sweep.<cls>"; its output (init's, else
+        a new one) is stored in the grad dtype."""
         sweep = sweep_blocks_gather if self.kernel == "gather" else \
             sweep_blocks
-        return sweep(var_T, *self._operands(cls, tables), init=init,
-                     op=self.op, out_dtype=self.grad_t,
-                     **self._gather_kw(cls))
+        with spans.span(SWEEP_SPANS[cls], self.device):
+            return sweep(var_T, *self._operands(cls, tables), init=init,
+                         op=self.op, out_dtype=self.grad_t,
+                         **self._gather_kw(cls))
 
     def _pack(self, x: torch.Tensor, scale: torch.Tensor,
               wire: torch.dtype = F32) -> torch.Tensor:
@@ -754,25 +764,34 @@ class GreenGaussTorch(nn.Module):
         columns of send_idx, times the mask (bulk gradients, which are
         already volume-scaled, and the state) or pack_scale (early/overlap:
         boundary sums are not), in f32 (a bf16 x is widened by the
-        product, as in the reference), then cast to the wire dtype."""
-        rows = self.pack_row[:, :, : x.shape[1]]
-        return (x[self.pack_shard, rows, self.pack_cols] * scale).to(wire)
+        product, as in the reference), then cast to the wire dtype.  In
+        span "pack"; counts the bytes written (`halo_counters`)."""
+        with spans.span("pack", self.device):
+            rows = self.pack_row[:, :, : x.shape[1]]
+            bufs = (x[self.pack_shard, rows, self.pack_cols] * scale).to(wire)
+        size = bufs.element_size()
+        count = GreenGaussTorch._pack
+        count.halo_bytes += bufs.numel() * size
+        count.halo_live_bytes += self.live_cols * x.shape[1] * size
+        return bufs
 
     def _unpack(self, x: torch.Tensor, recv: torch.Tensor,
                 phases: list | None = None) -> None:
         """Phase k's buffers into its ghost region [ghost_start + k·s_max,
         +s_max), cast into x's dtype.  Every phase (phases None): the
         regions are adjacent, so one strided copy; else recv holds the
-        listed phases, each copied into its own region."""
+        listed phases, each copied into its own region.  In span
+        "unpack"."""
         P, nph, rows = recv.shape[:3]
         lo = self.ghost_start
-        if phases is None:
-            x[:, :, lo:lo + nph * self.s_max].view(
-                P, rows, nph, self.s_max).copy_(recv.permute(0, 2, 1, 3))
-            return
-        for j, k in enumerate(phases):
-            x[:, :, lo + k * self.s_max:lo + (k + 1) * self.s_max].copy_(
-                recv[:, j])
+        with spans.span("unpack", self.device):
+            if phases is None:
+                x[:, :, lo:lo + nph * self.s_max].view(
+                    P, rows, nph, self.s_max).copy_(recv.permute(0, 2, 1, 3))
+                return
+            for j, k in enumerate(phases):
+                x[:, :, lo + k * self.s_max:lo + (k + 1) * self.s_max].copy_(
+                    recv[:, j])
 
     def _exchange(self, x: torch.Tensor, scale: torch.Tensor,
                   wire: torch.dtype) -> None:
@@ -796,10 +815,13 @@ class GreenGaussTorch(nn.Module):
         # fill runs before it.  K2's hand each gap to the CTAs of the entry
         # before it (sweep_common.cuh::clear_gaps), and a boundary plan
         # lists few entries (at one shard one, of one to four CTAs): there
-        # the sweep accumulates onto a zero fill (PERF.md section 6)
-        init = (torch.zeros((self.nlocal, self.rows, self.ndev),
-                            dtype=self.grad_t, device=self.device)
-                if self.kernel == "gather" else None)
+        # the sweep accumulates onto a zero fill (PERF.md section 6), which
+        # the boundary's span counts with the sweep
+        init = None
+        if self.kernel == "gather":
+            with spans.span(SWEEP_SPANS["boundary"], self.device):
+                init = torch.zeros((self.nlocal, self.rows, self.ndev),
+                                   dtype=self.grad_t, device=self.device)
         gb = self._sweep("boundary", var_T, tables, init=init)
         if schedule == "overlap" and self.has_comm and self.kernel_phases:
             return self._overlap(var_T, tables, gb)
@@ -825,15 +847,18 @@ class GreenGaussTorch(nn.Module):
         bufs = self._pack(gb, self.pack_scale, self.halo_t)
         pending = None
         if self.routed:
-            pending = self.coll.start(bufs.index_select(1, self.coll_index))
-            bufs = bufs.index_select(1, self.kernel_index)
+            with spans.span("pack", self.device):   # the carriers' split
+                coll = bufs.index_select(1, self.coll_index)
+                bufs = bufs.index_select(1, self.kernel_index)
+            pending = self.coll.start(coll)
         if self.peer is not None:       # it holds its own push map
             push = (None, None, self.op)
             how = {"peer": self.peer}
         else:
             push, how = (*self.kernel_map, self.op), {}
-        g, recv = fused(var_T, *self._operands("interior", tables), gb, bufs,
-                        *push, **how, **self._gather_kw("interior"))
+        with spans.span(SWEEP_SPANS["interior"], self.device):
+            g, recv = fused(var_T, *self._operands("interior", tables), gb,
+                            bufs, *push, **how, **self._gather_kw("interior"))
         if not self.routed:
             self._unpack(g, recv)
             return g
@@ -855,7 +880,9 @@ class GreenGaussTorch(nn.Module):
         `ops.update.chain_update`, as XLA fuses it), a new tensor or,
         given, `out` (the sum written there); v is not written."""
         def body(v, tables, out=None):
-            return chain_update(v, self(v, tables, schedule), coupling, out)
+            g = self(v, tables, schedule)
+            with spans.span("update", self.device):
+                return chain_update(v, g, coupling, out)
 
         return body
 
@@ -872,8 +899,11 @@ class GreenGaussTorch(nn.Module):
         def body(v, out=None):
             tb = self._build_tables(v, needed)
             for i in range(sweeps_per_step):
-                v = chain_update(v, self(v, tb, schedule), coupling,
-                                 out if i == sweeps_per_step - 1 else None)
+                g = self(v, tb, schedule)
+                with spans.span("update", self.device):
+                    v = chain_update(v, g, coupling,
+                                     out if i == sweeps_per_step - 1
+                                     else None)
             return self._var_exchange(v)
 
         return body
@@ -916,14 +946,11 @@ class GreenGaussTorch(nn.Module):
                 n, key, graph=graph, schedule=schedule, solver_mode=True)
             # the state's tables are not read: the body rebuilds its own
             return lambda var_T, tables: run_solver(var_T)
-        run = compiled.runner(self, self.chain_body(schedule, coupling), n,
-                              key, graph=graph, schedule=schedule)
-
-        def checked(var_T, tables):
-            self.check_schedule(schedule, tables)
-            return run(var_T, tables)
-
-        return checked
+        return compiled.runner(
+            self, self.chain_body(schedule, coupling), n, key, graph=graph,
+            schedule=schedule,
+            precheck=lambda var_T, tables: self.check_schedule(schedule,
+                                                               tables))
 
     # ------------------------------------------------------------ gather
 
@@ -950,6 +977,19 @@ class GreenGaussTorch(nn.Module):
                 for d in range(3):
                     out[gids, v * 3 + d] = arr[i, d * NV + v, : p.nowned]
         return out
+
+
+# the pack's counters (models/compiled.py: the port's counters): wire bytes
+# written, padded to s_max over every phase, and those of the send columns
+# send_mask marks live
+GreenGaussTorch._pack.halo_bytes = 0
+GreenGaussTorch._pack.halo_live_bytes = 0
+
+
+def halo_counters() -> dict:
+    """{name: (function, attribute)} of the pack's counters."""
+    return {k: (GreenGaussTorch._pack, k)
+            for k in ("halo_bytes", "halo_live_bytes")}
 
 
 class PSDFluxModel(GreenGaussTorch):

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from cfd_proxy_tpu_torch.ops.plan import NV
+from cfd_proxy_tpu_torch.utils import spans
 from cfd_proxy_tpu_torch.utils.errors import check
 
 OPS = ("gg", "flux")   # the kernels take an op as its index here
@@ -1159,7 +1160,8 @@ def sweep_blocks_overlap(var_T: torch.Tensor, srcs: torch.Tensor,
                                         dsts, src_devs, op)
     from cfd_proxy_tpu_torch.ops import _cuda
 
-    recv = torch.zeros_like(sendbufs)
+    with spans.span("recv_fill", dev):
+        recv = torch.zeros_like(sendbufs)
     flags = _flags(slot_w, srcs, init)
     with torch.cuda.device(dev):
         rc = _cuda.lib().cfd_sweep_overlap(
@@ -1242,7 +1244,8 @@ def sweep_blocks_overlap_gather(var_T: torch.Tensor, exts: torch.Tensor,
             sendbufs, dsts, src_devs, op)
     from cfd_proxy_tpu_torch.ops import _cuda
 
-    recv = torch.zeros_like(sendbufs)
+    with spans.span("recv_fill", dev):
+        recv = torch.zeros_like(sendbufs)
     w16, o16 = _flags(slot_w, init)
     with torch.cuda.device(dev):
         stream = _stream(dev)

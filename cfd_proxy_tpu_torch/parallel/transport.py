@@ -48,6 +48,7 @@ import torch.distributed as dist
 
 from cfd_proxy_tpu_torch.ops.blocksweep import (check_push_map, expect_aligned,
                                                 loopback)
+from cfd_proxy_tpu_torch.utils import spans
 from cfd_proxy_tpu_torch.utils.errors import check
 
 TRANSPORTS = ("loopback", "dist", "peer")
@@ -93,7 +94,8 @@ class Loopback:
                                          device=device)
 
     def start(self, sendbufs: torch.Tensor) -> torch.Tensor:
-        return loopback(sendbufs, self.dst_index)
+        with spans.span("exchange", sendbufs.device):
+            return loopback(sendbufs, self.dst_index)
 
     def finish(self, pending: torch.Tensor) -> torch.Tensor:
         return pending
@@ -158,7 +160,12 @@ class Dist:
             dist.get_global_rank(self.group, rank)
 
     def start(self, sendbufs: torch.Tensor):
-        """Post every phase's transfers; returns what `finish` takes."""
+        """Post every phase's transfers, in span "exchange"; returns what
+        `finish` takes."""
+        with spans.span("exchange", sendbufs.device):
+            return self._start(sendbufs)
+
+    def _start(self, sendbufs: torch.Tensor):
         nph = len(self.local)
         check(sendbufs.dim() == 4 and sendbufs.shape[0] == self.hi - self.lo
               and sendbufs.shape[1] == nph and sendbufs.is_contiguous()
@@ -202,6 +209,12 @@ class Dist:
         return self._pin[key]
 
     def finish(self, pending) -> torch.Tensor:
+        """Wait for the transfers `start` posted, in span "exchange"; returns
+        recv."""
+        with spans.span("exchange", pending[0].device):
+            return self._finish(pending)
+
+    def _finish(self, pending) -> torch.Tensor:
         recv, staged, reqs = pending
         for r in reqs:
             r.wait()

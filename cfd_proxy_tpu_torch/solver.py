@@ -67,9 +67,12 @@ schedule's entry carries its `dispatch`; the result's `dispatch` ("graph"
 where every timed loop replayed graphs, else "eager") and
 `dispatch_reason` sum them up, and the summary line prints `dispatch=`.
 `--profile DIR` writes a `torch.profiler` trace (Chrome trace JSON) of the
-timed loops to DIR.  The reference's `--pack-force` and `--platform` are
-parsed and refused by name (`CheckError`, `check_config`): they work
-around XLA and the TPU (ROADMAP queue 2, not-ported list).
+timed loops to DIR, with the port's span recorder on for them, so the
+trace holds the `cfd.*` host ranges of the runner and of each step the
+loops run or capture (utils/spans.py).  The reference's `--pack-force`
+and `--platform` are parsed and refused by name (`CheckError`,
+`check_config`): they work around XLA and the TPU (ROADMAP queue 2,
+not-ported list).
 """
 
 from __future__ import annotations
@@ -565,19 +568,27 @@ def trace_path(profile_dir: str, rank: int) -> str:
 def profiled(profile_dir: str | None, model):
     """A `torch.profiler` trace of the block (CPU ops, and CUDA kernels on a
     card) written to profile_dir as Chrome trace JSON, one file per rank
-    (`trace_path`); nothing without a directory.  A failure to trace
-    raises."""
+    (`trace_path`), the span recorder on for the block (its `cfd.*` ranges
+    in the trace; the graphs the block captures hold its events); nothing
+    without a directory.  A failure to trace raises."""
     if not profile_dir:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from cfd_proxy_tpu_torch.utils import spans
+
     acts = [ProfilerActivity.CPU]
     if model.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
+    spans.enable()
+    try:
+        with profile(activities=acts) as prof:
+            yield
+    finally:
+        spans.disable()
+        spans.reset()
     prof.export_chrome_trace(trace_path(profile_dir, model.rank))
 
 
@@ -661,7 +672,9 @@ def main(argv=None) -> int:
                     help="float64 needs --backend xla")
     ap.add_argument("--profile", dest="profile_dir", default=None,
                     help="write a torch.profiler trace of the timed loops "
-                         "to this directory (trace.rank<r>.json)")
+                         "to this directory (trace.rank<r>.json); it holds "
+                         "the port's cfd.* spans (the runner's, and each "
+                         "step's where it runs eagerly or is captured)")
     ap.add_argument("--min-phases", type=int, default=1,
                     help="pad the exchange schedule to this many self-send "
                          "phases")

@@ -350,7 +350,7 @@ class _StandInGraph:
         return None
 
     def replay(self):
-        before = compiled._counts()
+        before = compiled.counts()
         self.step()
         compiled._set_counts(before)
         self.replays += 1
@@ -413,6 +413,31 @@ def test_counts_recorded_once_and_added_per_replay(stand_in, monkeypatch):
     assert len(stand_in) == 2                    # one capture
     assert [g.replays for g in stand_in] == [4, 3]
     assert torch.equal(compiled.runner(model, _bump, 0, "bump")(v0), v0)
+
+
+def test_captures_counted_once_per_graph(stand_in):
+    model = types.SimpleNamespace(device=torch.device("cpu"),
+                                  graphs=collections.OrderedDict())
+    c0 = compiled.capture.captures
+    run = compiled.runner(model, lambda v, out=None: torch.add(v, 1.0,
+                                                               out=out),
+                          4, "add")
+    run(torch.zeros(3))
+    run(torch.zeros(3))
+    assert compiled.capture.captures - c0 == 2     # two graphs, once
+    entry, = model.graphs.values()
+    assert "captures" not in entry.delta and entry.timed is None
+
+
+@pytest.mark.parametrize("graph", [None, False])
+def test_runner_prechecks_the_schedule(models, gvar, stand_in, graph):
+    _, tm = models("gg", 3, "packed")
+    st = tm.distribute_state(gvar, schedules=["bulk"])
+    run = tm.iterate_fn("early", 2, graph=graph, coupling=C)
+    with pytest.raises(CheckError, match="schedule 'early' needs"):
+        run(*tm.iter_args(st))
+    assert not tm.graphs
+    tm.close()
 
 
 def _grad_probe(tm, schedule, solver=False):
@@ -565,7 +590,9 @@ def test_cuda_graph_equals_eager_bitwise(cuda_models, mesh, gvar, kernel,
         nodes = [compiled.kernel_nodes(g) for g in entry.graphs]
         ours = [k for k in nodes[0] if PORT_KERNEL.search(k)]
         assert sorted(nodes[0]) == sorted(nodes[1])
-        assert len(ours) == sum(entry.delta.values()) > 0
+        launches = compiled.launch_counters()
+        assert len(ours) == sum(d for k, d in entry.delta.items()
+                                if k in launches) > 0
         got, want = _replayed_grad(tm, st, schedule, solver)
         torch.cuda.synchronize()
         assert torch.equal(got, want)

@@ -119,7 +119,10 @@ def test_solver_cli_xla_two_ranks(capsys):
 
 def test_solver_cli_profile_writes_a_trace(capsys, tmp_path):
     """--profile DIR: a Chrome trace JSON of the timed loops, named in the
-    report, with the model's ops in it."""
+    report, with the model's ops and the port's cfd.* spans in it; the span
+    recorder is off again after."""
+    from cfd_proxy_tpu_torch.utils import spans
+
     d = _cli_json(capsys, "--schedule", "bulk", "--profile",
                   str(tmp_path / "prof"))
     path = d["profile"]
@@ -127,6 +130,8 @@ def test_solver_cli_profile_writes_a_trace(capsys, tmp_path):
     trace = json.load(open(path))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+    assert {"cfd.runner", "cfd.sweep.bulk", "cfd.update"} <= names
+    assert not spans.enabled()
 
 
 def test_solver_cli_min_phases(capsys):
