@@ -88,7 +88,7 @@ import typing
 
 import torch
 
-from cfd_proxy_tpu_torch.ops import blocksweep, push, update
+from cfd_proxy_tpu_torch.ops import blocksweep, halo_pack, push, update
 from cfd_proxy_tpu_torch.utils import spans
 from cfd_proxy_tpu_torch.utils.errors import check
 
@@ -180,9 +180,10 @@ def take_calls() -> dict:
 
 def launch_counters() -> dict:
     """The port's launch counters a chained body can raise: the sweep
-    kernels', the chained update's and K6's (the push bench's chain)."""
+    kernels', the chained update's, the halo pack's and K6's (the push
+    bench's chain)."""
     return {**blocksweep.launch_counters(), **update.launch_counters(),
-            **push.launch_counters()}
+            **halo_pack.launch_counters(), **push.launch_counters()}
 
 
 def counters() -> dict:

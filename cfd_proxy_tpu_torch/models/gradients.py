@@ -120,6 +120,7 @@ from cfd_proxy_tpu_torch.ops.plan import (
     compact_widx,
     prefix_widths,
 )
+from cfd_proxy_tpu_torch.ops.halo_pack import pack_halo
 from cfd_proxy_tpu_torch.ops.update import chain_update
 from cfd_proxy_tpu_torch.parallel.tlayout import (
     build_tlayout,
@@ -459,7 +460,7 @@ class GreenGaussTorch(nn.Module):
         for k in ("send_idx", "send_mask", "pack_scale"):
             check(np.shape(a[k]) == exch, "%s shape %s, expected %s", k,
                   np.shape(a[k]), exch)
-        lo, hi, n = self.lo, self.hi, self.nlocal
+        lo, hi = self.lo, self.hi
 
         def dev(x, dtype):
             """This rank's slice [lo, hi) of a stacked (P, ...) array."""
@@ -478,17 +479,19 @@ class GreenGaussTorch(nn.Module):
         self.ici_phases = [k for k in range(self.nphases) if not inter[k]]
         self.dcn_phases = [k for k in range(self.nphases) if inter[k]]
         self._load_transports()
-        # pack: buf[p, k, r, j] = g[p, r, send_idx[p, k, j]] * scale
-        self.pack_cols = dev(a["send_idx"], np.int64)[:, :, None, :]
+        # pack: buf[p, k, r, j] = g[p, r, send_idx[p, k, j]] * scale, the
+        # operands (nlocal, nph, 1, s_max), broadcast against the buffer; the
+        # kernel reads the columns unchecked, so they are checked here
+        send_idx = np.asarray(a["send_idx"])
+        check(send_idx.size == 0 or (send_idx.min() >= 0
+                                     and send_idx.max() < self.ndev),
+              "send_idx outside [0, ndev %d)", self.ndev)
+        self.pack_cols = dev(send_idx, np.int32)[:, :, None, :]
         self.send_mask = dev(a["send_mask"], np.float32)[:, :, None, :]
         # this rank's live send columns over every phase (halo_live_bytes)
         self.live_cols = int(np.count_nonzero(
             np.asarray(a["send_mask"])[lo:hi]))
         self.pack_scale = dev(a["pack_scale"], np.float32)[:, :, None, :]
-        self.pack_shard = torch.arange(n, device=self.device).view(n, 1, 1, 1)
-        # sized for the most rows any exchange moves (3·NV gradients)
-        self.pack_row = torch.arange(3 * NV, device=self.device).view(
-            1, 1, 3 * NV, 1)
 
         self.plans: dict[str, dict[str, torch.Tensor]] = {}
         self.wks: dict[str, tuple[int, ...]] = {}
@@ -764,11 +767,11 @@ class GreenGaussTorch(nn.Module):
         columns of send_idx, times the mask (bulk gradients, which are
         already volume-scaled, and the state) or pack_scale (early/overlap:
         boundary sums are not), in f32 (a bf16 x is widened by the
-        product, as in the reference), then cast to the wire dtype.  In
-        span "pack"; counts the bytes written (`halo_counters`)."""
+        product, as in the reference), then cast to the wire dtype; one
+        pass, `ops/halo_pack.py::pack_halo`.  In span "pack"; counts the
+        bytes written (`halo_counters`)."""
         with spans.span("pack", self.device):
-            rows = self.pack_row[:, :, : x.shape[1]]
-            bufs = (x[self.pack_shard, rows, self.pack_cols] * scale).to(wire)
+            bufs = pack_halo(x, self.pack_cols, scale, wire)
         size = bufs.element_size()
         count = GreenGaussTorch._pack
         count.halo_bytes += bufs.numel() * size

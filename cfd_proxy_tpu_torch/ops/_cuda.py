@@ -31,7 +31,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("pack_srcs.cu", "sweep_packed.cu", "sweep_gather.cu",
            "sweep_overlap.cu", "kbench_twins.cu", "kbench_rungs.cu",
-           "push_bench.cu", "ipc.cu", "update.cu")
+           "push_bench.cu", "ipc.cu", "update.cu", "halo_pack.cu")
 HEADERS = ("sweep_common.cuh", "push_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -194,7 +194,12 @@ def lib() -> ctypes.CDLL:
             # the chained update: var, g, g_bf16, g's rows, P, ndev, the
             # coupling (f32), out, stream
             ("cfd_chain_update", [vp, vp, i32, i64, i64, i64,
-                                  ctypes.c_float, vp, vp])):
+                                  ctypes.c_float, vp, vp]),
+            # the halo pack: x, x_bf16, idx, scale, P, rows, ndev, nph,
+            # s_max, buf, w_bf16, stream; its facts: x_bf16, w_bf16
+            ("cfd_pack_halo", [vp, i32, vp, vp, i64, i64, i64, i64, i64, vp,
+                               i32, vp]),
+            ("cfd_pack_halo_info", [i32, i32, vp])):
         fn = getattr(L, name)
         fn.restype = ctypes.c_int
         fn.argtypes = args
@@ -205,8 +210,8 @@ def kernel_info(name: str, *args: int) -> dict:
     """Registers and local bytes per thread, static shared bytes and
     resident blocks per SM of a kernel instance, as the CUDA runtime
     reports them: `name` one of "cfd_overlap_peer_info",
-    "cfd_push_phases_info", "cfd_pack_srcs_info", "cfd_sweep_gather_info"
-    or "cfd_overlap_gather_info" (the last two also give `active_clusters`:
+    "cfd_push_phases_info", "cfd_pack_srcs_info", "cfd_pack_halo_info",
+    "cfd_sweep_gather_info" or "cfd_overlap_gather_info" (the last two also give `active_clusters`:
     the clusters of the cluster body that can be resident at once, 0 for
     the other bodies; the first also `min_blocks`: the resident blocks per
     SM its launch bounds ask for), args as it takes them."""

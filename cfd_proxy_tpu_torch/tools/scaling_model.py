@@ -248,11 +248,12 @@ def model_partitioning(mesh, P, ns_per_face, ici_gbps, rows,
 # chained loop the step's CUDA graphs replayed): the bases are the step-time
 # medians of bulk - nocomm and overlap - nocomm less the pack term; the
 # pack term is the slope of the pack and unpack's device time over the
-# gathered columns (the step's own slope, 0.341 ns/col, agrees)
-# (`scaling_inputs chain`: 9 points, H100 700 W)
-BULK_FIXED_US = 23.666      # 9 points from 24.2 to 33.5 us
-PACK_NS_PER_COL = 0.30868   # device 21.4 / 24.3 / 27.1 us at 6k / 15k / 25k
-OVERLAP_FIXED_US = 30.009   # 9 points from 30.4 to 38.3 us
+# gathered columns (the step's own slope, 0.195 ns/col, adds Loopback's
+# copy) (`scaling_inputs chain`: 9 points, H100 700 W; the pack one kernel,
+# csrc/halo_pack.cu)
+BULK_FIXED_US = 13.916      # 9 points from 12.2 to 17.5 us
+PACK_NS_PER_COL = 0.10086   # device 6.0-6.4 / 6.6 / 7.7-8.1 us at 6k / 15k / 25k
+OVERLAP_FIXED_US = 18.235   # 9 points from 16.1 to 21.5 us
 CHAIN_NOTE = ("the P=1 fake-phase chain's bulk - nocomm and overlap - "
               "nocomm less the pack's device slope: the device work of "
               "pack, Loopback's copy and unpack (overlap: zero fill, "

@@ -20,6 +20,10 @@ faces, nvar 7, random state from a seed):
   (`force_rdma`), schedules bulk, early and overlap;
 - `main_path_p8`: the mesh cut into 8 shards, all on the card, schedules
   bulk, early, overlap and nocomm, with the halo exchange between shards;
+  then `kernels_pack`: the halo pack's kernel (ops/halo_pack.py) bit for
+  bit its plain version at that plan in every (source, wire) dtype form,
+  pad lanes zero, timed in turns; the overlap step under graph launches
+  it once a step and no torch indexing kernel;
 - `solver_p1`: one shard, the gather kernel at bp 512 (the solver-mode
   configuration): every schedule, `refresh_state` after an update of the
   owned columns, and the solver-mode runner (`iterate_fn(...,
@@ -507,6 +511,11 @@ KERNELS.update({
     **{"chain_update" + tag: ("cuda", "cfd_proxy_tpu_torch/csrc/update.cu",
                               "cfd_proxy_tpu/models/gradients_pallas.py:1102")
        for tag in ("", "_g16")},
+    # the halo pack (ops/halo_pack.py), every (source, wire) dtype form:
+    # XLA's slices and take of the reference's `_pack_buf` (no pallas_call)
+    **{"pack_halo" + tag: ("cuda", "cfd_proxy_tpu_torch/csrc/halo_pack.cu",
+                           "cfd_proxy_tpu/models/gradients_pallas.py:807")
+       for tag in ("", "_x16", "_o16", "_x16_o16")},
 })
 # that phase's configurations of the gather model: name: (shards, model
 # options); each runs bulk, early and overlap.  At one shard (force_rdma)
@@ -591,6 +600,11 @@ BENCH_LAUNCHED = ("pack_srcs", "sweep_blocks", "sweep_blocks_init",
 REDUCED_PACKED = ("pack_srcs_d16", "sweep_blocks_w16_d16_o16",
                   "sweep_blocks_init_w16_d16_o16",
                   "sweep_blocks_overlap_w16_d16_o16")
+# the halo pack's rows: (source dtype, wire dtype)
+PACK_FORMS = {"pack_halo": ("float32", "float32"),
+              "pack_halo_x16": ("bfloat16", "float32"),
+              "pack_halo_o16": ("float32", "bfloat16"),
+              "pack_halo_x16_o16": ("bfloat16", "bfloat16")}
 REDUCED_GATHER = ("sweep_blocks_gather_w16_o16",
                   "sweep_blocks_gather_init_w16_o16",
                   "sweep_blocks_overlap_gather_w16_o16")
@@ -646,6 +660,15 @@ def paired_ms(kern, plain, n: int = 50) -> dict:
     the better of each pair."""
     p1, k1 = cuda_ms(plain, n), cuda_ms(kern, n)
     k2, p2 = cuda_ms(kern, n), cuda_ms(plain, n)
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+
+
+def held_paired_ms(kern, plain, n: int = 100) -> dict:
+    """`paired_ms` with each side's n calls held behind a sleep kernel
+    (`kernel_device_ms`): for calls shorter than their launches, whose
+    event means time the host."""
+    p1, k1 = kernel_device_ms(plain, n), kernel_device_ms(kern, n)
+    k2, p2 = kernel_device_ms(kern, n), kernel_device_ms(plain, n)
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
 
 
@@ -996,7 +1019,7 @@ def main() -> int:
                                                           PSDFluxModel)
         from cfd_proxy_tpu_torch.ops import _cuda
         from cfd_proxy_tpu_torch.ops import blocksweep as bs
-        from cfd_proxy_tpu_torch.ops import push, twins, update
+        from cfd_proxy_tpu_torch.ops import halo_pack, push, twins, update
         from cfd_proxy_tpu_torch.parallel import launch, workers
         from cfd_proxy_tpu_torch.parallel.transport import (Dist, Loopback,
                                                             Peer)
@@ -1022,7 +1045,8 @@ def main() -> int:
     # every kernel instance: (wrapper, its count attribute), by instance
     # name (the rows' names, but for the twins': TWIN_ROWS)
     counters = {**bs.launch_counters(), **twins.launch_counters(),
-                **push.launch_counters(), **update.launch_counters()}
+                **push.launch_counters(), **update.launch_counters(),
+                **halo_pack.launch_counters()}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -1418,6 +1442,77 @@ def main() -> int:
     if bad:
         fail(f"step timing fell below the two-point noise floor: {bad}")
     packed_models[P_MULTI] = model
+
+    # ---- the halo pack (ops/halo_pack.py) against its plain version at
+    # the 96³ eight-shard plan: every (source, wire) dtype form, on the
+    # gradient rows and the state's, by send_mask and by pack_scale; every
+    # lane bit for bit (a pad lane, scale 0, reads zero), one launch a
+    # call.  Timed in turns on the overlap step's operands (the boundary
+    # sums' 24 rows by pack_scale), each side's calls held behind a sleep
+    # kernel: a 7 us kernel launches slower than it runs.  Then the overlap step under graph:
+    # one pack launch a step and no torch indexing kernel among the
+    # records
+    pack_cases = 0
+    for row, forms_ in PACK_FORMS.items():
+        x_t, w_t = (getattr(torch, f_) for f_ in forms_)
+        attr = halo_pack.COUNT_ATTRS[x_t == torch.bfloat16,
+                                     w_t == torch.bfloat16]
+        iview = torch.int16 if w_t == torch.bfloat16 else torch.int32
+        for src_ in (gb, var_T):
+            xs_ = src_.to(x_t)
+            for sc_ in (model.send_mask, model.pack_scale):
+                before_ = getattr(halo_pack.pack_halo, attr)
+                got_ = halo_pack.pack_halo(xs_, model.pack_cols, sc_, w_t)
+                want_ = halo_pack.pack_halo_ref(xs_, model.pack_cols, sc_,
+                                                w_t)
+                torch.cuda.synchronize()
+                dead_ = (sc_ == 0).expand_as(got_)
+                if (getattr(halo_pack.pack_halo, attr) != before_ + 1
+                        or not torch.equal(got_.view(iview),
+                                           want_.view(iview))
+                        or bool((got_[dead_] != 0).any())):
+                    fail(f"{row} differs from its plain version (rows "
+                         f"{xs_.shape[1]}): max abs "
+                         f"{float((got_ - want_).float().abs().max()):.3e}")
+                pack_cases += 1
+        errs[row] = 0.0
+        xs_ = gb.to(x_t)
+        times[row] = {**held_paired_ms(
+            lambda: halo_pack.pack_halo(xs_, model.pack_cols,
+                                        model.pack_scale, w_t),
+            lambda: halo_pack.pack_halo_ref(xs_, model.pack_cols,
+                                            model.pack_scale, w_t)),
+            "kernel": _cuda.kernel_info(
+                "cfd_pack_halo_info", int(x_t == torch.bfloat16),
+                int(w_t == torch.bfloat16))}
+        # the buffer written once; each live lane's source rows, every
+        # lane's index and scale read once
+        out_b = got_.element_size() * (model.nlocal * model.nphases
+                                       * gb.shape[1] * model.s_max)
+        work[row] = bound(out_b + model.live_cols * gb.shape[1]
+                          * xs_.element_size()
+                          + nbytes(model.pack_cols, model.pack_scale), 0)
+    del got_, want_, dead_, xs_
+    reset_counts()
+    prof = device_profile(model, state, "overlap", detail=True)
+    counts = read_counts()
+    per_step = prof.pop("launches")
+    kern_ = prof.pop("kernels")
+    packs = {k_: n_ for k_, n_ in per_step.items() if "pack_halo" in k_}
+    indexing = [k_ for k_ in kern_ if "index_elementwise" in k_]
+    if (sum(packs.values()) != 1 or indexing
+            or counts.get("pack_halo") != 2 * prof["steps"]):
+        fail(f"kernels_pack: the overlap step under graph launches "
+             f"{packs} pack kernels a step, torch indexing {indexing}; the "
+             f"counters read {counts}")
+    emit("kernels_pack", cases=pack_cases, bitwise=True,
+         rows=[int(gb.shape[1]), int(var_T.shape[1])],
+         live_cols=model.live_cols,
+         wire_cols=model.nlocal * model.nphases * model.s_max,
+         overlap_graph={"pack_launches_per_step": packs,
+                        "launches_per_step": per_step, **prof},
+         times={r: times[r] for r in PACK_FORMS},
+         bounds={r: work[r] for r in PACK_FORMS})
     del state, gb, sendbufs, iargs
 
     # ---- solver mode, the gather kernel: P=1 (fused kernel forced), P=8
@@ -1674,6 +1769,8 @@ def main() -> int:
                 want = {sweep: float(n), "chain_update": float(n)}
                 if m.kernel == "packed":
                     want["pack_srcs"] = 1.0   # one rebuilt class (bulk)
+                if npart > 1:     # each sweep's exchange, the var exchange
+                    want["pack_halo"] = float(n + 1)
                 if per_step[key] != want:
                     fail(f"solver_mode_timing {key}: launches per step "
                          f"{per_step[key]}, expected {want}")
