@@ -25,6 +25,10 @@
 //     epochs u64[2]                         this rank's launches so far with
 //                                           the barrier (epochs[0]) and with
 //                                           the copy (epochs[1])
+//     waits  u64[4]                         this rank's waits that spun: the
+//                                           readiness waits' ns and count,
+//                                           then the arrival waits' ns and
+//                                           count
 //
 // `table` holds, per local (p, k): the address of recv[dsts[p, k], k], of
 // that buffer's arrive word, and of ready[srcs[p, k], k] (the word the
@@ -62,6 +66,19 @@
 //      of a fused launch that sweep take no ticket: the wait concerns the
 //      pushes alone, and a ticket per sweep block slowed the fused kernel
 //      and added 40 B of spills on an H100.)
+//
+// The wait words.  A wait whose first poll finds its flag set costs one
+// load and counts nothing.  One that spins adds the nanoseconds it spun (on
+// the global timer, from its first failed poll to the poll that passed)
+// and one wait to its pair of words, two atomics of the one waiting thread,
+// so the sweep threads of a fused launch run no code of it.  The readiness
+// waits (push blocks, side by side) and the arrival waits (the last-ticket
+// block, one phase after another) keep a pair each.  The arrival words hold
+// only the time the launch's end waited for its peers' pushes to land.  The
+// readiness words also hold in-launch scheduling: a push block whose ready
+// word is set by the signal block of its own launch (every buffer, in one
+// process) spins until that block has run, so their ns sum that baseline
+// over the push blocks beside any peer's lateness.
 //
 // The counters only grow (never reset), so no step races a reset.  Each
 // rank's epochs advance in lock step with every other rank's because every
@@ -140,7 +157,8 @@ struct PeerPush {
   int64_t seg;              // 16-byte pieces per (shard, phase) buffer
   int64_t chunks;           // push blocks per (shard, phase)
   int64_t blocks;           // push blocks in all: npk*chunks
-  uint64_t* epochs;         // this rank's [barrier, copy] launches so far
+  uint64_t* epochs;         // this rank's [barrier, copy] launches so far,
+                            // then its wait words (epochs + 2)
   int mode;
 };
 
@@ -175,9 +193,10 @@ __device__ __forceinline__ uint64_t global_timer_ns() {
 
 // Wait (one thread) until *word >= target: kSpinPolls polls, then polls
 // between sleeps doubling from 16 ns to kSleepMaxNs; traps past
-// kSpinLimitNs.
+// kSpinLimitNs.  A wait that spins adds its ns to waits[0] and one to
+// waits[1].
 __device__ __forceinline__ void spin_until(const uint64_t* word,
-                                           uint64_t target) {
+                                           uint64_t target, uint64_t* waits) {
   if (load_acquire(word) >= target) return;
   const uint64_t t0 = global_timer_ns();
   unsigned ns = 16;
@@ -188,6 +207,9 @@ __device__ __forceinline__ void spin_until(const uint64_t* word,
     }
     if (global_timer_ns() - t0 > kSpinLimitNs) __trap();
   }
+  auto* w = reinterpret_cast<unsigned long long*>(waits);
+  atomicAdd(w, static_cast<unsigned long long>(global_timer_ns() - t0));
+  atomicAdd(w + 1, 1ull);
 }
 
 // This block's share of one buffer: pieces c*T + t, stride chunks*T.
@@ -234,7 +256,9 @@ __device__ __forceinline__ void peer_push_block(const PeerPush& p,
     return;
   }
   if (p.mode & kPushBarrier) {
-    if (threadIdx.x == 0) spin_until(p.flags + pk, p.epochs[0] + 1);
+    if (threadIdx.x == 0) {
+      spin_until(p.flags + pk, p.epochs[0] + 1, p.epochs + 2);
+    }
     __syncthreads();
   }
   if (copies) {
@@ -263,13 +287,13 @@ __device__ __forceinline__ void peer_finish_block(const PeerPush& p) {
   p.epochs[1] = arrive;
   const uint64_t target = arrive * static_cast<uint64_t>(p.chunks);
   for (int64_t pk = 0; pk < p.npk; ++pk) {
-    spin_until(p.flags + p.npk + pk, target);
+    spin_until(p.flags + p.npk + pk, target, p.epochs + 4);
   }
 }
 
 // Fill a PeerPush for buffers of `bytes` bytes per (shard, phase) (the
-// epochs are the two words after `done`); false if the shape cannot be
-// pushed in 16-byte pieces.
+// epochs are the two words after `done`, the wait words the four after
+// them); false if the shape cannot be pushed in 16-byte pieces.
 inline bool make_peer_push(PeerPush* p, const void* sendbufs, void* recv,
                            const void* table, void* flags, int64_t P,
                            int64_t nph, int64_t bytes, int mode) {

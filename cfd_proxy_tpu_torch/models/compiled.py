@@ -51,11 +51,13 @@ shows nothing of the gradients.  The runners take a larger one
 gradients in the state it carries (the tests, chip_smoke.py's `graph`
 phase).
 
-Counters.  The port's counters (`counters()`) are function attributes that
-the step's Python raises: the kernel wrappers' launch counts
+Counters.  The port's counters (`counters()`) are function attributes.
+The step's Python raises the kernel wrappers' launch counts
 (`ops/blocksweep.py::_count`, `launch_counters()`), the bytes the
 exchange's pack writes, padded and live (`halo_bytes`, `halo_live_bytes`,
-models/gradients.py), and the graphs captured (`captures`).  A replay runs
+models/gradients.py), and the graphs captured (`captures`).  The peer
+kernels' waits that spun (`peer_wait_*`, parallel/transport.py) are device
+words that only `spans.read()` copies to the host, never a step.  A replay runs
 no Python, so the capture records which counters its step raised, takes
 those counts back (a captured launch runs nothing) and the runner adds
 them once per replay (`Entry.delta`); `captures` is raised after the take
@@ -89,6 +91,7 @@ import typing
 import torch
 
 from cfd_proxy_tpu_torch.ops import blocksweep, halo_pack, push, update
+from cfd_proxy_tpu_torch.parallel import transport
 from cfd_proxy_tpu_torch.utils import spans
 from cfd_proxy_tpu_torch.utils.errors import check
 
@@ -189,11 +192,13 @@ def launch_counters() -> dict:
 def counters() -> dict:
     """The port's counters, {name: (function, attribute)}: the launch
     counters, the pack's `halo_bytes` and `halo_live_bytes`
-    (models/gradients.py) and `captures`, the graphs captured."""
+    (models/gradients.py), the peer kernels' waits that spun
+    (`peer_wait_*`, parallel/transport.py: host copies of device words,
+    which only `spans.read()` takes) and `captures`, the graphs captured."""
     from cfd_proxy_tpu_torch.models import gradients
 
     return {**launch_counters(), **gradients.halo_counters(),
-            "captures": (capture, "captures")}
+            **transport.wait_counters(), "captures": (capture, "captures")}
 
 
 def counts() -> dict:

@@ -25,8 +25,9 @@ Three transports:
   (CPU tensors), "dist/gloo-staged" (CUDA tensors under a gloo group: staged
   through pinned host buffers).
 - `Peer`: no transfer of its own.  It owns the rank's persistent exchange
-  memory (receive buffers, flag words and the two launch epoch words the
-  kernels advance, one `cudaMalloc` block), publishes
+  memory (receive buffers, flag words, the two launch epoch words the
+  kernels advance and the four words that count their waits, one
+  `cudaMalloc` block), publishes
   it to the other ranks through CUDA IPC, maps theirs, and hands the fused
   kernel K3 and the push bench's K6 a device table of peer addresses; the
   kernels do the pushes (csrc/push_common.cuh).  CUDA only.
@@ -240,13 +241,40 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 def peer_layout(nlocal: int, nph: int, seg_bytes: int) -> dict:
     """Byte offsets inside one rank's exchange block (push_common.cuh):
     recv (nlocal, nph, seg_bytes), then u64 words ready (nlocal, nph),
-    arrive (nlocal, nph), done and the two launch epochs (the rank's
-    launches so far with the barrier, and with the copy)."""
+    arrive (nlocal, nph), done, the two launch epochs (the rank's
+    launches so far with the barrier, and with the copy) and the four wait
+    words (WAIT_COUNTERS: the readiness waits' ns and count, the arrival
+    waits' ns and count, of the waits that spun)."""
     npk = nlocal * nph
     flags = -(-npk * seg_bytes // 256) * 256
+    epochs = flags + 16 * npk + 8
     return {"recv": 0, "flags": flags, "ready": flags,
             "arrive": flags + 8 * npk, "done": flags + 16 * npk,
-            "epochs": flags + 16 * npk + 8, "bytes": flags + 16 * npk + 24}
+            "epochs": epochs, "waits": epochs + 16, "bytes": epochs + 48}
+
+
+# the wait words of peer_layout, in order, under their counters' names
+WAIT_COUNTERS = ("peer_wait_barrier_ns", "peer_waits_barrier",
+                 "peer_wait_arrive_ns", "peer_waits_arrive")
+
+
+def read_waits() -> None:
+    """Add what every open `Peer`'s wait words grew by since the last read
+    to this function's attributes, the counters WAIT_COUNTERS
+    (`wait_counters()`): a copy from the device, so call it after a
+    synchronise (`utils/spans.py::read` does, while the recorder is on).
+    A closed transport's growth before its last read stays counted."""
+    for p in list(_open_peers):
+        p._read_waits()
+
+
+def wait_counters() -> dict:
+    """{name: (function, attribute)} of the wait counters, 0 until a read
+    finds a `Peer` whose kernels waited."""
+    return {k: (read_waits, k) for k in WAIT_COUNTERS}
+
+
+read_waits.__dict__.update(dict.fromkeys(WAIT_COUNTERS, 0))
 
 
 def peer_table(dsts: np.ndarray, srcs: np.ndarray, lo: int, hi: int,
@@ -301,7 +329,9 @@ class Peer:
     launch epoch words (int64 on the device: the launches so far with the
     barrier, and with the copy), which the kernels read and advance, so a
     launch holds no host counter and replays as part of a CUDA graph; every
-    rank must launch the same modes in the same order.  The ranks must all
+    rank must launch the same modes in the same order.  `wait_words` views
+    the four words that count the kernels' waits that spun (WAIT_COUNTERS),
+    which only `read_waits()` copies to the host.  The ranks must all
     sit on one node: CUDA IPC maps memory between processes of one host.
     `close()` (collective) unmaps and frees."""
 
@@ -367,8 +397,10 @@ class Peer:
         self.recv = block[:n * self.nph * self.seg_bytes].view(dtype).view(
             self.shape)
         self.flags = self._base + lay["flags"]
-        self.epoch_words = block[lay["epochs"]:lay["bytes"]].view(
+        self.epoch_words = block[lay["epochs"]:lay["waits"]].view(
             torch.int64)
+        self.wait_words = block[lay["waits"]:lay["bytes"]].view(torch.int64)
+        self._waits_read = [0] * len(WAIT_COUNTERS)
         self.table = torch.from_numpy(
             peer_table(dsts, srcs, self.lo, self.hi, bases, self.seg_bytes)
             .view(np.int64)).to(self.device)
@@ -383,6 +415,14 @@ class Peer:
               tuple(sendbufs.shape), sendbufs.dtype, sendbufs.device,
               self.shape, self.dtype, self.device)
         expect_aligned(sendbufs, "sendbufs")
+
+    def _read_waits(self) -> None:
+        if getattr(self, "wait_words", None) is None:
+            return
+        now = self.wait_words.tolist()
+        for k, n, was in zip(WAIT_COUNTERS, now, self._waits_read):
+            setattr(read_waits, k, getattr(read_waits, k) + n - was)
+        self._waits_read = now
 
     def _unmap(self) -> None:
         for r, ptr in list(self._mapped.items()):
@@ -399,6 +439,7 @@ class Peer:
         if self.world > 1:
             dist.barrier(group=self.group)
         self.recv = self.table = self._block = self.epoch_words = None
+        self.wait_words = None
         self._lib.cfd_ipc_free(self._dev, self._base)
         self._base = None
         _open_peers.discard(self)

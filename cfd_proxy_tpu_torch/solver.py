@@ -69,10 +69,12 @@ where every timed loop replayed graphs, else "eager") and
 `--profile DIR` writes a `torch.profiler` trace (Chrome trace JSON) of the
 timed loops to DIR, with the port's span recorder on for them, so the
 trace holds the `cfd.*` host ranges of the runner and of each step the
-loops run or capture (utils/spans.py).  The reference's `--pack-force`
-and `--platform` are parsed and refused by name (`CheckError`,
-`check_config`): they work around XLA and the TPU (ROADMAP queue 2,
-not-ported list).
+loops run or capture (utils/spans.py), and the result's `counters` (a
+`counter` line each) the port's counters that moved in the timed loops
+and the peer kernels' wait counters (`peer_wait_*`).  The reference's
+`--pack-force` and `--platform` are parsed and refused by name
+(`CheckError`, `check_config`): they work around XLA and the TPU (ROADMAP
+queue 2, not-ported list).
 """
 
 from __future__ import annotations
@@ -102,7 +104,8 @@ from cfd_proxy_tpu_torch.ops.golden import (compute_gradients_gg,
                                             scale_gradients)
 from cfd_proxy_tpu_torch.ops.sweep_ell import reduce_bytes
 from cfd_proxy_tpu_torch.parallel import launch
-from cfd_proxy_tpu_torch.parallel.transport import DIST_BACKENDS, TRANSPORTS
+from cfd_proxy_tpu_torch.parallel.transport import (DIST_BACKENDS, TRANSPORTS,
+                                                  WAIT_COUNTERS)
 from cfd_proxy_tpu_torch.utils.errors import check
 from cfd_proxy_tpu_torch.utils.timing import (IterationStats,
                                               format_stats_table,
@@ -495,7 +498,7 @@ def _run_model(cfg: SolverConfig, model, gmesh):
     # with N sweeps per solver step, faces/s counts swept faces, so the
     # amortised rebuild shows as throughput (the reference's rule)
     sweeps = cfg.sweeps_per_step if cfg.solver_mode else 1
-    with profiled(cfg.profile_dir, model):
+    with profiled(cfg.profile_dir, model) as counted:
         for s in schedules:
             st = time_schedule(model, state, s, cfg.iters, cfg.warmup,
                                **mode)
@@ -537,6 +540,7 @@ def _run_model(cfg: SolverConfig, model, gmesh):
         results["nocomm_median_s"] = stats[-1].median
     if cfg.profile_dir:
         results["profile"] = trace_path(cfg.profile_dir, model.rank)
+        results["counters"] = counted
     if cfg.verify:
         results["verification"] = verify_model(model, state, schedules,
                                                gmesh, gvar)
@@ -570,9 +574,12 @@ def profiled(profile_dir: str | None, model):
     card) written to profile_dir as Chrome trace JSON, one file per rank
     (`trace_path`), the span recorder on for the block (its `cfd.*` ranges
     in the trace; the graphs the block captures hold its events); nothing
-    without a directory.  A failure to trace raises."""
+    without a directory.  Yields a dict that holds, after the block, the
+    port's counters that moved in it and the peer wait counters
+    (`spans.read()` after a synchronise).  A failure to trace raises."""
+    counted: dict = {}
     if not profile_dir:
-        yield
+        yield counted
         return
     from torch.profiler import ProfilerActivity, profile
 
@@ -583,9 +590,16 @@ def profiled(profile_dir: str | None, model):
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     spans.enable()
+    before = spans.totals()
     try:
         with profile(activities=acts) as prof:
-            yield
+            yield counted
+        if model.device.type == "cuda":
+            torch.cuda.synchronize(model.device)
+        spans.read()
+        moved = spans.since(before, spans.totals())["counters"]
+        counted.update((k, v) for k, v in moved.items()
+                       if v or k in WAIT_COUNTERS)
     finally:
         spans.disable()
         spans.reset()
@@ -674,7 +688,9 @@ def main(argv=None) -> int:
                     help="write a torch.profiler trace of the timed loops "
                          "to this directory (trace.rank<r>.json); it holds "
                          "the port's cfd.* spans (the runner's, and each "
-                         "step's where it runs eagerly or is captured)")
+                         "step's where it runs eagerly or is captured); the "
+                         "result gains the counters that moved and the peer "
+                         "wait counters")
     ap.add_argument("--min-phases", type=int, default=1,
                     help="pad the exchange schedule to this many self-send "
                          "phases")
@@ -754,6 +770,8 @@ def main(argv=None) -> int:
             print(f"{s:<10} {e['faces_per_sec'] / 1e6:9.2f} Mfaces/s{extra}")
         print(f"dispatch {results['dispatch']}: "
               f"{results['dispatch_reason']}")
+        for k, v in results.get("counters", {}).items():
+            print(f"counter {k} = {v}")
         for k, v in results.get("verification", {}).items():
             print(f"verify {k} = {v:.3e}")
     return 0

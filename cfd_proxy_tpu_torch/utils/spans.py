@@ -33,10 +33,13 @@ events too and replays the timed pair only as the last two steps of a call
 last read (under graph the last replay of each graph replayed, eagerly
 every step) and adds each span's device time to the totals: its self time,
 the part of its range that its child spans leave (`recv_fill` inside
-`sweep.interior`).  Each sample keeps the interval it came from
-(`samples()`).  `totals()` gives {"spans": {"cfd.<name>": [samples, device
-ms]}, "steps": steps read, "counters": the port's counters
-(`compiled.counters()`)}.
+`sweep.interior`).  It also copies the peer transport's four wait words
+to the host (`parallel/transport.py::read_waits`: the readiness and
+arrival waits of K3-peer and K6 that spun, ns and count), the only read of
+device memory the recorder makes outside its events.  Each sample keeps
+the interval it came from (`samples()`).  `totals()` gives {"spans":
+{"cfd.<name>": [samples, device ms]}, "steps": steps read, "counters": the
+port's counters (`compiled.counters()`)}.
 
 The spans, where they sit, and what they serve:
 
@@ -270,7 +273,12 @@ def replayed(steps) -> None:
 def read(interval: int | None = None) -> None:
     """Add the device time of every step marked since the last read to the
     totals, each sample tagged with `interval` (default: this read's
-    number).  Call it after a synchronise that covers those steps."""
+    number), and, while the recorder is on, the peer kernels' wait words to
+    the counters.  Call it after a synchronise that covers those steps."""
+    if _rec.on:
+        from cfd_proxy_tpu_torch.parallel import transport
+
+        transport.read_waits()
     if interval is None:
         interval = _rec.reads
     _rec.reads += 1
@@ -287,7 +295,8 @@ def read(interval: int | None = None) -> None:
 
 def totals() -> dict:
     """{"spans": {span: [samples, device ms]}, "steps": steps read,
-    "counters": {name: value} of the port's counters}."""
+    "counters": {name: value} of the port's counters, the peer wait words
+    as of the last `read()`}."""
     from cfd_proxy_tpu_torch.models import compiled
 
     return {"spans": {k: list(v) for k, v in _rec.totals.items()},

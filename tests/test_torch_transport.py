@@ -271,8 +271,9 @@ def test_peer_table_addresses():
     srcs = np.array([[(p - 1) % P] * nph for p in range(P)], np.int32)
     lay = peer_layout(2, nph, seg)
     assert lay["flags"] % 256 == 0 and lay["flags"] >= 2 * nph * seg
-    # ready, arrive (2·nph words each), done and the two launch epochs
-    assert lay["bytes"] == lay["flags"] + 8 * (2 * 2 * nph + 3)
+    # ready, arrive (2·nph words each), done, the two launch epochs and
+    # the four wait words
+    assert lay["bytes"] == lay["flags"] + 8 * (2 * 2 * nph + 7)
     bases = {0: 1 << 40, 1: 1 << 41}
     t = peer_table(dsts, srcs, 2, 4, bases, seg).reshape(2, nph, 3)
     for k in range(nph):
@@ -294,7 +295,8 @@ def test_peer_layout_epoch_words(nlocal, nph, seg):
     the epochs), the flag words from a 256-byte boundary past it, then
     ready, arrive, done and the two launch epochs (barrier, copy) the
     kernels read and advance (csrc/push_common.cuh: PeerPush::epochs is
-    flags + 2·npk + 1 words), the block's last 16 bytes."""
+    flags + 2·npk + 1 words), then the four wait words that end the block
+    (tests/test_torch_peer_wait.py)."""
     npk = nlocal * nph
     lay = peer_layout(nlocal, nph, seg)
     assert lay["recv"] == 0 and lay["recv"] % 16 == 0
@@ -306,10 +308,11 @@ def test_peer_layout_epoch_words(nlocal, nph, seg):
     assert lay["epochs"] == lay["done"] + 8
     assert lay["epochs"] == lay["flags"] + 8 * (2 * npk + 1)
     assert lay["epochs"] % 8 == 0
-    assert lay["bytes"] == lay["epochs"] + 16
+    assert lay["waits"] == lay["epochs"] + 16
+    assert lay["bytes"] == lay["epochs"] + 48
     # the epoch words view as the two int64 the transport reads back
     block = torch.zeros(lay["bytes"], dtype=torch.uint8)
-    words = block[lay["epochs"]:lay["bytes"]].view(torch.int64)
+    words = block[lay["epochs"]:lay["waits"]].view(torch.int64)
     words[1] = 3
     assert words.shape == (2,) and block[lay["epochs"] + 8] == 3
 
